@@ -1,0 +1,80 @@
+"""Carry the reference's objects across into the port.
+
+:func:`from_reference` turns an object of the JAX package — given as its
+plain fields, read by attribute name — into the port's object of the same
+name: service distributions (``Exponential``, ``ShiftedExponential``,
+``Empirical`` with its atoms and weights exactly as stored), the
+candidates (``PolicyCandidate``, ``CodingCandidate``, ``SloClass``,
+``ShedPolicy``), ``ClusterSpec`` and ``Objective``.  Tuples and lists are
+converted entry by entry; ``None`` and plain numbers pass through.
+
+Nothing here imports the reference: the object's class name picks the
+target and its attributes (plain values and numpy arrays) fill it.  So a
+test builds each input once in the reference and converts it, and the two
+packages see the same numbers.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .core.coding import CodingCandidate
+from .core.order_stats import Empirical, Exponential, ShiftedExponential
+from .core.planner import ClusterSpec, Objective
+from .core.policies import PolicyCandidate, ShedPolicy, SloClass
+
+__all__ = ["from_reference", "empirical_from_fields"]
+
+
+def empirical_from_fields(atoms, weights=None) -> Empirical:
+    """An ``Empirical`` holding exactly these (already sorted, already
+    normalized) atoms and weights — no re-sort and no re-normalization, so
+    the cumulative weights match the reference's bit for bit."""
+    atoms = tuple(float(a) for a in np.asarray(atoms, dtype=float).ravel())
+    if weights is not None:
+        weights = tuple(float(w) for w in np.asarray(weights, dtype=float).ravel())
+        if len(weights) != len(atoms):
+            raise ValueError("weights must match atoms")
+    if any(b < a for a, b in zip(atoms, atoms[1:])):
+        raise ValueError("atoms must be sorted ascending")
+    obj = object.__new__(Empirical)
+    object.__setattr__(obj, "atoms", atoms)
+    object.__setattr__(obj, "weights", weights)
+    return obj
+
+
+def _fields(obj, names):
+    return {n: from_reference(getattr(obj, n)) for n in names}
+
+
+_SIMPLE = {
+    "Exponential": (Exponential, ("mu",)),
+    "ShiftedExponential": (ShiftedExponential, ("delta", "mu")),
+    "PolicyCandidate": (PolicyCandidate, ("kind", "quantile", "hedge_fraction")),
+    "CodingCandidate": (CodingCandidate,
+                        ("scheme", "s", "encode_overhead", "decode_overhead")),
+    "SloClass": (SloClass, ("name", "share", "weight", "deadline", "miss_target")),
+    "ShedPolicy": (ShedPolicy, ("kind", "cap", "utilization")),
+    "ClusterSpec": (ClusterSpec, ("n_workers", "dist", "rates", "feasible_b",
+                                  "batch_divisor", "max_batches")),
+    "Objective": (Objective, ("metric", "improvement_threshold",
+                              "cooldown_steps", "arrival_rate", "utilization",
+                              "job_load", "speculation_quantiles", "policies",
+                              "arrivals", "coding", "slo_classes", "batch_size",
+                              "max_waits", "sheds")),
+}
+
+
+def from_reference(obj):
+    """The port's twin of a reference object (see the module docstring)."""
+    if obj is None or isinstance(obj, (bool, int, float, str, np.number)):
+        return obj
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(from_reference(x) for x in obj)
+    name = type(obj).__name__
+    if name == "Empirical":
+        return empirical_from_fields(obj.atoms, obj.weights)
+    if name in _SIMPLE:
+        cls, names = _SIMPLE[name]
+        return cls(**_fields(obj, names))
+    raise TypeError(f"no port twin for {name}")

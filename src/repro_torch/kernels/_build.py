@@ -1,0 +1,171 @@
+"""Build and load the port's CUDA kernels (nvcc + ctypes).
+
+Each ``csrc/*.cu`` file has a plain C interface and is compiled on its own
+by ``nvcc`` into a shared library under ``build/repro_torch_kernels/`` at
+the root of the checkout (listed in ``.gitignore``).  The library name
+carries a hash of the source and the flags, so an edited source rebuilds
+and an unchanged one is reused.  All sources are compiled at once, one
+``nvcc`` process each, the first time any kernel is needed.
+
+Nothing here runs at import time: the CPU tests import every module, and
+this host may have no ``nvcc``.  The launch counters live here too: each
+wrapper adds one to its kernel's count where it launches the kernel, and
+nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = [
+    "SOURCES",
+    "SIGNATURES",
+    "build_all",
+    "load",
+    "launch_counts",
+    "reset_launch_counts",
+    "count_launch",
+    "check",
+]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch_kernels"
+
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-lineinfo"]
+# name -> (source file, extra flags).  The scan and the selection must stay
+# bit-equal to their plain versions, so the compiler may not contract any
+# float op into an FMA there.
+SOURCES = {
+    "sojourn_cells": ("sojourn_cells.cu", ["-fmad=false"]),
+    "coded_cells": ("coded_cells.cu", ["-fmad=false"]),
+    "combine": ("combine.cu", []),
+}
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# name -> {C function: (argtypes, restype)}: the plain C interface of each
+# library, declared once when it is loaded
+SIGNATURES = {
+    "sojourn_cells": {
+        "sojourn_cells_launch": ([_PTR] * 9 + [_INT] * 5 + [_PTR], _INT),
+        "sojourn_cells_max_groups": ([], _INT),
+    },
+    "coded_cells": {
+        "coded_cells_launch": ([_PTR] * 3 + [_INT] * 4 + [_PTR], _INT),
+    },
+    "combine": {
+        "combine_launch": ([_PTR] * 3 + [_INT] * 3 + [_PTR], _INT),
+    },
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LAUNCHES = {name: 0 for name in SOURCES}
+BUILD_SECONDS: dict[str, float] = {}
+
+
+def count_launch(name: str) -> None:
+    _LAUNCHES[name] += 1
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(env)
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _flags(name: str) -> list[str]:
+    return ARCH_FLAGS + BASE_FLAGS + SOURCES[name][1]
+
+
+def _lib_path(name: str) -> Path:
+    src = CSRC / SOURCES[name][0]
+    digest = hashlib.sha256(src.read_bytes())
+    digest.update(" ".join(_flags(name)).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def build_all(verbose: bool = False) -> dict[str, float]:
+    """Compile every kernel whose library is missing, all in parallel.
+
+    Returns the wall seconds of the build (0.0 for a library that was
+    already there).  Raises ``RuntimeError`` with nvcc's output when any
+    source fails to compile.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name, (src, _) in SOURCES.items():
+        out = _lib_path(name)
+        if out.exists():
+            BUILD_SECONDS.setdefault(name, 0.0)
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *_flags(name), "-Xptxas", "-v", "-o", str(tmp),
+               str(CSRC / src)]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{log}")
+            continue
+        os.replace(tmp, out)
+        (out.with_suffix(".log")).write_text(log)
+        if verbose:
+            print(f"[build] {name}: {BUILD_SECONDS[name]:.1f}s\n{log}")
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return dict(BUILD_SECONDS)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel, building all kernels if needed."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    path = _lib_path(name)
+    if not path.exists():
+        build_all()
+    lib = ctypes.CDLL(str(path))
+    lib.repro_error_string.restype = ctypes.c_char_p
+    lib.repro_error_string.argtypes = [_INT]
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise when a launcher returned a CUDA error code."""
+    if code != 0:
+        msg = lib.repro_error_string(code).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
