@@ -3,10 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — ``ClusterSpec`` + ``Objective`` ->
-``SimulatedPlanner.plan()`` -> ``Plan`` — on the card through its three
-hand-written CUDA kernels, in five phases; any failure raises and the
-script exits non-zero:
+Drives the port's main paths on the card through its five hand-written
+CUDA kernels, in six phases; any failure raises and the script exits
+non-zero:
 
 1. ``build``          compile ``src/repro_torch/csrc/*.cu`` with nvcc
                       (one process per source, in parallel) into
@@ -23,12 +22,30 @@ script exits non-zero:
                       (mds s in {4, 8, 12}, overheads measured by the
                       ``combine`` kernel); the winner must be mds(s=12).
                       Then the same candidates under a load-aware p99.
-5. ``kernels``        each kernel against its plain PyTorch version on the
-                      card, at the shapes phases 2 and 4 gave it, with its
-                      time, the plain version's, a library call's where one
-                      exists, and its bound.
+5. ``serve``          qwen2-0.5b at full width (24 layers, d_model 896,
+                      vocab 151,936; random bf16 weights from a seeded
+                      generator) serves 8 prompts of 1,024 tokens and 32
+                      new tokens each through ``generate`` (prefill on
+                      ``flash_attention``, decode on ``decode_attention``),
+                      with prefill and decode seconds and each one's idle
+                      share under the profiler.  Then the card against the
+                      CPU (full width, 2 layers, prompt 256, 4 decode
+                      steps, the same weights): logits within 0.125, and
+                      the same greedy token wherever the CPU's top-2
+                      margin exceeds that.  Then ``run_serving`` at its
+                      default (reduced model + fleet planner).
+6. ``kernels``        each kernel against its plain PyTorch version on the
+                      card, at the shapes phases 2, 4 and 5 gave it, with
+                      its time, the plain version's, a library call's
+                      where one exists (``torch.kthvalue``,
+                      ``torch.matmul``, ``scaled_dot_product_attention``),
+                      and its bound.  The attention kernels are held to
+                      their plain versions at 5e-5 in float32; in bfloat16
+                      ``flash_attention`` at 5e-2 and ``decode_attention``
+                      at a tenth of its plain output's RMS (its outputs,
+                      averages over about 1,000 keys, are of order 0.05).
 
-Each path of phases 2-4 runs with the launch counts and the sweeps' stage
+Each path of phases 2-5 runs with the launch counts and the sweeps' stage
 seconds (``simulator.STAGE_SECONDS``) set to 0 just before it and read just
 after; a kernel of the path that never launched fails the run.  One more
 run of phases 2 and 3 under ``torch.profiler`` gives the card's busy time.
@@ -50,7 +67,21 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12  # H100 SXM bf16 dense, tensor cores
 SOJOURN_PLAIN_JOBS = 2_000
+PLANNER_KERNELS = ("sojourn_cells", "coded_cells", "combine")
+# the serve phase: qwen2-0.5b at full width
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = 8, 1024, 32, 2048
+# card against CPU: full width, depth 2.  Either bf16 run rounds the
+# logits (|logit| < 4) at eight bf16 ulps or less of that range
+CHECK_LAYERS, CHECK_BATCH, CHECK_PROMPT, CHECK_STEPS = 2, 2, 256, 4
+LOGIT_TOL = 0.125
+# kernel against plain version, atol = rtol: tests/test_kernels.py's
+# tolerances.  decode_attention's bf16 outputs average ~1,000 unit-variance
+# rows (|out| ~ 0.05), where 5e-2 would be as large as the values: there
+# every element must lie within a tenth of the plain output's RMS
+ATT_TOL = {"float32": 5e-5, "bfloat16": 5e-2}
+DECODE_BF16_RMS_FRAC = 0.1
 
 
 def _fail(msg: str, code: int) -> None:
@@ -157,8 +188,9 @@ def main() -> int:
             total += t.numel() * t.element_size()
         return total
 
-    def device_busy(fn):
-        """(wall s, busy s, device events) of one call under torch.profiler.
+    def device_busy(fn, reps: int = 1):
+        """(wall s, busy s, device events, device s by event name) of
+        ``reps`` back-to-back calls under torch.profiler.
 
         Busy is the union of the intervals of the device's own events
         (kernels and copies), so nothing is counted twice; None when the
@@ -169,13 +201,18 @@ def main() -> int:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(reps):
+                fn()
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        spans = sorted(
-            (e.time_range.start, e.time_range.end) for e in prof.events()
-            if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False))
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+        by_name: dict = {}
+        for e in events:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + (e.time_range.end - e.time_range.start) / 1e6)
         busy_us, cur_s, cur_e = 0.0, None, None
         for s, e in spans:
             if cur_e is None or s > cur_e:
@@ -187,15 +224,30 @@ def main() -> int:
         if cur_e is not None:
             busy_us += cur_e - cur_s
         busy = busy_us / 1e6 if spans else None
-        return wall, busy, len(spans)
+        return wall, busy, len(spans), by_name
 
-    def print_busy(name, wall, busy, n_events):
+    def device_ms(fn, reps: int) -> float:
+        """Mean device time of one call after a warm-up: the summed
+        durations of the device events of ``reps`` calls.  Unlike CUDA
+        events around the calls it leaves out the host's gaps between
+        launches."""
+        fn()
+        by_name = device_busy(fn, reps)[3]
+        return sum(by_name.values()) * 1e3 / reps
+
+    def print_busy(name, wall, busy, n_events, by_name, top=6):
         idle = None if busy is None else 1.0 - busy / wall
         print(f"[{name}] under torch.profiler: wall {wall:.3f} s, device "
               f"busy {busy} s over {n_events} device events, idle share "
               f"{idle}")
+        heavy = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+        total = sum(by_name.values()) or 1.0
+        for kname, secs in heavy:
+            print(f"    {secs:.6f} s ({secs / total:.1%} of device time) "
+                  f"{kname[:110]}")
         return {"profiled_wall_s": wall, "device_busy_s": busy,
-                "device_events": n_events, "idle_share": idle}
+                "device_events": n_events, "idle_share": idle,
+                "device_s_by_name": dict(heavy)}
 
     # -- 1. build ---------------------------------------------------------
     _phase("build")
@@ -328,7 +380,7 @@ def main() -> int:
                 n_trials=6_000, seed=0, device="cuda").plan(
                     ClusterSpec(n_workers=16, dist=heavy),
                     Objective(metric="p99", utilization=0.7, coding=cands)))
-        for k in _build.SOURCES:
+        for k in PLANNER_KERNELS:
             if lcounts[k] <= 0:
                 raise AssertionError(f"plan_coded_sojourn never launched {k}")
     finally:
@@ -345,6 +397,160 @@ def main() -> int:
                          lplan.predicted.p99],
     }
 
+    # -- 5. serve ---------------------------------------------------------
+    _phase("serve")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServeConfig, generate, run_serving
+    from repro_torch.models import (count_params, decode_step, init_params,
+                                    params_to, prefill)
+
+    cfg = get_config("qwen2-0.5b")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         dev)
+    prompts = torch.randint(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device=dev,
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    print(f"[serve] {cfg.name}: {count_params(params):,} parameters in bf16 "
+          f"on the card; batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
+          f"{SERVE_NEW} new tokens, max_len {SERVE_MAX_LEN}")
+    # warm-up at a small size: loads the kernels and cuBLAS's handles
+    generate(cfg, params, prompts[:, :64], 2, 128)
+    torch.cuda.reset_peak_memory_stats()
+
+    def serve():
+        return generate(cfg, params, prompts, SERVE_NEW, SERVE_MAX_LEN)
+
+    gen, counts, wall, _ = run_path("serve", serve)
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": 2 * cfg.n_layers * (SERVE_NEW - 1)}
+    for k, n in want.items():
+        if counts[k] != n:
+            raise AssertionError(f"serve launched {k} {counts[k]} times, "
+                                 f"expected {n}")
+    toks = gen.tokens
+    if toks.shape != (SERVE_BATCH, SERVE_NEW) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"bad generated tokens {tuple(toks.shape)}")
+    runs = [gen] + [serve() for _ in range(2)]
+    by_total = sorted(runs, key=lambda g: g.prefill_s + g.decode_s)
+    best, median = by_total[0], by_total[len(runs) // 2]
+    if not all(torch.equal(g.tokens, toks) for g in runs):
+        raise AssertionError("greedy generation is not deterministic")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    def rates(g):
+        return {"prefill_s": g.prefill_s,
+                "decode_s_per_token": g.decode_s / (SERVE_NEW - 1),
+                "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT
+                / g.prefill_s,
+                "decode_tokens_per_s": SERVE_BATCH * (SERVE_NEW - 1)
+                / g.decode_s,
+                "new_tokens_per_s": SERVE_BATCH * SERVE_NEW
+                / (g.prefill_s + g.decode_s)}
+
+    serve_rates = rates(best)
+    print(f"[serve] runs (prefill s, decode s): "
+          f"{[(g.prefill_s, g.decode_s) for g in runs]}; median run "
+          f"{rates(median)}")
+    print(f"[serve] best: prefill {best.prefill_s:.5f} s, decode "
+          f"{serve_rates['decode_s_per_token'] * 1e3:.3f} ms per step, "
+          f"{serve_rates['decode_tokens_per_s']:.1f} decode tokens/s, "
+          f"{serve_rates['new_tokens_per_s']:.1f} new tokens/s end to end; "
+          f"peak {peak_gb:.2f} GB; launches flash_attention "
+          f"{counts['flash_attention']}, decode_attention "
+          f"{counts['decode_attention']} ({SERVE_NEW - 1} steps x "
+          f"{cfg.n_layers} layers x split + merge)")
+    print(f"[serve] tokens[0, :8] = {toks[0, :8].tolist()}")
+
+    # idle share of prefill and of the decode loop, each under the profiler
+    def decode_loop():
+        logits, state = prefill_state
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        for i in range(SERVE_NEW - 1):
+            logits, state = decode_step(cfg, params, state, tok,
+                                        SERVE_PROMPT + i)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+
+    busy_prefill = print_busy("serve prefill", *device_busy(
+        lambda: prefill(cfg, params, {"tokens": prompts}, SERVE_MAX_LEN)))
+    prefill_state = prefill(cfg, params, {"tokens": prompts}, SERVE_MAX_LEN)
+    busy_decode = print_busy("serve decode", *device_busy(decode_loop))
+    del prefill_state
+    # each part against its own fastest unprofiled run
+    for part, busy, unprofiled in (
+            ("prefill", busy_prefill, min(g.prefill_s for g in runs)),
+            ("decode", busy_decode, min(g.decode_s for g in runs))):
+        if busy["device_busy_s"] is None:
+            raise AssertionError(f"the profiler saw no device work in {part}")
+        idle = 1.0 - busy["device_busy_s"] / unprofiled
+        busy["idle_share_of_unprofiled_wall"] = idle
+        flag = ("" if idle >= 0 else " (NEGATIVE: the profiled busy time "
+                "exceeds the unprofiled wall; the two runs disagree)")
+        print(f"[serve {part}] device busy {busy['device_busy_s']:.5f} s "
+              f"against the fastest unprofiled {unprofiled:.5f} s: idle share "
+              f"{idle:.4f}{flag}")
+
+    # the card against the CPU: full width, depth 2, the same weights
+    small = dataclasses.replace(cfg, n_layers=CHECK_LAYERS)
+    host = init_params(torch.Generator().manual_seed(2), small, device="cpu")
+    on_card = params_to(host, dev)
+    ctoks = torch.randint(0, cfg.vocab_size, (CHECK_BATCH, CHECK_PROMPT),
+                          generator=torch.Generator().manual_seed(3))
+    max_len = CHECK_PROMPT + CHECK_STEPS
+    lh, sh = prefill(small, host, {"tokens": ctoks}, max_len)
+    lc, sc = prefill(small, on_card, {"tokens": ctoks}, max_len)
+    logit_errs, decided, agreed = [], 0, 0
+    for i in range(CHECK_STEPS + 1):
+        err = (lc.float().cpu() - lh.float()).abs().max().item()
+        logit_errs.append(err)
+        if not err <= LOGIT_TOL:
+            raise AssertionError(f"card and CPU logits differ by {err} at "
+                                 f"step {i} (tolerance {LOGIT_TOL})")
+        top2 = lh[:, -1].float().topk(2).values
+        sure = (top2[:, 0] - top2[:, 1]) > LOGIT_TOL
+        tok_h = lh[:, -1].argmax(-1)
+        tok_c = lc[:, -1].argmax(-1).cpu()
+        decided += int(sure.sum())
+        agreed += int((tok_h == tok_c)[sure].sum())
+        if not torch.equal(tok_h[sure], tok_c[sure]):
+            raise AssertionError(f"greedy tokens differ at step {i} where "
+                                 f"the CPU's top-2 margin exceeds {LOGIT_TOL}")
+        if i < CHECK_STEPS:  # both fed the CPU's greedy token
+            lh, sh = decode_step(small, host, sh, tok_h[:, None],
+                                 CHECK_PROMPT + i)
+            lc, sc = decode_step(small, on_card, sc, tok_h[:, None].to(dev),
+                                 CHECK_PROMPT + i)
+    print(f"[serve] card vs CPU ({CHECK_LAYERS} layers, prompt "
+          f"{CHECK_PROMPT}, {CHECK_STEPS} decode steps): max |logit diff| "
+          f"per step {[round(e, 5) for e in logit_errs]} (tolerance "
+          f"{LOGIT_TOL}); greedy tokens agree at {agreed}/{decided} "
+          f"positions whose CPU top-2 margin exceeds it")
+    del host, on_card, sh, sc
+
+    # the system's serving entry point at its default: reduced model + fleet
+    out, fcounts, fwall, _ = run_path(
+        "serve_fleet", lambda: run_serving(ServeConfig()))
+    for k in ("flash_attention", "decode_attention", "sojourn_cells"):
+        if fcounts[k] <= 0:
+            raise AssertionError(f"run_serving never launched {k}")
+    if out["backend"] != "cuda" or out["generated"].shape != (4, 16):
+        raise AssertionError(f"bad run_serving result {out['backend']}")
+    print(f"[serve_fleet] B*={out['sojourn_best_B']} policy={out['policy']} "
+          f"p99={out['speculative_p99']:.6f}; latency_by_B "
+          f"{ {b: round(v['p99'], 6) for b, v in out['latency_by_B'].items()} }")
+    report["phases"]["serve"] = {
+        "wall_s": wall, "launches": counts, "runs": [
+            [g.prefill_s, g.decode_s] for g in runs],
+        **serve_rates, "median_run": rates(median), "peak_memory_gb": peak_gb,
+        "busy_prefill": busy_prefill, "busy_decode": busy_decode,
+        "card_vs_cpu_logit_err": logit_errs, "tokens_decided": decided,
+        "fleet_wall_s": fwall, "fleet_launches": fcounts,
+        "fleet_plan": [out["sojourn_best_B"], repr(out["policy"]),
+                       out["speculative_p99"]],
+    }
+
     def launches(kernel: str, home: str) -> dict:
         """The kernel's launches on the path whose shapes its row times
         (``launches``) and on every path (``launches_by_path``)."""
@@ -352,7 +558,7 @@ def main() -> int:
                 "launches_by_path": {p: c[kernel]
                                      for p, c in path_counts.items()}}
 
-    # -- 5. kernels -------------------------------------------------------
+    # -- 6. kernels -------------------------------------------------------
     _phase("kernels")
 
     rows = []
@@ -511,6 +717,136 @@ def main() -> int:
                  "bound_by": c_plan["bound_by"],
                  "library_ms": c_plan["library_ms"], "shape": c_plan["shape"]})
     extra_rows.extend([c_plan, c_big])
+
+    # flash_attention and decode_attention at the serve phase's shapes
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as DA
+    from repro_torch.kernels.flash_attention import ops as FA
+
+    def att_err(kernel, out, ref, dtype_name):
+        """(max |kernel - plain|, RMS of plain, whether every element is
+        within the kernel's and dtype's tolerance)."""
+        ref = ref.float()
+        diff = (out.float() - ref).abs()
+        rms = ref.square().mean().sqrt()
+        if kernel == "decode_attention" and dtype_name == "bfloat16":
+            limit = DECODE_BF16_RMS_FRAC * rms
+        else:
+            limit = ATT_TOL[dtype_name] * (1.0 + ref.abs())
+        return diff.max().item(), rms.item(), bool((diff <= limit).all())
+
+    def att_rand(shape, seed, dtype):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    bf16 = torch.bfloat16
+    q = att_rand((SERVE_BATCH, SERVE_PROMPT, h, hd), 21, bf16)
+    k = att_rand((SERVE_BATCH, SERVE_PROMPT, kvh, hd), 22, bf16)
+    v = att_rand((SERVE_BATCH, SERVE_PROMPT, kvh, hd), 23, bf16)
+    flash_errs, flash_rms = {}, {}
+    for dtype in (torch.float32, bf16):
+        args = [t.to(dtype) for t in (q, k, v)]
+        out = FA.flash_attention(*args, causal=True)
+        ref = FA.flash_attention_plain(*args, causal=True)
+        torch.cuda.synchronize()
+        name = str(dtype).split(".")[1]
+        flash_errs[name], flash_rms[name], ok = att_err(
+            "flash_attention", out, ref, name)
+        if not ok:
+            raise AssertionError(f"flash_attention differs from its plain "
+                                 f"version in {name}: {flash_errs[name]}")
+        del out, ref, args
+    ms = cuda_ms(lambda: FA.flash_attention(q, k, v, causal=True), 20)
+    dev_ms = device_ms(lambda: FA.flash_attention(q, k, v, causal=True), 20)
+    plain_ms = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, causal=True),
+                       3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    lib_ms, lib_dev = cuda_ms(sdpa, 20), device_ms(sdpa, 20)
+    pairs = SERVE_PROMPT * (SERVE_PROMPT + 1) // 2  # causal (q, k) pairs
+    flops = 4.0 * SERVE_BATCH * h * hd * pairs
+    f_bytes = nbytes(q, k, v) + q.numel() * q.element_size()  # + output
+    f_bound = max(flops / BF16_FLOP_PER_S, f_bytes / HBM_BYTES_PER_S) * 1e3
+    f_by = ("operations" if flops / BF16_FLOP_PER_S
+            > f_bytes / HBM_BYTES_PER_S else "bytes")
+    print(f"[kernels] flash_attention q {list(q.shape)} k/v {list(k.shape)} "
+          f"causal bf16: {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (device {lib_dev:.4f} "
+          f"ms), bound {f_bound:.5f} ms ({f_by}: {flops:.4g} FLOP, "
+          f"{f_bytes} B); max err f32 {flash_errs['float32']:.3e}, bf16 "
+          f"{flash_errs['bfloat16']:.3e} (tol {ATT_TOL}; plain output RMS "
+          f"{flash_rms})")
+    rows.append({"name": "flash_attention", "route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
+                 **launches("flash_attention", "serve"),
+                 "max_abs_err": flash_errs["bfloat16"], "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": f_bound, "bound_by": f_by,
+                 "library_ms": lib_ms, "shape": [list(q.shape), list(k.shape)],
+                 "max_abs_err_f32": flash_errs["float32"],
+                 "plain_rms": flash_rms["bfloat16"],
+                 "tolerance": ATT_TOL,
+                 "device_ms": dev_ms, "library_device_ms": lib_dev})
+    del q, k, v, qt, kt, vt
+
+    cache_len = SERVE_PROMPT + SERVE_NEW - 1  # the last decode step's length
+    qd = att_rand((SERVE_BATCH, h, hd), 24, bf16)
+    kc = att_rand((SERVE_BATCH, SERVE_MAX_LEN, kvh, hd), 25, bf16)
+    vc = att_rand((SERVE_BATCH, SERVE_MAX_LEN, kvh, hd), 26, bf16)
+    dec_errs, dec_rms = {}, {}
+    for dtype in (torch.float32, bf16):
+        args = [t.to(dtype) for t in (qd, kc, vc)]
+        out = DA.decode_attention(*args, cache_len)
+        ref = DA.decode_attention_plain(*args, cache_len)
+        torch.cuda.synchronize()
+        name = str(dtype).split(".")[1]
+        dec_errs[name], dec_rms[name], ok = att_err(
+            "decode_attention", out, ref, name)
+        if not ok:
+            raise AssertionError(f"decode_attention differs from its plain "
+                                 f"version in {name}: {dec_errs[name]}")
+        del out, ref, args
+    d_ms = cuda_ms(lambda: DA.decode_attention(qd, kc, vc, cache_len), 200)
+    d_dev = device_ms(lambda: DA.decode_attention(qd, kc, vc, cache_len), 50)
+    d_plain = cuda_ms(lambda: DA.decode_attention_plain(qd, kc, vc,
+                                                        cache_len), 20)
+    q4 = qd[:, :, None].contiguous()
+    k4, v4 = (t[:, :cache_len].transpose(1, 2).contiguous() for t in (kc, vc))
+    def sdpa_decode():
+        return F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=True)
+
+    d_lib, d_lib_dev = cuda_ms(sdpa_decode, 200), device_ms(sdpa_decode, 50)
+    d_flops = 4.0 * SERVE_BATCH * h * hd * cache_len
+    d_bytes = 2 * nbytes(qd) + 2 * (SERVE_BATCH * cache_len * kvh * hd
+                                    * kc.element_size())
+    d_bound = max(d_flops / BF16_FLOP_PER_S, d_bytes / HBM_BYTES_PER_S) * 1e3
+    d_by = ("operations" if d_flops / BF16_FLOP_PER_S
+            > d_bytes / HBM_BYTES_PER_S else "bytes")
+    print(f"[kernels] decode_attention q {list(qd.shape)} cache "
+          f"{list(kc.shape)} at length {cache_len} bf16: {d_ms:.4f} ms "
+          f"(split + merge; device {d_dev:.4f} ms), plain {d_plain:.4f} ms, "
+          f"SDPA {d_lib:.4f} ms (device {d_lib_dev:.4f} ms), bound "
+          f"{d_bound:.5f} ms ({d_by}: {d_bytes} B); max err f32 "
+          f"{dec_errs['float32']:.3e} (tol {ATT_TOL['float32']}), bf16 "
+          f"{dec_errs['bfloat16']:.3e} (tol {DECODE_BF16_RMS_FRAC} x plain "
+          f"output RMS; RMS {dec_rms})")
+    rows.append({"name": "decode_attention", "route": "cuda",
+                 "source": "src/repro_torch/csrc/decode_attention.cu",
+                 "replaces": "src/repro/kernels/decode_attention/kernel.py:75",
+                 **launches("decode_attention", "serve"),
+                 "max_abs_err": dec_errs["bfloat16"], "ms": d_ms,
+                 "plain_ms": d_plain, "bound_ms": d_bound, "bound_by": d_by,
+                 "library_ms": d_lib,
+                 "shape": [list(qd.shape), list(kc.shape), cache_len],
+                 "max_abs_err_f32": dec_errs["float32"],
+                 "plain_rms": dec_rms["bfloat16"],
+                 "tolerance": {"float32": ATT_TOL["float32"],
+                               "bfloat16_rms_frac": DECODE_BF16_RMS_FRAC},
+                 "device_ms": d_dev, "library_device_ms": d_lib_dev})
 
     report["kernels"] = rows
     report["kernel_shapes"] = extra_rows

@@ -1,9 +1,16 @@
 """PyTorch and CUDA port of the replication planner (``repro``'s twin).
 
-The package runs the planning path — ``ClusterSpec`` + ``Objective`` ->
-``SimulatedPlanner.plan()`` -> ``Plan`` — on an NVIDIA GPU, through
-hand-written CUDA kernels for the sojourn scan (``sojourn_cells``), the
-k-of-N selection (``coded_cells``) and the coded combine (``combine``).
+The package runs two paths on an NVIDIA GPU through hand-written CUDA
+kernels:
+
+* planning — ``ClusterSpec`` + ``Objective`` -> ``SimulatedPlanner.plan()``
+  -> ``Plan`` — through the sojourn scan (``sojourn_cells``), the k-of-N
+  selection (``coded_cells``) and the coded combine (``combine``);
+* LM serving — ``launch.serve.generate`` / ``run_serving`` (prefill and
+  greedy decode of the dense family, qwen2-0.5b, then the fleet plan) —
+  through flash attention (``flash_attention``) in prefill and split-KV
+  decode attention (``decode_attention``) in decode.
+
 It imports ``torch`` and numpy, never ``jax`` and nothing of ``repro``.
 
 Device rule: every entry point takes ``device=None``, which means

@@ -1,0 +1,9 @@
+from .base import ARCH_IDS, PORTED_ARCH_IDS, ArchConfig, get_config, reduced_config
+
+__all__ = [
+    "ARCH_IDS",
+    "PORTED_ARCH_IDS",
+    "ArchConfig",
+    "get_config",
+    "reduced_config",
+]

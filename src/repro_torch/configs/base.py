@@ -1,0 +1,104 @@
+"""Architecture configs of the port (the dense family so far).
+
+A config is pure data: the models read it.  This is the port's own copy of
+the fields of ``repro.configs.base.ArchConfig`` that the dense family
+reads, with :func:`get_config` and :func:`reduced_config` as there.  The
+MoE, SSM and hybrid sub-configs, the shape cells and the sharding policy
+are not ported yet; :func:`get_config` raises for an architecture whose
+family the port cannot run.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Literal
+
+__all__ = [
+    "ArchConfig",
+    "ARCH_IDS",
+    "PORTED_ARCH_IDS",
+    "get_config",
+    "reduced_config",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: Literal["dense", "moe", "ssm", "hybrid", "audio", "vlm"]
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    qkv_bias: bool = False
+    mlp_bias: bool = False
+    attn_out_bias: bool = False
+    parallel_block: bool = False  # command-r style parallel attn+FFN
+    norm: Literal["rmsnorm", "layernorm"] = "rmsnorm"
+    activation: Literal["swiglu", "gelu"] = "swiglu"
+    rope_theta: float = 10_000.0
+    use_rope: bool = True
+    tie_embeddings: bool = False
+    logit_softcap: float = 0.0
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    def validate(self) -> None:
+        if self.n_heads % max(self.n_kv_heads, 1):
+            raise ValueError(f"{self.name}: n_heads % n_kv_heads != 0")
+        if self.d_model % self.n_heads:
+            raise ValueError(f"{self.name}: d_model % n_heads != 0")
+
+
+# every architecture of the reference, and the ones the port can build
+ARCH_IDS = (
+    "internvl2-76b",
+    "command-r-plus-104b",
+    "qwen2-0.5b",
+    "qwen2.5-14b",
+    "granite-34b",
+    "xlstm-350m",
+    "olmoe-1b-7b",
+    "deepseek-moe-16b",
+    "zamba2-7b",
+    "whisper-medium",
+)
+PORTED_ARCH_IDS = ("qwen2-0.5b",)
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    if arch_id not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
+    if arch_id not in PORTED_ARCH_IDS:
+        raise NotImplementedError(
+            f"{arch_id} is not ported yet; the port has {PORTED_ARCH_IDS}")
+    mod = importlib.import_module(
+        f"{__package__}.{arch_id.replace('-', '_').replace('.', '_')}"
+    )
+    cfg: ArchConfig = mod.CONFIG
+    cfg.validate()
+    return cfg
+
+
+def reduced_config(cfg: ArchConfig) -> ArchConfig:
+    """Tiny same-family config for CPU smoke tests (shapes only, same code
+    paths, GQA ratio kept): the dense-family case of the reference's rule."""
+    kv = max(1, min(cfg.n_kv_heads, 2))
+    heads = max(kv * max(1, cfg.n_heads // max(cfg.n_kv_heads, 1) // 4), kv)
+    heads = max(heads - heads % kv, kv)
+    d_model = 64 * heads if cfg.family != "ssm" else 128
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-reduced",
+        n_layers=4,
+        d_model=d_model,
+        n_heads=heads,
+        n_kv_heads=kv,
+        d_ff=0 if cfg.d_ff == 0 else 4 * d_model,
+        vocab_size=512,
+    )

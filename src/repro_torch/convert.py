@@ -8,6 +8,9 @@ candidates (``PolicyCandidate``, ``CodingCandidate``, ``SloClass``,
 ``ShedPolicy``), ``ClusterSpec`` and ``Objective``.  Tuples and lists are
 converted entry by entry; ``None`` and plain numbers pass through.
 
+:func:`params_from_reference` turns the reference's LM parameter pytree
+(as numpy arrays) into the port's parameter tree.
+
 Nothing here imports the reference: the object's class name picks the
 target and its attributes (plain values and numpy arrays) fill it.  So a
 test builds each input once in the reference and converts it, and the two
@@ -17,13 +20,15 @@ packages see the same numbers.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.coding import CodingCandidate
 from .core.order_stats import Empirical, Exponential, ShiftedExponential
 from .core.planner import ClusterSpec, Objective
 from .core.policies import PolicyCandidate, ShedPolicy, SloClass
+from .device import resolve_device
 
-__all__ = ["from_reference", "empirical_from_fields"]
+__all__ = ["from_reference", "empirical_from_fields", "params_from_reference"]
 
 
 def empirical_from_fields(atoms, weights=None) -> Empirical:
@@ -78,3 +83,51 @@ def from_reference(obj):
         cls, names = _SIMPLE[name]
         return cls(**_fields(obj, names))
     raise TypeError(f"no port twin for {name}")
+
+
+def _tensor(leaf, device) -> torch.Tensor:
+    """One numpy leaf as a tensor of the same dtype.  ``bfloat16`` (numpy's
+    ``ml_dtypes`` type, which ``torch.from_numpy`` refuses) goes through
+    float32; bf16 -> f32 -> bf16 is exact."""
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def _tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
+
+
+def params_from_reference(cfg, tree, device=None):
+    """The port's parameters from the reference's LM parameter pytree.
+
+    ``tree`` is ``repro.models.lm.init_params(key, cfg)`` with its leaves
+    as numpy arrays (``jax.tree.map(np.asarray, params)``).  Its
+    ``"blocks"`` leaves are stacked on a leading layer axis (``vmap`` over
+    the layer keys); the port keeps one dict per layer, so layer ``i`` of
+    every leaf goes to ``blocks[i]``.  Dense family only.  ``device=None``
+    means CUDA.
+    """
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    dev = resolve_device(device)
+    blocks = tree["blocks"]
+
+    def layer(sub, i):
+        if isinstance(sub, dict):
+            return {k: layer(v, i) for k, v in sub.items()}
+        arr = np.asarray(sub)
+        if arr.shape[0] != cfg.n_layers:
+            raise ValueError(f"stacked leaf {arr.shape} has no leading axis "
+                             f"of {cfg.n_layers} layers")
+        return _tensor(arr[i], dev)
+
+    return {
+        "embed": _tree(tree["embed"], dev),
+        "blocks": [layer(blocks, i) for i in range(cfg.n_layers)],
+        "final_norm": _tree(tree["final_norm"], dev),
+    }

@@ -48,6 +48,8 @@ SOURCES = {
     "sojourn_cells": ("sojourn_cells.cu", ["-fmad=false"]),
     "coded_cells": ("coded_cells.cu", ["-fmad=false"]),
     "combine": ("combine.cu", []),
+    "flash_attention": ("flash_attention.cu", []),
+    "decode_attention": ("decode_attention.cu", []),
 }
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
@@ -63,6 +65,16 @@ SIGNATURES = {
     },
     "combine": {
         "combine_launch": ([_PTR] * 3 + [_INT] * 3 + [_PTR], _INT),
+    },
+    "flash_attention": {
+        "flash_attention_launch": ([_PTR] * 4 + [_INT] * 9 + [_PTR], _INT),
+    },
+    "decode_attention": {
+        "decode_attention_split_len": ([_INT], _INT),
+        "decode_attention_split_launch": ([_PTR] * 6 + [_INT] * 8 + [_PTR],
+                                          _INT),
+        "decode_attention_merge_launch": ([_PTR] * 4 + [_INT] * 5 + [_PTR],
+                                          _INT),
     },
 }
 

@@ -1,0 +1,128 @@
+"""Model API of the port (the dense family).
+
+    params          = init_params(generator, cfg, device)
+    logits, state   = prefill(cfg, params, batch, max_len)
+    logits, state   = decode_step(cfg, params, state, token, cache_len)
+
+As ``repro.models.lm`` without the ``Shard`` argument (the port runs on
+one device until the distributed slice).  ``params`` is a dict:
+``{"embed": {...}, "blocks": [per-layer dict, ...], "final_norm": {...}}``;
+the reference's blocks, stacked on a leading layer axis by ``vmap``, are
+a list here, one dict per layer.  The decode state keeps the reference's
+layout, ``{"k", "v"}`` of shape (L, b, max_len, KV, hd) in bfloat16;
+``prefill`` and ``decode_step`` write it IN PLACE and return it.
+Families other than ``dense`` raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..device import resolve_device
+from . import layers as L
+from . import transformer as T
+
+__all__ = [
+    "init_params",
+    "params_to",
+    "count_params",
+    "init_decode_state",
+    "prefill",
+    "decode_step",
+]
+
+
+def _dense_only(cfg: ArchConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported (dense only)")
+
+
+def init_params(generator: torch.Generator, cfg: ArchConfig, device=None):
+    """Random parameters with the reference's shapes and scales, drawn in
+    order (embedding, blocks 0..L-1, final norm) from ``generator``, which
+    must live on ``device`` (``None`` means CUDA)."""
+    cfg.validate()
+    _dense_only(cfg)
+    dev = resolve_device(device)
+    return {
+        "embed": L.init_embedding(generator, cfg, dev),
+        "blocks": [T.init_block(generator, cfg, dev)
+                   for _ in range(cfg.n_layers)],
+        "final_norm": L.init_norm(cfg, dev),
+    }
+
+
+def params_to(params, device):
+    """The same parameter tree with every tensor moved to ``device``."""
+    if isinstance(params, dict):
+        return {k: params_to(v, device) for k, v in params.items()}
+    if isinstance(params, list):
+        return [params_to(v, device) for v in params]
+    return params.to(device)
+
+
+def count_params(params) -> int:
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(count_params(v) for v in params)
+    return params.numel()
+
+
+def _device_of(params) -> torch.device:
+    return params["embed"]["tokens"].device
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, device=None):
+    """Zero caches {"k", "v"}: (L, batch, max_len, KV, hd) bfloat16."""
+    _dense_only(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=L.DTYPE, device=dev),
+            "v": torch.zeros(shape, dtype=L.DTYPE, device=dev)}
+
+
+def prefill(cfg: ArchConfig, params, batch, max_len: int):
+    """Process a prompt and build the decode state.
+
+    ``batch["tokens"]``: (b, s) integer tokens.  K/V of every layer are
+    written at positions [0, s) of a fresh state.  Returns (logits of the
+    last position (b, 1, V) in bfloat16, state).
+    """
+    _dense_only(cfg)
+    dev = _device_of(params)
+    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    b, s = tokens.shape
+    if s > max_len:
+        raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
+    state = init_decode_state(cfg, b, max_len, dev)
+    x = L.embed_tokens(params["embed"], tokens)
+    rope = L.rope_tables(torch.arange(s, device=dev), cfg.head_dim,
+                         cfg.rope_theta)
+    for i, lp in enumerate(params["blocks"]):
+        x = T.apply_block(cfg, lp, x, rope,
+                          kv_sink=(state["k"][i], state["v"][i]))
+    x = L.apply_norm(cfg, params["final_norm"], x[:, -1:])
+    return L.unembed(cfg, params["embed"], x), state
+
+
+def decode_step(cfg: ArchConfig, params, state, token, cache_len: int):
+    """One-token step.  ``token`` (b, 1) integers; ``cache_len`` (a host
+    int) is the number of tokens already in the cache, and the new token
+    sits at position ``cache_len``.  Returns (logits (b, 1, V), state)."""
+    _dense_only(cfg)
+    dev = _device_of(params)
+    cache_len = int(cache_len)
+    if not 0 <= cache_len < state["k"].shape[2]:
+        raise ValueError(f"cache_len {cache_len} outside the cache "
+                         f"[0, {state['k'].shape[2]})")
+    x = L.embed_tokens(params["embed"], torch.as_tensor(token, device=dev).long())
+    rope = L.rope_tables(torch.full((1,), cache_len, device=dev),
+                         cfg.head_dim, cfg.rope_theta)
+    for i, lp in enumerate(params["blocks"]):
+        x, _, _ = T.apply_block_decode(cfg, lp, x, state["k"][i],
+                                       state["v"][i], cache_len, rope)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    return L.unembed(cfg, params["embed"], x), state

@@ -9,7 +9,12 @@ the ``cuda`` fixture).  On a machine with a card, and without JAX, run
 imports only ``repro_torch``.  Each kernel must equal its plain version
 bit for bit (``sojourn_cells``, ``coded_cells``) or within
 ``1e-5 * (|coeffs| @ |blocks|)`` (``combine``), and the sweeps and the
-planner must give on the card exactly what they give on the CPU.
+planner must give on the card exactly what they give on the CPU.  The
+attention kernels are held to their plain versions at 5e-5 in float32; in
+bfloat16 flash attention at 5e-2 (``tests/test_kernels.py``'s tolerance)
+and decode attention within a tenth of its plain output's RMS (its outputs
+average up to a thousand value rows and are small).  The dense LM's logits
+on the card meet the CPU's within 4e-2.
 """
 
 import numpy as np
@@ -22,7 +27,11 @@ from repro_torch.core.coding import CodingCandidate
 from repro_torch.core.order_stats import Empirical, ShiftedExponential
 from repro_torch.core.policies import PolicyCandidate
 from repro_torch.kernels import _build, launch_counts
+from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels.coded import COMBINE_RTOL, combine, combine_plain
+from repro_torch.kernels.decode_attention import ops as DA
+from repro_torch.kernels.flash_attention import ops as FA
+from repro_torch.models import decode_step, init_params, params_to, prefill
 from repro_torch.kernels.sojourn_sweep import kernel as K
 from repro_torch.kernels.sojourn_sweep import ops as O
 
@@ -39,6 +48,7 @@ DISTS = [ShiftedExponential(0.05, 2.0),
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False  # full-f32 plain versions
     return torch.device("cuda")
 
 
@@ -194,3 +204,87 @@ def test_default_device_plan_runs_on_card(cuda):
     assert on_card.n_batches == on_cpu.n_batches
     assert on_card.policy == on_cpu.policy
     assert on_card.spectrum.points == on_cpu.spectrum.points
+
+
+ATT_TOL = {torch.float32: dict(atol=5e-5, rtol=5e-5),
+           torch.bfloat16: dict(atol=5e-2, rtol=5e-2)}
+DECODE_BF16_RMS_FRAC = 0.1
+
+
+def _randn(shape, seed, dev, dtype):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randn(shape, generator=g).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kv,d,causal,off", [
+    (1, 128, 128, 4, 2, 64, True, 0),
+    (2, 1, 37, 7, 1, 64, True, 36),
+    (2, 50, 50, 4, 4, 64, True, 0),
+    (1, 33, 97, 6, 2, 128, True, 64),
+    (2, 40, 72, 4, 2, 128, False, 0),
+    (1, 200, 330, 14, 2, 64, True, 130),
+    (1, 64, 64, 2, 2, 64, True, 1000),
+    (2, 256, 256, 14, 2, 64, True, 0),
+])
+def test_flash_kernel_matches_plain(cuda, dtype, b, sq, skv, h, kv, d,
+                                    causal, off):
+    q = _randn((b, sq, h, d), 1, cuda, dtype)
+    k = _randn((b, skv, kv, d), 2, cuda, dtype)
+    v = _randn((b, skv, kv, d), 3, cuda, dtype)
+    before = launch_counts()["flash_attention"]
+    out = FA.flash_attention(q, k, v, causal=causal, q_offset=off)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = FA.flash_attention_plain(q, k, v, causal=causal, q_offset=off)
+    torch.testing.assert_close(out.float(), ref.float(), **ATT_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,d,smax,cache_len", [
+    (2, 4, 2, 64, 1024, 1), (2, 4, 2, 64, 1024, 100),
+    (2, 4, 2, 64, 1024, 1024), (8, 14, 2, 64, 2048, 1056),
+    (2, 8, 1, 128, 300, 129), (1, 48, 1, 128, 100, 65), (3, 4, 4, 64, 65, 65),
+])
+def test_decode_kernel_matches_plain(cuda, dtype, b, h, kv, d, smax,
+                                     cache_len):
+    q = _randn((b, h, d), 4, cuda, dtype)
+    kc = _randn((b, smax, kv, d), 5, cuda, dtype)
+    vc = _randn((b, smax, kv, d), 6, cuda, dtype)
+    before = launch_counts()["decode_attention"]
+    out = DA.decode_attention(q, kc, vc, cache_len)
+    torch.cuda.synchronize()
+    assert launch_counts()["decode_attention"] == before + 2  # split, merge
+    ref = DA.decode_attention_plain(q, kc, vc, cache_len)
+    if dtype == torch.bfloat16:
+        rms = ref.float().square().mean().sqrt().item()
+        tol = dict(atol=DECODE_BF16_RMS_FRAC * rms, rtol=0.0)
+    else:
+        tol = ATT_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    # the kernel reads nothing at or past cache_len
+    kc[:, cache_len:] = float("nan")
+    vc[:, cache_len:] = float("nan")
+    again = DA.decode_attention(q, kc, vc, cache_len)
+    assert torch.equal(again, out)
+
+
+def test_dense_lm_on_card_matches_cpu(cuda):
+    cfg = reduced_config(get_config("qwen2-0.5b"))
+    host = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = params_to(host, cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 70),
+                         generator=torch.Generator().manual_seed(1))
+    (lh, sh), (lc, sc) = (prefill(cfg, p, {"tokens": toks}, 80)
+                          for p in (host, card))
+    before = launch_counts()
+    for i in range(4):
+        torch.testing.assert_close(lc.float().cpu(), lh.float(), atol=4e-2,
+                                   rtol=0)
+        tok = lh[:, -1].argmax(-1, keepdim=True)
+        lh, sh = decode_step(cfg, host, sh, tok, 70 + i)
+        lc, sc = decode_step(cfg, card, sc, tok.to(cuda), 70 + i)
+    after = launch_counts()
+    assert after["decode_attention"] - before["decode_attention"] == (
+        2 * 4 * cfg.n_layers)

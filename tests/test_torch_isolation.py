@@ -35,7 +35,11 @@ def test_every_port_module_imports_without_jax_or_repro():
     mods = _port_modules()
     assert {"repro_torch.core.planner", "repro_torch.core.simulator",
             "repro_torch.kernels.sojourn_sweep.kernel",
-            "repro_torch.kernels.coded.ops", "repro_torch.convert"} <= set(mods)
+            "repro_torch.kernels.coded.ops", "repro_torch.convert",
+            "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.kernels.decode_attention.ops",
+            "repro_torch.models.lm", "repro_torch.launch.serve",
+            "repro_torch.configs.qwen2_0_5b"} <= set(mods)
     code = "\n".join([
         "import importlib, sys",
         "sys.modules['jax'] = None",
@@ -84,6 +88,8 @@ def test_default_planner_device_raises_without_cuda():
 def test_cpu_tensors_leave_launch_counters_at_zero():
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.coded import combine
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.sojourn_sweep import coded_cells, sojourn_cells
 
     reset_launch_counts()
@@ -95,5 +101,9 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
                   torch.tensor([2], dtype=i32), resolve=False)
     coded_cells(torch.ones((1, 3, 5)), torch.tensor([2], dtype=i32))
     combine(torch.ones((2, 3)), torch.ones((3, 4)))
+    q, k = torch.ones((1, 4, 2, 64)), torch.ones((1, 4, 1, 64))
+    flash_attention(q, k, k)
+    decode_attention(q[:, 0], k, k, 3)
     assert launch_counts() == {"sojourn_cells": 0, "coded_cells": 0,
-                               "combine": 0}
+                               "combine": 0, "flash_attention": 0,
+                               "decode_attention": 0}
