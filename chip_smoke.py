@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths on the card through its five hand-written
-CUDA kernels, in six phases; any failure raises and the script exits
+Drives the port's main paths on the card through its six hand-written
+CUDA kernels, in seven phases; any failure raises and the script exits
 non-zero:
 
 1. ``build``          compile ``src/repro_torch/csrc/*.cu`` with nvcc
@@ -34,18 +34,32 @@ non-zero:
                       the same greedy token wherever the CPU's top-2
                       margin exceeds that.  Then ``run_serving`` at its
                       default (reduced model + fleet planner).
-6. ``kernels``        each kernel against its plain PyTorch version on the
-                      card, at the shapes phases 2, 4 and 5 gave it, with
-                      its time, the plain version's, a library call's
+6. ``serve_hybrid``   zamba2-7b at full width and depth (81 layers,
+                      d_model 3584, 13 shared-attention applications at
+                      head dim 112; random bf16 weights) serves 8 prompts
+                      of 1,024 tokens and 16 new tokens each: prefill on
+                      ``ssd_scan`` (81 launches) and ``flash_attention``
+                      (13), decode on ``decode_attention`` (390), with the
+                      same measurements as ``serve``.  Then the card
+                      against the CPU at full width and depth 7 (one
+                      segment and one trailing block), prompt 256, 4
+                      decode steps, as in ``serve``.  Then
+                      ``run_serving(ServeConfig(arch="zamba2-7b"))``.
+7. ``kernels``        each kernel against its plain PyTorch version on the
+                      card, at the shapes phases 2, 4, 5 and 6 gave it,
+                      with its time, the plain version's, a library call's
                       where one exists (``torch.kthvalue``,
                       ``torch.matmul``, ``scaled_dot_product_attention``),
                       and its bound.  The attention kernels are held to
                       their plain versions at 5e-5 in float32; in bfloat16
                       ``flash_attention`` at 5e-2 and ``decode_attention``
                       at a tenth of its plain output's RMS (its outputs,
-                      averages over about 1,000 keys, are of order 0.05).
+                      averages over about 1,000 keys, are of order 0.05),
+                      at head dims 64 and 112.  ``ssd_scan`` is held
+                      within 1e-4 (float32) and 5e-2 (bfloat16) times
+                      1 + |plain| on mild-decay inputs.
 
-Each path of phases 2-5 runs with the launch counts and the sweeps' stage
+Each path of phases 2-6 runs with the launch counts and the sweeps' stage
 seconds (``simulator.STAGE_SECONDS``) set to 0 just before it and read just
 after; a kernel of the path that never launched fails the run.  One more
 run of phases 2 and 3 under ``torch.profiler`` gives the card's busy time.
@@ -60,6 +74,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -82,6 +97,14 @@ LOGIT_TOL = 0.125
 # every element must lie within a tenth of the plain output's RMS
 ATT_TOL = {"float32": 5e-5, "bfloat16": 5e-2}
 DECODE_BF16_RMS_FRAC = 0.1
+# the serve_hybrid phase: zamba2-7b at full width and depth
+HYBRID_BATCH, HYBRID_PROMPT, HYBRID_NEW, HYBRID_MAX_LEN = 8, 1024, 16, 2048
+# card against CPU: full width, depth 7 (one segment of six Mamba-2 blocks
+# and the shared block, then one trailing block), prompt 256 (two chunks)
+HCHECK_LAYERS, HCHECK_PROMPT = 7, 256
+# ssd_scan against its plain version: within tol * (1 + |plain|); the
+# final state (float32 either way) at the float32 tolerance
+SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
 def _fail(msg: str, code: int) -> None:
@@ -125,6 +148,8 @@ def main() -> int:
     from repro_torch.kernels.coded import kernel as CK
     from repro_torch.kernels.coded import ops as coded_ops
     from repro_torch.kernels.sojourn_sweep import kernel as SK
+    from repro_torch.kernels.ssm_scan import ops as SSD
+    from repro_torch.models import ssm as SSM_MODEL
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -167,9 +192,19 @@ def main() -> int:
         setattr(module, attr, wrapped)
         return orig
 
+    def warm_up(fn, seconds: float = 0.05) -> None:
+        """Call ``fn`` until ``seconds`` of synchronised wall time have
+        passed (at least twice), so the card leaves its idle clocks."""
+        t0, n = time.perf_counter(), 0
+        while n < 2 or time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+            n += 1
+
     def cuda_ms(fn, reps: int) -> float:
-        fn()
-        torch.cuda.synchronize()
+        """CUDA events around ``reps`` back-to-back calls, per call: the
+        stream's time, the host's gaps between launches included."""
+        warm_up(fn)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -178,6 +213,20 @@ def main() -> int:
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / reps
+
+    def call_ms(fn, reps: int) -> float:
+        """Median over ``reps`` calls of CUDA events recorded just before
+        and just after each call: the device time of one call's launches,
+        without the host's gaps between calls."""
+        warm_up(fn)
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        for start, end in pairs:
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
     def nbytes(*tensors) -> int:
         seen, total = set(), 0
@@ -189,8 +238,8 @@ def main() -> int:
         return total
 
     def device_busy(fn, reps: int = 1):
-        """(wall s, busy s, device events, device s by event name) of
-        ``reps`` back-to-back calls under torch.profiler.
+        """(wall s, busy s, device events, device s by event name, events
+        by name) of ``reps`` back-to-back calls under torch.profiler.
 
         Busy is the union of the intervals of the device's own events
         (kernels and copies), so nothing is counted twice; None when the
@@ -210,9 +259,11 @@ def main() -> int:
                   and not getattr(e, "is_user_annotation", False)]
         spans = sorted((e.time_range.start, e.time_range.end) for e in events)
         by_name: dict = {}
+        count: dict = {}
         for e in events:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + (e.time_range.end - e.time_range.start) / 1e6)
+            count[e.name] = count.get(e.name, 0) + 1
         busy_us, cur_s, cur_e = 0.0, None, None
         for s, e in spans:
             if cur_e is None or s > cur_e:
@@ -224,18 +275,22 @@ def main() -> int:
         if cur_e is not None:
             busy_us += cur_e - cur_s
         busy = busy_us / 1e6 if spans else None
-        return wall, busy, len(spans), by_name
+        return wall, busy, len(spans), by_name, count
 
     def device_ms(fn, reps: int) -> float:
-        """Mean device time of one call after a warm-up: the summed
-        durations of the device events of ``reps`` calls.  Unlike CUDA
-        events around the calls it leaves out the host's gaps between
-        launches."""
-        fn()
-        by_name = device_busy(fn, reps)[3]
-        return sum(by_name.values()) * 1e3 / reps
+        """Device time of one call after a warm-up: over ``reps`` calls
+        under the profiler, the mean duration of each kernel name, summed
+        over the names (each wrapper and library call here launches each
+        of its kernels once a call).  The profiler can miss the first
+        launches of a window, so a sum over the window divided by ``reps``
+        would undercount; the events it recorded are printed."""
+        warm_up(fn)
+        _, _, n_events, by_name, count = device_busy(fn, reps)
+        print(f"    (profiler: {n_events} device events recorded for {reps} "
+              f"calls: {sorted(count.values())})")
+        return sum(by_name[k] / count[k] for k in by_name) * 1e3
 
-    def print_busy(name, wall, busy, n_events, by_name, top=6):
+    def print_busy(name, wall, busy, n_events, by_name, count, top=6):
         idle = None if busy is None else 1.0 - busy / wall
         print(f"[{name}] under torch.profiler: wall {wall:.3f} s, device "
               f"busy {busy} s over {n_events} device events, idle share "
@@ -243,11 +298,12 @@ def main() -> int:
         heavy = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
         total = sum(by_name.values()) or 1.0
         for kname, secs in heavy:
-            print(f"    {secs:.6f} s ({secs / total:.1%} of device time) "
-                  f"{kname[:110]}")
+            print(f"    {secs:.6f} s ({secs / total:.1%} of device time, "
+                  f"{count[kname]} events) {kname[:100]}")
         return {"profiled_wall_s": wall, "device_busy_s": busy,
                 "device_events": n_events, "idle_share": idle,
-                "device_s_by_name": dict(heavy)}
+                "device_s_by_name": dict(heavy),
+                "events_by_name": {k: count[k] for k, _ in heavy}}
 
     # -- 1. build ---------------------------------------------------------
     _phase("build")
@@ -397,8 +453,7 @@ def main() -> int:
                          lplan.predicted.p99],
     }
 
-    # -- 5. serve ---------------------------------------------------------
-    _phase("serve")
+    # -- 5. serve and 6. serve_hybrid -------------------------------------
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -406,150 +461,206 @@ def main() -> int:
     from repro_torch.models import (count_params, decode_step, init_params,
                                     params_to, prefill)
 
+    def serve_cell(tag, cfg, params, prompts, n_new, max_len, want):
+        """Greedy generation at full width: three runs (the first with the
+        launch counts at 0, which must equal ``want``), rates, peak memory
+        and each part's idle share under the profiler against its own
+        fastest unprofiled run."""
+        batch, plen = prompts.shape
+        print(f"[{tag}] {cfg.name}: {count_params(params):,} parameters in "
+              f"bf16 on the card; batch {batch}, prompt {plen}, {n_new} new "
+              f"tokens, max_len {max_len}")
+        # warm-up at a small size: loads the kernels and cuBLAS's handles
+        generate(cfg, params, prompts[:, :64], 2, 128)
+        torch.cuda.reset_peak_memory_stats()
+
+        def serve():
+            return generate(cfg, params, prompts, n_new, max_len)
+
+        gen, counts, wall, _ = run_path(tag, serve)
+        for k, n in want.items():
+            if counts[k] != n:
+                raise AssertionError(f"{tag} launched {k} {counts[k]} times, "
+                                     f"expected {n}")
+        toks = gen.tokens
+        if toks.shape != (batch, n_new) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            raise AssertionError(f"bad generated tokens {tuple(toks.shape)}")
+        runs = [gen] + [serve() for _ in range(2)]
+        by_total = sorted(runs, key=lambda g: g.prefill_s + g.decode_s)
+        best, median = by_total[0], by_total[len(runs) // 2]
+        if not all(torch.equal(g.tokens, toks) for g in runs):
+            raise AssertionError("greedy generation is not deterministic")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        def rates(g):
+            return {"prefill_s": g.prefill_s,
+                    "decode_s_per_token": g.decode_s / (n_new - 1),
+                    "prefill_tokens_per_s": batch * plen / g.prefill_s,
+                    "decode_tokens_per_s": batch * (n_new - 1) / g.decode_s,
+                    "new_tokens_per_s": batch * n_new
+                    / (g.prefill_s + g.decode_s)}
+
+        best_rates = rates(best)
+        print(f"[{tag}] runs (prefill s, decode s): "
+              f"{[(g.prefill_s, g.decode_s) for g in runs]}; median run "
+              f"{rates(median)}")
+        print(f"[{tag}] best: prefill {best.prefill_s:.5f} s, decode "
+              f"{best_rates['decode_s_per_token'] * 1e3:.3f} ms per step, "
+              f"{best_rates['decode_tokens_per_s']:.1f} decode tokens/s, "
+              f"{best_rates['new_tokens_per_s']:.1f} new tokens/s end to "
+              f"end; peak {peak_gb:.2f} GB; launches "
+              + ", ".join(f"{k} {counts[k]}" for k in want))
+        print(f"[{tag}] tokens[0, :8] = {toks[0, :8].tolist()}")
+
+        # idle share of prefill and of the decode loop, each under the
+        # profiler
+        def decode_loop():
+            logits, state = prefill_state
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            for i in range(n_new - 1):
+                logits, state = decode_step(cfg, params, state, tok, plen + i)
+                tok = logits[:, -1].argmax(-1, keepdim=True)
+
+        busy_prefill = print_busy(f"{tag} prefill", *device_busy(
+            lambda: prefill(cfg, params, {"tokens": prompts}, max_len)),
+            top=10)
+        prefill_state = prefill(cfg, params, {"tokens": prompts}, max_len)
+        busy_decode = print_busy(f"{tag} decode", *device_busy(decode_loop),
+                                 top=10)
+        del prefill_state
+        for part, busy, unprofiled in (
+                ("prefill", busy_prefill, min(g.prefill_s for g in runs)),
+                ("decode", busy_decode, min(g.decode_s for g in runs))):
+            if busy["device_busy_s"] is None:
+                raise AssertionError(f"the profiler saw no device work in "
+                                     f"{tag} {part}")
+            idle = 1.0 - busy["device_busy_s"] / unprofiled
+            busy["idle_share_of_unprofiled_wall"] = idle
+            flag = ("" if idle >= 0 else " (NEGATIVE: the profiled busy time "
+                    "exceeds the unprofiled wall; the two runs disagree)")
+            print(f"[{tag} {part}] device busy {busy['device_busy_s']:.5f} s "
+                  f"against the fastest unprofiled {unprofiled:.5f} s: idle "
+                  f"share {idle:.4f}{flag}")
+        return {"wall_s": wall, "launches": counts,
+                "runs": [[g.prefill_s, g.decode_s] for g in runs],
+                **best_rates, "median_run": rates(median),
+                "peak_memory_gb": peak_gb, "busy_prefill": busy_prefill,
+                "busy_decode": busy_decode}
+
+    def card_vs_cpu(tag, small, batch, plen, steps):
+        """The same weights (drawn on the CPU) on the card and on the CPU:
+        logits within LOGIT_TOL at prefill and each decode step, and the
+        same greedy token wherever the CPU's top-2 margin exceeds that."""
+        host = init_params(torch.Generator().manual_seed(2), small,
+                           device="cpu")
+        on_card = params_to(host, dev)
+        ctoks = torch.randint(0, small.vocab_size, (batch, plen),
+                              generator=torch.Generator().manual_seed(3))
+        max_len = plen + steps
+        lh, sh = prefill(small, host, {"tokens": ctoks}, max_len)
+        lc, sc = prefill(small, on_card, {"tokens": ctoks}, max_len)
+        logit_errs, decided, agreed = [], 0, 0
+        for i in range(steps + 1):
+            err = (lc.float().cpu() - lh.float()).abs().max().item()
+            logit_errs.append(err)
+            if not err <= LOGIT_TOL:
+                raise AssertionError(f"card and CPU logits differ by {err} "
+                                     f"at step {i} (tolerance {LOGIT_TOL})")
+            top2 = lh[:, -1].float().topk(2).values
+            sure = (top2[:, 0] - top2[:, 1]) > LOGIT_TOL
+            tok_h = lh[:, -1].argmax(-1)
+            tok_c = lc[:, -1].argmax(-1).cpu()
+            decided += int(sure.sum())
+            agreed += int((tok_h == tok_c)[sure].sum())
+            if not torch.equal(tok_h[sure], tok_c[sure]):
+                raise AssertionError(f"greedy tokens differ at step {i} "
+                                     f"where the CPU's top-2 margin exceeds "
+                                     f"{LOGIT_TOL}")
+            if i < steps:  # both fed the CPU's greedy token
+                lh, sh = decode_step(small, host, sh, tok_h[:, None],
+                                     plen + i)
+                lc, sc = decode_step(small, on_card, sc,
+                                     tok_h[:, None].to(dev), plen + i)
+        print(f"[{tag}] card vs CPU ({small.n_layers} layers, prompt {plen}, "
+              f"{steps} decode steps): max |logit diff| per step "
+              f"{[round(e, 5) for e in logit_errs]} (tolerance {LOGIT_TOL}); "
+              f"greedy tokens agree at {agreed}/{decided} positions whose "
+              f"CPU top-2 margin exceeds it")
+        return {"card_vs_cpu_logit_err": logit_errs, "tokens_decided": decided,
+                "tokens_agreed": agreed}
+
+    def serve_fleet(tag, sc, kernels):
+        """``run_serving`` on the card (reduced model + fleet planner)."""
+        out, fcounts, fwall, _ = run_path(tag, lambda: run_serving(sc))
+        for k in kernels:
+            if fcounts[k] <= 0:
+                raise AssertionError(f"run_serving({sc.arch}) never launched "
+                                     f"{k}")
+        if out["backend"] != "cuda" or out["generated"].shape != (
+                sc.batch, sc.gen_tokens):
+            raise AssertionError(f"bad run_serving result {out['backend']}")
+        print(f"[{tag}] B*={out['sojourn_best_B']} policy={out['policy']} "
+              f"p99={out['speculative_p99']:.6f}; latency_by_B "
+              f"{ {b: round(v['p99'], 6) for b, v in out['latency_by_B'].items()} }")
+        return {"fleet_wall_s": fwall, "fleet_launches": fcounts,
+                "fleet_plan": [out["sojourn_best_B"], repr(out["policy"]),
+                               out["speculative_p99"]]}
+
+    _phase("serve")
     cfg = get_config("qwen2-0.5b")
     params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
                          dev)
     prompts = torch.randint(
         0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device=dev,
         generator=torch.Generator(device="cuda").manual_seed(1))
-    print(f"[serve] {cfg.name}: {count_params(params):,} parameters in bf16 "
-          f"on the card; batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
-          f"{SERVE_NEW} new tokens, max_len {SERVE_MAX_LEN}")
-    # warm-up at a small size: loads the kernels and cuBLAS's handles
-    generate(cfg, params, prompts[:, :64], 2, 128)
-    torch.cuda.reset_peak_memory_stats()
+    serve_report = serve_cell(
+        "serve", cfg, params, prompts, SERVE_NEW, SERVE_MAX_LEN,
+        {"flash_attention": cfg.n_layers,
+         "decode_attention": 2 * cfg.n_layers * (SERVE_NEW - 1)})
+    serve_report.update(card_vs_cpu(
+        "serve", dataclasses.replace(cfg, n_layers=CHECK_LAYERS), CHECK_BATCH,
+        CHECK_PROMPT, CHECK_STEPS))
+    serve_report.update(serve_fleet(
+        "serve_fleet", ServeConfig(),
+        ("flash_attention", "decode_attention", "sojourn_cells")))
+    report["phases"]["serve"] = serve_report
+    del params
 
-    def serve():
-        return generate(cfg, params, prompts, SERVE_NEW, SERVE_MAX_LEN)
+    _phase("serve_hybrid")
+    from repro_torch.models.zamba import segment_layout
 
-    gen, counts, wall, _ = run_path("serve", serve)
-    want = {"flash_attention": cfg.n_layers,
-            "decode_attention": 2 * cfg.n_layers * (SERVE_NEW - 1)}
-    for k, n in want.items():
-        if counts[k] != n:
-            raise AssertionError(f"serve launched {k} {counts[k]} times, "
-                                 f"expected {n}")
-    toks = gen.tokens
-    if toks.shape != (SERVE_BATCH, SERVE_NEW) or not bool(
-            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
-        raise AssertionError(f"bad generated tokens {tuple(toks.shape)}")
-    runs = [gen] + [serve() for _ in range(2)]
-    by_total = sorted(runs, key=lambda g: g.prefill_s + g.decode_s)
-    best, median = by_total[0], by_total[len(runs) // 2]
-    if not all(torch.equal(g.tokens, toks) for g in runs):
-        raise AssertionError("greedy generation is not deterministic")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hcfg = get_config("zamba2-7b")
+    n_seg, _, _ = segment_layout(hcfg)
+    hparams = init_params(torch.Generator(device="cuda").manual_seed(0), hcfg,
+                          dev)
+    hprompts = torch.randint(
+        0, hcfg.vocab_size, (HYBRID_BATCH, HYBRID_PROMPT), device=dev,
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    ssd_shapes: list = []  # (x shape, b shape) of each call; no tensors
+    o_ssd = SSM_MODEL.ssd_scan
 
-    def rates(g):
-        return {"prefill_s": g.prefill_s,
-                "decode_s_per_token": g.decode_s / (SERVE_NEW - 1),
-                "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT
-                / g.prefill_s,
-                "decode_tokens_per_s": SERVE_BATCH * (SERVE_NEW - 1)
-                / g.decode_s,
-                "new_tokens_per_s": SERVE_BATCH * SERVE_NEW
-                / (g.prefill_s + g.decode_s)}
+    def ssd_shape_probe(x, dt, a_log, b, *args, **kw):
+        ssd_shapes.append((tuple(x.shape), tuple(b.shape)))
+        return o_ssd(x, dt, a_log, b, *args, **kw)
 
-    serve_rates = rates(best)
-    print(f"[serve] runs (prefill s, decode s): "
-          f"{[(g.prefill_s, g.decode_s) for g in runs]}; median run "
-          f"{rates(median)}")
-    print(f"[serve] best: prefill {best.prefill_s:.5f} s, decode "
-          f"{serve_rates['decode_s_per_token'] * 1e3:.3f} ms per step, "
-          f"{serve_rates['decode_tokens_per_s']:.1f} decode tokens/s, "
-          f"{serve_rates['new_tokens_per_s']:.1f} new tokens/s end to end; "
-          f"peak {peak_gb:.2f} GB; launches flash_attention "
-          f"{counts['flash_attention']}, decode_attention "
-          f"{counts['decode_attention']} ({SERVE_NEW - 1} steps x "
-          f"{cfg.n_layers} layers x split + merge)")
-    print(f"[serve] tokens[0, :8] = {toks[0, :8].tolist()}")
-
-    # idle share of prefill and of the decode loop, each under the profiler
-    def decode_loop():
-        logits, state = prefill_state
-        tok = logits[:, -1].argmax(-1, keepdim=True)
-        for i in range(SERVE_NEW - 1):
-            logits, state = decode_step(cfg, params, state, tok,
-                                        SERVE_PROMPT + i)
-            tok = logits[:, -1].argmax(-1, keepdim=True)
-
-    busy_prefill = print_busy("serve prefill", *device_busy(
-        lambda: prefill(cfg, params, {"tokens": prompts}, SERVE_MAX_LEN)))
-    prefill_state = prefill(cfg, params, {"tokens": prompts}, SERVE_MAX_LEN)
-    busy_decode = print_busy("serve decode", *device_busy(decode_loop))
-    del prefill_state
-    # each part against its own fastest unprofiled run
-    for part, busy, unprofiled in (
-            ("prefill", busy_prefill, min(g.prefill_s for g in runs)),
-            ("decode", busy_decode, min(g.decode_s for g in runs))):
-        if busy["device_busy_s"] is None:
-            raise AssertionError(f"the profiler saw no device work in {part}")
-        idle = 1.0 - busy["device_busy_s"] / unprofiled
-        busy["idle_share_of_unprofiled_wall"] = idle
-        flag = ("" if idle >= 0 else " (NEGATIVE: the profiled busy time "
-                "exceeds the unprofiled wall; the two runs disagree)")
-        print(f"[serve {part}] device busy {busy['device_busy_s']:.5f} s "
-              f"against the fastest unprofiled {unprofiled:.5f} s: idle share "
-              f"{idle:.4f}{flag}")
-
-    # the card against the CPU: full width, depth 2, the same weights
-    small = dataclasses.replace(cfg, n_layers=CHECK_LAYERS)
-    host = init_params(torch.Generator().manual_seed(2), small, device="cpu")
-    on_card = params_to(host, dev)
-    ctoks = torch.randint(0, cfg.vocab_size, (CHECK_BATCH, CHECK_PROMPT),
-                          generator=torch.Generator().manual_seed(3))
-    max_len = CHECK_PROMPT + CHECK_STEPS
-    lh, sh = prefill(small, host, {"tokens": ctoks}, max_len)
-    lc, sc = prefill(small, on_card, {"tokens": ctoks}, max_len)
-    logit_errs, decided, agreed = [], 0, 0
-    for i in range(CHECK_STEPS + 1):
-        err = (lc.float().cpu() - lh.float()).abs().max().item()
-        logit_errs.append(err)
-        if not err <= LOGIT_TOL:
-            raise AssertionError(f"card and CPU logits differ by {err} at "
-                                 f"step {i} (tolerance {LOGIT_TOL})")
-        top2 = lh[:, -1].float().topk(2).values
-        sure = (top2[:, 0] - top2[:, 1]) > LOGIT_TOL
-        tok_h = lh[:, -1].argmax(-1)
-        tok_c = lc[:, -1].argmax(-1).cpu()
-        decided += int(sure.sum())
-        agreed += int((tok_h == tok_c)[sure].sum())
-        if not torch.equal(tok_h[sure], tok_c[sure]):
-            raise AssertionError(f"greedy tokens differ at step {i} where "
-                                 f"the CPU's top-2 margin exceeds {LOGIT_TOL}")
-        if i < CHECK_STEPS:  # both fed the CPU's greedy token
-            lh, sh = decode_step(small, host, sh, tok_h[:, None],
-                                 CHECK_PROMPT + i)
-            lc, sc = decode_step(small, on_card, sc, tok_h[:, None].to(dev),
-                                 CHECK_PROMPT + i)
-    print(f"[serve] card vs CPU ({CHECK_LAYERS} layers, prompt "
-          f"{CHECK_PROMPT}, {CHECK_STEPS} decode steps): max |logit diff| "
-          f"per step {[round(e, 5) for e in logit_errs]} (tolerance "
-          f"{LOGIT_TOL}); greedy tokens agree at {agreed}/{decided} "
-          f"positions whose CPU top-2 margin exceeds it")
-    del host, on_card, sh, sc
-
-    # the system's serving entry point at its default: reduced model + fleet
-    out, fcounts, fwall, _ = run_path(
-        "serve_fleet", lambda: run_serving(ServeConfig()))
-    for k in ("flash_attention", "decode_attention", "sojourn_cells"):
-        if fcounts[k] <= 0:
-            raise AssertionError(f"run_serving never launched {k}")
-    if out["backend"] != "cuda" or out["generated"].shape != (4, 16):
-        raise AssertionError(f"bad run_serving result {out['backend']}")
-    print(f"[serve_fleet] B*={out['sojourn_best_B']} policy={out['policy']} "
-          f"p99={out['speculative_p99']:.6f}; latency_by_B "
-          f"{ {b: round(v['p99'], 6) for b, v in out['latency_by_B'].items()} }")
-    report["phases"]["serve"] = {
-        "wall_s": wall, "launches": counts, "runs": [
-            [g.prefill_s, g.decode_s] for g in runs],
-        **serve_rates, "median_run": rates(median), "peak_memory_gb": peak_gb,
-        "busy_prefill": busy_prefill, "busy_decode": busy_decode,
-        "card_vs_cpu_logit_err": logit_errs, "tokens_decided": decided,
-        "fleet_wall_s": fwall, "fleet_launches": fcounts,
-        "fleet_plan": [out["sojourn_best_B"], repr(out["policy"]),
-                       out["speculative_p99"]],
-    }
+    SSM_MODEL.ssd_scan = ssd_shape_probe
+    try:
+        hybrid_report = serve_cell(
+            "serve_hybrid", hcfg, hparams, hprompts, HYBRID_NEW,
+            HYBRID_MAX_LEN,
+            {"ssd_scan": hcfg.n_layers, "flash_attention": n_seg,
+             "decode_attention": 2 * n_seg * (HYBRID_NEW - 1)})
+    finally:
+        SSM_MODEL.ssd_scan = o_ssd
+    del hparams
+    hybrid_report.update(card_vs_cpu(
+        "serve_hybrid", dataclasses.replace(hcfg, n_layers=HCHECK_LAYERS),
+        CHECK_BATCH, HCHECK_PROMPT, CHECK_STEPS))
+    hybrid_report.update(serve_fleet(
+        "serve_hybrid_fleet", ServeConfig(arch="zamba2-7b"),
+        ("ssd_scan", "flash_attention", "decode_attention", "sojourn_cells")))
+    report["phases"]["serve_hybrid"] = hybrid_report
 
     def launches(kernel: str, home: str) -> dict:
         """The kernel's launches on the path whose shapes its row times
@@ -558,7 +669,7 @@ def main() -> int:
                 "launches_by_path": {p: c[kernel]
                                      for p, c in path_counts.items()}}
 
-    # -- 6. kernels -------------------------------------------------------
+    # -- 7. kernels -------------------------------------------------------
     _phase("kernels")
 
     rows = []
@@ -767,6 +878,8 @@ def main() -> int:
                                               enable_gqa=True)
 
     lib_ms, lib_dev = cuda_ms(sdpa, 20), device_ms(sdpa, 20)
+    f_call = call_ms(lambda: FA.flash_attention(q, k, v, causal=True), 20)
+    lib_call = call_ms(sdpa, 20)
     pairs = SERVE_PROMPT * (SERVE_PROMPT + 1) // 2  # causal (q, k) pairs
     flops = 4.0 * SERVE_BATCH * h * hd * pairs
     f_bytes = nbytes(q, k, v) + q.numel() * q.element_size()  # + output
@@ -774,9 +887,10 @@ def main() -> int:
     f_by = ("operations" if flops / BF16_FLOP_PER_S
             > f_bytes / HBM_BYTES_PER_S else "bytes")
     print(f"[kernels] flash_attention q {list(q.shape)} k/v {list(k.shape)} "
-          f"causal bf16: {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
-          f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (device {lib_dev:.4f} "
-          f"ms), bound {f_bound:.5f} ms ({f_by}: {flops:.4g} FLOP, "
+          f"causal bf16: {ms:.4f} ms (device {dev_ms:.4f} ms, per call "
+          f"{f_call:.4f} ms), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
+          f"(device {lib_dev:.4f} ms, per call {lib_call:.4f} ms), bound "
+          f"{f_bound:.5f} ms ({f_by}: {flops:.4g} FLOP, "
           f"{f_bytes} B); max err f32 {flash_errs['float32']:.3e}, bf16 "
           f"{flash_errs['bfloat16']:.3e} (tol {ATT_TOL}; plain output RMS "
           f"{flash_rms})")
@@ -790,7 +904,8 @@ def main() -> int:
                  "max_abs_err_f32": flash_errs["float32"],
                  "plain_rms": flash_rms["bfloat16"],
                  "tolerance": ATT_TOL,
-                 "device_ms": dev_ms, "library_device_ms": lib_dev})
+                 "device_ms": dev_ms, "library_device_ms": lib_dev,
+                 "call_ms": f_call, "library_call_ms": lib_call})
     del q, k, v, qt, kt, vt
 
     cache_len = SERVE_PROMPT + SERVE_NEW - 1  # the last decode step's length
@@ -820,6 +935,8 @@ def main() -> int:
         return F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=True)
 
     d_lib, d_lib_dev = cuda_ms(sdpa_decode, 200), device_ms(sdpa_decode, 50)
+    d_call = call_ms(lambda: DA.decode_attention(qd, kc, vc, cache_len), 50)
+    d_lib_call = call_ms(sdpa_decode, 50)
     d_flops = 4.0 * SERVE_BATCH * h * hd * cache_len
     d_bytes = 2 * nbytes(qd) + 2 * (SERVE_BATCH * cache_len * kvh * hd
                                     * kc.element_size())
@@ -828,8 +945,9 @@ def main() -> int:
             > d_bytes / HBM_BYTES_PER_S else "bytes")
     print(f"[kernels] decode_attention q {list(qd.shape)} cache "
           f"{list(kc.shape)} at length {cache_len} bf16: {d_ms:.4f} ms "
-          f"(split + merge; device {d_dev:.4f} ms), plain {d_plain:.4f} ms, "
-          f"SDPA {d_lib:.4f} ms (device {d_lib_dev:.4f} ms), bound "
+          f"(split + merge; device {d_dev:.4f} ms, per call {d_call:.4f} "
+          f"ms), plain {d_plain:.4f} ms, SDPA {d_lib:.4f} ms (device "
+          f"{d_lib_dev:.4f} ms, per call {d_lib_call:.4f} ms), bound "
           f"{d_bound:.5f} ms ({d_by}: {d_bytes} B); max err f32 "
           f"{dec_errs['float32']:.3e} (tol {ATT_TOL['float32']}), bf16 "
           f"{dec_errs['bfloat16']:.3e} (tol {DECODE_BF16_RMS_FRAC} x plain "
@@ -846,7 +964,174 @@ def main() -> int:
                  "plain_rms": dec_rms["bfloat16"],
                  "tolerance": {"float32": ATT_TOL["float32"],
                                "bfloat16_rms_frac": DECODE_BF16_RMS_FRAC},
-                 "device_ms": d_dev, "library_device_ms": d_lib_dev})
+                 "device_ms": d_dev, "library_device_ms": d_lib_dev,
+                 "call_ms": d_call, "library_call_ms": d_lib_call})
+
+
+    # flash_attention and decode_attention at zamba2's head dim 112 (the
+    # shared block of serve_hybrid), next to SDPA
+    def attention_d112():
+        hh, hkv, hdd = hcfg.n_heads, hcfg.n_kv_heads, hcfg.head_dim
+        q = att_rand((HYBRID_BATCH, HYBRID_PROMPT, hh, hdd), 31, bf16)
+        k = att_rand((HYBRID_BATCH, HYBRID_PROMPT, hkv, hdd), 32, bf16)
+        v = att_rand((HYBRID_BATCH, HYBRID_PROMPT, hkv, hdd), 33, bf16)
+        errs, rms = {}, {}
+        for dtype in (torch.float32, bf16):
+            args = [t.to(dtype) for t in (q, k, v)]
+            name = str(dtype).split(".")[1]
+            errs[name], rms[name], ok = att_err(
+                "flash_attention", FA.flash_attention(*args, causal=True),
+                FA.flash_attention_plain(*args, causal=True), name)
+            if not ok:
+                raise AssertionError(f"flash_attention d=112 differs from its "
+                                     f"plain version in {name}: {errs[name]}")
+            del args
+        fn = lambda: FA.flash_attention(q, k, v, causal=True)  # noqa: E731
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True)
+        pairs = HYBRID_PROMPT * (HYBRID_PROMPT + 1) // 2
+        flops = 4.0 * HYBRID_BATCH * hh * hdd * pairs
+        fbytes = nbytes(q, k, v) + q.numel() * q.element_size()
+        flash = {"name": "flash_attention", "head_dim": hdd,
+                 "shape": [list(q.shape), list(k.shape)],
+                 "ms": cuda_ms(fn, 10), "device_ms": device_ms(fn, 10),
+                 "call_ms": call_ms(fn, 10), "library_call_ms": call_ms(lib, 10),
+                 "plain_ms": cuda_ms(lambda: FA.flash_attention_plain(
+                     q, k, v, causal=True), 2),
+                 "library_ms": cuda_ms(lib, 10),
+                 "library_device_ms": device_ms(lib, 10),
+                 "bound_ms": max(flops / BF16_FLOP_PER_S,
+                                 fbytes / HBM_BYTES_PER_S) * 1e3,
+                 "bound_by": ("operations" if flops / BF16_FLOP_PER_S
+                              > fbytes / HBM_BYTES_PER_S else "bytes"),
+                 "max_abs_err": errs["bfloat16"],
+                 "max_abs_err_f32": errs["float32"], "plain_rms": rms}
+        del q, k, v, qt, kt, vt
+        cl = HYBRID_PROMPT + HYBRID_NEW - 1  # the last decode step's length
+        qd = att_rand((HYBRID_BATCH, hh, hdd), 34, bf16)
+        kc = att_rand((HYBRID_BATCH, HYBRID_MAX_LEN, hkv, hdd), 35, bf16)
+        vc = att_rand((HYBRID_BATCH, HYBRID_MAX_LEN, hkv, hdd), 36, bf16)
+        errs, rms = {}, {}
+        for dtype in (torch.float32, bf16):
+            args = [t.to(dtype) for t in (qd, kc, vc)]
+            name = str(dtype).split(".")[1]
+            errs[name], rms[name], ok = att_err(
+                "decode_attention", DA.decode_attention(*args, cl),
+                DA.decode_attention_plain(*args, cl), name)
+            if not ok:
+                raise AssertionError(f"decode_attention d=112 differs from "
+                                     f"its plain version in {name}: "
+                                     f"{errs[name]}")
+            del args
+        fn = lambda: DA.decode_attention(qd, kc, vc, cl)  # noqa: E731
+        q4 = qd[:, :, None].contiguous()
+        k4, v4 = (t[:, :cl].transpose(1, 2).contiguous() for t in (kc, vc))
+        lib = lambda: F.scaled_dot_product_attention(q4, k4, v4)  # noqa: E731
+        dflops = 4.0 * HYBRID_BATCH * hh * hdd * cl
+        dbytes = 2 * nbytes(qd) + 2 * (HYBRID_BATCH * cl * hkv * hdd
+                                       * kc.element_size())
+        decode = {"name": "decode_attention", "head_dim": hdd,
+                  "shape": [list(qd.shape), list(kc.shape), cl],
+                  "ms": cuda_ms(fn, 100), "device_ms": device_ms(fn, 50),
+                  "call_ms": call_ms(fn, 50), "library_call_ms": call_ms(lib, 50),
+                  "plain_ms": cuda_ms(lambda: DA.decode_attention_plain(
+                      qd, kc, vc, cl), 10),
+                  "library_ms": cuda_ms(lib, 100),
+                  "library_device_ms": device_ms(lib, 50),
+                  "bound_ms": max(dflops / BF16_FLOP_PER_S,
+                                  dbytes / HBM_BYTES_PER_S) * 1e3,
+                  "bound_by": ("operations" if dflops / BF16_FLOP_PER_S
+                               > dbytes / HBM_BYTES_PER_S else "bytes"),
+                  "max_abs_err": errs["bfloat16"],
+                  "max_abs_err_f32": errs["float32"], "plain_rms": rms}
+        for e in (flash, decode):
+            print(f"[kernels] {e['name']} d=112 {e['shape']} bf16: "
+                  f"{e['ms']:.4f} ms (device {e['device_ms']:.4f} ms, per "
+                  f"call {e['call_ms']:.4f} ms), plain {e['plain_ms']:.4f} "
+                  f"ms, SDPA {e['library_ms']:.4f} ms (device "
+                  f"{e['library_device_ms']:.4f} ms, per call "
+                  f"{e['library_call_ms']:.4f} ms), bound "
+                  f"{e['bound_ms']:.5f} ms ({e['bound_by']}); max err f32 "
+                  f"{e['max_abs_err_f32']:.3e}, bf16 {e['max_abs_err']:.3e} "
+                  f"(plain RMS {e['plain_rms']})")
+        return flash, decode
+
+    flash112, decode112 = attention_d112()
+    rows[-2]["d112"] = flash112
+    rows[-1]["d112"] = decode112
+    extra_rows.extend([flash112, decode112])
+
+    # ssd_scan at serve_hybrid's shape, on mild-decay inputs (dt in
+    # [0.01, 0.1]: the random model's dt = softplus(N(0, 1)) decays so fast
+    # that the state carried across chunks would not be tested)
+    xs_shape, bc_shape = max(ssd_shapes, key=lambda sh: sh[0][1])
+    bsz, s_len, n_h, p_dim = xs_shape
+    n_g, n_dim = bc_shape[2], bc_shape[3]
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    sx = torch.randn(xs_shape, generator=gen, device=dev).to(bf16)
+    sdt = 0.01 + 0.09 * torch.rand((bsz, s_len, n_h), generator=gen,
+                                    device=dev)
+    salog = 0.5 * torch.randn((n_h,), generator=gen, device=dev)
+    sb = (0.3 * torch.randn(bc_shape, generator=gen, device=dev)).to(bf16)
+    sc_ = (0.3 * torch.randn(bc_shape, generator=gen, device=dev)).to(bf16)
+    sd = 1.0 + 0.2 * torch.randn((n_h,), generator=gen, device=dev)
+    ssd_errs = {}
+    for dtype in (torch.float32, bf16):
+        args = (sx.to(dtype), sdt, salog, sb.to(dtype), sc_.to(dtype), sd)
+        y_k, st_k = SSD.ssd_scan(*args)
+        y_p, st_p = SSD.ssd_scan_plain(*args)
+        torch.cuda.synchronize()
+        name = str(dtype).split(".")[1]
+        ref = y_p.float()
+        diff = (y_k.float() - ref).abs()
+        sdiff = (st_k - st_p).abs()
+        ok = bool((diff <= SSD_TOL[name] * (1.0 + ref.abs())).all()) and bool(
+            (sdiff <= SSD_TOL["float32"] * (1.0 + st_p.abs())).all())
+        if not ok or not torch.isfinite(y_k).all():
+            raise AssertionError(f"ssd_scan differs from its plain version "
+                                 f"in {name}: y {diff.max().item()}, state "
+                                 f"{sdiff.max().item()}")
+        ssd_errs[name] = diff.max().item()
+        ssd_errs[name + "_state"] = sdiff.max().item()
+        del args, y_k, st_k, y_p, st_p, ref, diff, sdiff
+    fn = lambda: SSD.ssd_scan(sx, sdt, salog, sb, sc_, sd)  # noqa: E731
+    s_ms = cuda_ms(fn, 20)
+    s_dev = device_ms(fn, 20)
+    s_call = call_ms(fn, 20)
+    s_plain = cuda_ms(lambda: SSD.ssd_scan_plain(sx, sdt, salog, sb, sc_, sd),
+                      3)
+    y_out, st_out = fn()
+    # work at the reference's chunk (128): per (batch row, head, chunk)
+    # C B^T and the weighted x (2 cl^2 N + 2 cl^2 P), the chunk state and
+    # the inter-chunk product (4 cl N P)
+    cl = SSD.effective_chunk(s_len, SSD.CHUNK)
+    s_flops = (2.0 * bsz * n_h * (s_len // cl)
+               * (cl * cl * (n_dim + p_dim) + 2 * cl * n_dim * p_dim))
+    s_bytes = nbytes(sx, sdt, salog, sb, sc_, sd, y_out, st_out)
+    s_bound = max(s_flops / BF16_FLOP_PER_S, s_bytes / HBM_BYTES_PER_S) * 1e3
+    s_by = ("operations" if s_flops / BF16_FLOP_PER_S
+            > s_bytes / HBM_BYTES_PER_S else "bytes")
+    print(f"[kernels] ssd_scan x {list(xs_shape)} b/c {list(bc_shape)} bf16: "
+          f"{s_ms:.4f} ms (device {s_dev:.4f} ms, per call {s_call:.4f} "
+          f"ms), plain {s_plain:.4f} ms, "
+          f"no library call, bound {s_bound:.5f} ms ({s_by}: {s_flops:.4g} "
+          f"FLOP, {s_bytes} B); max err f32 {ssd_errs['float32']:.3e} "
+          f"(state {ssd_errs['float32_state']:.3e}), bf16 "
+          f"{ssd_errs['bfloat16']:.3e} (tol {SSD_TOL} x (1 + |plain|))")
+    rows.append({"name": "ssd_scan", "route": "cuda",
+                 "source": "src/repro_torch/csrc/ssd_scan.cu",
+                 "replaces": "src/repro/kernels/ssm_scan/kernel.py:76",
+                 **launches("ssd_scan", "serve_hybrid"),
+                 "max_abs_err": ssd_errs["bfloat16"], "ms": s_ms,
+                 "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
+                 "library_ms": None,
+                 "shape": [list(xs_shape), list(bc_shape)],
+                 "max_abs_err_f32": ssd_errs["float32"],
+                 "max_abs_err_state_f32": ssd_errs["float32_state"],
+                 "tolerance": SSD_TOL, "device_ms": s_dev, "call_ms": s_call,
+                 "flops": s_flops, "bytes": s_bytes})
+    del sx, sdt, sb, sc_, y_out, st_out
 
     report["kernels"] = rows
     report["kernel_shapes"] = extra_rows

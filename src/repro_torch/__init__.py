@@ -7,9 +7,11 @@ kernels:
   -> ``Plan`` — through the sojourn scan (``sojourn_cells``), the k-of-N
   selection (``coded_cells``) and the coded combine (``combine``);
 * LM serving — ``launch.serve.generate`` / ``run_serving`` (prefill and
-  greedy decode of the dense family, qwen2-0.5b, then the fleet plan) —
-  through flash attention (``flash_attention``) in prefill and split-KV
-  decode attention (``decode_attention``) in decode.
+  greedy decode of the dense family, qwen2-0.5b, and of the hybrid
+  family, zamba2-7b, then the fleet plan) — through flash attention
+  (``flash_attention``) in prefill, split-KV decode attention
+  (``decode_attention``) in decode, and the SSD chunked scan
+  (``ssd_scan``) in every Mamba-2 block of prefill.
 
 It imports ``torch`` and numpy, never ``jax`` and nothing of ``repro``.
 

@@ -1,26 +1,48 @@
-"""Architecture configs of the port (the dense family so far).
+"""Architecture configs of the port (the dense and hybrid families so far).
 
 A config is pure data: the models read it.  This is the port's own copy of
-the fields of ``repro.configs.base.ArchConfig`` that the dense family
-reads, with :func:`get_config` and :func:`reduced_config` as there.  The
-MoE, SSM and hybrid sub-configs, the shape cells and the sharding policy
-are not ported yet; :func:`get_config` raises for an architecture whose
-family the port cannot run.
+the fields of ``repro.configs.base.ArchConfig`` that the dense and hybrid
+families read (with the Mamba-2 :class:`SSMConfig` and the Zamba
+:class:`HybridConfig`), and of :func:`get_config` and
+:func:`reduced_config`.  The MoE sub-config, the xLSTM fields of
+``SSMConfig``, the shape cells and the sharding policy are not ported yet;
+:func:`get_config` raises for an architecture the port cannot run.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Literal
+from typing import Literal, Optional
 
 __all__ = [
+    "SSMConfig",
+    "HybridConfig",
     "ArchConfig",
     "ARCH_IDS",
     "PORTED_ARCH_IDS",
     "get_config",
     "reduced_config",
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 / SSD settings (zamba2)."""
+
+    state_dim: int = 64  # N, per-head state
+    head_dim: int = 64  # P
+    expansion: int = 2
+    conv_kernel: int = 4
+    n_groups: int = 1  # B/C groups (like GQA for the SSM)
+    chunk: int = 128  # chunk length of the plain chunked scan
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    """Zamba2-style hybrid: SSM backbone + one shared attention block."""
+
+    attn_every: int = 6  # shared attn applied after every k-th ssm block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +65,8 @@ class ArchConfig:
     use_rope: bool = True
     tie_embeddings: bool = False
     logit_softcap: float = 0.0
+    ssm: Optional[SSMConfig] = None
+    hybrid: Optional[HybridConfig] = None
 
     @property
     def head_dim(self) -> int:
@@ -68,7 +92,7 @@ ARCH_IDS = (
     "zamba2-7b",
     "whisper-medium",
 )
-PORTED_ARCH_IDS = ("qwen2-0.5b",)
+PORTED_ARCH_IDS = ("qwen2-0.5b", "zamba2-7b")
 
 
 def get_config(arch_id: str) -> ArchConfig:
@@ -87,11 +111,18 @@ def get_config(arch_id: str) -> ArchConfig:
 
 def reduced_config(cfg: ArchConfig) -> ArchConfig:
     """Tiny same-family config for CPU smoke tests (shapes only, same code
-    paths, GQA ratio kept): the dense-family case of the reference's rule."""
+    paths, GQA ratio kept, hybrid interleave kept): the dense and hybrid
+    cases of the reference's rule."""
     kv = max(1, min(cfg.n_kv_heads, 2))
     heads = max(kv * max(1, cfg.n_heads // max(cfg.n_kv_heads, 1) // 4), kv)
     heads = max(heads - heads % kv, kv)
     d_model = 64 * heads if cfg.family != "ssm" else 128
+    ssm = None
+    if cfg.ssm is not None:
+        ssm = dataclasses.replace(cfg.ssm, state_dim=16, head_dim=32, chunk=16)
+    hybrid = cfg.hybrid
+    if hybrid is not None:
+        hybrid = dataclasses.replace(hybrid, attn_every=2)
     return dataclasses.replace(
         cfg,
         name=cfg.name + "-reduced",
@@ -101,4 +132,6 @@ def reduced_config(cfg: ArchConfig) -> ArchConfig:
         n_kv_heads=kv,
         d_ff=0 if cfg.d_ff == 0 else 4 * d_model,
         vocab_size=512,
+        ssm=ssm,
+        hybrid=hybrid,
     )

@@ -9,7 +9,7 @@ candidates (``PolicyCandidate``, ``CodingCandidate``, ``SloClass``,
 converted entry by entry; ``None`` and plain numbers pass through.
 
 :func:`params_from_reference` turns the reference's LM parameter pytree
-(as numpy arrays) into the port's parameter tree.
+(as numpy arrays, dense or hybrid family) into the port's parameter tree.
 
 Nothing here imports the reference: the object's class name picks the
 target and its attributes (plain values and numpy arrays) fill it.  So a
@@ -102,32 +102,56 @@ def _tree(tree, device):
     return _tensor(tree, device)
 
 
+def _layer(sub, idx, dev):
+    """Entry ``idx`` (a tuple of leading indices) of every stacked leaf."""
+    if isinstance(sub, dict):
+        return {k: _layer(v, idx, dev) for k, v in sub.items()}
+    return _tensor(np.asarray(sub)[idx], dev)
+
+
+def _check_stack(sub, lead: tuple, what: str) -> None:
+    if isinstance(sub, dict):
+        for v in sub.values():
+            _check_stack(v, lead, what)
+        return
+    shape = np.asarray(sub).shape
+    if tuple(shape[: len(lead)]) != lead:
+        raise ValueError(f"{what} leaf {shape} lacks the leading axes {lead}")
+
+
 def params_from_reference(cfg, tree, device=None):
     """The port's parameters from the reference's LM parameter pytree.
 
     ``tree`` is ``repro.models.lm.init_params(key, cfg)`` with its leaves
-    as numpy arrays (``jax.tree.map(np.asarray, params)``).  Its
-    ``"blocks"`` leaves are stacked on a leading layer axis (``vmap`` over
-    the layer keys); the port keeps one dict per layer, so layer ``i`` of
-    every leaf goes to ``blocks[i]``.  Dense family only.  ``device=None``
+    as numpy arrays (``jax.tree.map(np.asarray, params)``).  Stacked leaves
+    become lists, one dict per layer: the dense family's ``"blocks"``
+    (leading axis L) go to ``blocks[i]``; the hybrid family's
+    ``"mamba_segments"`` (leading axes n_seg, seg) to
+    ``mamba_segments[i][j]`` and ``"mamba_trailing"`` (leading axis
+    trailing) to ``mamba_trailing[j]``; its ``"shared_attn"`` is one
+    unstacked block.  Dense and hybrid families only.  ``device=None``
     means CUDA.
     """
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "hybrid"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
     dev = resolve_device(device)
-    blocks = tree["blocks"]
-
-    def layer(sub, i):
-        if isinstance(sub, dict):
-            return {k: layer(v, i) for k, v in sub.items()}
-        arr = np.asarray(sub)
-        if arr.shape[0] != cfg.n_layers:
-            raise ValueError(f"stacked leaf {arr.shape} has no leading axis "
-                             f"of {cfg.n_layers} layers")
-        return _tensor(arr[i], dev)
-
-    return {
-        "embed": _tree(tree["embed"], dev),
-        "blocks": [layer(blocks, i) for i in range(cfg.n_layers)],
-        "final_norm": _tree(tree["final_norm"], dev),
-    }
+    out = {"embed": _tree(tree["embed"], dev)}
+    if cfg.family == "dense":
+        _check_stack(tree["blocks"], (cfg.n_layers,), "blocks")
+        out["blocks"] = [_layer(tree["blocks"], (i,), dev)
+                         for i in range(cfg.n_layers)]
+    else:
+        k = cfg.hybrid.attn_every
+        n_seg, trailing = cfg.n_layers // k, cfg.n_layers % k
+        segs = tree["mamba_segments"]
+        _check_stack(segs, (n_seg, k), "mamba_segments")
+        out["mamba_segments"] = [[_layer(segs, (i, j), dev) for j in range(k)]
+                                 for i in range(n_seg)]
+        out["shared_attn"] = _tree(tree["shared_attn"], dev)
+        if trailing:
+            _check_stack(tree["mamba_trailing"], (trailing,), "mamba_trailing")
+            out["mamba_trailing"] = [
+                _layer(tree["mamba_trailing"], (j,), dev)
+                for j in range(trailing)]
+    out["final_norm"] = _tree(tree["final_norm"], dev)
+    return out

@@ -14,7 +14,7 @@
 // At that size the two launches cost more than the reads.
 //
 // Design: one 128-thread block per (split, KV head, batch row).  A split
-// is 4096 / d cache positions (64 at d = 64).  The block serves all
+// is 4096 / d cache positions (64 at d = 64, 36 at d = 112).  The block serves all
 // H / KV query heads of its KV group, so each K and V row is read from
 // device memory once per group, not once per query head (the reference
 // repeats the cache per head).  It stages its K rows (padded rows) and V
@@ -231,6 +231,7 @@ const char* repro_error_string(int code) {
 // cache positions per split at head dimension d (0 for an unsupported d)
 int decode_attention_split_len(int d) {
   if (d == 64) return split_len<64>();
+  if (d == 112) return split_len<112>();
   if (d == 128) return split_len<128>();
   return 0;
 }
@@ -256,6 +257,12 @@ int decode_attention_split_launch(const void* q, const void* k, const void* v,
                                            cache_len, n_splits, s);
   if (dtype == 1 && d == 128)
     return launch_split<__nv_bfloat16, 128>(q, k, v, m, l, acc, b, H, KV,
+                                            smax, cache_len, n_splits, s);
+  if (dtype == 0 && d == 112)
+    return launch_split<float, 112>(q, k, v, m, l, acc, b, H, KV, smax,
+                                    cache_len, n_splits, s);
+  if (dtype == 1 && d == 112)
+    return launch_split<__nv_bfloat16, 112>(q, k, v, m, l, acc, b, H, KV,
                                             smax, cache_len, n_splits, s);
   return (int)cudaErrorInvalidValue;
 }

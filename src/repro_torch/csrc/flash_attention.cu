@@ -22,7 +22,9 @@
 // shared memory as float32, each thread computes a 4 x 4 patch of the
 // 64 x 64 score tile, the row max and sum are reduced over the 16 threads
 // of a row group with shuffles, the probabilities go through shared memory
-// and each thread updates a 4 x (d / 16) patch of the output in registers.
+// and each thread updates a 4 x (4 per 64 columns) patch of the output in
+// registers: columns tx * 4 + 64 * cb, for every cb whose group lies below
+// d (d = 112: the second block's last four threads hold no columns).
 // Ragged query and key edges are masked here, so the wrapper pads nothing.
 // Tensor cores (mma / wgmma), TMA and a pipelined ring of tiles are later
 // work.
@@ -88,7 +90,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   constexpr int VN = Vec<T>::N;
   constexpr int GROUPS = D / VN;  // 16-byte groups per row
-  constexpr int CB = D / 64;      // 4-column blocks per thread, 64 apart
+  constexpr int CB = (D + 63) / 64;  // 4-column blocks per thread, 64 apart
 
   const int qt = n_qtiles - 1 - blockIdx.x;  // heaviest causal tiles first
   const int h = blockIdx.y;
@@ -98,6 +100,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int ty = tid / 16;  // rows ty*4 .. ty*4+3
   const int tx = tid % 16;  // score columns tx*4 .., output columns too
+  // D is a multiple of 16; with D % 64 == 0 every column block is whole,
+  // else the last one holds columns for the threads with tx * 4 < D % 64
+  const bool last_cb = D % 64 == 0 || tx * 4 < D % 64;
 
   for (int e = tid; e < BQ * GROUPS; e += THREADS) {
     const int r = e % BQ, g = e / BQ;
@@ -228,6 +233,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int u = 0; u < 4; ++u) {
 #pragma unroll
         for (int cb = 0; cb < CB; ++cb) {
+          if (cb == CB - 1 && !last_cb) continue;
           const float4 vv = *reinterpret_cast<const float4*>(
               &Vs[(kk + u) * D + cb * 64 + tx * 4]);
 #pragma unroll
@@ -249,10 +255,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.0f / fmaxf(l_i[i], 1e-30f);
     T* o = out + (((size_t)bi * sq + row) * H + h) * D;
 #pragma unroll
-    for (int cb = 0; cb < CB; ++cb)
+    for (int cb = 0; cb < CB; ++cb) {
+      if (cb == CB - 1 && !last_cb) continue;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         store(o + cb * 64 + tx * 4 + j, acc[i][cb * 4 + j] * inv);
+    }
   }
 }
 
@@ -281,7 +289,7 @@ const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype: 0 = float32, 1 = bfloat16; d in {64, 128}.  The wrapper checks
+// dtype: 0 = float32, 1 = bfloat16; d in {64, 112, 128}.  The wrapper checks
 // shapes, strides (contiguous), alignment and q_offset >= 0.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int b, int sq, int skv, int H, int KV,
@@ -300,6 +308,12 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                                      q_offset, s);
   if (dtype == 1 && d == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, out, b, sq, skv, H, KV, causal,
+                                      q_offset, s);
+  if (dtype == 0 && d == 112)
+    return launch<float, 112>(q, k, v, out, b, sq, skv, H, KV, causal,
+                              q_offset, s);
+  if (dtype == 1 && d == 112)
+    return launch<__nv_bfloat16, 112>(q, k, v, out, b, sq, skv, H, KV, causal,
                                       q_offset, s);
   return (int)cudaErrorInvalidValue;
 }

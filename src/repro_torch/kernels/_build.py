@@ -50,6 +50,7 @@ SOURCES = {
     "combine": ("combine.cu", []),
     "flash_attention": ("flash_attention.cu", []),
     "decode_attention": ("decode_attention.cu", []),
+    "ssd_scan": ("ssd_scan.cu", []),
 }
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
@@ -75,6 +76,9 @@ SIGNATURES = {
                                           _INT),
         "decode_attention_merge_launch": ([_PTR] * 4 + [_INT] * 5 + [_PTR],
                                           _INT),
+    },
+    "ssd_scan": {
+        "ssd_scan_launch": ([_PTR] * 9 + [_INT] * 7 + [_PTR], _INT),
     },
 }
 

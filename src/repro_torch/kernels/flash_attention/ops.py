@@ -25,7 +25,7 @@ from .. import _build
 __all__ = ["flash_attention", "flash_attention_plain", "repeat_kv"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)
 NEG_INF = -1e30
 
 

@@ -1,0 +1,185 @@
+"""The SSD chunked scan: the CUDA wrapper and its plain PyTorch version.
+
+:func:`ssd_scan` takes x (B, S, H, P), dt (B, S, H), a_log (H,) (A =
+-exp(a_log)), b and c (B, S, G, N) with H % G == 0, d_skip (H,) and an
+optional float32 ``initial_state`` (B, H, N, P), as ``repro.models.ssm
+.ssd_chunked`` does, and returns (y (B, S, H, P) in x's dtype, the final
+state (B, H, N, P) in float32).  Head h reads B/C group h // (H / G), the
+group-major order of the reference's ``jnp.repeat``.
+
+On a CUDA tensor it launches ``csrc/ssd_scan.cu`` (or raises), which walks
+the sequence in fixed chunks of 64 positions and masks the ragged tail; on a CPU tensor it runs :func:`ssd_scan_plain`, which follows
+``ssd_chunked`` with the reference model's chunk rule: chunks of
+``min(chunk, S)``, or one chunk of S when that does not divide S.
+Chunking is exact in real arithmetic, so the two differ by float32
+rounding only: the kernel is held to the plain version within
+1e-4 * (1 + |plain|) in float32 and 5e-2 * (1 + |plain|) in bfloat16 (the
+output's rounding), on inputs whose per-chunk decay stays mild.
+
+:func:`ssd_sequential` is the reference's step-by-step oracle.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from .. import _build
+
+__all__ = ["CHUNK", "effective_chunk", "expand_groups", "ssd_scan",
+           "ssd_scan_plain", "ssd_sequential"]
+
+CHUNK = 128  # the reference's default chunk (zamba2's SSMConfig.chunk)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_DIM = 128  # P and N: multiples of 16, at most this
+
+
+def expand_groups(t: torch.Tensor, h: int, dim: int) -> torch.Tensor:
+    """B/C groups along ``dim`` expanded to ``h`` heads, group-major (the
+    reference's ``jnp.repeat``)."""
+    g = t.shape[dim]
+    return t if g == h else t.repeat_interleave(h // g, dim=dim)
+
+
+def ssd_sequential(x, dt, a_log, b, c, d_skip):
+    """Oracle: the step-by-step recurrence.  Returns (y, final_state)."""
+    bs, s, h, p = x.shape
+    n = b.shape[3]
+    a = -torch.exp(a_log.float())  # (H,)
+    bx = expand_groups(b, h, 2).float()
+    cx = expand_groups(c, h, 2).float()
+    xf, dtf = x.float(), dt.float()
+    state = torch.zeros((bs, h, n, p), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * a)  # (B, H)
+        upd = torch.einsum("bh,bhn,bhp->bhnp", dtf[:, t], bx[:, t], xf[:, t])
+        state = state * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhn,bhnp->bhp", cx[:, t], state))
+    y = torch.stack(ys, dim=1) + d_skip.float()[None, None, :, None] * xf
+    return y.to(x.dtype), state
+
+
+def effective_chunk(s: int, chunk: int = CHUNK) -> int:
+    """The reference model's chunk rule (``apply_mamba2_block``)."""
+    eff = min(chunk, s)
+    return s if s % eff else eff
+
+
+def ssd_scan_plain(x, dt, a_log, b, c, d_skip, initial_state=None,
+                   chunk: int = CHUNK):
+    """``ssd_chunked`` at :func:`effective_chunk` (s, chunk).  Returns
+    (y in x's dtype, final state in float32)."""
+    bs, s, h, p = x.shape
+    n = b.shape[3]
+    cl = effective_chunk(s, chunk)
+    nc = s // cl
+    a = -torch.exp(a_log.float())
+    xf = x.float().reshape(bs, nc, cl, h, p)
+    dtf = dt.float().reshape(bs, nc, cl, h)
+    bf = expand_groups(b, h, 2).float().reshape(bs, nc, cl, h, n)
+    cf = expand_groups(c, h, 2).float().reshape(bs, nc, cl, h, n)
+
+    cum = torch.cumsum(dtf * a, dim=2)  # (B, nc, cl, H) inclusive log decay
+    total = cum[:, :, -1]  # (B, nc, H)
+
+    # intra-chunk: y_t = sum_{s<=t} (C_t . B_s) exp(L_t - L_s) dt_s x_s;
+    # the decay is masked BEFORE the exp (above the diagonal L_t - L_s > 0)
+    cb = torch.einsum("bkthn,bkshn->bkhts", cf, bf)
+    ldiff = (cum[..., :, None, :] - cum[..., None, :, :]).permute(0, 1, 4, 2, 3)
+    mask = torch.ones((cl, cl), dtype=torch.bool, device=x.device).tril()
+    w = torch.where(mask, cb * torch.exp(torch.where(mask, ldiff, 0.0)), 0.0)
+    xdt = xf * dtf[..., None]
+    y = torch.einsum("bkhts,bkshp->bkthp", w, xdt)
+
+    # per-chunk input states, then the recurrence over chunks
+    decay_to_end = torch.exp(total[:, :, None] - cum)  # (B, nc, cl, H)
+    sk = torch.einsum("bksh,bkshn,bkshp->bkhnp", decay_to_end * dtf, bf, xf)
+    chunk_decay = torch.exp(total)  # (B, nc, H)
+    state = (torch.zeros((bs, h, n, p), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state.float())
+    prev = []
+    for k in range(nc):
+        prev.append(state)  # the state BEFORE chunk k
+        state = state * chunk_decay[:, k, :, None, None] + sk[:, k]
+    prev_states = torch.stack(prev, dim=1)  # (B, nc, H, N, P)
+    y = y + torch.einsum("bkth,bkthn,bkhnp->bkthp", torch.exp(cum), cf,
+                         prev_states)
+    y = y.reshape(bs, s, h, p) + d_skip.float()[None, None, :, None] * x.float()
+    return y.to(x.dtype), state
+
+
+def _check(x, dt, a_log, b, c, d_skip, initial_state):
+    if x.dim() != 4 or b.dim() != 4 or c.dim() != 4 or dt.dim() != 3:
+        raise ValueError("x must be (B, S, H, P), dt (B, S, H) and b, c "
+                         "(B, S, G, N)")
+    bs, s, h, p = x.shape
+    _, _, g, n = b.shape
+    if tuple(c.shape) != tuple(b.shape):
+        raise ValueError(f"c {tuple(c.shape)} must match b {tuple(b.shape)}")
+    if tuple(b.shape[:2]) != (bs, s) or tuple(dt.shape) != (bs, s, h):
+        raise ValueError(f"dt {tuple(dt.shape)} / b {tuple(b.shape)} do not "
+                         f"fit x {tuple(x.shape)}")
+    if g < 1 or h % g:
+        raise ValueError(f"{h} heads do not group over {g} B/C groups")
+    if s < 1 or bs < 1:
+        raise ValueError("need at least one batch row and one position")
+    for name, dim in (("head dim P", p), ("state dim N", n)):
+        if dim % 16 or not 16 <= dim <= MAX_DIM:
+            raise ValueError(f"{name} {dim} must be a multiple of 16 in "
+                             f"[16, {MAX_DIM}]")
+    if tuple(a_log.shape) != (h,) or tuple(d_skip.shape) != (h,):
+        raise ValueError(f"a_log and d_skip must be ({h},)")
+    if x.dtype not in DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
+        raise TypeError(f"x, b and c have dtypes {x.dtype}, {b.dtype}, "
+                        f"{c.dtype}; expected float32 or bfloat16, all one")
+    tensors = [("x", x), ("dt", dt), ("a_log", a_log), ("b", b), ("c", c),
+               ("d_skip", d_skip)]
+    if initial_state is not None:
+        if tuple(initial_state.shape) != (bs, h, n, p):
+            raise ValueError(f"initial_state must be {(bs, h, n, p)}")
+        tensors.append(("initial_state", initial_state))
+    for name, t in tensors:
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, expected {x.device}")
+        if name in ("dt", "a_log", "d_skip", "initial_state") and (
+                t.dtype != torch.float32):
+            raise TypeError(f"{name} has dtype {t.dtype}; expected float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def ssd_scan(x, dt, a_log, b, c, d_skip,
+             initial_state: Optional[torch.Tensor] = None, *,
+             chunk: int = CHUNK):
+    """x (B, S, H, P); dt (B, S, H) float32; a_log, d_skip (H,) float32;
+    b, c (B, S, G, N) in x's dtype; initial_state (B, H, N, P) float32 or
+    None.  Returns (y (B, S, H, P) in x's dtype, final_state (B, H, N, P)
+    float32).  ``chunk`` is the plain version's chunk (the CPU path); the
+    kernel keeps its own 64."""
+    _check(x, dt, a_log, b, c, d_skip, initial_state)
+    dev = x.device
+    if dev.type == "cpu":
+        return ssd_scan_plain(x, dt, a_log, b, c, d_skip, initial_state,
+                              chunk)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    for name, t in (("x", x), ("b", b), ("c", c)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    bs, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    lib = _build.load("ssd_scan")
+    y = torch.empty_like(x)
+    state = torch.empty((bs, h, n, p), dtype=torch.float32, device=dev)
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
+    code = lib.ssd_scan_launch(
+        ptr(x), ptr(dt), ptr(a_log), ptr(b), ptr(c), ptr(d_skip),
+        ptr(initial_state), ptr(y), ptr(state), bs, s, h, g, p, n,
+        DTYPES[x.dtype],
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(lib, code, "ssd_scan launch")
+    _build.count_launch("ssd_scan")
+    return y, state

@@ -2,7 +2,8 @@
 
 As ``repro.launch.serve``: (a) run prefill + greedy decode on a model to
 produce tokens (:func:`generate`, which goes through the
-``flash_attention`` and ``decode_attention`` kernels on the card), and
+``flash_attention`` and ``decode_attention`` kernels on the card, and for
+the hybrid family, ``--arch zamba2-7b``, through ``ssd_scan`` too), and
 (b) score a fleet of N server groups under the shifted-exponential
 straggler model, as batch-completion latency across B
 (``sweep_simulated``) and as per-request sojourn under Poisson arrivals

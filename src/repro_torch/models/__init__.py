@@ -1,4 +1,5 @@
-"""Models of the port: the dense LM family on the attention kernels."""
+"""Models of the port: the dense LM family on the attention kernels, and
+the hybrid family (zamba2) on them and the SSD scan."""
 
 from .lm import (
     count_params,

@@ -1,17 +1,24 @@
-"""Model API of the port (the dense family).
+"""Model API of the port (the dense and hybrid families).
 
     params          = init_params(generator, cfg, device)
     logits, state   = prefill(cfg, params, batch, max_len)
     logits, state   = decode_step(cfg, params, state, token, cache_len)
 
 As ``repro.models.lm`` without the ``Shard`` argument (the port runs on
-one device until the distributed slice).  ``params`` is a dict:
-``{"embed": {...}, "blocks": [per-layer dict, ...], "final_norm": {...}}``;
-the reference's blocks, stacked on a leading layer axis by ``vmap``, are
-a list here, one dict per layer.  The decode state keeps the reference's
-layout, ``{"k", "v"}`` of shape (L, b, max_len, KV, hd) in bfloat16;
-``prefill`` and ``decode_step`` write it IN PLACE and return it.
-Families other than ``dense`` raise ``NotImplementedError``.
+one device until the distributed slice).  ``params`` is a dict.  Dense:
+``{"embed", "blocks": [per-layer dict, ...], "final_norm"}``; the
+reference's blocks, stacked on a leading layer axis by ``vmap``, are a
+list here, one dict per layer.  Hybrid (zamba2): ``{"embed",
+"mamba_segments": [[block, ...] per segment], "shared_attn",
+"mamba_trailing": [block, ...], "final_norm"}`` (``models.zamba``).
+
+The decode state keeps the reference's layout: dense ``{"k", "v"}`` of
+shape (L, b, max_len, KV, hd) in bfloat16; hybrid ``seg_ssm`` (n_seg, seg,
+b, H, N, P) float32, ``seg_conv`` (n_seg, seg, b, K-1, conv_dim) bfloat16,
+``attn_k`` / ``attn_v`` (n_seg, b, max_len, KV, hd) bfloat16, and
+``trail_ssm`` / ``trail_conv`` for the trailing blocks.  ``prefill`` and
+``decode_step`` write it IN PLACE and return it.  Families other than
+``dense`` and ``hybrid`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device
 from . import layers as L
 from . import transformer as T
+from . import zamba as Z
 
 __all__ = [
     "init_params",
@@ -33,25 +41,32 @@ __all__ = [
 ]
 
 
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+PORTED_FAMILIES = ("dense", "hybrid")
+
+
+def _ported(cfg: ArchConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported (dense only)")
+            f"{cfg.name}: family {cfg.family!r} is not ported "
+            f"(the port has {PORTED_FAMILIES})")
 
 
 def init_params(generator: torch.Generator, cfg: ArchConfig, device=None):
     """Random parameters with the reference's shapes and scales, drawn in
-    order (embedding, blocks 0..L-1, final norm) from ``generator``, which
-    must live on ``device`` (``None`` means CUDA)."""
+    order (embedding, then the blocks in order of application, then the
+    final norm) from ``generator``, which must live on ``device`` (``None``
+    means CUDA)."""
     cfg.validate()
-    _dense_only(cfg)
+    _ported(cfg)
     dev = resolve_device(device)
-    return {
-        "embed": L.init_embedding(generator, cfg, dev),
-        "blocks": [T.init_block(generator, cfg, dev)
-                   for _ in range(cfg.n_layers)],
-        "final_norm": L.init_norm(cfg, dev),
-    }
+    p = {"embed": L.init_embedding(generator, cfg, dev)}
+    if cfg.family == "hybrid":
+        p.update(Z.init_zamba(generator, cfg, dev))
+    else:
+        p["blocks"] = [T.init_block(generator, cfg, dev)
+                       for _ in range(cfg.n_layers)]
+    p["final_norm"] = L.init_norm(cfg, dev)
+    return p
 
 
 def params_to(params, device):
@@ -76,9 +91,12 @@ def _device_of(params) -> torch.device:
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, device=None):
-    """Zero caches {"k", "v"}: (L, batch, max_len, KV, hd) bfloat16."""
-    _dense_only(cfg)
+    """Zero decode state: dense {"k", "v"}: (L, batch, max_len, KV, hd)
+    bfloat16; hybrid: ``zamba.init_zamba_decode_state``."""
+    _ported(cfg)
     dev = resolve_device(device)
+    if cfg.family == "hybrid":
+        return Z.init_zamba_decode_state(cfg, batch, max_len, dev)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=L.DTYPE, device=dev),
             "v": torch.zeros(shape, dtype=L.DTYPE, device=dev)}
@@ -87,11 +105,12 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, device=None):
 def prefill(cfg: ArchConfig, params, batch, max_len: int):
     """Process a prompt and build the decode state.
 
-    ``batch["tokens"]``: (b, s) integer tokens.  K/V of every layer are
-    written at positions [0, s) of a fresh state.  Returns (logits of the
-    last position (b, 1, V) in bfloat16, state).
+    ``batch["tokens"]``: (b, s) integer tokens.  K/V of every attention
+    layer are written at positions [0, s) of a fresh state (and, hybrid,
+    every Mamba-2 block's final SSM state and conv tail).  Returns (logits
+    of the last position (b, 1, V) in bfloat16, state).
     """
-    _dense_only(cfg)
+    _ported(cfg)
     dev = _device_of(params)
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
     b, s = tokens.shape
@@ -101,9 +120,12 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int):
     x = L.embed_tokens(params["embed"], tokens)
     rope = L.rope_tables(torch.arange(s, device=dev), cfg.head_dim,
                          cfg.rope_theta)
-    for i, lp in enumerate(params["blocks"]):
-        x = T.apply_block(cfg, lp, x, rope,
-                          kv_sink=(state["k"][i], state["v"][i]))
+    if cfg.family == "hybrid":
+        x = Z.apply_zamba_prefill(cfg, params, x, rope, state)
+    else:
+        for i, lp in enumerate(params["blocks"]):
+            x = T.apply_block(cfg, lp, x, rope,
+                              kv_sink=(state["k"][i], state["v"][i]))
     x = L.apply_norm(cfg, params["final_norm"], x[:, -1:])
     return L.unembed(cfg, params["embed"], x), state
 
@@ -112,17 +134,21 @@ def decode_step(cfg: ArchConfig, params, state, token, cache_len: int):
     """One-token step.  ``token`` (b, 1) integers; ``cache_len`` (a host
     int) is the number of tokens already in the cache, and the new token
     sits at position ``cache_len``.  Returns (logits (b, 1, V), state)."""
-    _dense_only(cfg)
+    _ported(cfg)
     dev = _device_of(params)
     cache_len = int(cache_len)
-    if not 0 <= cache_len < state["k"].shape[2]:
+    max_len = state["attn_k" if cfg.family == "hybrid" else "k"].shape[2]
+    if not 0 <= cache_len < max_len:
         raise ValueError(f"cache_len {cache_len} outside the cache "
-                         f"[0, {state['k'].shape[2]})")
+                         f"[0, {max_len})")
     x = L.embed_tokens(params["embed"], torch.as_tensor(token, device=dev).long())
     rope = L.rope_tables(torch.full((1,), cache_len, device=dev),
                          cfg.head_dim, cfg.rope_theta)
-    for i, lp in enumerate(params["blocks"]):
-        x, _, _ = T.apply_block_decode(cfg, lp, x, state["k"][i],
-                                       state["v"][i], cache_len, rope)
+    if cfg.family == "hybrid":
+        x = Z.apply_zamba_decode(cfg, params, x, state, cache_len, rope)
+    else:
+        for i, lp in enumerate(params["blocks"]):
+            x, _, _ = T.apply_block_decode(cfg, lp, x, state["k"][i],
+                                           state["v"][i], cache_len, rope)
     x = L.apply_norm(cfg, params["final_norm"], x)
     return L.unembed(cfg, params["embed"], x), state

@@ -71,7 +71,7 @@ def test_flash_plain_matches_pallas_interpret(pallas_load, q_offset):
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("h,kv,d", [(4, 4, 64), (4, 2, 64), (7, 1, 64),
-                                    (6, 2, 128)])
+                                    (6, 2, 128), (4, 4, 112), (4, 2, 112)])
 @pytest.mark.parametrize("sq,skv,causal", [(1, 37, True), (50, 50, True),
                                            (33, 97, True), (40, 72, False)])
 def test_flash_plain_matches_xla(dt, h, kv, d, sq, skv, causal):
@@ -101,7 +101,8 @@ def test_decode_plain_matches_pallas_interpret(pallas_load, cache_len):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("h,kv,d", [(4, 4, 64), (14, 2, 64), (8, 1, 128)])
+@pytest.mark.parametrize("h,kv,d", [(4, 4, 64), (14, 2, 64), (8, 1, 128),
+                                    (4, 4, 112)])
 @pytest.mark.parametrize("smax,cache_len", [(100, 1), (100, 65), (256, 256),
                                             (300, 129)])
 def test_decode_plain_matches_xla(dt, h, kv, d, smax, cache_len):

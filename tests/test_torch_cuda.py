@@ -13,8 +13,11 @@ planner must give on the card exactly what they give on the CPU.  The
 attention kernels are held to their plain versions at 5e-5 in float32; in
 bfloat16 flash attention at 5e-2 (``tests/test_kernels.py``'s tolerance)
 and decode attention within a tenth of its plain output's RMS (its outputs
-average up to a thousand value rows and are small).  The dense LM's logits
-on the card meet the CPU's within 4e-2.
+average up to a thousand value rows and are small).  The SSD scan is held
+to its plain version within 1e-4 * (1 + |plain|) in float32 and
+5e-2 * (1 + |plain|) in bfloat16 (y's rounding), its final state within
+1e-4 * (1 + |plain|), on mild-decay inputs.  The dense and hybrid LMs'
+logits on the card meet the CPU's within 4e-2.
 """
 
 import numpy as np
@@ -34,6 +37,7 @@ from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.models import decode_step, init_params, params_to, prefill
 from repro_torch.kernels.sojourn_sweep import kernel as K
 from repro_torch.kernels.sojourn_sweep import ops as O
+from repro_torch.kernels.ssm_scan import ops as SS
 
 pytestmark = pytest.mark.cuda
 
@@ -226,6 +230,10 @@ def _randn(shape, seed, dev, dtype):
     (1, 200, 330, 14, 2, 64, True, 130),
     (1, 64, 64, 2, 2, 64, True, 1000),
     (2, 256, 256, 14, 2, 64, True, 0),
+    (1, 130, 130, 32, 32, 112, True, 0),   # zamba2's shared attention
+    (2, 70, 70, 8, 2, 112, True, 0),
+    (1, 33, 97, 4, 4, 112, True, 64),
+    (2, 40, 72, 4, 2, 112, False, 0),
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, b, sq, skv, h, kv, d,
                                     causal, off):
@@ -246,6 +254,8 @@ def test_flash_kernel_matches_plain(cuda, dtype, b, sq, skv, h, kv, d,
     (2, 4, 2, 64, 1024, 1), (2, 4, 2, 64, 1024, 100),
     (2, 4, 2, 64, 1024, 1024), (8, 14, 2, 64, 2048, 1056),
     (2, 8, 1, 128, 300, 129), (1, 48, 1, 128, 100, 65), (3, 4, 4, 64, 65, 65),
+    (2, 32, 32, 112, 2048, 1039), (2, 32, 8, 112, 300, 37),
+    (1, 4, 4, 112, 100, 1), (1, 4, 2, 112, 73, 73),
 ])
 def test_decode_kernel_matches_plain(cuda, dtype, b, h, kv, d, smax,
                                      cache_len):
@@ -288,3 +298,96 @@ def test_dense_lm_on_card_matches_cpu(cuda):
     after = launch_counts()
     assert after["decode_attention"] - before["decode_attention"] == (
         2 * 4 * cfg.n_layers)
+
+
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+def _ssd_inputs(seed, b, s, h, p, g, n, dtype, dev, init=False,
+                strong=False):
+    """Mild-decay inputs (dt in [0.01, 0.1]); ``strong``: dt = 30, where
+    exp(cum_t - cum_s) above the diagonal overflows float32."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=gen)  # noqa: E731
+    dt = (torch.full((b, s, h), 30.0) if strong
+          else 0.01 + 0.09 * torch.rand((b, s, h), generator=gen))
+    out = [r(b, s, h, p).to(dev, dtype), dt.to(dev), (0.5 * r(h)).to(dev),
+           (0.3 * r(b, s, g, n)).to(dev, dtype),
+           (0.3 * r(b, s, g, n)).to(dev, dtype), (1 + 0.2 * r(h)).to(dev)]
+    out.append((0.5 * r(b, h, n, p)).to(dev) if init else None)
+    return out
+
+
+def _ssd_close(out, ref, tol):
+    ref = ref.float()
+    assert bool(((out.float() - ref).abs() <= tol * (1 + ref.abs())).all()), (
+        (out.float() - ref).abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,g", [
+    (2, 1, 4, 1), (1, 37, 4, 4), (2, 64, 3, 1), (1, 200, 4, 2),
+    (2, 1000, 2, 1),
+])
+@pytest.mark.parametrize("p,n", [(32, 16), (64, 64), (128, 16), (32, 64),
+                                 (128, 64), (64, 16), (48, 80)])
+def test_ssd_kernel_matches_plain(cuda, dtype, b, s, h, g, p, n):
+    args = _ssd_inputs(b * s + p + n, b, s, h, p, g, n, dtype, cuda,
+                       init=(s % 2 == 1))
+    before = launch_counts()["ssd_scan"]
+    y, st = SS.ssd_scan(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()["ssd_scan"] == before + 1
+    assert y.dtype == dtype and y.shape == (b, s, h, p)
+    assert st.dtype == torch.float32 and st.shape == (b, h, n, p)
+    yp, sp = SS.ssd_scan_plain(*args)
+    _ssd_close(y, yp, SSD_TOL[dtype])
+    _ssd_close(st, sp, 1e-4)
+
+
+def test_ssd_kernel_at_zamba_prefill_shape(cuda):
+    """b 2 of zamba2-7b's prefill: s 1024, 112 heads, P = N = 64, G = 1."""
+    args = _ssd_inputs(9, 2, 1024, 112, 64, 1, 64, torch.bfloat16, cuda)
+    y, st = SS.ssd_scan(*args)
+    yp, sp = SS.ssd_scan_plain(*args)
+    _ssd_close(y, yp, SSD_TOL[torch.bfloat16])
+    _ssd_close(st, sp, 1e-4)
+
+
+@pytest.mark.parametrize("s", [40, 130])
+def test_ssd_kernel_strong_decay_is_finite(cuda, s):
+    args = _ssd_inputs(3, 1, s, 2, 32, 1, 16, torch.float32, cuda, strong=True)
+    y, st = SS.ssd_scan(*args)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    yq, sq = SS.ssd_sequential(*args[:6])
+    _ssd_close(y, yq, 1e-4)
+    _ssd_close(st, sq, 1e-4)
+
+
+def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
+    args = _ssd_inputs(0, 1, 8, 2, 32, 1, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim P"):
+        SS.ssd_scan(torch.zeros((1, 8, 2, 136), device=cuda), *args[1:6])
+    with pytest.raises(ValueError, match="is on"):
+        SS.ssd_scan(args[0], args[1].cpu(), *args[2:6])
+
+
+def test_hybrid_lm_on_card_matches_cpu(cuda):
+    cfg = reduced_config(get_config("zamba2-7b"))
+    host = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = params_to(host, cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 70),
+                         generator=torch.Generator().manual_seed(1))
+    before = launch_counts()
+    (lh, sh), (lc, sc) = (prefill(cfg, p, {"tokens": toks}, 80)
+                          for p in (host, card))
+    assert launch_counts()["ssd_scan"] - before["ssd_scan"] == cfg.n_layers
+    for i in range(4):
+        torch.testing.assert_close(lc.float().cpu(), lh.float(), atol=4e-2,
+                                   rtol=0)
+        tok = lh[:, -1].argmax(-1, keepdim=True)
+        lh, sh = decode_step(cfg, host, sh, tok, 70 + i)
+        lc, sc = decode_step(cfg, card, sc, tok.to(cuda), 70 + i)
+    for name in ("seg_ssm", "seg_conv"):
+        torch.testing.assert_close(sc[name].float().cpu(), sh[name].float(),
+                                   atol=5e-2, rtol=5e-2)

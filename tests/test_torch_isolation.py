@@ -39,7 +39,10 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.kernels.flash_attention.ops",
             "repro_torch.kernels.decode_attention.ops",
             "repro_torch.models.lm", "repro_torch.launch.serve",
-            "repro_torch.configs.qwen2_0_5b"} <= set(mods)
+            "repro_torch.configs.qwen2_0_5b",
+            "repro_torch.configs.zamba2_7b", "repro_torch.models.ssm",
+            "repro_torch.models.zamba",
+            "repro_torch.kernels.ssm_scan.ops"} <= set(mods)
     code = "\n".join([
         "import importlib, sys",
         "sys.modules['jax'] = None",
@@ -91,6 +94,7 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.sojourn_sweep import coded_cells, sojourn_cells
+    from repro_torch.kernels.ssm_scan import ssd_scan
 
     reset_launch_counts()
     f32, i32 = torch.float32, torch.int32
@@ -104,6 +108,9 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     q, k = torch.ones((1, 4, 2, 64)), torch.ones((1, 4, 1, 64))
     flash_attention(q, k, k)
     decode_attention(q[:, 0], k, k, 3)
+    ssd_scan(torch.ones((1, 5, 2, 16)), torch.ones((1, 5, 2)), torch.zeros(2),
+             torch.ones((1, 5, 1, 16)), torch.ones((1, 5, 1, 16)),
+             torch.ones(2))
     assert launch_counts() == {"sojourn_cells": 0, "coded_cells": 0,
                                "combine": 0, "flash_attention": 0,
-                               "decode_attention": 0}
+                               "decode_attention": 0, "ssd_scan": 0}

@@ -94,7 +94,7 @@ def test_config_matches_reference():
             assert (getattr(reduced_config(cfg), name)
                     == getattr(ref_reduced_config(rcfg), name)), name
     with pytest.raises(NotImplementedError):
-        get_config("zamba2-7b")
+        get_config("xlstm-350m")
     with pytest.raises(KeyError):
         get_config("gpt-5")
 
