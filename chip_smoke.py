@@ -39,7 +39,7 @@ non-zero:
                       head dim 112; random bf16 weights) serves 8 prompts
                       of 1,024 tokens and 16 new tokens each: prefill on
                       ``ssd_scan`` (81 launches) and ``flash_attention``
-                      (13), decode on ``decode_attention`` (390), with the
+                      (13), decode on ``decode_attention`` (195), with the
                       same measurements as ``serve``.  Then the card
                       against the CPU at full width and depth 7 (one
                       segment and one trailing block), prompt 256, 4
@@ -55,7 +55,9 @@ non-zero:
                       ``flash_attention`` at 5e-2 and ``decode_attention``
                       at a tenth of its plain output's RMS (its outputs,
                       averages over about 1,000 keys, are of order 0.05),
-                      at head dims 64 and 112.  ``ssd_scan`` is held
+                      at head dims 64 and 112, with each one's achieved
+                      rate (flash TFLOP/s, decode GB/s) and fraction of
+                      its bound.  ``ssd_scan`` is held
                       within 1e-4 (float32) and 5e-2 (bfloat16) times
                       1 + |plain| on mild-decay inputs.
 
@@ -236,6 +238,12 @@ def main() -> int:
             seen.add(t.data_ptr())
             total += t.numel() * t.element_size()
         return total
+
+    def kernel_rates(flops, nbytes_, bound_ms, dev_ms):
+        """Achieved TFLOP/s and GB/s at the device time, and the fraction
+        of the bound that time reaches."""
+        return {"tflops": flops / dev_ms / 1e9, "gbps": nbytes_ / dev_ms / 1e6,
+                "bound_fraction": bound_ms / dev_ms}
 
     def device_busy(fn, reps: int = 1):
         """(wall s, busy s, device events, device s by event name, events
@@ -617,7 +625,7 @@ def main() -> int:
     serve_report = serve_cell(
         "serve", cfg, params, prompts, SERVE_NEW, SERVE_MAX_LEN,
         {"flash_attention": cfg.n_layers,
-         "decode_attention": 2 * cfg.n_layers * (SERVE_NEW - 1)})
+         "decode_attention": cfg.n_layers * (SERVE_NEW - 1)})
     serve_report.update(card_vs_cpu(
         "serve", dataclasses.replace(cfg, n_layers=CHECK_LAYERS), CHECK_BATCH,
         CHECK_PROMPT, CHECK_STEPS))
@@ -650,7 +658,7 @@ def main() -> int:
             "serve_hybrid", hcfg, hparams, hprompts, HYBRID_NEW,
             HYBRID_MAX_LEN,
             {"ssd_scan": hcfg.n_layers, "flash_attention": n_seg,
-             "decode_attention": 2 * n_seg * (HYBRID_NEW - 1)})
+             "decode_attention": n_seg * (HYBRID_NEW - 1)})
     finally:
         SSM_MODEL.ssd_scan = o_ssd
     del hparams
@@ -886,9 +894,12 @@ def main() -> int:
     f_bound = max(flops / BF16_FLOP_PER_S, f_bytes / HBM_BYTES_PER_S) * 1e3
     f_by = ("operations" if flops / BF16_FLOP_PER_S
             > f_bytes / HBM_BYTES_PER_S else "bytes")
+    f_rate = kernel_rates(flops, f_bytes, f_bound, dev_ms)
     print(f"[kernels] flash_attention q {list(q.shape)} k/v {list(k.shape)} "
           f"causal bf16: {ms:.4f} ms (device {dev_ms:.4f} ms, per call "
-          f"{f_call:.4f} ms), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
+          f"{f_call:.4f} ms; {f_rate['tflops']:.1f} TFLOP/s, "
+          f"{f_rate['bound_fraction']:.3f} of the bound), plain "
+          f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
           f"(device {lib_dev:.4f} ms, per call {lib_call:.4f} ms), bound "
           f"{f_bound:.5f} ms ({f_by}: {flops:.4g} FLOP, "
           f"{f_bytes} B); max err f32 {flash_errs['float32']:.3e}, bf16 "
@@ -905,7 +916,7 @@ def main() -> int:
                  "plain_rms": flash_rms["bfloat16"],
                  "tolerance": ATT_TOL,
                  "device_ms": dev_ms, "library_device_ms": lib_dev,
-                 "call_ms": f_call, "library_call_ms": lib_call})
+                 "call_ms": f_call, "library_call_ms": lib_call, **f_rate})
     del q, k, v, qt, kt, vt
 
     cache_len = SERVE_PROMPT + SERVE_NEW - 1  # the last decode step's length
@@ -943,10 +954,13 @@ def main() -> int:
     d_bound = max(d_flops / BF16_FLOP_PER_S, d_bytes / HBM_BYTES_PER_S) * 1e3
     d_by = ("operations" if d_flops / BF16_FLOP_PER_S
             > d_bytes / HBM_BYTES_PER_S else "bytes")
+    d_rate = kernel_rates(d_flops, d_bytes, d_bound, d_dev)
     print(f"[kernels] decode_attention q {list(qd.shape)} cache "
           f"{list(kc.shape)} at length {cache_len} bf16: {d_ms:.4f} ms "
-          f"(split + merge; device {d_dev:.4f} ms, per call {d_call:.4f} "
-          f"ms), plain {d_plain:.4f} ms, SDPA {d_lib:.4f} ms (device "
+          f"(one launch; device {d_dev:.4f} ms, per call {d_call:.4f} "
+          f"ms; {d_rate['gbps']:.0f} GB/s, {d_rate['bound_fraction']:.3f} "
+          f"of the bound), plain {d_plain:.4f} ms, SDPA {d_lib:.4f} ms "
+          f"(device "
           f"{d_lib_dev:.4f} ms, per call {d_lib_call:.4f} ms), bound "
           f"{d_bound:.5f} ms ({d_by}: {d_bytes} B); max err f32 "
           f"{dec_errs['float32']:.3e} (tol {ATT_TOL['float32']}), bf16 "
@@ -965,7 +979,7 @@ def main() -> int:
                  "tolerance": {"float32": ATT_TOL["float32"],
                                "bfloat16_rms_frac": DECODE_BF16_RMS_FRAC},
                  "device_ms": d_dev, "library_device_ms": d_lib_dev,
-                 "call_ms": d_call, "library_call_ms": d_lib_call})
+                 "call_ms": d_call, "library_call_ms": d_lib_call, **d_rate})
 
 
     # flash_attention and decode_attention at zamba2's head dim 112 (the
@@ -1007,6 +1021,8 @@ def main() -> int:
                               > fbytes / HBM_BYTES_PER_S else "bytes"),
                  "max_abs_err": errs["bfloat16"],
                  "max_abs_err_f32": errs["float32"], "plain_rms": rms}
+        flash.update(kernel_rates(flops, fbytes, flash["bound_ms"],
+                                  flash["device_ms"]))
         del q, k, v, qt, kt, vt
         cl = HYBRID_PROMPT + HYBRID_NEW - 1  # the last decode step's length
         qd = att_rand((HYBRID_BATCH, hh, hdd), 34, bf16)
@@ -1045,10 +1061,14 @@ def main() -> int:
                                > dbytes / HBM_BYTES_PER_S else "bytes"),
                   "max_abs_err": errs["bfloat16"],
                   "max_abs_err_f32": errs["float32"], "plain_rms": rms}
+        decode.update(kernel_rates(dflops, dbytes, decode["bound_ms"],
+                                   decode["device_ms"]))
         for e in (flash, decode):
             print(f"[kernels] {e['name']} d=112 {e['shape']} bf16: "
                   f"{e['ms']:.4f} ms (device {e['device_ms']:.4f} ms, per "
-                  f"call {e['call_ms']:.4f} ms), plain {e['plain_ms']:.4f} "
+                  f"call {e['call_ms']:.4f} ms; {e['tflops']:.1f} TFLOP/s, "
+                  f"{e['gbps']:.0f} GB/s, {e['bound_fraction']:.3f} of the "
+                  f"bound), plain {e['plain_ms']:.4f} "
                   f"ms, SDPA {e['library_ms']:.4f} ms (device "
                   f"{e['library_device_ms']:.4f} ms, per call "
                   f"{e['library_call_ms']:.4f} ms), bound "

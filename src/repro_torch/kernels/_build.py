@@ -71,11 +71,7 @@ SIGNATURES = {
         "flash_attention_launch": ([_PTR] * 4 + [_INT] * 9 + [_PTR], _INT),
     },
     "decode_attention": {
-        "decode_attention_split_len": ([_INT], _INT),
-        "decode_attention_split_launch": ([_PTR] * 6 + [_INT] * 8 + [_PTR],
-                                          _INT),
-        "decode_attention_merge_launch": ([_PTR] * 4 + [_INT] * 5 + [_PTR],
-                                          _INT),
+        "decode_attention_launch": ([_PTR] * 4 + [_INT] * 9 + [_PTR], _INT),
     },
     "ssd_scan": {
         "ssd_scan_launch": ([_PTR] * 9 + [_INT] * 7 + [_PTR], _INT),

@@ -3,28 +3,61 @@
 :func:`decode_attention` takes one query per head, q (b, H, d), and caches
 (b, S_max, KV, d) with H % KV == 0, and attends over the first
 ``cache_len`` positions, as ``repro.kernels.decode_attention.ops
-.decode_attention`` does.  On a CUDA tensor it launches the split kernel
-of ``csrc/decode_attention.cu`` and then its log-sum-exp merge (two
-launches, each counted), or raises; on a CPU tensor it runs
-:func:`decode_attention_plain`, which follows ``decode_attention_ref``
-(logits in the input dtype then float32, float32 softmax, weights cast to
-the input dtype before the product with V).  The kernel is held to it at
-5e-5 in float32, and in bfloat16 within a tenth of the plain output's RMS
-(the outputs, averages over the cache, are small: flash attention's 5e-2
-would be as large as they are).
+.decode_attention`` does.  On a CUDA tensor it launches
+``csrc/decode_attention.cu`` once (one counted launch: the splits of a
+(batch row, KV head) form a thread-block cluster that merges its partials
+in the kernel, and no scratch tensor is allocated), or raises; on a CPU
+tensor it runs :func:`decode_attention_plain`, which follows
+``decode_attention_ref`` (logits in the input dtype then float32, float32
+softmax, weights cast to the input dtype before the product with V).
+:func:`split_plan` sizes the splits to ``cache_len``.  The kernel is held
+to the plain version at 5e-5 in float32, and in bfloat16 within a tenth of
+the plain output's RMS (the outputs, averages over the cache, are small:
+flash attention's 5e-2 would be as large as they are).
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
 from .. import _build
 from ..flash_attention.ops import DTYPES, HEAD_DIMS, NEG_INF, repeat_kv
 
-__all__ = ["decode_attention", "decode_attention_plain"]
+__all__ = ["decode_attention", "decode_attention_plain", "split_plan"]
+
+SMS = 132  # streaming multiprocessors of an H100 SXM
+MAX_SPLITS = 8  # the portable thread-block cluster size
+SPLIT_ALIGN = 16  # split lengths are whole multiples of this many positions
+# K and V bytes (bf16) a split reads at least: each block of a cluster
+# costs barriers and a share of the merge, and on the H100 splits of fewer
+# than about 256 positions at d = 64 measured slower
+MIN_SPLIT_BYTES = 64 * 1024
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def split_plan(b: int, kv: int, d: int, cache_len: int) -> tuple[int, int]:
+    """(n_splits, split_len) for a decode launch over ``cache_len`` positions.
+
+    Enough splits that the b * kv * n_splits blocks fill about one wave of
+    the card's :data:`SMS` SMs, at most :data:`MAX_SPLITS` (one cluster),
+    and none shorter than :data:`MIN_SPLIT_BYTES` of K and V at head dim
+    ``d``; the split length is a multiple of :data:`SPLIT_ALIGN`.  The
+    splits [i * split_len, min((i + 1) * split_len, cache_len)) cover
+    [0, cache_len) exactly and none is empty:
+    (n_splits - 1) * split_len < cache_len <= n_splits * split_len.
+    """
+    if b < 1 or kv < 1 or d < 1 or cache_len < 1:
+        raise ValueError(f"no split plan for b={b}, kv={kv}, d={d}, "
+                         f"cache_len={cache_len}")
+    min_len = _cdiv(_cdiv(MIN_SPLIT_BYTES, 4 * d), SPLIT_ALIGN) * SPLIT_ALIGN
+    n = max(1, min(MAX_SPLITS, _cdiv(SMS, b * kv), _cdiv(cache_len, min_len)))
+    split_len = _cdiv(_cdiv(cache_len, n), SPLIT_ALIGN) * SPLIT_ALIGN
+    return _cdiv(cache_len, split_len), split_len
 
 
 def decode_attention_plain(q, k_cache, v_cache, cache_len: int) -> torch.Tensor:
@@ -82,23 +115,14 @@ def decode_attention(q, k_cache, v_cache, cache_len: int) -> torch.Tensor:
             raise ValueError(f"{name} must be 16-byte aligned")
     b, h, d = q.shape
     smax, kv = k_cache.shape[1], k_cache.shape[2]
+    n_splits, split_len = split_plan(b, kv, d, cache_len)
     lib = _build.load("decode_attention")
-    n_splits = math.ceil(smax / lib.decode_attention_split_len(d))
-    f32 = dict(dtype=torch.float32, device=dev)
-    m = torch.empty((b, h, n_splits), **f32)
-    l = torch.empty((b, h, n_splits), **f32)
-    acc = torch.empty((b, h, n_splits, d), **f32)
     out = torch.empty_like(q)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    code = lib.decode_attention_split_launch(
-        ptr(q), ptr(k_cache), ptr(v_cache), ptr(m), ptr(l), ptr(acc),
-        b, h, kv, smax, d, cache_len, n_splits, DTYPES[q.dtype], stream)
-    _build.check(lib, code, "decode_attention split launch")
-    _build.count_launch("decode_attention")
-    code = lib.decode_attention_merge_launch(
-        ptr(m), ptr(l), ptr(acc), ptr(out), b, h, d, n_splits,
-        DTYPES[q.dtype], stream)
-    _build.check(lib, code, "decode_attention merge launch")
+    code = lib.decode_attention_launch(
+        ptr(q), ptr(k_cache), ptr(v_cache), ptr(out), b, h, kv, smax, d,
+        cache_len, n_splits, split_len, DTYPES[q.dtype],
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(lib, code, "decode_attention launch")
     _build.count_launch("decode_attention")
     return out

@@ -3,15 +3,19 @@
 :func:`flash_attention` takes q (b, sq, H, d) and k, v (b, skv, KV, d)
 with H % KV == 0, as ``repro.kernels.flash_attention.ops.flash_attention``
 does, and returns (b, sq, H, d) in q's dtype.  On a CUDA tensor it
-launches ``csrc/flash_attention.cu`` (or raises); on a CPU tensor it runs
-:func:`flash_attention_plain`, which follows ``flash_attention_ref``: the
-KV heads repeated group-major, logits in the input dtype then float32,
+launches ``csrc/flash_attention.cu`` (or raises): in bfloat16 the Hopper
+kernel (both products on the tensor cores through ``wgmma``, K and V
+tiles by TMA), in float32 the FMA kernel (no TF32).  On a CPU tensor it
+runs :func:`flash_attention_plain`, which follows ``flash_attention_ref``:
+the KV heads repeated group-major, logits in the input dtype then float32,
 the causal mask by absolute position with ``q_offset``, a float32
 softmax, and the weights cast back to the input dtype before the product
-with V.  The kernel keeps scores, weights and sums in float32, so in
-bfloat16 the two differ by the rounding of q * scale, the logits and the
-weights (held to 5e-2); in float32 they differ by summation order only
-(held to 5e-5).
+with V.  The kernels keep scores, softmax state and sums in float32 and
+scale the float32 scores; in bfloat16 the kernel rounds the unnormalised
+weights to bfloat16 per 64-key tile before P V (the reference's
+``p.astype(v.dtype)``), so the two differ by the rounding of q * scale,
+the logits and the weights (held to 5e-2); in float32 they differ by
+summation order only (held to 5e-5).
 """
 
 from __future__ import annotations
