@@ -12,12 +12,14 @@ non-zero:
                       ``build/repro_torch_kernels/``.
 2. ``plan_policies``  the fleet's planner call: N=10,000 workers,
                       20,000 jobs, B in {50..2000}, four straggler
-                      policies, p99 at utilization 0.7.  Then a small plan
+                      policies, p99 at utilization 0.7; one
+                      ``sojourn_cells`` launch.  Then a small plan
                       run on the card and on the CPU (the kernels' plain
                       versions) must agree exactly.
 3. ``fleet_grid``     ``sweep_sojourn_policies`` on the bootstrap grid of
                       ``benchmarks/bench_sweep_kernel.py``: 256 Empirical
-                      resamples x B in {50, 100, 200} x 4 policies, J=300.
+                      resamples x B in {50, 100, 200} x 4 policies, J=300;
+                      one ``sojourn_cells`` launch.
 4. ``plan_coded``     the coded headline of ``benchmarks/bench_coding.py``
                       (mds s in {4, 8, 12}, overheads measured by the
                       ``combine`` kernel); the winner must be mds(s=12).
@@ -59,7 +61,19 @@ non-zero:
                       rate (flash TFLOP/s, decode GB/s) and fraction of
                       its bound.  ``ssd_scan`` is held
                       within 1e-4 (float32) and 5e-2 (bfloat16) times
-                      1 + |plain| on mild-decay inputs.
+                      1 + |plain| on mild-decay inputs.  ``sojourn_cells``
+                      runs plan_policies' one dispatch (every cell and
+                      policy) and the widest cell's trigger and
+                      trigger-free policies alone, bit-equal to its plain
+                      version on the first 2,000 jobs, beside its chain
+                      bound (its longest program's dependent warp
+                      reductions and shared-memory round trips, at
+                      latencies the probe
+                      ``src/repro_torch/csrc/probes/chain_latency.cu``
+                      measures in phase 1).  ``combine`` gives its events time,
+                      device time and per-call time beside matmul's, at
+                      the planner's shape (strip kernel) and 1024 x 1024
+                      x 2048 (tiled kernel).
 
 Each path of phases 2-6 runs with the launch counts and the sweeps' stage
 seconds (``simulator.STAGE_SECONDS``) set to 0 just before it and read just
@@ -74,7 +88,9 @@ repo.
 
 from __future__ import annotations
 
+import ctypes
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -86,6 +102,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12  # H100 SXM bf16 dense, tensor cores
 SOJOURN_PLAIN_JOBS = 2_000
+# the probe of sojourn_cells' chain latencies (not a kernel of any path)
+LATENCY_PROBE = os.path.join("src", "repro_torch", "csrc", "probes",
+                             "chain_latency.cu")
 PLANNER_KERNELS = ("sojourn_cells", "coded_cells", "combine")
 # the serve phase: qwen2-0.5b at full width
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = 8, 1024, 32, 2048
@@ -150,6 +169,7 @@ def main() -> int:
     from repro_torch.kernels.coded import kernel as CK
     from repro_torch.kernels.coded import ops as coded_ops
     from repro_torch.kernels.sojourn_sweep import kernel as SK
+    from repro_torch.kernels.sojourn_sweep import ops as SOPS
     from repro_torch.kernels.ssm_scan import ops as SSD
     from repro_torch.models import ssm as SSM_MODEL
 
@@ -317,14 +337,35 @@ def main() -> int:
     _phase("build")
     card = _card_line()
     t0 = time.perf_counter()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    probe_lib = _build.BUILD_DIR / "libchain_latency.so"
+    probe = subprocess.Popen(  # beside the kernels' own nvcc processes
+        [_build._nvcc(), *_build.ARCH_FLAGS, *_build.BASE_FLAGS, "-o",
+         str(probe_lib), os.path.join(ROOT, LATENCY_PROBE)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     secs = _build.build_all(verbose=True)
+    probe_log, _ = probe.communicate(timeout=300)
+    if probe.returncode != 0:
+        raise RuntimeError(f"latency probe build failed:\n{probe_log}")
     build_s = time.perf_counter() - t0
     print(f"[build] {build_s:.2f} s wall, per kernel {secs}")
+    # SM cycles a step of a walk's two dependent chains: a warp reduction,
+    # and lane 0's store to shared memory then the warp's 16-byte loads
+    lib = ctypes.CDLL(str(probe_lib))
+    lib.chain_latency_probe.argtypes = [ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_double)]
+    per_step = (ctypes.c_double * 2)()
+    if lib.chain_latency_probe(4096, per_step) != 0:
+        raise RuntimeError("latency probe failed")
+    chain_cycles = {"redux": per_step[0], "sts_syncwarp_lds128": per_step[1]}
+    print(f"[build] chain latency probe ({LATENCY_PROBE}), SM cycles a "
+          f"step: {chain_cycles}")
     print(f"[build] card: {card}")
     print(f"[build] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     report["card"] = card
-    report["phases"]["build"] = {"seconds": build_s, "per_kernel": secs}
+    report["phases"]["build"] = {"seconds": build_s, "per_kernel": secs,
+                                 "chain_cycles": chain_cycles}
 
     # -- 2. plan_policies -------------------------------------------------
     _phase("plan_policies")
@@ -347,8 +388,9 @@ def main() -> int:
         plan, counts, wall, stages = run_path("plan_policies", fleet_plan)
     finally:
         SK.sojourn_cells = orig
-    if counts["sojourn_cells"] <= 0:
-        raise AssertionError("plan_policies never launched sojourn_cells")
+    if counts["sojourn_cells"] != 1:
+        raise AssertionError(f"plan_policies launched sojourn_cells "
+                             f"{counts['sojourn_cells']} times, want one")
     pts = plan.spectrum.points
     if not all(np.isfinite([p.mean, p.var, p.p99, p.p999]).all() for p in pts):
         raise AssertionError("non-finite spectrum point")
@@ -358,8 +400,13 @@ def main() -> int:
           f"p99={plan.predicted.p99:.6f} backend={plan.backend}")
     for p in pts:
         print(f"    B={p.n_batches:5d} mean={p.mean:.6f} p99={p.p99:.6f}")
-    # the card's busy time on a re-plan (its group minima come from the
-    # cache the first run filled)
+    # a warm re-plan (kernels loaded, group minima from the cache the
+    # first run filled): its wall and stages; then the card's busy time on
+    # one more under the profiler
+    _, warm_wall, warm_stages = timed_stages(fleet_plan)
+    print(f"[plan_policies] warm re-plan: wall {warm_wall:.3f} s, stages "
+          "(host s): " + ", ".join(f"{k} {v:.3f}"
+                                   for k, v in warm_stages.items()))
     busy = print_busy("plan_policies", *device_busy(fleet_plan))
 
     # the card's plan equals the CPU plan (plain versions) on a small fleet;
@@ -377,6 +424,7 @@ def main() -> int:
           f"(B={plans['cuda'].n_batches}, policy={plans['cuda'].policy})")
     report["phases"]["plan_policies"] = {
         "wall_s": wall, "stages_s": stages, "launches": counts,
+        "warm_wall_s": warm_wall, "warm_stages_s": warm_stages,
         "n_batches": plan.n_batches, "policy": repr(plan.policy),
         "points": [[p.n_batches, p.mean, p.var, p.p99, p.p999] for p in pts],
         "sojourn_dispatches": [
@@ -399,8 +447,9 @@ def main() -> int:
             n_jobs=300, seed=3, feasible_b=[50, 100, 200], device="cuda")
 
     res, counts, cold, _ = run_path("fleet_grid", fleet)
-    if counts["sojourn_cells"] <= 0:
-        raise AssertionError("fleet_grid never launched sojourn_cells")
+    if counts["sojourn_cells"] != 1:
+        raise AssertionError(f"fleet_grid launched sojourn_cells "
+                             f"{counts['sojourn_cells']} times, want one")
     if res.samples.shape != (256, 3, 4, 270) or not np.isfinite(
             res.samples).all():
         raise AssertionError(f"bad fleet samples {res.samples.shape}")
@@ -683,62 +732,146 @@ def main() -> int:
     rows = []
     extra_rows = []
 
-    # sojourn_cells: the largest trigger and trigger-free dispatches of
-    # plan_policies, held bit-equal to the plain version on their first
-    # SOJOURN_PLAIN_JOBS jobs (the plain version loops over jobs in Python)
-    by_family = {}
-    for args, kw in soj_calls:
-        fam = bool(kw.get("resolve", True))
-        if fam not in by_family or args[1].shape[2] > by_family[fam][0][1].shape[2]:
-            by_family[fam] = (args, kw)
-    soj_entries = []
-    for fam in (True, False):
-        if fam not in by_family:
-            continue
-        args, kw = by_family[fam]
-        arr, svc, alt, kinds, thr, hm, ng = args
-        out_k, x_k = SK.sojourn_cells(*args, **kw)
+    # sojourn_cells: plan_policies' one dispatch (every cell and policy),
+    # held bit-equal to the plain version on its first SOJOURN_PLAIN_JOBS
+    # jobs (the plain version loops over jobs in Python); then the G=2000
+    # cell alone under its two trigger policies and its two trigger-free
+    # ones, the shapes of the earlier per-family dispatches
+    (args, kw), = soj_calls
+    arr, svc, alt, kinds, thr, hm, ng = args
+    sm_clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+
+    def resolving_programs(a_, kw):
+        """(C, P) mask of the programs that resolve triggers: clone or
+        relaunch at a finite threshold, when the launch resolves."""
+        thr_ = a_[4]
+        armed = torch.tensor([k in (1, 2) for k in a_[3].tolist()],
+                             device=thr_.device)[None, :] & (thr_ < math.inf)
+        return armed & bool(kw.get("resolve", True))
+
+    def chain_bound_ms(a_, kw, extra):
+        """The least time of the launch's longest program on the chain of
+        dependent steps its code runs (``csrc/sojourn_cells.cu``): each of
+        J dispatches stores the picked set and reloads its node (L cycles),
+        then needs the free root's key and then its index (two dependent
+        warp reductions, R each) before the next can pick; a program that
+        resolves triggers waits on the trigger root's key, job id and set
+        instead (3 R), and on one more walk (L + 2 R) for each trigger that
+        fired in this run.  L and R from the probe, at the card's top SM
+        clock; the kernel's other instructions are left out."""
+        lat, red = chain_cycles["sts_syncwarp_lds128"], chain_cycles["redux"]
+        ng_ = a_[6]
+        n_jobs = a_[1].shape[1]
+        resolving = resolving_programs(a_, kw)
+        cycles = torch.where(
+            resolving, n_jobs * (lat + 3 * red) + extra.double() * (lat + 2 * red),
+            torch.full_like(extra, n_jobs, dtype=torch.float64)
+            * (lat + 2 * red))
+        cycles = torch.where(ng_[:, None] > 0, cycles, torch.zeros_like(cycles))
+        return cycles.max().item() / (sm_clock_mhz * 1e6) * 1e3
+
+    def soj_entry(tag, a_, kw, reps):
+        out_k, x_k = SK.sojourn_cells(*a_, **kw)
         torch.cuda.synchronize()
-        ms = cuda_ms(lambda: SK.sojourn_cells(*args, **kw), 3)
-        j = min(SOJOURN_PLAIN_JOBS, svc.shape[1])
-        cut = (arr[:j].contiguous(), svc[:, :j].contiguous(),
-               alt[:, :j].contiguous(), kinds, thr, hm[:, :j].contiguous(), ng)
-        out_c, x_c = SK.sojourn_cells(*cut, **kw)
-        ms_cut = cuda_ms(lambda: SK.sojourn_cells(*cut, **kw), 3)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out_p, x_p = SK.sojourn_cells_plain(*cut, **kw)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        if not (torch.equal(out_c, out_p) and torch.equal(x_c, x_p)):
-            diff = (out_c - out_p).abs().max().item()
-            raise AssertionError(
-                f"sojourn_cells differs from its plain version (resolve="
-                f"{fam}): max |diff| {diff}")
         if not torch.isfinite(out_k).all():
             raise AssertionError("sojourn_cells produced non-finite sojourns")
-        bound_ms = nbytes(*args, out_k, x_k) / HBM_BYTES_PER_S * 1e3
-        entry = {
-            "name": "sojourn_cells", "resolve": fam,
-            "shape": [int(s) for s in svc.shape] + [int(kinds.shape[0])],
-            "ms": ms, "ms_at_plain_jobs": ms_cut, "plain_jobs": j,
-            "plain_ms": plain_ms, "max_abs_err": 0.0, "bound_ms": bound_ms,
-            "library_ms": None,
-        }
-        soj_entries.append(entry)
-        print(f"[kernels] sojourn_cells resolve={fam} C,J,G,P={entry['shape']}"
-              f": {ms:.3f} ms (first {j} jobs: kernel {ms_cut:.3f} ms, plain "
-              f"{plain_ms:.1f} ms, bit-equal), bound {bound_ms:.4f} ms")
-    head = soj_entries[0]
+        svc_ = a_[1]
+        fn = lambda: SK.sojourn_cells(*a_, **kw)  # noqa: E731
+        ms = cuda_ms(fn, reps)
+        one_ms = call_ms(fn, reps)  # median event pair around one call
+        # the profiler's time of the kernel, where it records one
+        _, _, n_ev, by_name, count = device_busy(fn, reps)
+        names = [k for k in by_name if "sojourn_cells_kernel" in k]
+        dev_ms = (sum(by_name[k] / count[k] for k in names) * 1e3
+                  if names else None)
+        if not names:
+            print(f"    (profiler: no sojourn_cells_kernel event among "
+                  f"{n_ev} device events of {reps} calls: {sorted(by_name)})")
+        chain = chain_bound_ms(a_, kw, x_k)
+        nbytes_ = nbytes(*a_, out_k, x_k) / HBM_BYTES_PER_S * 1e3
+        return {
+            "name": "sojourn_cells", "case": tag,
+            "shape": [int(v) for v in svc_.shape] + [int(a_[3].shape[0])],
+            "resolve": bool(kw.get("resolve", True)), "ms": ms,
+            "call_ms": one_ms, "device_ms": dev_ms,
+            "bound_ms": max(chain, nbytes_),
+            "bound_by": "operations" if chain >= nbytes_ else "bytes",
+            "chain_bound_ms": chain, "bytes_bound_ms": nbytes_,
+            "fired": int(x_k[resolving_programs(a_, kw)].sum().item()),
+            "library_ms": None}
+
+    head = soj_entry("plan_policies dispatch", args, kw, 3)
+    j = min(SOJOURN_PLAIN_JOBS, svc.shape[1])
+    cut = (arr[:j].contiguous(), svc[:, :j].contiguous(),
+           alt[:, :j].contiguous(), kinds, thr, hm[:, :j].contiguous(), ng)
+    out_c, x_c = SK.sojourn_cells(*cut, **kw)
+    head["ms_at_plain_jobs"] = cuda_ms(lambda: SK.sojourn_cells(*cut, **kw), 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p, x_p = SK.sojourn_cells_plain(*cut, **kw)
+    torch.cuda.synchronize()
+    head["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    head["plain_jobs"] = j
+    head["max_abs_err"] = 0.0
+    if not (torch.equal(out_c, out_p) and torch.equal(x_c, x_p)):
+        diff = (out_c - out_p).abs().max().item()
+        raise AssertionError(
+            f"sojourn_cells differs from its plain version: max |diff| {diff}")
+    soj_entries = [head]
+    widest = int(torch.argmax(ng).item())
+    kind_list = kinds.tolist()
+    for tag, fam in (("triggers", (1, 2)), ("trigger-free", (0, 3))):
+        pidx = [i for i, kd in enumerate(kind_list) if kd in fam]
+        if not pidx:
+            continue
+        sel = torch.tensor(pidx, device=dev)
+        sub = (arr, svc[widest:widest + 1].contiguous(),
+               alt[widest:widest + 1].contiguous(), kinds[sel].contiguous(),
+               thr[widest:widest + 1][:, sel].contiguous(),
+               hm[sel].contiguous(), ng[widest:widest + 1].contiguous())
+        skw = {"resolve": SOPS.needs_resolve(sub[3], sub[4])}
+        e = soj_entry(tag, sub, skw, 3)
+        subcut = (arr[:j].contiguous(), sub[1][:, :j].contiguous(),
+                  sub[2][:, :j].contiguous(), sub[3], sub[4],
+                  sub[5][:, :j].contiguous(), sub[6])
+        if not all(torch.equal(u, v) for u, v in zip(
+                SK.sojourn_cells(*subcut, **skw),
+                SK.sojourn_cells_plain(*subcut, **skw))):
+            raise AssertionError(f"sojourn_cells ({tag}) differs from its "
+                                 f"plain version")
+        soj_entries.append(e)
+    for e in soj_entries:
+        print(f"[kernels] sojourn_cells {e['case']} C,J,G,P={e['shape']}: "
+              f"{e['ms']:.3f} ms (per call {e['call_ms']:.3f} ms, profiler "
+              f"{e['device_ms']}), chain bound {e['chain_bound_ms']:.4f} ms "
+              f"(bytes bound {e['bytes_bound_ms']:.4f} ms; {e['fired']} "
+              f"triggers fired), bit-equal to plain")
+    print(f"[kernels] sojourn_cells first {j} jobs of the plan_policies "
+          f"dispatch: kernel {head['ms_at_plain_jobs']:.3f} ms, plain "
+          f"{head['plain_ms']:.1f} ms; chain bound model: J x (L + 2R), "
+          f"J x (L + 3R) + fired x (L + 2R) where triggers resolve, with L "
+          f"{chain_cycles['sts_syncwarp_lds128']:.2f} and R "
+          f"{chain_cycles['redux']:.2f} cycles at {sm_clock_mhz:.0f} MHz")
     rows.append({"name": "sojourn_cells", "route": "cuda",
                  "source": "src/repro_torch/csrc/sojourn_cells.cu",
-                 "replaces": "src/repro/kernels/sojourn_sweep/kernel.py:216",
+                 "replaces": "src/repro/kernels/sojourn_sweep/kernel.py:222",
                  **launches("sojourn_cells", "plan_policies"),
                  "max_abs_err": 0.0, "ms": head["ms"],
                  "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-                 "bound_by": "bytes", "library_ms": None,
+                 "bound_by": head["bound_by"], "library_ms": None,
                  "shape": head["shape"], "plain_jobs": head["plain_jobs"],
-                 "ms_at_plain_jobs": head["ms_at_plain_jobs"]})
+                 "ms_at_plain_jobs": head["ms_at_plain_jobs"],
+                 "call_ms": head["call_ms"], "device_ms": head["device_ms"],
+                 "chain_bound_ms": head["chain_bound_ms"],
+                 "bytes_bound_ms": head["bytes_bound_ms"],
+                 "bound_model": "latency chain of the longest program: J x "
+                                "(L + 2R), or J x (L + 3R) + fired x "
+                                "(L + 2R) where triggers resolve; L, R "
+                                "measured SM cycles",
+                 "chain_cycles": chain_cycles, "sm_clock_mhz": sm_clock_mhz})
     extra_rows.extend(soj_entries)
 
     # coded_cells: the planner's shape, then long rows with duplicates
@@ -804,6 +937,18 @@ def main() -> int:
         ms = cuda_ms(lambda: CK.combine(a, b), reps)
         plain_ms = cuda_ms(lambda: CK.combine_plain(a, b), max(1, reps // 10))
         lib_ms = cuda_ms(lambda: torch.matmul(a, b), reps)
+        # the same two calls' device time and per-call event time, to split
+        # the events time into device and host
+        split = {"device_ms": device_ms(lambda: CK.combine(a, b), reps),
+                 "call_ms": call_ms(lambda: CK.combine(a, b), reps),
+                 "library_device_ms": device_ms(lambda: torch.matmul(a, b),
+                                                reps),
+                 "library_call_ms": call_ms(lambda: torch.matmul(a, b), reps),
+                 "path": "small-R" if _build.load("combine").combine_path(
+                     *a.shape) == 0 else "tiled"}
+        # again, after the matmul, so that clock drift shows
+        ms2 = cuda_ms(lambda: CK.combine(a, b), reps)
+        lib_ms2 = cuda_ms(lambda: torch.matmul(a, b), reps)
         r, k = a.shape
         d = b.shape[1]
         bound_ms = max(2.0 * r * k * d / FP32_FLOP_PER_S,
@@ -813,7 +958,9 @@ def main() -> int:
         return {"name": "combine", "shape": [r, k, d], "ms": ms,
                 "plain_ms": plain_ms, "library_ms": lib_ms,
                 "bound_ms": bound_ms, "bound_by": by,
-                "max_abs_err": err.max().item()}
+                "max_abs_err": err.max().item(), **split,
+                "ms_again": ms2, "library_ms_again": lib_ms2,
+                "tflops": 2.0 * r * k * d / split["device_ms"] / 1e9}
 
     planner_ab = max(combine_calls,
                      key=lambda c: c[0][0].numel() * c[0][1].shape[1])[0]
@@ -823,18 +970,25 @@ def main() -> int:
     b = torch.randn((1024, 2048), generator=gen).to(dev)
     c_big = combine_row(a, b, reps=10)
     for e in (c_plan, c_big):
-        print(f"[kernels] combine {e['shape']}: {e['ms']:.4f} ms, plain "
-              f"{e['plain_ms']:.4f} ms, matmul {e['library_ms']:.4f} ms, bound "
-              f"{e['bound_ms']:.5f} ms ({e['bound_by']}), max err "
+        print(f"[kernels] combine {e['shape']} ({e['path']}): events "
+              f"{e['ms']:.4f} / {e['ms_again']:.4f} ms, device "
+              f"{e['device_ms']:.4f} ms ({e['tflops']:.1f} TFLOP/s), per call "
+              f"{e['call_ms']:.4f} ms; matmul events {e['library_ms']:.4f} / "
+              f"{e['library_ms_again']:.4f} ms, device "
+              f"{e['library_device_ms']:.4f} ms, per call "
+              f"{e['library_call_ms']:.4f} ms; plain {e['plain_ms']:.4f} ms, "
+              f"bound {e['bound_ms']:.5f} ms ({e['bound_by']}), max err "
               f"{e['max_abs_err']:.3e}")
     rows.append({"name": "combine", "route": "cuda",
                  "source": "src/repro_torch/csrc/combine.cu",
-                 "replaces": "src/repro/kernels/coded/kernel.py:35",
+                 "replaces": "src/repro/kernels/coded/kernel.py:41",
                  **launches("combine", "plan_coded"),
                  "max_abs_err": c_plan["max_abs_err"], "ms": c_plan["ms"],
                  "plain_ms": c_plan["plain_ms"], "bound_ms": c_plan["bound_ms"],
                  "bound_by": c_plan["bound_by"],
-                 "library_ms": c_plan["library_ms"], "shape": c_plan["shape"]})
+                 "library_ms": c_plan["library_ms"], "shape": c_plan["shape"],
+                 "device_ms": c_plan["device_ms"],
+                 "call_ms": c_plan["call_ms"]})
     extra_rows.extend([c_plan, c_big])
 
     # flash_attention and decode_attention at the serve phase's shapes

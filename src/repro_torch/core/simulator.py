@@ -821,10 +821,11 @@ def _sweep_policies_accel(
 ):
     """Run a (dist, B, policy) sweep through the ``sojourn_cells`` kernel.
 
-    Dispatches once per (split, trigger family): cells of a small B waste
-    no work on another split's padding, and the trigger-free policies
-    (none/hedged) run with the event-resolution pass compiled out.
-    Returns ``(samples (D, S, P, J-warm) f64, extra_fraction (D, S, P))``.
+    One dispatch for the whole sweep: every (dist, split) cell, padded to
+    the widest split, under every policy.  Each program reads only its own
+    cell's sets, and only programs whose policy can arm a trigger resolve
+    events.  Returns ``(samples (D, S, P, J-warm) f64, extra_fraction
+    (D, S, P))``.
     """
     dev = unit.device
     n_jobs = unit.shape[0]
@@ -839,27 +840,14 @@ def _sweep_policies_accel(
         for p in pol_seq
     ])
     n_d, n_s, n_p = len(dist_seq), len(splits), len(pol_seq)
-    trig = [i for i, p in enumerate(pol_seq)
-            if p.kind in ("clone", "relaunch")]
-    plain = [i for i in range(n_p) if i not in trig]
     arr_t = torch.as_tensor(arr, device=dev)
-    samples = np.empty((n_d, n_s, n_p, n_jobs), dtype=float)
-    extras = np.empty((n_d, n_s, n_p), dtype=float)
     with _stage("scan"):
-        for si in range(n_s):
-            cells = slice(si, None, n_s)  # cell order is c = di * n_s + si
-            ng_s = n_groups[cells]
-            g = int(ng_s.max())
-            svc_s = svc[cells, :, :g].contiguous()
-            alt_s = alt[cells, :, :g].contiguous() if alt is not None else svc_s
-            for pidx in (p for p in (plain, trig) if p):
-                out, x = _ss.sojourn_policy_cells(
-                    arr_t, svc_s, alt_s, kinds[pidx],
-                    np.ascontiguousarray(thresholds[cells][:, pidx]),
-                    hmasks[pidx], ng_s,
-                )
-                samples[:, si, pidx, :] = out.to(F64).cpu().numpy()
-                extras[:, si, pidx] = x.cpu().numpy()
+        out, x = _ss.sojourn_policy_cells(
+            arr_t, svc, alt if alt is not None else svc, kinds, thresholds,
+            hmasks, n_groups,
+        )
+        samples = out.to(F64).cpu().numpy().reshape(n_d, n_s, n_p, n_jobs)
+        extras = x.cpu().numpy().astype(float).reshape(n_d, n_s, n_p)
     return samples[..., warm:], extras / n_jobs
 
 
@@ -1049,7 +1037,7 @@ def sweep_sojourn_policies(
     The planner's scoring engine for the policy portfolio: every cell
     shares ONE arrival sequence, ONE primary draw matrix and ONE alternate
     draw matrix, and every (dist, B, policy) cell runs on the
-    ``sojourn_cells`` kernel in one dispatch per (split, trigger family).
+    ``sojourn_cells`` kernel in one dispatch for the whole sweep.
     """
     dist_seq = _normalize_dists(dists)
     splits, wbs = _resolve_splits(n_workers, feasible_b, worker_batches)

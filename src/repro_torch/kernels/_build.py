@@ -66,6 +66,7 @@ SIGNATURES = {
     },
     "combine": {
         "combine_launch": ([_PTR] * 3 + [_INT] * 3 + [_PTR], _INT),
+        "combine_path": ([_INT] * 2, _INT),
     },
     "flash_attention": {
         "flash_attention_launch": ([_PTR] * 4 + [_INT] * 9 + [_PTR], _INT),

@@ -174,6 +174,74 @@ def test_combine_kernel_within_bound(cuda, shape):
     assert bool(((out.double() - ref.double()).abs() <= bound).all())
 
 
+@pytest.mark.parametrize("n_g", [1, 2, 31, 32, 33, 64, 257, 2000, 6000,
+                                 10_000])
+@pytest.mark.parametrize("ties", [False, True])
+def test_sojourn_tree_kernel_mixed_groups_one_launch(cuda, n_g, ties):
+    """Three cells of mixed n_groups and all four policies in one launch,
+    bit-equal to the plain version at the tree's edges (one level up to
+    128 sets, two above), past one node a lane (6,000 sets: the
+    three-node build with programs of one and two) and at 10,000 sets;
+    resolve=False equals resolve=True when no policy can arm a trigger."""
+    n_jobs = 30 if n_g > 2000 else 80
+    for finite in (True, False):
+        args = _cells(n_g, 3, n_jobs, n_g, ties, finite, cuda)
+        resolve = O.needs_resolve(args[3], args[4])
+        before = launch_counts()["sojourn_cells"]
+        out_k, x_k = K.sojourn_cells(*args, resolve=resolve)
+        assert launch_counts()["sojourn_cells"] == before + 1
+        out_p, x_p = K.sojourn_cells_plain(*args, resolve=resolve)
+        assert torch.equal(out_k, out_p) and torch.equal(x_k, x_p)
+        if not finite:
+            on = K.sojourn_cells(*args, resolve=True)
+            assert torch.equal(on[0], out_k) and torch.equal(on[1], x_k)
+
+
+def test_sojourn_kernel_cell_without_sets(cuda):
+    """A cell of no replica set in the launch: every job starts at inf, as
+    the plain version computes it."""
+    args = list(_cells(3, 2, 40, 5, False, True, cuda))
+    args[6] = torch.tensor([0, 5], dtype=torch.int32, device=cuda)
+    resolve = O.needs_resolve(args[3], args[4])
+    out_k, x_k = K.sojourn_cells(*args, resolve=resolve)
+    out_p, x_p = K.sojourn_cells_plain(*args, resolve=resolve)
+    assert torch.equal(out_k, out_p) and torch.equal(x_k, x_p)
+
+
+def test_sojourn_kernel_holds_the_sweep_benchmarks_width(cuda):
+    assert K._max_groups() >= 10_000
+
+
+def test_policy_sweep_is_one_launch_on_card(cuda):
+    kw = dict(arrival_rate=4.0, n_jobs=400, seed=3, feasible_b=[2, 4, 8])
+    before = launch_counts()["sojourn_cells"]
+    on_card = TS.sweep_sojourn_policies(DISTS, 16, policies=POLS,
+                                        device="cuda", **kw)
+    assert launch_counts()["sojourn_cells"] == before + 1
+    on_cpu = TS.sweep_sojourn_policies(DISTS, 16, policies=POLS,
+                                       device="cpu", **kw)
+    np.testing.assert_array_equal(on_card.samples, on_cpu.samples)
+    np.testing.assert_array_equal(on_card.extra_fraction,
+                                  on_cpu.extra_fraction)
+
+
+@pytest.mark.parametrize("r", [1, 16, 17, 33, 1024])
+@pytest.mark.parametrize("k", [1, 12, 13, 1024])
+@pytest.mark.parametrize("d", [2048, 1001])
+def test_combine_paths_within_bound(cuda, r, k, d):
+    """The small-R strip kernel (R <= 32 and R x K <= 12,288) and the tiled
+    kernel, at ragged R, K and D (D = 1001 takes the scalar loads)."""
+    g = torch.Generator(device="cpu").manual_seed(7 * r + k + d)
+    a = torch.randn((r, k), generator=g).to(cuda)
+    b = torch.randn((k, d), generator=g).to(cuda)
+    out = combine(a, b)
+    ref = combine_plain(a, b)
+    bound = COMBINE_RTOL * (a.double().abs() @ b.double().abs())
+    assert bool(((out.double() - ref.double()).abs() <= bound).all())
+    path = _build.load("combine").combine_path(r, k)
+    assert path == (0 if r <= 32 and r * k <= 12_288 else 1)
+
+
 def test_sweeps_on_card_equal_cpu(cuda):
     kw = dict(arrival_rate=4.0, n_jobs=400, seed=3, feasible_b=[2, 4, 8])
     codes = (CodingCandidate("mds", 4, encode_overhead=0.01,
