@@ -42,7 +42,9 @@ non-zero:
                       of 1,024 tokens and 16 new tokens each: prefill on
                       ``ssd_scan`` (81 launches) and ``flash_attention``
                       (13), decode on ``decode_attention`` (195), with the
-                      same measurements as ``serve``.  Then the card
+                      same measurements as ``serve`` and ``ssd_scan``'s
+                      share of the profiled prefill's device time (its
+                      bf16 tensor-core kernel must be there).  Then the card
                       against the CPU at full width and depth 7 (one
                       segment and one trailing block), prompt 256, 4
                       decode steps, as in ``serve``.  Then
@@ -61,7 +63,10 @@ non-zero:
                       rate (flash TFLOP/s, decode GB/s) and fraction of
                       its bound.  ``ssd_scan`` is held
                       within 1e-4 (float32) and 5e-2 (bfloat16) times
-                      1 + |plain| on mild-decay inputs.  ``sojourn_cells``
+                      1 + |plain| on mild-decay inputs, its final state
+                      within 1e-4 in both, with its achieved TFLOP/s and
+                      fraction of its bound.  ``coded_cells`` gives its
+                      device time beside its events time.  ``sojourn_cells``
                       runs plan_policies' one dispatch (every cell and
                       policy) and the widest cell's trigger and
                       trigger-free policies alone, bit-equal to its plain
@@ -126,6 +131,8 @@ HCHECK_LAYERS, HCHECK_PROMPT = 7, 256
 # ssd_scan against its plain version: within tol * (1 + |plain|); the
 # final state (float32 either way) at the float32 tolerance
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# the bf16 scan's tensor-core kernel, as the profiler names it
+SSD_BF16_KERNEL = "ssd_mma_kernel"
 
 
 def _fail(msg: str, code: int) -> None:
@@ -318,7 +325,11 @@ def main() -> int:
               f"calls: {sorted(count.values())})")
         return sum(by_name[k] / count[k] for k in by_name) * 1e3
 
-    def print_busy(name, wall, busy, n_events, by_name, count, top=6):
+    def print_busy(name, wall, busy, n_events, by_name, count, top=6,
+                   shares=None):
+        """Print and return the profile's busy time, idle share and its
+        heaviest kernel names; ``shares`` maps a label to a kernel-name
+        substring whose device seconds and share are reported too."""
         idle = None if busy is None else 1.0 - busy / wall
         print(f"[{name}] under torch.profiler: wall {wall:.3f} s, device "
               f"busy {busy} s over {n_events} device events, idle share "
@@ -328,10 +339,19 @@ def main() -> int:
         for kname, secs in heavy:
             print(f"    {secs:.6f} s ({secs / total:.1%} of device time, "
                   f"{count[kname]} events) {kname[:100]}")
+        share = {}
+        for label, sub in (shares or {}).items():
+            names = [k for k in by_name if sub in k]
+            secs = sum(by_name[k] for k in names)
+            share[label] = {"device_s": secs, "share": secs / total,
+                            "events": sum(count[k] for k in names)}
+            print(f"    {label} ({sub}): {secs:.6f} s, {secs / total:.2%} of "
+                  f"device time, {share[label]['events']} events")
         return {"profiled_wall_s": wall, "device_busy_s": busy,
                 "device_events": n_events, "idle_share": idle,
                 "device_s_by_name": dict(heavy),
-                "events_by_name": {k: count[k] for k, _ in heavy}}
+                "events_by_name": {k: count[k] for k, _ in heavy},
+                "shares": share}
 
     # -- 1. build ---------------------------------------------------------
     _phase("build")
@@ -518,11 +538,13 @@ def main() -> int:
     from repro_torch.models import (count_params, decode_step, init_params,
                                     params_to, prefill)
 
-    def serve_cell(tag, cfg, params, prompts, n_new, max_len, want):
+    def serve_cell(tag, cfg, params, prompts, n_new, max_len, want,
+                   prefill_shares=None):
         """Greedy generation at full width: three runs (the first with the
         launch counts at 0, which must equal ``want``), rates, peak memory
         and each part's idle share under the profiler against its own
-        fastest unprofiled run."""
+        fastest unprofiled run; ``prefill_shares`` as ``print_busy``'s
+        ``shares``, for the prefill."""
         batch, plen = prompts.shape
         print(f"[{tag}] {cfg.name}: {count_params(params):,} parameters in "
               f"bf16 on the card; batch {batch}, prompt {plen}, {n_new} new "
@@ -581,7 +603,7 @@ def main() -> int:
 
         busy_prefill = print_busy(f"{tag} prefill", *device_busy(
             lambda: prefill(cfg, params, {"tokens": prompts}, max_len)),
-            top=10)
+            top=10, shares=prefill_shares)
         prefill_state = prefill(cfg, params, {"tokens": prompts}, max_len)
         busy_decode = print_busy(f"{tag} decode", *device_busy(decode_loop),
                                  top=10)
@@ -707,9 +729,14 @@ def main() -> int:
             "serve_hybrid", hcfg, hparams, hprompts, HYBRID_NEW,
             HYBRID_MAX_LEN,
             {"ssd_scan": hcfg.n_layers, "flash_attention": n_seg,
-             "decode_attention": n_seg * (HYBRID_NEW - 1)})
+             "decode_attention": n_seg * (HYBRID_NEW - 1)},
+            prefill_shares={"ssd_scan": SSD_BF16_KERNEL})
     finally:
         SSM_MODEL.ssd_scan = o_ssd
+    ssd_share = hybrid_report["busy_prefill"]["shares"]["ssd_scan"]
+    if ssd_share["events"] == 0:
+        raise AssertionError(f"the profiled bf16 prefill ran no "
+                             f"{SSD_BF16_KERNEL}")
     del hparams
     hybrid_report.update(card_vs_cpu(
         "serve_hybrid", dataclasses.replace(hcfg, n_layers=HCHECK_LAYERS),
@@ -889,6 +916,8 @@ def main() -> int:
                                   for c in range(times.shape[0])], reps)
         bound_ms = nbytes(times, ks, out_k) / HBM_BYTES_PER_S * 1e3
         entry = {"name": "coded_cells", "shape": list(times.shape), "ms": ms,
+                 "device_ms": device_ms(lambda: SK.coded_cells(times, ks),
+                                        reps),
                  "plain_ms": plain_ms, "library_ms": lib_ms,
                  "bound_ms": bound_ms, "max_abs_err": 0.0}
         if times.shape[2] <= 64:
@@ -911,7 +940,8 @@ def main() -> int:
     for e in (e_plan, e_big):
         radix = (f" (radix path on the same rows {e['radix_ms']:.4f} ms)"
                  if "radix_ms" in e else "")
-        print(f"[kernels] coded_cells {e['shape']}: {e['ms']:.4f} ms{radix}, "
+        print(f"[kernels] coded_cells {e['shape']}: {e['ms']:.4f} ms "
+              f"(device {e['device_ms']:.5f} ms){radix}, "
               f"plain {e['plain_ms']:.4f} ms, kthvalue {e['library_ms']:.4f} "
               f"ms, bound {e['bound_ms']:.5f} ms, bit-equal")
     rows.append({"name": "coded_cells", "route": "cuda",
@@ -921,7 +951,8 @@ def main() -> int:
                  "ms": e_plan["ms"], "plain_ms": e_plan["plain_ms"],
                  "bound_ms": e_plan["bound_ms"], "bound_by": "bytes",
                  "library_ms": e_plan["library_ms"], "shape": e_plan["shape"],
-                 "radix_ms": e_plan["radix_ms"]})
+                 "radix_ms": e_plan["radix_ms"],
+                 "device_ms": e_plan["device_ms"]})
     extra_rows.extend([e_plan, e_big])
 
     # combine: the planner's largest encode, then a square-ish GEMM
@@ -1286,11 +1317,14 @@ def main() -> int:
     s_bound = max(s_flops / BF16_FLOP_PER_S, s_bytes / HBM_BYTES_PER_S) * 1e3
     s_by = ("operations" if s_flops / BF16_FLOP_PER_S
             > s_bytes / HBM_BYTES_PER_S else "bytes")
+    s_rates = kernel_rates(s_flops, s_bytes, s_bound, s_dev)
     print(f"[kernels] ssd_scan x {list(xs_shape)} b/c {list(bc_shape)} bf16: "
           f"{s_ms:.4f} ms (device {s_dev:.4f} ms, per call {s_call:.4f} "
           f"ms), plain {s_plain:.4f} ms, "
           f"no library call, bound {s_bound:.5f} ms ({s_by}: {s_flops:.4g} "
-          f"FLOP, {s_bytes} B); max err f32 {ssd_errs['float32']:.3e} "
+          f"FLOP, {s_bytes} B), {s_rates['bound_fraction']:.3f} of it at "
+          f"the device time, {s_rates['tflops']:.1f} TFLOP/s, "
+          f"{s_rates['gbps']:.0f} GB/s; max err f32 {ssd_errs['float32']:.3e} "
           f"(state {ssd_errs['float32_state']:.3e}), bf16 "
           f"{ssd_errs['bfloat16']:.3e} (tol {SSD_TOL} x (1 + |plain|))")
     rows.append({"name": "ssd_scan", "route": "cuda",
@@ -1304,7 +1338,10 @@ def main() -> int:
                  "max_abs_err_f32": ssd_errs["float32"],
                  "max_abs_err_state_f32": ssd_errs["float32_state"],
                  "tolerance": SSD_TOL, "device_ms": s_dev, "call_ms": s_call,
-                 "flops": s_flops, "bytes": s_bytes})
+                 "flops": s_flops, "bytes": s_bytes,
+                 "bound_fraction": s_rates["bound_fraction"],
+                 "tflops": s_rates["tflops"], "gbps": s_rates["gbps"],
+                 "max_abs_err_state_bf16": ssd_errs["bfloat16_state"]})
     del sx, sdt, sb, sc_, y_out, st_out
 
     report["kernels"] = rows

@@ -53,7 +53,7 @@ SOURCES = {
     "ssd_scan": ("ssd_scan.cu", []),
 }
 
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # name -> {C function: (argtypes, restype)}: the plain C interface of each
 # library, declared once when it is loaded
 SIGNATURES = {
@@ -75,7 +75,8 @@ SIGNATURES = {
         "decode_attention_launch": ([_PTR] * 4 + [_INT] * 9 + [_PTR], _INT),
     },
     "ssd_scan": {
-        "ssd_scan_launch": ([_PTR] * 9 + [_INT] * 7 + [_PTR], _INT),
+        "ssd_scan_launch": ([_PTR] * 9 + [_INT] * 7 + [_I64] * 4 + [_PTR],
+                            _INT),
     },
 }
 

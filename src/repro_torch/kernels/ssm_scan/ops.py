@@ -5,16 +5,24 @@
 optional float32 ``initial_state`` (B, H, N, P), as ``repro.models.ssm
 .ssd_chunked`` does, and returns (y (B, S, H, P) in x's dtype, the final
 state (B, H, N, P) in float32).  Head h reads B/C group h // (H / G), the
-group-major order of the reference's ``jnp.repeat``.
+group-major order of the reference's ``jnp.repeat``.  x, b and c may be
+views with any batch and token strides (multiples of 16 bytes) as long as
+their last two dims are packed, such as the model's slices of one
+activation; dt, a_log, d_skip and the initial state are contiguous.
 
 On a CUDA tensor it launches ``csrc/ssd_scan.cu`` (or raises), which walks
-the sequence in fixed chunks of 64 positions and masks the ragged tail; on a CPU tensor it runs :func:`ssd_scan_plain`, which follows
+the sequence in fixed chunks of 64 positions and masks the ragged tail:
+bfloat16 runs the chunk's products on the tensor cores (bf16 operands,
+float32 accumulation, the float32 weights and the state update's float32
+operand each split into two bf16 parts), float32 runs them on the FMA
+units.  On a CPU tensor it runs :func:`ssd_scan_plain`, which follows
 ``ssd_chunked`` with the reference model's chunk rule: chunks of
 ``min(chunk, S)``, or one chunk of S when that does not divide S.
-Chunking is exact in real arithmetic, so the two differ by float32
-rounding only: the kernel is held to the plain version within
-1e-4 * (1 + |plain|) in float32 and 5e-2 * (1 + |plain|) in bfloat16 (the
-output's rounding), on inputs whose per-chunk decay stays mild.
+Chunking is exact in real arithmetic, so the two differ by rounding only:
+the kernel is held to the plain version within 1e-4 * (1 + |plain|) in
+float32 and 5e-2 * (1 + |plain|) in bfloat16 (the output's rounding), its
+final state within 1e-4 * (1 + |plain|) in both, on inputs whose
+per-chunk decay stays mild.
 
 :func:`ssd_sequential` is the reference's step-by-step oracle.
 """
@@ -111,6 +119,16 @@ def ssd_scan_plain(x, dt, a_log, b, c, d_skip, initial_state=None,
     return y.to(x.dtype), state
 
 
+def _rows_ok(t: torch.Tensor) -> bool:
+    """Last two dims packed, and every batch and token stride that matters
+    (its dim longer than 1) a multiple of 16 bytes."""
+    es = t.element_size()
+    return (t.stride(3) == 1
+            and (t.shape[2] == 1 or t.stride(2) == t.shape[3])
+            and all(t.shape[d] == 1 or t.stride(d) * es % 16 == 0
+                    for d in (0, 1)))
+
+
 def _check(x, dt, a_log, b, c, d_skip, initial_state):
     if x.dim() != 4 or b.dim() != 4 or c.dim() != 4 or dt.dim() != 3:
         raise ValueError("x must be (B, S, H, P), dt (B, S, H) and b, c "
@@ -147,8 +165,17 @@ def _check(x, dt, a_log, b, c, d_skip, initial_state):
         if name in ("dt", "a_log", "d_skip", "initial_state") and (
                 t.dtype != torch.float32):
             raise TypeError(f"{name} has dtype {t.dtype}; expected float32")
-        if not t.is_contiguous():
+        if name in ("x", "b", "c"):
+            if not _rows_ok(t):
+                raise ValueError(
+                    f"{name} must be contiguous in its last two dims, with "
+                    f"batch and token strides of 16-byte multiples; got "
+                    f"strides {t.stride()}")
+        elif not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if any(b.shape[d] > 1 and b.stride(d) != c.stride(d) for d in (0, 1)):
+        raise ValueError(f"b and c must share batch and token strides, got "
+                         f"{b.stride()} and {c.stride()}")
 
 
 def ssd_scan(x, dt, a_log, b, c, d_skip,
@@ -158,7 +185,8 @@ def ssd_scan(x, dt, a_log, b, c, d_skip,
     b, c (B, S, G, N) in x's dtype; initial_state (B, H, N, P) float32 or
     None.  Returns (y (B, S, H, P) in x's dtype, final_state (B, H, N, P)
     float32).  ``chunk`` is the plain version's chunk (the CPU path); the
-    kernel keeps its own 64."""
+    kernel keeps its own 64.  x, b and c may be token-strided views (see
+    the module's docstring)."""
     _check(x, dt, a_log, b, c, d_skip, initial_state)
     dev = x.device
     if dev.type == "cpu":
@@ -172,13 +200,13 @@ def ssd_scan(x, dt, a_log, b, c, d_skip,
     bs, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     lib = _build.load("ssd_scan")
-    y = torch.empty_like(x)
+    y = torch.empty(x.shape, dtype=x.dtype, device=dev)
     state = torch.empty((bs, h, n, p), dtype=torch.float32, device=dev)
     ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
     code = lib.ssd_scan_launch(
         ptr(x), ptr(dt), ptr(a_log), ptr(b), ptr(c), ptr(d_skip),
         ptr(initial_state), ptr(y), ptr(state), bs, s, h, g, p, n,
-        DTYPES[x.dtype],
+        DTYPES[x.dtype], x.stride(0), x.stride(1), b.stride(0), b.stride(1),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(lib, code, "ssd_scan launch")
     _build.count_launch("ssd_scan")

@@ -132,16 +132,21 @@ def _gated_out(params, y, z, x):
 
 def _ssm_inputs(cfg: ArchConfig, params, xbc, dt_pre, x_dtype):
     """silu of the conv output split into x (.., H, P) and b, c (.., G, N),
-    each contiguous; dt = softplus(dt_pre + dt_bias) in float32."""
+    views of one activation; dt = softplus(dt_pre + dt_bias) in float32.
+
+    The scan reads the views in place, without a copy: P and N are
+    multiples of 16 (the kernel's rule, which ``ssd_scan`` checks), so in
+    bf16 or float32 every slice and every token row starts on a 32-byte
+    boundary of the activation."""
     ssm = cfg.ssm
     d_inner, n_heads = _dims(cfg)
     gn = ssm.n_groups * ssm.state_dim
     xbc = F.silu(xbc.float()).to(x_dtype)
     xs, b, c = xbc.split([d_inner, gn, gn], dim=-1)
     lead = xbc.shape[:-1]
-    xs = xs.reshape(*lead, n_heads, ssm.head_dim).contiguous()
-    b = b.reshape(*lead, ssm.n_groups, ssm.state_dim).contiguous()
-    c = c.reshape(*lead, ssm.n_groups, ssm.state_dim).contiguous()
+    xs = xs.reshape(*lead, n_heads, ssm.head_dim)
+    b = b.reshape(*lead, ssm.n_groups, ssm.state_dim)
+    c = c.reshape(*lead, ssm.n_groups, ssm.state_dim)
     dt = F.softplus(dt_pre.float() + params["dt_bias"])
     return xs, b, c, dt
 

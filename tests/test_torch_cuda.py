@@ -16,8 +16,11 @@ and decode attention within a tenth of its plain output's RMS (its outputs
 average up to a thousand value rows and are small).  The SSD scan is held
 to its plain version within 1e-4 * (1 + |plain|) in float32 and
 5e-2 * (1 + |plain|) in bfloat16 (y's rounding), its final state within
-1e-4 * (1 + |plain|), on mild-decay inputs.  The dense and hybrid LMs'
-logits on the card meet the CPU's within 4e-2.
+1e-4 * (1 + |plain|), on mild-decay inputs, also over 4,096 positions;
+in bfloat16 it runs its tensor-core kernel (HMMA in its SASS), in float32
+its FMA kernel, and it reads the model's strided views of one activation
+bit for bit as it reads copies.  The dense and hybrid LMs' logits on the
+card meet the CPU's within 4e-2.
 """
 
 import numpy as np
@@ -489,3 +492,87 @@ def test_hybrid_lm_on_card_matches_cpu(cuda):
     for name in ("seg_ssm", "seg_conv"):
         torch.testing.assert_close(sc[name].float().cpu(), sh[name].float(),
                                    atol=5e-2, rtol=5e-2)
+
+
+def test_ssd_bf16_long_sequence_state_drift(cuda):
+    """4,096 positions (64 kernel chunks) from an initial state: the bf16
+    kernel's state, carried through bf16 copies for C S and a split update,
+    stays within 1e-4 (1 + |plain|) of the float32 plain version."""
+    args = _ssd_inputs(17, 1, 4096, 4, 64, 1, 64, torch.bfloat16, cuda,
+                       init=True)
+    y, st = SS.ssd_scan(*args)
+    yp, sp = SS.ssd_scan_plain(*args)
+    _ssd_close(y, yp, SSD_TOL[torch.bfloat16])
+    _ssd_close(st, sp, 1e-4)
+
+
+def _ssd_kernel_names(args):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    SS.ssd_scan(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):  # the profiler can miss a window's first launch
+            SS.ssd_scan(*args)
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "ssd" in e.name}
+
+
+def test_ssd_dtype_picks_its_kernel(cuda):
+    """bf16 launches the tensor-core kernel, float32 the FMA kernel."""
+    mma, fma = "ssd_mma_kernel", "ssd_kernel<"
+    for dtype, want, other in ((torch.bfloat16, mma, fma),
+                               (torch.float32, fma, mma)):
+        names = _ssd_kernel_names(
+            _ssd_inputs(5, 2, 130, 4, 64, 1, 64, dtype, cuda))
+        assert any(want in n for n in names), names
+        assert not any(other in n for n in names), names
+
+
+def test_ssd_bf16_kernel_sass_holds_hmma(cuda):
+    """The bf16 kernel's SASS runs its products as HMMA; the float32
+    kernel's has none."""
+    import subprocess
+    from pathlib import Path
+
+    _build.load("ssd_scan")
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "--dump-sass",
+                           str(_build._lib_path("ssd_scan"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :")[1].strip()
+            counts[cur] = 0
+        elif cur is not None and "HMMA" in line:
+            counts[cur] += 1
+    mma = {k: v for k, v in counts.items() if "ssd_mma_kernel" in k}
+    fma = {k: v for k, v in counts.items() if "ssd_kernel" in k}
+    assert len(mma) == 4 and all(v > 0 for v in mma.values()), counts
+    assert fma and not any(fma.values()), counts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,h,p,g,n", [(200, 4, 64, 1, 64),
+                                       (70, 6, 32, 2, 16)])
+def test_ssd_strided_views_equal_copies(cuda, dtype, s, h, p, g, n):
+    """x, b and c as the model passes them, slices of one (B, S, conv)
+    activation, give bit for bit what contiguous copies give."""
+    bsz, d_in = 2, h * p
+    gen = torch.Generator(device="cpu").manual_seed(s + p)
+    xbc = torch.randn((bsz, s, d_in + 2 * g * n + 8), generator=gen).to(
+        cuda, dtype)
+    xbc[..., d_in:] *= 0.3
+    xs = xbc[..., :d_in].reshape(bsz, s, h, p)
+    b = xbc[..., d_in:d_in + g * n].reshape(bsz, s, g, n)
+    c = xbc[..., d_in + g * n:d_in + 2 * g * n].reshape(bsz, s, g, n)
+    assert not xs.is_contiguous() and not b.is_contiguous()
+    rest = _ssd_inputs(s, bsz, s, h, p, g, n, dtype, cuda, init=True)
+    dt, a_log, d_skip, init = rest[1], rest[2], rest[5], rest[6]
+    y_v, st_v = SS.ssd_scan(xs, dt, a_log, b, c, d_skip, init)
+    y_c, st_c = SS.ssd_scan(xs.contiguous(), dt, a_log, b.contiguous(),
+                            c.contiguous(), d_skip, init)
+    assert torch.equal(y_v, y_c) and torch.equal(st_v, st_c)
