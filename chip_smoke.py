@@ -24,6 +24,10 @@ non-zero:
                       (mds s in {4, 8, 12}, overheads measured by the
                       ``combine`` kernel); the winner must be mds(s=12).
                       Then the same candidates under a load-aware p99.
+                      Then ``coded_fleet``: ``sweep_coded`` at
+                      plan_policies' fleet (N=10,000, SExp(0.05, 2.0), mds
+                      s in {100, 1,000, 2,500}, 2,000 trials): one
+                      ``coded_cells`` launch over 3 x 2,000 x 10,000 cells.
 5. ``serve``          qwen2-0.5b at full width (24 layers, d_model 896,
                       vocab 151,936; random bf16 weights from a seeded
                       generator) serves 8 prompts of 1,024 tokens and 32
@@ -65,8 +69,18 @@ non-zero:
                       within 1e-4 (float32) and 5e-2 (bfloat16) times
                       1 + |plain| on mild-decay inputs, its final state
                       within 1e-4 in both, with its achieved TFLOP/s and
-                      fraction of its bound.  ``coded_cells`` gives its
-                      device time beside its events time.  ``sojourn_cells``
+                      fraction of its bound.  ``coded_cells`` runs the
+                      planner's cells (short rows), the fleet's cells and
+                      duplicated 2 x 2,000 x 10,000 rows (radix select),
+                      bit-equal to its plain version, with its events,
+                      per-call and device times, the candidates each radix
+                      pass left (the kernel's record, equal to the plain
+                      version's), the device time of an empty kernel
+                      launched as the short-row kernel is (the launch
+                      floor), the host microseconds of each step of a call
+                      beside costlier ways to take the same steps, and the
+                      stack frames ptxas reports (none may use local
+                      memory in a short-row kernel).  ``sojourn_cells``
                       runs plan_policies' one dispatch (every cell and
                       policy) and the widest cell's trigger and
                       trigger-free policies alone, bit-equal to its plain
@@ -97,6 +111,7 @@ import ctypes
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -111,6 +126,9 @@ SOJOURN_PLAIN_JOBS = 2_000
 LATENCY_PROBE = os.path.join("src", "repro_torch", "csrc", "probes",
                              "chain_latency.cu")
 PLANNER_KERNELS = ("sojourn_cells", "coded_cells", "combine")
+# the fleet's coded sweep: plan_policies' N = 10,000 workers, mds tolerances
+CODED_FLEET_N, CODED_FLEET_S = 10_000, (100, 1_000, 2_500)
+CODED_FLEET_TRIALS = 2_000
 # the serve phase: qwen2-0.5b at full width
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = 8, 1024, 32, 2048
 # card against CPU: full width, depth 2.  Either bf16 run rounds the
@@ -171,7 +189,7 @@ def main() -> int:
     from repro_torch.core.planner import ClusterSpec, Objective, SimulatedPlanner
     from repro_torch.core.policies import PolicyCandidate
     from repro_torch.core import simulator as SIM
-    from repro_torch.core.simulator import sweep_sojourn_policies
+    from repro_torch.core.simulator import sweep_coded, sweep_sojourn_policies
     from repro_torch.kernels import _build
     from repro_torch.kernels.coded import kernel as CK
     from repro_torch.kernels.coded import ops as coded_ops
@@ -520,6 +538,28 @@ def main() -> int:
         SK.coded_cells, coded_ops.combine = o1, o2
     print(f"[plan_coded] load-aware p99: B={lplan.n_batches} "
           f"coding={lplan.coding} p99={lplan.predicted.p99:.6f}")
+    # the fleet's coded sweep through the simulator's entry point: one
+    # coded_cells launch over 3 x 2,000 x 10,000 cells (240 MB)
+    fleet_cands = tuple(CodingCandidate("mds", s_) for s_ in CODED_FLEET_S)
+    fleet_coded_calls: list = []
+    o1 = capture(SK, "coded_cells", fleet_coded_calls)
+    try:
+        fsweep, fcounts, fwall, fstages = run_path(
+            "coded_fleet", lambda: sweep_coded(
+                heavy, CODED_FLEET_N, fleet_cands,
+                n_trials=CODED_FLEET_TRIALS, seed=0, device="cuda"))
+    finally:
+        SK.coded_cells = o1
+    if fcounts["coded_cells"] != 1:
+        raise AssertionError(f"coded_fleet launched coded_cells "
+                             f"{fcounts['coded_cells']} times, want one")
+    if (fsweep.samples.shape != (1, len(CODED_FLEET_S), CODED_FLEET_TRIALS)
+            or not np.isfinite(fsweep.samples).all()
+            or not (fsweep.samples > 0).all()):
+        raise AssertionError(f"bad coded_fleet samples {fsweep.samples.shape}")
+    fleet_means = fsweep.means()[0].tolist()
+    print(f"[coded_fleet] N={CODED_FLEET_N}, mds s={CODED_FLEET_S}, "
+          f"{CODED_FLEET_TRIALS} trials: mean completion {fleet_means}")
     report["phases"]["plan_coded"] = {
         "wall_s": wall, "launches": counts, "winner": cplan.coding.describe(),
         "mean": cplan.predicted.mean, "best_replication_mean": best_rep,
@@ -528,6 +568,8 @@ def main() -> int:
         "sojourn_wall_s": lwall, "sojourn_launches": lcounts,
         "sojourn_plan": [lplan.n_batches, repr(lplan.coding),
                          lplan.predicted.p99],
+        "fleet": {"wall_s": fwall, "stages_s": fstages, "launches": fcounts,
+                  "s": list(CODED_FLEET_S), "means": fleet_means},
     }
 
     # -- 5. serve and 6. serve_hybrid -------------------------------------
@@ -901,49 +943,198 @@ def main() -> int:
                  "chain_cycles": chain_cycles, "sm_clock_mhz": sm_clock_mhz})
     extra_rows.extend(soj_entries)
 
-    # coded_cells: the planner's shape, then long rows with duplicates
+    # coded_cells: the planner's shape, the fleet's cells, then long rows
+    # with duplicates; beside them the launch floor, the radix passes'
+    # candidates, the host's split of a call and the build's stack frames
+    coded_lib = _build.load("coded_cells")
+
+    def pass_summary(counts):
+        """For each radix pass: the rows that ran it, and the mean and the
+        largest count of candidates it left."""
+        c = counts.reshape(-1, counts.shape[-1]).double()
+        out = []
+        for p_ in range(c.shape[1]):
+            ran = c[:, p_] > 0
+            n_ran = int(ran.sum().item())
+            out.append({"rows": n_ran, "max": int(c[:, p_].max().item()),
+                        "mean": c[ran, p_].mean().item() if n_ran else 0.0})
+        return out
+
     def coded_row(times, ks, reps):
+        ks_dev = ks.to(dev)
         out_k = SK.coded_cells(times, ks)
-        out_p = SK.coded_cells_plain(times, ks)
+        out_p = SK.coded_cells_plain(times, ks_dev)
         if not torch.equal(out_k, out_p):
             raise AssertionError(
                 f"coded_cells differs from its plain version at "
                 f"{tuple(times.shape)}")
-        ms = cuda_ms(lambda: SK.coded_cells(times, ks), reps)
-        plain_ms = cuda_ms(lambda: SK.coded_cells_plain(times, ks), reps)
+        fn = lambda: SK.coded_cells(times, ks)  # noqa: E731
+        ms = cuda_ms(fn, reps)
+        one_ms = call_ms(fn, reps)
+        dev_ms = device_ms(fn, reps)
+        plain_ms = cuda_ms(lambda: SK.coded_cells_plain(times, ks_dev), reps)
         ks_host = ks.tolist()
         lib_ms = cuda_ms(lambda: [torch.kthvalue(times[c], ks_host[c], dim=1)
                                   for c in range(times.shape[0])], reps)
         bound_ms = nbytes(times, ks, out_k) / HBM_BYTES_PER_S * 1e3
-        entry = {"name": "coded_cells", "shape": list(times.shape), "ms": ms,
-                 "device_ms": device_ms(lambda: SK.coded_cells(times, ks),
-                                        reps),
-                 "plain_ms": plain_ms, "library_ms": lib_ms,
-                 "bound_ms": bound_ms, "max_abs_err": 0.0}
+        # the radix select's passes, recorded by the kernel, against the
+        # plain version's
+        r_out, counts = SK.coded_radix_counts(times, ks)
+        if not (torch.equal(r_out, out_p) and torch.equal(
+                counts, SK.coded_radix_counts_plain(times, ks_dev))):
+            raise AssertionError(f"coded_cells radix passes differ from the "
+                                 f"plain version at {tuple(times.shape)}")
+        entry = {"name": "coded_cells", "shape": list(times.shape),
+                 "ks": ks_host, "ks_on": str(ks.device), "ms": ms,
+                 "call_ms": one_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                 "library_ms": lib_ms, "bound_ms": bound_ms,
+                 "bound_fraction": bound_ms / dev_ms, "max_abs_err": 0.0,
+                 "radix_passes": pass_summary(counts)}
         if times.shape[2] <= 64:
             # the same rows through the long-row radix path
             if not torch.equal(SK.coded_cells(times, ks, force_radix=True),
                                out_p):
                 raise AssertionError("coded_cells radix path differs")
-            entry["radix_ms"] = cuda_ms(
-                lambda: SK.coded_cells(times, ks, force_radix=True), reps)
+            rfn = lambda: SK.coded_cells(times, ks, force_radix=True)  # noqa
+            entry["radix_ms"] = cuda_ms(rfn, reps)
+            entry["radix_device_ms"] = device_ms(rfn, reps)
         return entry
 
-    planner_times = max(coded_calls, key=lambda c: c[0][0].numel())[0]
-    e_plan = coded_row(*planner_times, reps=50)
+    def coded_floor(times, ks, reps):
+        """Device time and per-call events of an empty kernel launched as
+        the short-row kernel is (its parameters and grid)."""
+        out = torch.empty(tuple(times.shape[:2]), device=dev)
+        on_host = not ks.is_cuda
+        args = (times.data_ptr(), None if on_host else ks.data_ptr(),
+                ks.data_ptr() if on_host else None, out.data_ptr(), None,
+                *times.shape, 0,
+                torch._C._cuda_getCurrentRawStream(times.get_device()))
+
+        def fn():
+            _build.check(coded_lib, coded_lib.coded_cells_floor_launch(*args),
+                         "coded_cells floor launch")
+
+        return device_ms(fn, reps), call_ms(fn, reps)
+
+    def coded_host_split(times, ks, reps=2000):
+        """Host microseconds a call of each step of the wrapper and the
+        seam, each timed alone over ``reps`` calls (a launch enqueues only;
+        the card keeps up), beside the costlier ways to take the same steps
+        ("alt": full checks, a stream object, pointer objects, ``ks``
+        copied to the card), and the whole calls."""
+        n_c, n_t, n_w = times.shape
+        tdev = times.device
+        ks_np = np.asarray(ks.tolist(), dtype=np.int64)
+        ks_dev = ks.to(tdev)
+        out = torch.empty((n_c, n_t), device=dev)
+        stream = torch._C._cuda_getCurrentRawStream(times.get_device())
+        f32, i32 = torch.float32, torch.int32
+
+        def host_us(fn):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            us = (time.perf_counter() - t0) / reps * 1e6
+            torch.cuda.synchronize()
+            return us
+
+        steps = {
+            "check (_coded_check)": lambda: SK._coded_check(times, ks),
+            "output (new_empty)": lambda: times.new_empty((n_c, n_t)),
+            "stream (raw accessor)": lambda:
+                torch._C._cuda_getCurrentRawStream(times.get_device()),
+            "launch (ctypes, ks by value)": lambda:
+                coded_lib.coded_cells_launch(
+                    times.data_ptr(), None, ks.data_ptr(), out.data_ptr(),
+                    None, n_c, n_t, n_w, 0, stream),
+            "seam: ks as a host tensor": lambda:
+                torch.from_numpy(ks_np.astype(np.int32)),
+            "alt: _require x2": lambda: (
+                SK._require(times, "times", f32, (n_c, n_t, n_w), tdev),
+                SK._require(ks_dev, "ks", i32, (n_c,), tdev)),
+            "alt: torch.empty": lambda: torch.empty((n_c, n_t), dtype=f32,
+                                                       device=tdev),
+            "alt: _stream() (a torch.cuda.Stream)": SK._stream,
+            "alt: _ptr x3 (ctypes.c_void_p)": lambda: (
+                SK._ptr(times), SK._ptr(ks_dev), SK._ptr(out)),
+            "alt: launch, ks on the card, via _ptr and _stream()": lambda:
+                coded_lib.coded_cells_launch(
+                    SK._ptr(times), SK._ptr(ks_dev), None, SK._ptr(out), None,
+                    n_c, n_t, n_w, 0, SK._stream()),
+            "alt: the seam's ks copied to the card (pageable)": lambda:
+                SOPS._on(ks_np, tdev, i32),
+            "call: coded_cells, ks on the host": lambda:
+                SK.coded_cells(times, ks),
+            "call: coded_cells, ks on the card": lambda:
+                SK.coded_cells(times, ks_dev),
+            "call: the seam coded_completion_cells": lambda:
+                SOPS.coded_completion_cells(times, ks_np),
+        }
+        return {k: host_us(fn) for k, fn in steps.items()}
+
+    def stack_frames():
+        """(stack frame, spill store, spill load) bytes of each coded_cells
+        kernel, from ptxas -v in the build log."""
+        log = _build._lib_path("coded_cells").with_suffix(".log").read_text()
+        named = {}
+        for fn_, v in _build.stack_frames(log).items():
+            m = re.search(r"(coded_[a-z_]+?kernel)(I(?:L[bi]\d+E)+E)?", fn_)
+            targs = re.findall(r"L[bi](\d+)E", m.group(2) or "")
+            named[m.group(1) + (f"<{','.join(targs)}>" if targs else "")] = v
+        return named
+
+    planner_times, planner_ks = max(coded_calls,
+                                    key=lambda c: c[0][0].numel())[0]
+    e_plan = coded_row(planner_times, planner_ks, reps=50)
+    e_plan["floor_device_ms"], e_plan["floor_call_ms"] = coded_floor(
+        planner_times, planner_ks, 50)
+    e_plan["host_split_us"] = coded_host_split(planner_times, planner_ks)
+    (fleet_times, fleet_ks), = [c[0] for c in fleet_coded_calls]
+    e_fleet = coded_row(fleet_times, fleet_ks, reps=10)
+    e_fleet["path"] = "coded_fleet"
+    e_fleet["path_wall_s"] = fwall
     g = torch.Generator(device="cpu").manual_seed(7)
     big = torch.empty((2, 2000, 10_000)).exponential_(generator=g)
     big[:, :, ::7] = big[:, :, 1::7][:, :, : big[:, :, ::7].shape[2]]  # dups
     big = big.to(dev).contiguous()
     e_big = coded_row(big, torch.tensor([9000, 9988], dtype=torch.int32,
                                         device=dev), reps=10)
-    for e in (e_plan, e_big):
-        radix = (f" (radix path on the same rows {e['radix_ms']:.4f} ms)"
+    frames = stack_frames()
+    if any(v != (0, 0, 0) for k, v in frames.items()
+           if k.startswith("coded_warp_kernel")):
+        raise AssertionError(f"a short-row kernel uses local memory: {frames}")
+    for e in (e_plan, e_fleet, e_big):
+        radix = (f"; radix path on the same rows {e['radix_ms']:.4f} ms, "
+                 f"device {e['radix_device_ms']:.5f} ms"
                  if "radix_ms" in e else "")
-        print(f"[kernels] coded_cells {e['shape']}: {e['ms']:.4f} ms "
-              f"(device {e['device_ms']:.5f} ms){radix}, "
+        print(f"[kernels] coded_cells {e['shape']} ks {e['ks']} (on "
+              f"{e['ks_on']}): events {e['ms']:.4f} ms, per call "
+              f"{e['call_ms']:.4f} ms, device {e['device_ms']:.5f} ms{radix}; "
               f"plain {e['plain_ms']:.4f} ms, kthvalue {e['library_ms']:.4f} "
-              f"ms, bound {e['bound_ms']:.5f} ms, bit-equal")
+              f"ms; bound {e['bound_ms']:.5f} ms (bytes), "
+              f"{e['bound_fraction']:.3f} of it at the device time; "
+              f"bit-equal")
+        print(f"    radix passes (rows that ran each, mean and largest "
+              f"candidates left): {e['radix_passes']}")
+    fl = e_plan["floor_device_ms"]
+    print(f"[kernels] coded_cells launch floor (an empty kernel, the "
+          f"short-row kernel's parameters and grid at {e_plan['shape']}): "
+          f"device {fl:.5f} ms, per call {e_plan['floor_call_ms']:.4f} ms; "
+          f"the kernel's device time is {e_plan['device_ms'] / fl:.2f}x it; "
+          f"bound + floor {e_plan['bound_ms'] + fl:.5f} ms, "
+          f"{(e_plan['bound_ms'] + fl) / e_plan['device_ms']:.3f} of the "
+          f"device time")
+    print(f"[kernels] coded_cells fleet path (sweep_coded, N="
+          f"{CODED_FLEET_N}): wall {fwall:.3f} s, kernel device "
+          f"{e_fleet['device_ms']:.4f} ms, {e_fleet['bound_fraction']:.3f} "
+          f"of its bound")
+    print("[kernels] coded_cells host split at the planner's shape "
+          "(us a call): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in e_plan["host_split_us"].items()))
+    print(f"[kernels] coded_cells build (ptxas: stack frame, spill stores, "
+          f"spill loads bytes): {frames}")
     rows.append({"name": "coded_cells", "route": "cuda",
                  "source": "src/repro_torch/csrc/coded_cells.cu",
                  "replaces": "src/repro/kernels/sojourn_sweep/kernel.py:183",
@@ -952,8 +1143,13 @@ def main() -> int:
                  "bound_ms": e_plan["bound_ms"], "bound_by": "bytes",
                  "library_ms": e_plan["library_ms"], "shape": e_plan["shape"],
                  "radix_ms": e_plan["radix_ms"],
-                 "device_ms": e_plan["device_ms"]})
-    extra_rows.extend([e_plan, e_big])
+                 "device_ms": e_plan["device_ms"],
+                 "call_ms": e_plan["call_ms"],
+                 "floor_device_ms": e_plan["floor_device_ms"],
+                 "fleet_device_ms": e_fleet["device_ms"],
+                 "fleet_bound_ms": e_fleet["bound_ms"],
+                 "stack_frames": frames})
+    extra_rows.extend([e_plan, e_fleet, e_big])
 
     # combine: the planner's largest encode, then a square-ish GEMM
     def combine_row(a, b, reps):

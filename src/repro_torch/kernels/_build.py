@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -32,6 +33,7 @@ __all__ = [
     "reset_launch_counts",
     "count_launch",
     "check",
+    "stack_frames",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -62,7 +64,11 @@ SIGNATURES = {
         "sojourn_cells_max_groups": ([], _INT),
     },
     "coded_cells": {
-        "coded_cells_launch": ([_PTR] * 3 + [_INT] * 4 + [_PTR], _INT),
+        "coded_cells_launch": ([_PTR] * 5 + [_INT] * 4 + [_PTR], _INT),
+        "coded_cells_floor_launch": ([_PTR] * 5 + [_INT] * 4 + [_PTR], _INT),
+        "coded_cells_max_staged_n": ([], _INT),
+        "coded_cells_host_quorums": ([], _INT),
+        "coded_cells_max_passes": ([], _INT),
     },
     "combine": {
         "combine_launch": ([_PTR] * 3 + [_INT] * 3 + [_PTR], _INT),
@@ -183,3 +189,15 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.repro_error_string(code).decode()
         raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+
+
+_FRAME = re.compile(r"Function properties for (\S+)\s+(\d+) bytes stack frame, "
+                    r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def stack_frames(log: str) -> dict[str, tuple[int, int, int]]:
+    """{mangled function: (stack frame, spill store, spill load bytes)} from
+    the ``-Xptxas -v`` output that :func:`build_all` keeps beside each
+    library (``lib<name>_<hash>.log``); non-zero means local memory."""
+    return {m[1]: (int(m[2]), int(m[3]), int(m[4]))
+            for m in _FRAME.finditer(log)}

@@ -24,6 +24,14 @@ KIND_HEDGED = 3
 
 _INT_MAX = 2**31 - 1
 
+# csrc/coded_cells.cu: ks in host memory ride in the launch up to this many
+# cells; the radix select's digit bits, its most passes, and the most
+# candidates that one warp sorts to finish
+CODED_HOST_QUORUMS = 64
+CODED_RADIX_BITS = 8
+CODED_MAX_PASSES = 4
+CODED_RANK_MAX = 32
+
 __all__ = [
     "KIND_NONE",
     "KIND_CLONE",
@@ -31,8 +39,11 @@ __all__ = [
     "KIND_HEDGED",
     "sojourn_cells",
     "sojourn_cells_plain",
+    "CODED_HOST_QUORUMS",
     "coded_cells",
     "coded_cells_plain",
+    "coded_radix_counts",
+    "coded_radix_counts_plain",
 ]
 
 
@@ -159,6 +170,60 @@ def coded_cells_plain(times, ks):
     return torch.gather(srt, 2, idx)[:, :, 0]
 
 
+def _order_keys(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's order-preserving uint32 key of each float32, as int64."""
+    b = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(b >= 0x80000000, 0xFFFFFFFF - b, b | 0x80000000)
+
+
+def coded_radix_counts_plain(times, ks):
+    """The radix select's candidates left after each pass: (C,T,P) int32.
+
+    The plain version of :func:`coded_radix_counts`: every row at once, the
+    passes of ``csrc/coded_cells.cu``'s long-row path.  A pass takes the
+    candidates' range [lo, hi] (at first the row's), counts the 8-bit digit
+    ``(key - lo) >> s`` with ``s`` the shift that brings the range under
+    256 bins, keeps the bin that holds the k-th, and records how many keys
+    it holds; the row is done when its candidates' range is one key, or
+    after a pass that left at most 32 (which one warp sorts).  Passes not
+    run count 0.
+    """
+    n_cells, n_trials, n = times.shape
+    keys = _order_keys(times).reshape(n_cells * n_trials, n)
+    dev = keys.device
+    k = ks.to(device=dev, dtype=torch.int64).repeat_interleave(n_trials)
+    lo, hi = keys.amin(1), keys.amax(1)
+    m = torch.full_like(lo, n)
+    live = lo != hi
+    inb = torch.ones_like(keys, dtype=torch.bool)
+    counts = torch.zeros((keys.shape[0], CODED_MAX_PASSES), dtype=torch.int32,
+                         device=dev)
+    nb = 1 << CODED_RADIX_BITS
+    for p in range(CODED_MAX_PASSES):
+        if p:
+            live = live & (m > CODED_RANK_MAX)
+        if not bool(live.any()):
+            break
+        # bit length of the span (exact: spans are below 2**32)
+        width = torch.frexp((hi - lo).double()).exponent.to(torch.int64)
+        s = (width - CODED_RADIX_BITS).clamp(min=0)
+        d = torch.where(inb, (keys - lo[:, None]) >> s[:, None], nb)
+        hist = torch.zeros((keys.shape[0], nb + 1), dtype=torch.int64,
+                           device=dev).scatter_add_(1, d, torch.ones_like(d))
+        cum = hist[:, :nb].cumsum(1)
+        dig = (cum < k[:, None]).sum(1, keepdim=True).clamp(max=nb - 1)
+        cnt = hist.gather(1, dig)[:, 0]
+        below = cum.gather(1, dig)[:, 0] - cnt
+        k = torch.where(live, k - below, k)
+        m = torch.where(live, cnt, m)
+        inb = torch.where(live[:, None], inb & (d == dig), inb)
+        lo = torch.where(live, torch.where(inb, keys, 1 << 32).amin(1), lo)
+        hi = torch.where(live, torch.where(inb, keys, -1).amax(1), hi)
+        counts[:, p] = torch.where(live, cnt, 0).to(torch.int32)
+        live = live & (lo != hi)
+    return counts.reshape(n_cells, n_trials, CODED_MAX_PASSES)
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
@@ -234,29 +299,86 @@ def sojourn_cells(arrivals, svc, alt, kinds, thresholds, hedge_masks,
     return out, extra
 
 
-def coded_cells(times, ks, force_radix: bool = False):
-    """k-th order statistic per (cell, trial): (C,T,N) f32, (C,) i32 -> (C,T).
-
-    ``ks[c]`` must lie in [1, N].  Rows of N <= 64 take the rank-counting
-    path unless ``force_radix``, which runs the long-row radix select on
-    them too (to time one path against the other).  A CPU tensor runs
-    :func:`coded_cells_plain`.
-    """
+def _coded_reject(times, ks) -> None:
+    """Raise the error that the fast checks of :func:`coded_cells` saw."""
+    if times.dim() != 3:
+        raise ValueError(f"times must be (C, T, N), got {tuple(times.shape)}")
     n_cells, n_trials, n = times.shape
     dev = times.device
     _require(times, "times", torch.float32, (n_cells, n_trials, n), dev)
-    _require(ks, "ks", torch.int32, (n_cells,), dev)
-    if dev.type == "cpu":
-        return coded_cells_plain(times, ks)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+    host_ks = dev.type == "cuda" and ks.device.type == "cpu"
+    _require(ks, "ks", torch.int32, (n_cells,), ks.device if host_ks else dev)
+    if host_ks and n_cells > CODED_HOST_QUORUMS:
+        raise ValueError(f"ks in host memory: at most {CODED_HOST_QUORUMS} "
+                         f"cells, got {n_cells}; put ks on {dev}")
+    raise ValueError(f"ks on {ks.device} cannot go with times on {dev}")
+
+
+def _coded_launch(times, ks, force_radix: bool, counts=None):
+    """Launch ``csrc/coded_cells.cu`` on CUDA ``times``; returns ``out``."""
+    n_cells, n_trials, n = times.shape
     lib = _build.load("coded_cells")
-    out = torch.empty((n_cells, n_trials), dtype=torch.float32, device=dev)
+    out = times.new_empty((n_cells, n_trials))
     if n_cells * n_trials == 0:
         return out
-    code = lib.coded_cells_launch(_ptr(times), _ptr(ks), _ptr(out), n_cells,
-                                  n_trials, n, int(bool(force_radix)),
-                                  _stream())
-    _build.check(lib, code, "coded_cells launch")
+    # plain ints: the declared argtypes make them pointers; the stream is
+    # PyTorch's current one as a raw handle (see ``combine``)
+    on_host = not ks.is_cuda
+    code = lib.coded_cells_launch(
+        times.data_ptr(), None if on_host else ks.data_ptr(),
+        ks.data_ptr() if on_host else None, out.data_ptr(),
+        None if counts is None else counts.data_ptr(), n_cells, n_trials, n,
+        int(force_radix), torch._C._cuda_getCurrentRawStream(times.get_device()))
+    if code:
+        _build.check(lib, code, "coded_cells launch")
     _build.count_launch("coded_cells")
     return out
+
+
+def _coded_check(times, ks) -> None:
+    """The inputs' checks, as cheap as they can be: at the planner's shape
+    a call's host time, not the kernel, sets its wall time."""
+    n_cells = times.shape[0] if times.dim() == 3 else -1
+    if (n_cells < 0 or times.dtype != torch.float32
+            or ks.dtype != torch.int32 or not times.is_contiguous()
+            or not ks.is_contiguous() or ks.shape != (n_cells,)
+            or (ks.device != times.device
+                and not (times.is_cuda and ks.device.type == "cpu"
+                         and n_cells <= CODED_HOST_QUORUMS))):
+        _coded_reject(times, ks)
+
+
+def coded_cells(times, ks, force_radix: bool = False):
+    """k-th order statistic per (cell, trial): (C,T,N) f32, (C,) i32 -> (C,T).
+
+    ``ks[c]`` must lie in [1, N].  ``ks`` lies on ``times``' device, or, for
+    a CUDA ``times`` of at most :data:`CODED_HOST_QUORUMS` cells, in host
+    memory: then the launch carries it by value and nothing is copied to
+    the card.  Rows of N <= 64 take the short-row path (a sub-group of
+    lanes a row) unless ``force_radix``, which runs the long-row radix
+    select on them too (to hold one path against the other).  A CPU tensor
+    runs :func:`coded_cells_plain`.
+    """
+    _coded_check(times, ks)
+    if not times.is_cuda:
+        if times.device.type == "cpu":
+            return coded_cells_plain(times, ks)
+        raise ValueError(f"unsupported device {times.device}")
+    return _coded_launch(times, ks, force_radix)
+
+
+def coded_radix_counts(times, ks):
+    """``(coded_cells(times, ks, force_radix=True), counts (C,T,P) int32)``:
+    the k-th values and, per row, the candidates that the radix select left
+    after each of its passes, which the kernel records as it runs (0 for
+    passes not run).  A CPU tensor runs :func:`coded_cells_plain` and
+    :func:`coded_radix_counts_plain`."""
+    _coded_check(times, ks)
+    if not times.is_cuda:
+        if times.device.type == "cpu":
+            return coded_cells_plain(times, ks), coded_radix_counts_plain(
+                times, ks)
+        raise ValueError(f"unsupported device {times.device}")
+    counts = torch.empty(tuple(times.shape[:2]) + (CODED_MAX_PASSES,),
+                         dtype=torch.int32, device=times.device)
+    return _coded_launch(times, ks, True, counts), counts

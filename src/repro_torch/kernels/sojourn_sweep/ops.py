@@ -116,7 +116,9 @@ def coded_completion_cells(times, ks):
 
     ``times`` (C, T, N) holds the per-cell load-scaled worker draws,
     ``ks`` (C,) the completion quorums; the result (C, T) float32 is the
-    k-th order statistic per trial.  Selection is value-exact.
+    k-th order statistic per trial.  Selection is value-exact.  ``ks``
+    stays in host memory where the launch can carry it by value (at most
+    ``CODED_HOST_QUORUMS`` cells), so no copy to the card waits on the host.
     """
     times = _f32(times, times.device)
     n_cells, _, n_workers = times.shape
@@ -125,4 +127,7 @@ def coded_completion_cells(times, ks):
         raise ValueError(f"ks shape {ks_np.shape} != ({n_cells},)")
     if np.any(ks_np < 1) or np.any(ks_np > n_workers):
         raise ValueError(f"ks must be in [1, N={n_workers}], got {ks_np}")
-    return _kernel.coded_cells(times, _on(ks_np, times.device, torch.int32))
+    ks_t = torch.from_numpy(ks_np.astype(np.int32))
+    if n_cells > _kernel.CODED_HOST_QUORUMS:
+        ks_t = ks_t.to(times.device)
+    return _kernel.coded_cells(times, ks_t)

@@ -9,7 +9,12 @@ the ``cuda`` fixture).  On a machine with a card, and without JAX, run
 imports only ``repro_torch``.  Each kernel must equal its plain version
 bit for bit (``sojourn_cells``, ``coded_cells``) or within
 ``1e-5 * (|coeffs| @ |blocks|)`` (``combine``), and the sweeps and the
-planner must give on the card exactly what they give on the CPU.  The
+planner must give on the card exactly what they give on the CPU.
+``coded_cells`` is held so at every width of its short-row path, at the
+largest row its radix select stages in shared memory and one above, with
+``ks`` on the card and in host memory; its radix passes leave the plain
+version's candidate counts, each call is one launch, and ptxas gives its
+short-row kernels no stack frame and no spills.  The
 attention kernels are held to their plain versions at 5e-5 in float32; in
 bfloat16 flash attention at 5e-2 (``tests/test_kernels.py``'s tolerance)
 and decode attention within a tenth of its plain output's RMS (its outputs
@@ -135,19 +140,99 @@ def test_sojourn_kernel_rejects_too_many_groups(cuda):
         K.sojourn_cells(args[0], empty, empty, *args[3:], resolve=False)
 
 
-@pytest.mark.parametrize("n", [1, 2, 16, 64, 65, 1000, 10_000])
-@pytest.mark.parametrize("dup", [False, True])
-def test_coded_kernel_bit_equals_plain(cuda, n, dup):
-    g = torch.Generator(device="cpu").manual_seed(n)
-    times = torch.empty((3, 257, n)).exponential_(generator=g)
+# every width of the short-row path (W = 1, 2, 4, 8, 16, 32 lanes a row,
+# two values a lane up to 64) at and beside its edges, the switch to the
+# radix select at 64/65, and long rows
+CODED_N = [1, 2, 3, 4, 5, 7, 8, 9, 12, 15, 16, 17, 31, 32, 33, 48, 63, 64,
+           65, 1000, 10_000]
+
+
+def _coded_times(n, dup, seed=None, rows=257):
+    g = torch.Generator(device="cpu").manual_seed(n if seed is None else seed)
+    times = torch.empty((3, rows, n)).exponential_(generator=g)
     if dup:
         times = torch.floor(times * 4) / 4
-    times = times.to(cuda)
+    return times
+
+
+@pytest.mark.parametrize("n", CODED_N)
+@pytest.mark.parametrize("dup", [False, True])
+def test_coded_kernel_bit_equals_plain(cuda, n, dup):
+    times = _coded_times(n, dup).to(cuda)
     ks = torch.tensor([1, max(1, n // 2), n], dtype=torch.int32, device=cuda)
     before = launch_counts()["coded_cells"]
     out = K.coded_cells(times, ks)
     assert launch_counts()["coded_cells"] == before + 1
     assert torch.equal(out, K.coded_cells_plain(times, ks))
+    # the same quorums from host memory, carried by value in the launch
+    assert torch.equal(K.coded_cells(times, ks.cpu()), out)
+
+
+def test_coded_kernel_staged_row_limit(cuda):
+    """The largest row the radix select stages in shared memory, and one
+    more, which runs its passes over device memory."""
+    lib = _build.load("coded_cells")
+    top = lib.coded_cells_max_staged_n()
+    assert 50_000 <= top < 60_000
+    for n in (top, top + 1):
+        for dup in (False, True):
+            times = _coded_times(n, dup, rows=9).to(cuda)
+            ks = torch.tensor([1, n // 3, n], dtype=torch.int32, device=cuda)
+            out = K.coded_cells(times, ks)
+            assert torch.equal(out, K.coded_cells_plain(times, ks))
+
+
+def test_coded_kernel_one_launch_per_call(cuda):
+    """Each wrapper call is one launch, on every path: short rows, the radix
+    select (forced, long rows, recording its pass counts), ks on the card or
+    by value; the seam adds none."""
+    for n, force in ((16, False), (16, True), (64, False), (65, False),
+                     (3000, False)):
+        times = _coded_times(n, False, rows=50).to(cuda)
+        for ks in (torch.tensor([1, n, max(1, n - 3)], dtype=torch.int32),
+                   torch.tensor([2, 1, n], dtype=torch.int32, device=cuda)):
+            before = launch_counts()["coded_cells"]
+            K.coded_cells(times, ks, force_radix=force)
+            assert launch_counts()["coded_cells"] == before + 1
+            K.coded_radix_counts(times, ks)
+            assert launch_counts()["coded_cells"] == before + 2
+            O.coded_completion_cells(times, ks.cpu().numpy())
+            assert launch_counts()["coded_cells"] == before + 3
+
+
+@pytest.mark.parametrize("n", [16, 65, 1000, 10_000])
+@pytest.mark.parametrize("dup", [False, True])
+def test_coded_radix_counts_match_plain(cuda, n, dup):
+    """The passes the kernel runs are the plain version's: the same
+    candidates after every pass, row by row, and the same values."""
+    times = _coded_times(n, dup, rows=64).to(cuda)
+    ks = torch.tensor([1, max(1, n // 2), max(1, n - n // 10)],
+                      dtype=torch.int32, device=cuda)
+    out, counts = K.coded_radix_counts(times, ks)
+    assert torch.equal(out, K.coded_cells_plain(times, ks))
+    assert torch.equal(counts, K.coded_radix_counts_plain(times, ks))
+
+
+def test_coded_kernel_constants_and_build_log(cuda):
+    """The wrapper's constants are the source's, and the short-row kernels
+    keep nothing in local memory (ptxas: 0 bytes stack frame, no spills)."""
+    lib = _build.load("coded_cells")
+    assert lib.coded_cells_host_quorums() == K.CODED_HOST_QUORUMS
+    assert lib.coded_cells_max_passes() == K.CODED_MAX_PASSES
+    log = _build._lib_path("coded_cells").with_suffix(".log").read_text()
+    frames = _build.stack_frames(log)
+    short = {f: b for f, b in frames.items() if "coded_warp_kernel" in f}
+    assert len(short) == 7, sorted(frames)
+    assert all(b == (0, 0, 0) for b in short.values()), short
+
+
+def test_coded_host_quorums_rejected_past_limit(cuda):
+    times = torch.ones((K.CODED_HOST_QUORUMS + 1, 2, 3), device=cuda)
+    ks = torch.ones(K.CODED_HOST_QUORUMS + 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="host memory"):
+        K.coded_cells(times, ks)
+    assert torch.equal(K.coded_cells(times, ks.to(cuda)),
+                       torch.ones((K.CODED_HOST_QUORUMS + 1, 2), device=cuda))
 
 
 @pytest.mark.parametrize("n", [1, 2, 16, 64])
