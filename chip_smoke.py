@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives the port's main paths on the card through its six hand-written
-CUDA kernels, in seven phases; any failure raises and the script exits
+CUDA kernels, in the phases below; any failure raises and the script exits
 non-zero:
 
 1. ``build``          compile ``src/repro_torch/csrc/*.cu`` with nvcc
@@ -28,6 +28,23 @@ non-zero:
                       plan_policies' fleet (N=10,000, SExp(0.05, 2.0), mds
                       s in {100, 1,000, 2,500}, 2,000 trials): one
                       ``coded_cells`` launch over 3 x 2,000 x 10,000 cells.
+4b. ``plan_serving``  the multi-tenant serving plan of
+                      ``benchmarks/bench_multitenant.py`` (16 groups,
+                      SExp(0.02, 2.0), two tenant classes, utilization
+                      0.95, max_waits {0.2, 0.5, inf}, sheds {none, cap 48,
+                      expired}, policies {none, hedged 1.0}, 4,000
+                      requests): on the card and on the CPU, the two plans
+                      equal bit for bit and equal to the reference's
+                      decision (B=2, max_wait inf, cap 48, policy none,
+                      premium miss 0); 21 ``sojourn_cells`` launches (one
+                      a (max_wait, shed) combo, one a (max_wait, split)
+                      under cap).  Then ``serving_fleet``: the same
+                      objective on 1,024 replicas, B in {16..256}, 40,000
+                      requests (2 x 40,000 x 1,024 draws on the card), 21
+                      launches; its cold and warm wall, stage seconds
+                      (formation pre-pass, scoring) and, under the
+                      profiler, the card's busy time and
+                      ``sojourn_cells``' device time.
 5. ``serve``          qwen2-0.5b at full width (24 layers, d_model 896,
                       vocab 151,936; random bf16 weights from a seeded
                       generator) serves 8 prompts of 1,024 tokens and 32
@@ -83,7 +100,9 @@ non-zero:
                       memory in a short-row kernel).  ``sojourn_cells``
                       runs plan_policies' one dispatch (every cell and
                       policy) and the widest cell's trigger and
-                      trigger-free policies alone, bit-equal to its plain
+                      trigger-free policies alone, and serving_fleet's
+                      widest dispatch (5 cells x 2 policies, about 10,000
+                      jobs, G=256), bit-equal to its plain
                       version on the first 2,000 jobs, beside its chain
                       bound (its longest program's dependent warp
                       reductions and shared-memory round trips, at
@@ -94,9 +113,9 @@ non-zero:
                       the planner's shape (strip kernel) and 1024 x 1024
                       x 2048 (tiled kernel).
 
-Each path of phases 2-6 runs with the launch counts and the sweeps' stage
-seconds (``simulator.STAGE_SECONDS``) set to 0 just before it and read just
-after; a kernel of the path that never launched fails the run.  One more
+Each path of phases 2-6 and 4b runs with the launch counts and the sweeps'
+stage seconds (``simulator.STAGE_SECONDS``) set to 0 just before it and
+read just after; a kernel of the path that never launched fails the run.  One more
 run of phases 2 and 3 under ``torch.profiler`` gives the card's busy time.
 The last lines are the card (``nvidia-smi`` name and power limit), one
 JSON object of kernels, and one JSON object ``{"ok": true, "device": ...}``.
@@ -129,6 +148,24 @@ PLANNER_KERNELS = ("sojourn_cells", "coded_cells", "combine")
 # the fleet's coded sweep: plan_policies' N = 10,000 workers, mds tolerances
 CODED_FLEET_N, CODED_FLEET_S = 10_000, (100, 1_000, 2_500)
 CODED_FLEET_TRIALS = 2_000
+# the plan_serving phase: benchmarks/bench_multitenant.py's swept engine as
+# its planner sees it (16 groups, SExp(0.02, 2.0), utilization 0.95,
+# job_load 0.96, batch 4, two tenant classes, 4,000 requests, seed 0), and
+# the reference's decision there: repro.core.planner.SimulatedPlanner.plan
+# (its numpy and pallas lanes agree), pinned on the CPU by
+# tests/test_torch_serving_sweep.py::
+# test_plan_serving_makes_the_bench_multitenant_decision
+SERVING_DECISION = {"n_batches": 2, "policy": "none", "max_wait": math.inf,
+                    "shed": ("cap", 48),
+                    "class_report": (("premium", 0.0),
+                                     ("standard", 0.3334582240539528))}
+# one sojourn_cells launch a (max_wait, shed) combo: 3 max_waits x (none,
+# expired), and under cap one a (max_wait, split): 3 x 5 splits
+SERVING_LAUNCHES = 3 * 2 + 3 * 5
+# the serving_fleet path: the same objective on 1,024 replicas,
+# B in {16..256}, a 40,000-request Poisson trace
+SERVING_FLEET_N, SERVING_FLEET_B = 1024, (16, 32, 64, 128, 256)
+SERVING_FLEET_REQUESTS = 40_000
 # the serve phase: qwen2-0.5b at full width
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = 8, 1024, 32, 2048
 # card against CPU: full width, depth 2.  Either bf16 run rounds the
@@ -187,7 +224,7 @@ def main() -> int:
     from repro_torch.core.coding import CodingCandidate
     from repro_torch.core.order_stats import Empirical, ShiftedExponential
     from repro_torch.core.planner import ClusterSpec, Objective, SimulatedPlanner
-    from repro_torch.core.policies import PolicyCandidate
+    from repro_torch.core.policies import PolicyCandidate, ShedPolicy, SloClass
     from repro_torch.core import simulator as SIM
     from repro_torch.core.simulator import sweep_coded, sweep_sojourn_policies
     from repro_torch.kernels import _build
@@ -290,9 +327,12 @@ def main() -> int:
         return {"tflops": flops / dev_ms / 1e9, "gbps": nbytes_ / dev_ms / 1e6,
                 "bound_fraction": bound_ms / dev_ms}
 
+    last_profile: list = []  # (start us, seconds, name) of the last one
+
     def device_busy(fn, reps: int = 1):
         """(wall s, busy s, device events, device s by event name, events
-        by name) of ``reps`` back-to-back calls under torch.profiler.
+        by name) of ``reps`` back-to-back calls under torch.profiler; each
+        device event's start, duration and name go to ``last_profile``.
 
         Busy is the union of the intervals of the device's own events
         (kernels and copies), so nothing is counted twice; None when the
@@ -311,6 +351,9 @@ def main() -> int:
                   if e.device_type == DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False)]
         spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+        last_profile[:] = sorted(
+            (e.time_range.start, (e.time_range.end - e.time_range.start) / 1e6,
+             e.name) for e in events)
         by_name: dict = {}
         count: dict = {}
         for e in events:
@@ -571,6 +614,146 @@ def main() -> int:
         "fleet": {"wall_s": fwall, "stages_s": fstages, "launches": fcounts,
                   "s": list(CODED_FLEET_S), "means": fleet_means},
     }
+
+    # -- 4b. plan_serving and serving_fleet -------------------------------
+    _phase("plan_serving")
+    serving_classes = (
+        SloClass("premium", share=0.25, weight=4.0, deadline=0.8,
+                 miss_target=0.05),
+        SloClass("standard", share=0.75, weight=1.0, deadline=3.0,
+                 miss_target=0.5))
+    sexp = ShiftedExponential(0.02, 2.0)
+    serving_objective = Objective(
+        metric="mean", utilization=0.95, job_load=0.96, batch_size=4,
+        slo_classes=serving_classes,
+        policies=(PolicyCandidate(),
+                  PolicyCandidate("hedged", hedge_fraction=1.0)),
+        max_waits=(0.2, 0.5, math.inf),
+        sheds=(ShedPolicy("cap", cap=48), ShedPolicy("expired")))
+
+    def decision(p):
+        return {"n_batches": p.n_batches, "policy": p.policy.kind,
+                "max_wait": p.max_wait, "shed": (p.shed.kind, p.shed.cap),
+                "class_report": p.class_report}
+
+    def spectrum_points(p):
+        return [(q.n_batches, q.mean, q.var, q.p99, q.p999)
+                for q in p.spectrum.points]
+
+    def serving_plan(spec_, n_requests, device):
+        return SimulatedPlanner(n_trials=n_requests, seed=0,
+                                device=device).plan(spec_, serving_objective)
+
+    def check_serving_launches(tag, counts, calls):
+        if counts["sojourn_cells"] != SERVING_LAUNCHES:
+            raise AssertionError(
+                f"{tag} launched sojourn_cells {counts['sojourn_cells']} "
+                f"times, want {SERVING_LAUNCHES}")
+        # programs (one warp each) and jobs of every dispatch
+        return [{"cells": int(a[1].shape[0]), "policies": int(a[3].shape[0]),
+                 "jobs": int(a[1].shape[1]), "groups": int(a[1].shape[2]),
+                 "resolve": bool(kw.get("resolve", True))} for a, kw in calls]
+
+    bench_spec = ClusterSpec(n_workers=16, dist=sexp)
+    bench_calls: list = []
+    orig = capture(SK, "sojourn_cells", bench_calls)
+    try:
+        splan, scounts, swall, sstages = run_path(
+            "plan_serving", lambda: serving_plan(bench_spec, 4_000, "cuda"))
+    finally:
+        SK.sojourn_cells = orig
+    bench_dispatches = check_serving_launches("plan_serving", scounts,
+                                              bench_calls)
+    del bench_calls
+    cpu_splan = serving_plan(bench_spec, 4_000, "cpu")
+    if (decision(splan) != decision(cpu_splan)
+            or spectrum_points(splan) != spectrum_points(cpu_splan)
+            or splan.policy != cpu_splan.policy
+            or splan.shed != cpu_splan.shed):
+        raise AssertionError(
+            f"plan_serving differs between the card and the CPU: "
+            f"{decision(splan)} {spectrum_points(splan)} against "
+            f"{decision(cpu_splan)} {spectrum_points(cpu_splan)}")
+    if decision(splan) != SERVING_DECISION or splan.backend != "cuda":
+        raise AssertionError(f"plan_serving decided {decision(splan)} on "
+                             f"{splan.backend}, the reference "
+                             f"{SERVING_DECISION}")
+    print(f"[plan_serving] card plan == CPU plan == the reference's "
+          f"decision: {decision(splan)}")
+    for q in splan.spectrum.points:
+        print(f"    B={q.n_batches:3d} mean={q.mean:.6f} p99={q.p99:.6f}")
+    report["phases"]["plan_serving"] = {
+        "wall_s": swall, "stages_s": sstages, "launches": scounts,
+        "decision": {**decision(splan), "max_wait": repr(splan.max_wait)},
+        "points": spectrum_points(splan), "card_equals_cpu": True,
+        "sojourn_dispatches": bench_dispatches}
+
+    # the same objective on a 1,024-replica fleet: 40,000 requests, about
+    # 10,000 jobs a combo
+    _phase("serving_fleet")
+    fleet_spec = ClusterSpec(n_workers=SERVING_FLEET_N, dist=sexp,
+                             feasible_b=SERVING_FLEET_B)
+
+    def fleet_serving():
+        return serving_plan(fleet_spec, SERVING_FLEET_REQUESTS, "cuda")
+
+    fleet_serving_calls: list = []
+    orig = capture(SK, "sojourn_cells", fleet_serving_calls)
+    try:
+        fsplan, fscounts, fscold, fsstages = run_path("serving_fleet",
+                                                      fleet_serving)
+    finally:
+        SK.sojourn_cells = orig
+    fleet_dispatches = check_serving_launches("serving_fleet", fscounts,
+                                              fleet_serving_calls)
+    # keep the widest dispatch's inputs for phase 7, drop the rest
+    serving_widest = max(fleet_serving_calls, key=lambda c: c[0][1].numel())
+    del fleet_serving_calls
+    fpts = spectrum_points(fsplan)
+    if (fsplan.n_batches not in SERVING_FLEET_B or fsplan.backend != "cuda"
+            or not np.isfinite(np.asarray(fpts)).all()
+            or not all(0.0 <= m <= 1.0 for _, m in fsplan.class_report)):
+        raise AssertionError(f"bad serving_fleet plan {decision(fsplan)} "
+                             f"{fpts} on {fsplan.backend}")
+    rate = serving_objective.request_rate(fleet_spec)
+    print(f"[serving_fleet] N={SERVING_FLEET_N}, "
+          f"{SERVING_FLEET_REQUESTS} requests at {rate:.1f} a time unit: "
+          f"{decision(fsplan)}, cold wall {fscold:.3f} s")
+    for q in fsplan.spectrum.points:
+        print(f"    B={q.n_batches:3d} mean={q.mean:.6f} p99={q.p99:.6f}")
+    print("[serving_fleet] dispatches (cells x policies programs of one "
+          "warp, jobs, groups): "
+          + ", ".join(f"{d['cells']}x{d['policies']} J={d['jobs']} "
+                      f"G={d['groups']}" for d in fleet_dispatches))
+    _, fswarm, fswarm_stages = timed_stages(fleet_serving)
+    print(f"[serving_fleet] warm re-plan: wall {fswarm:.3f} s, stages "
+          "(host s): " + ", ".join(f"{k} {v:.3f}"
+                                   for k, v in fswarm_stages.items()))
+    fs_busy = print_busy("serving_fleet", *device_busy(fleet_serving),
+                         shares={"sojourn_cells": "sojourn_cells_kernel"})
+    if fs_busy["device_busy_s"] is None:
+        raise AssertionError("the profiler saw no device work in "
+                             "serving_fleet")
+    # each launch's device time in the profiled plan, in launch order
+    fs_launch_s = [sec for _, sec, name in last_profile
+                   if "sojourn_cells_kernel" in name]
+    if len(fs_launch_s) == len(fleet_dispatches):
+        for d_, sec in zip(fleet_dispatches, fs_launch_s):
+            d_["device_ms"] = sec * 1e3
+        print("[serving_fleet] sojourn_cells device ms a launch in the "
+              "profiled plan: " + ", ".join(
+                  f"{d_['cells']}x{d_['policies']} J={d_['jobs']} "
+                  f"G={d_['groups']}: {d_['device_ms']:.3f}"
+                  for d_ in fleet_dispatches))
+    else:
+        print(f"[serving_fleet] the profiler recorded {len(fs_launch_s)} "
+              f"sojourn_cells launches of {len(fleet_dispatches)}")
+    report["phases"]["serving_fleet"] = {
+        "cold_s": fscold, "stages_s": fsstages, "launches": fscounts,
+        "warm_s": fswarm, "warm_stages_s": fswarm_stages,
+        "request_rate": rate,
+        "decision": {**decision(fsplan), "max_wait": repr(fsplan.max_wait)},
+        "points": fpts, "sojourn_dispatches": fleet_dispatches, **fs_busy}
 
     # -- 5. serve and 6. serve_hybrid -------------------------------------
     import dataclasses
@@ -890,6 +1073,38 @@ def main() -> int:
         raise AssertionError(
             f"sojourn_cells differs from its plain version: max |diff| {diff}")
     soj_entries = [head]
+    # serving_fleet's widest dispatch (trigger-free), the same way
+    sargs, skw = serving_widest
+    serving_e = soj_entry("serving_fleet widest dispatch", sargs, skw, 3)
+    sj = min(SOJOURN_PLAIN_JOBS, sargs[1].shape[1])
+    scut = (sargs[0][:sj].contiguous(), sargs[1][:, :sj].contiguous(),
+            sargs[2][:, :sj].contiguous(), sargs[3], sargs[4],
+            sargs[5][:, :sj].contiguous(), sargs[6])
+    out_c, x_c = SK.sojourn_cells(*scut, **skw)
+    serving_e["ms_at_plain_jobs"] = cuda_ms(
+        lambda: SK.sojourn_cells(*scut, **skw), 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p, x_p = SK.sojourn_cells_plain(*scut, **skw)
+    torch.cuda.synchronize()
+    serving_e["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    serving_e["plain_jobs"] = sj
+    # the same shape's launches in serving_fleet's profiled plan
+    plan_ms = [d_["device_ms"] for d_ in fleet_dispatches
+               if "device_ms" in d_ and [d_["cells"], d_["jobs"],
+                                         d_["groups"], d_["policies"]]
+               == serving_e["shape"]]
+    serving_e["plan_device_ms"] = plan_ms
+    serving_e["max_abs_err"] = 0.0
+    if not (torch.equal(out_c, out_p) and torch.equal(x_c, x_p)):
+        diff = (out_c - out_p).abs().max().item()
+        raise AssertionError(f"sojourn_cells (serving_fleet) differs from "
+                             f"its plain version: max |diff| {diff}")
+    print(f"[kernels] sojourn_cells first {sj} jobs of serving_fleet's "
+          f"widest dispatch: kernel {serving_e['ms_at_plain_jobs']:.3f} ms, "
+          f"plain {serving_e['plain_ms']:.1f} ms, bit-equal; the shape's "
+          f"device ms in the profiled plan {plan_ms}")
+    soj_entries.append(serving_e)
     widest = int(torch.argmax(ng).item())
     kind_list = kinds.tolist()
     for tag, fam in (("triggers", (1, 2)), ("trigger-free", (0, 3))):
@@ -940,7 +1155,8 @@ def main() -> int:
                                 "(L + 2R), or J x (L + 3R) + fired x "
                                 "(L + 2R) where triggers resolve; L, R "
                                 "measured SM cycles",
-                 "chain_cycles": chain_cycles, "sm_clock_mhz": sm_clock_mhz})
+                 "chain_cycles": chain_cycles, "sm_clock_mhz": sm_clock_mhz,
+                 "serving_fleet": serving_e})
     extra_rows.extend(soj_entries)
 
     # coded_cells: the planner's shape, the fleet's cells, then long rows

@@ -5,7 +5,10 @@ kernels:
 
 * planning — ``ClusterSpec`` + ``Objective`` -> ``SimulatedPlanner.plan()``
   -> ``Plan`` — through the sojourn scan (``sojourn_cells``), the k-of-N
-  selection (``coded_cells``) and the coded combine (``combine``);
+  selection (``coded_cells``) and the coded combine (``combine``); with
+  ``Objective.slo_classes`` the multi-tenant serving sweep
+  (``core.simulator.sweep_sojourn_serving``: a host-side WFQ formation
+  pre-pass, then ``sojourn_cells``) picks B, policy, max_wait and shed;
 * LM serving — ``launch.serve.generate`` / ``run_serving`` (prefill and
   greedy decode of the dense family, qwen2-0.5b, and of the hybrid
   family, zamba2-7b, then the fleet plan) — through flash attention

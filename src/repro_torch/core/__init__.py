@@ -13,11 +13,15 @@ from .planner import (
 )
 from .policies import PolicyCandidate, ShedPolicy, SloClass, divisors
 from .simulator import (
+    ServingSimResult,
+    ServingSweepResult,
+    simulate_sojourn_serving,
     sweep_coded,
     sweep_simulate,
     sweep_sojourn,
     sweep_sojourn_coded,
     sweep_sojourn_policies,
+    sweep_sojourn_serving,
     sweep_sojourn_speculative,
 )
 
@@ -32,6 +36,8 @@ __all__ = [
     "Plan",
     "Planner",
     "PolicyCandidate",
+    "ServingSimResult",
+    "ServingSweepResult",
     "PolynomialMatmulCode",
     "ShedPolicy",
     "ShiftedExponential",
@@ -39,10 +45,12 @@ __all__ = [
     "SloClass",
     "divisors",
     "make_planner",
+    "simulate_sojourn_serving",
     "sweep_coded",
     "sweep_simulate",
     "sweep_sojourn",
     "sweep_sojourn_coded",
     "sweep_sojourn_policies",
+    "sweep_sojourn_serving",
     "sweep_sojourn_speculative",
 ]

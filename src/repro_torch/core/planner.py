@@ -21,8 +21,9 @@ Two implementations of the :class:`Planner` strategy are ported:
   :mod:`repro_torch.core.simulator` on a torch ``device`` (default
   ``"cuda"``, which must be present; ``"cpu"`` on request): batch
   completion, load-aware sojourn, speculative triggers, the straggler-
-  policy portfolio and coded candidates.  The multi-tenant serving sweep
-  (``Objective.slo_classes``) is not ported yet and raises.
+  policy portfolio, coded candidates and, for ``Objective.slo_classes``,
+  the multi-tenant serving sweep (per-request latencies of every (B,
+  policy, max_wait, shed) cell, ranked feasibility-first).
 
 The rate-aware and bootstrap planners of the reference are not ported yet.
 """
@@ -901,7 +902,7 @@ class SimulatedPlanner(Planner):
 
     name = "simulated"
     consumes_load = True
-    consumes_classes = False
+    consumes_classes = True
 
     def _sweep_rates(self, spec: ClusterSpec) -> Optional[np.ndarray]:
         return None
@@ -1115,11 +1116,113 @@ class SimulatedPlanner(Planner):
     ) -> Plan:
         objective = objective if objective is not None else Objective()
         if objective.slo_classes:
-            raise NotImplementedError(
-                "multi-tenant objectives (slo_classes) need the per-request "
-                "serving sweep, which is not yet ported to repro_torch"
-            )
+            return self._plan_serving(spec, objective)
         return super().plan(spec, objective)
+
+    def _plan_serving(self, spec: ClusterSpec, objective: Objective) -> Plan:
+        """Multi-tenant serving sweep: every (B, policy, max_wait, shed)
+        cell scored per-request on one shared-CRN draw matrix
+        (:func:`~repro_torch.core.simulator.sweep_sojourn_serving`).
+
+        Winner selection is FEASIBILITY-FIRST: a cell is feasible when its
+        charged utilization stays under 1 (stability gate,
+        :meth:`Objective.charged_utilization`) AND every class's
+        ``miss_target`` holds (shed requests count as misses).  Among
+        feasible cells — or all cells when none is feasible — the
+        class-weighted objective metric over SERVED requests decides; ties
+        resolve to the earliest candidate on each axis, so the 'none'
+        baselines win when interventions buy nothing.  The per-B spectrum
+        is built from each B's best cell (served post-warmup latencies), so
+        hysteresis comparisons read the latency the engine would deliver.
+        The ranking is float64 numpy on the host, timed as the
+        ``"scoring"`` stage of :data:`~repro_torch.core.simulator.
+        STAGE_SECONDS`.
+        """
+        from .simulator import _stage, sweep_sojourn_serving
+
+        if spec.heterogeneous:
+            raise ValueError(
+                "multi-tenant serving objectives (slo_classes) do not "
+                "support rate-skewed fleets yet — the serving sweep scores "
+                "homogeneous replica sets; drop spec.rates or plan without "
+                "slo_classes"
+            )
+        res = sweep_sojourn_serving(
+            spec.dist,
+            spec.n_workers,
+            request_rate=objective.request_rate(spec),
+            batch_size=objective.batch_size,
+            slo_classes=objective.slo_classes,
+            policies=objective.policies or (PolicyCandidate(),),
+            max_waits=objective.max_waits or (math.inf,),
+            sheds=objective.sheds or (ShedPolicy(),),
+            n_requests=self.n_trials,
+            seed=self.seed,
+            feasible_b=spec.feasible_batches(),
+            job_load=objective.job_load,
+            arrivals=objective.arrivals,
+            device=self._resolve_device(),
+        )
+        with _stage("scoring"):
+            stable = [
+                objective.charged_utilization(spec, p) < 1.0
+                for p in res.policies
+            ]
+            n_p, n_w, n_h = (len(res.policies), len(res.max_waits),
+                             len(res.sheds))
+            best_by_b: list[tuple] = []
+            for si in range(len(res.splits)):
+                best = None
+                for pi in range(n_p):
+                    for wi in range(n_w):
+                        for hi in range(n_h):
+                            feas = stable[pi] and res.feasible(
+                                0, si, pi, wi, hi)
+                            score = res.weighted_metric(
+                                0, si, pi, wi, hi, objective.metric
+                            )
+                            key = (not feas, score, pi, wi, hi)
+                            if best is None or key < best:
+                                best = key
+                best_by_b.append(best)
+            pts = []
+            for si, b in enumerate(res.splits):
+                _, _, pi, wi, hi = best_by_b[si]
+                lat = res.request_latency(0, si, pi, wi, hi)[res.warmup:]
+                served = lat[~np.isnan(lat)]
+                if served.size == 0:
+                    served = np.asarray([math.inf])
+                pts.append(point_from_samples(b, spec.n_workers // b, served))
+            spectrum = result_from_points(pts)
+            win = min(
+                range(len(res.splits)),
+                key=lambda si: (best_by_b[si][0], best_by_b[si][1], si),
+            )
+            _, _, pi, wi, hi = best_by_b[win]
+            miss = res.class_miss_rates(0, win, pi, wi, hi)
+        b_star = res.splits[win]
+        pol = res.policies[pi]
+        return Plan(
+            spec=spec,
+            objective=objective,
+            replication=ReplicationPlan(
+                n_data=spec.n_workers, n_batches=b_star
+            ),
+            assignment=self.assignment_for(spec, b_star),
+            predicted=spectrum.at(b_star),
+            spectrum=spectrum,
+            planner=self.name,
+            speculation_quantile=(
+                pol.quantile if pol.kind == "clone" else None
+            ),
+            policy=pol,
+            backend=self._plan_backend(),
+            max_wait=float(res.max_waits[wi]),
+            shed=res.sheds[hi],
+            class_report=tuple(
+                (c.name, float(m)) for c, m in zip(res.classes, miss)
+            ),
+        )
 
 
 def make_planner(

@@ -13,6 +13,10 @@ matrix of unit-exponential draws (common random numbers), on ``device``
   through the ``sojourn_cells`` kernel.
 * :func:`sweep_coded`, :func:`sweep_sojourn_coded` — coded k-of-N cells
   through the ``coded_cells`` kernel (and ``sojourn_cells`` at G=1).
+* :func:`sweep_sojourn_serving`, :func:`simulate_sojourn_serving` — the
+  multi-tenant serving sweep: per-request latencies of every (B, policy,
+  max_wait, shed) cell under SLO classes, the job streams of a host-side
+  WFQ formation pre-pass scanned by ``sojourn_cells``.
 
 Randomness and precision follow the reference exactly: the draws are
 ``np.random.default_rng(seed)`` in the reference's order (arrivals, then
@@ -26,14 +30,18 @@ reciprocal, which is not the same float.
 
 :data:`STAGE_SECONDS` adds up the host seconds each sweep spends in its
 stages (numpy draws, host-to-device copy, group minima, trigger thresholds,
-cell build, scan); a caller zeroes it with :func:`reset_stage_seconds`.
+cell build, scan; for the serving sweep also the formation pre-pass, and
+the planner's request-level scoring); a caller zeroes it with
+:func:`reset_stage_seconds`.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import time
+from collections import deque
 from typing import Sequence
 
 import numpy as np
@@ -43,7 +51,13 @@ from ..device import device_name, resolve_device
 from ..kernels import sojourn_sweep as _ss
 from .coding import CodingCandidate
 from .order_stats import Empirical, ServiceDistribution
-from .policies import PolicyCandidate, _validate_rates, divisors
+from .policies import (
+    PolicyCandidate,
+    ShedPolicy,
+    SloClass,
+    _validate_rates,
+    divisors,
+)
 
 __all__ = [
     "SimResult",
@@ -51,12 +65,16 @@ __all__ = [
     "SpeculativeSweepResult",
     "PolicySweepResult",
     "CodedSweepResult",
+    "ServingSweepResult",
+    "ServingSimResult",
     "sweep_simulate",
     "sweep_coded",
     "sweep_sojourn",
     "sweep_sojourn_speculative",
     "sweep_sojourn_policies",
     "sweep_sojourn_coded",
+    "sweep_sojourn_serving",
+    "simulate_sojourn_serving",
     "STAGE_SECONDS",
     "reset_stage_seconds",
 ]
@@ -1066,4 +1084,637 @@ def sweep_sojourn_policies(
         samples=samples,
         extra_fraction=extra,
         backend=device_name(dev),
+    )
+
+
+# ---------------------------------------------------------------------------
+# multi-tenant serving sweep: (B, policy, max_wait, shed) x classes
+# ---------------------------------------------------------------------------
+
+# Admission throttle depth for ShedPolicy('cap') formation: a new batch only
+# forms while the fluid job backlog is below this many jobs PER replica-set
+# (q_max = depth * B), so overload waits in the admission queue — where the
+# queue cap and weight-aware eviction can see it — instead of in an
+# unbounded formed-batch buffer.
+_THROTTLE_DEPTH = 2.0
+
+
+def _mean_min_service(dist: ServiceDistribution, r: int, job_load: float):
+    """Closed-form mean of one replica-set's service (min over ``r``
+    replicas) — the drain-rate anchor of the 'cap' admission throttle.
+
+    ``scaled(s) = s*shift + Exp(1)*s/mu`` makes the min over ``r`` i.i.d.
+    replicas ``s*shift + Exp(1)*s/(r*mu)``, so the mean is exact for every
+    mu-exposing distribution (the only kind the serving sweep accepts).
+    """
+    shift, mu = _dist_params(dist)
+    return (float(shift) + 1.0 / (r * float(mu))) * float(job_load)
+
+
+def _sample_metric(samples: np.ndarray, metric: str) -> float:
+    """Objective metric of a latency sample vector (the serving twin of
+    :func:`repro_torch.core.spectrum.metric_value`, which reads precomputed
+    spectrum points — same four-literal vocabulary)."""
+    s = np.asarray(samples, dtype=float)
+    if metric == "mean":
+        return float(s.mean())
+    if metric == "var":
+        return float(s.var(ddof=1)) if s.size > 1 else 0.0
+    if metric == "p99":
+        return float(np.quantile(s, 0.99))
+    if metric == "p999":
+        return float(np.quantile(s, 0.999))
+    raise ValueError(
+        f"unknown metric {metric!r} (expected 'mean'|'var'|'p99'|'p999')"
+    )
+
+
+def _validate_classes(slo_classes) -> tuple[SloClass, ...]:
+    classes = tuple(slo_classes)
+    if not classes:
+        raise ValueError("at least one SloClass is required")
+    if not all(isinstance(c, SloClass) for c in classes):
+        raise TypeError(f"slo_classes must be SloClass instances: {classes}")
+    if len({c.name for c in classes}) != len(classes):
+        raise ValueError(f"duplicate class names in {classes}")
+    return classes
+
+
+def _form_schedule(
+    arrivals: np.ndarray,
+    class_idx: np.ndarray,
+    names: Sequence[str],
+    weights: np.ndarray,
+    batch_size: int,
+    max_wait: float,
+    shed: ShedPolicy,
+    deadlines: np.ndarray,
+    drain_rate: float | None = None,
+    q_max: float = math.inf,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Deterministic request->batch formation pre-pass of the serving sweep.
+
+    Replays the event-driven master's admission + formation layer on one
+    request trace, WITHOUT service draws — formation is arrival-driven, so
+    the job stream it produces is shared by every (dist, B, policy) cell of
+    the same (max_wait, shed) combo.  It is sequential host logic (each
+    arrival's fate depends on the queue every earlier one left), so it
+    stays a plain loop on the host:
+
+    * WFQ admission: per-class FIFO lanes, stride-scheduled by ``weights``
+      (pass += 1/weight per pop, ties by (pass, oldest arrival, name); an
+      idle class re-joins at the scheduler's virtual time) — one class
+      degenerates to plain FIFO;
+    * a batch forms when ``batch_size`` requests wait, or when the OLDEST
+      queued request has waited ``max_wait`` (whichever first); leftovers
+      flush at the end of the stream;
+    * ``shed.kind == 'expired'``: requests past their deadline are shed at
+      admission or at the formation boundary;
+    * ``shed.kind == 'cap'``: formation is throttled against a fluid drain
+      model of the replica-set fabric (``drain_rate`` jobs/time; a batch
+      only forms while the fluid backlog is below ``q_max`` jobs — the
+      ``max_wait`` timer bypasses the throttle, so the oldest-waiting bound
+      still holds), and an arrival finding ``shed.cap`` requests queued is
+      shed — or, when it belongs to a strictly heavier class, evicts the
+      NEWEST request of the cheapest backlogged class (ties by (weight,
+      name)) instead.
+
+    Returns ``(formed, req_job)``: ``formed[j]`` is job ``j``'s formation
+    time (non-decreasing) and ``req_job[i]`` the job serving request ``i``
+    (−1 = shed).
+    """
+    n_req = len(arrivals)
+    req_job = np.full(n_req, -1, dtype=np.int64)
+    formed: list[float] = []
+    n_classes = len(names)
+    lanes: list[deque] = [deque() for _ in range(n_classes)]
+    lane_pass = [0.0] * n_classes
+    vclock = 0.0
+    n_queued = 0
+    cap = shed.cap if shed.kind == "cap" else None
+    expire = shed.kind == "expired"
+    throttled = drain_rate is not None
+    vj = 0.0  # fluid job backlog (throttled formation only)
+    t_fluid = 0.0
+
+    def drain(t: float) -> None:
+        nonlocal vj, t_fluid
+        if throttled:
+            vj = max(0.0, vj - (t - t_fluid) * drain_rate)
+            t_fluid = t
+
+    def oldest() -> float:
+        return min(
+            (arrivals[ln[0]] for ln in lanes if ln), default=math.inf
+        )
+
+    def pop_one() -> int:
+        nonlocal vclock, n_queued
+        best = best_c = None
+        for c in range(n_classes):
+            if not lanes[c]:
+                continue
+            key = (lane_pass[c], arrivals[lanes[c][0]], names[c])
+            if best is None or key < best:
+                best, best_c = key, c
+        i = lanes[best_c].popleft()
+        vclock = lane_pass[best_c]
+        lane_pass[best_c] += 1.0 / weights[best_c]
+        n_queued -= 1
+        return i
+
+    def form(k: int, t: float) -> None:
+        nonlocal vj
+        members = []
+        for _ in range(k):
+            i = pop_one()
+            if expire and deadlines[i] < t:
+                continue  # shed at the formation boundary (req_job stays -1)
+            members.append(i)
+        if not members:
+            return  # everything popped was dead work
+        j = len(formed)
+        for i in members:
+            req_job[i] = j
+        formed.append(t)
+        if throttled:
+            vj += 1.0
+
+    def evict_for(i: int) -> bool:
+        """Weight-aware cap shedding: evict the NEWEST request of the
+        cheapest backlogged class when it weighs strictly less than the
+        arrival's class; return whether a slot was freed."""
+        nonlocal n_queued
+        best = best_c = None
+        for c in range(n_classes):
+            if not lanes[c]:
+                continue
+            key = (weights[c], names[c])
+            if best is None or key < best:
+                best, best_c = key, c
+        if best is None or best[0] >= weights[class_idx[i]]:
+            return False
+        lanes[best_c].pop()  # req_job of the victim stays -1
+        n_queued -= 1
+        return True
+
+    def next_due() -> tuple[float, bool]:
+        """(time, is_size) of the next formation: the throttle's release
+        when a full batch waits, else the oldest request's timer."""
+        t_timer = oldest() + max_wait if n_queued else math.inf
+        t_size = math.inf
+        if throttled and n_queued >= batch_size:
+            t_size = t_fluid + max(0.0, vj - (q_max - 1.0)) / drain_rate
+        return (t_size, True) if t_size <= t_timer else (t_timer, False)
+
+    for i in range(n_req):
+        t = arrivals[i]
+        # fire formations due before this arrival (throttle releases and
+        # oldest-waiting max_wait timers, in event order)
+        while n_queued:
+            tn, is_size = next_due()
+            if tn > t:
+                break
+            drain(tn)
+            form(batch_size if is_size else min(n_queued, batch_size), tn)
+        drain(t)
+        if expire and deadlines[i] < t:
+            continue  # already expired at admission: never queue dead work
+        if cap is not None and n_queued >= cap and not evict_for(i):
+            continue  # admission-control shedding: the queue is at capacity
+        c = class_idx[i]
+        if not lanes[c]:
+            # a class (re)activating joins at the current virtual time
+            lane_pass[c] = max(lane_pass[c], vclock)
+        lanes[c].append(i)
+        n_queued += 1
+        if n_queued >= batch_size and (not throttled or vj + 1.0 <= q_max):
+            form(batch_size, t)
+    # end of stream: flush leftovers (timer / throttle-release instants
+    # when finite, else in max-batch chunks at the last arrival)
+    t_end = float(arrivals[-1]) if n_req else 0.0
+    while n_queued:
+        tn, is_size = next_due()
+        if not math.isfinite(tn):
+            tn, is_size = max(t_end, t_fluid), False
+        drain(tn)
+        form(batch_size if is_size else min(n_queued, batch_size), tn)
+    return np.asarray(formed, dtype=float), req_job
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingSweepResult:
+    """Per-request latencies for every (dist, B, policy, max_wait, shed)
+    serving cell under multi-tenant classes.
+
+    The request-level twin of :class:`PolicySweepResult`: every cell shares
+    ONE request arrival trace, ONE class labeling, ONE primary draw matrix
+    and ONE alternate draw matrix (common random numbers), so comparisons
+    across all five axes measure pure configuration effect.  Cells of one
+    (max_wait, shed) combo also share the formation pre-pass; a cell's jobs
+    draw rows ``[:J]`` of the shared matrices, so cells of different combos
+    stay CRN-coupled through the common prefix.
+
+    Ragged storage (``J`` varies per combo): ``formed[d][s][w][h]`` is the
+    (J,) job formation times, ``samples[d][s][w][h]`` the (P, J) job
+    sojourns (float32 from the device, held as float64),
+    ``req_job[d, s, w, h]`` the request->job map (−1 = shed),
+    ``extra_fraction[d, s, p, w, h]`` the per-job straggler-policy work
+    price.  Scoring is float64 numpy on the host, request-level:
+    :meth:`request_latency` maps job sojourns back onto requests (formation
+    wait + job sojourn; NaN = shed), :meth:`class_miss_rates` folds sheds +
+    deadline misses per class, and :meth:`weighted_metric` /
+    :meth:`feasible` are what the planner ranks.  Requests ``< warmup`` are
+    simulated but excluded from scoring.  ``backend`` records the device.
+    """
+
+    n_workers: int
+    batch_size: int
+    splits: tuple[int, ...]
+    policies: tuple[PolicyCandidate, ...]
+    max_waits: tuple[float, ...]
+    sheds: tuple[ShedPolicy, ...]
+    dists: tuple[ServiceDistribution, ...]
+    classes: tuple[SloClass, ...]
+    request_arrivals: np.ndarray  # (R,)
+    request_class: np.ndarray  # (R,) index into classes
+    deadlines: np.ndarray  # (R,) ABSOLUTE deadline (inf = none)
+    warmup: int
+    formed: tuple  # [d][s][w][h] -> (J,) job formation times
+    req_job: np.ndarray  # (D, S, W, H, R) job index, -1 = shed
+    samples: tuple  # [d][s][w][h] -> (P, J) job sojourns
+    extra_fraction: np.ndarray  # (D, S, P, W, H)
+    backend: str = "cuda"
+
+    def request_latency(self, di, si, pi, wi, hi) -> np.ndarray:
+        """(R,) per-request latency (formation wait + job sojourn) of one
+        cell; NaN marks shed requests."""
+        rj = self.req_job[di, si, wi, hi]
+        lat = np.full(rj.shape, np.nan)
+        served = rj >= 0
+        jobs = rj[served]
+        lat[served] = (
+            self.formed[di][si][wi][hi][jobs]
+            - self.request_arrivals[served]
+            + self.samples[di][si][wi][hi][pi][jobs]
+        )
+        return lat
+
+    def _post_warm(self) -> np.ndarray:
+        mask = np.zeros(len(self.request_arrivals), dtype=bool)
+        mask[self.warmup:] = True
+        return mask
+
+    def class_shed_fractions(self, di, si, wi, hi) -> np.ndarray:
+        """(C,) post-warmup shed fraction per class (policy-independent:
+        shedding happens at admission/formation, before any draw)."""
+        shed = (self.req_job[di, si, wi, hi] < 0) & self._post_warm()
+        out = np.zeros(len(self.classes))
+        for ci in range(len(self.classes)):
+            sel = (self.request_class == ci) & self._post_warm()
+            out[ci] = shed[sel].mean() if sel.any() else 0.0
+        return out
+
+    def class_miss_rates(self, di, si, pi, wi, hi) -> np.ndarray:
+        """(C,) post-warmup deadline-miss rate per class: shed requests and
+        served-past-deadline requests both count; classes without a
+        deadline report NaN (no miss concept)."""
+        lat = self.request_latency(di, si, pi, wi, hi)
+        post = self._post_warm()
+        out = np.full(len(self.classes), np.nan)
+        for ci, cls in enumerate(self.classes):
+            if cls.deadline is None:
+                continue
+            sel = (self.request_class == ci) & post
+            if not sel.any():
+                out[ci] = 0.0
+                continue
+            rel = self.deadlines[sel] - self.request_arrivals[sel]
+            miss = np.isnan(lat[sel]) | (lat[sel] > rel)
+            out[ci] = miss.mean()
+        return out
+
+    def feasible(self, di, si, pi, wi, hi) -> bool:
+        """True when every class with a ``miss_target`` meets it."""
+        rates = self.class_miss_rates(di, si, pi, wi, hi)
+        for ci, cls in enumerate(self.classes):
+            if cls.miss_target is not None and rates[ci] > cls.miss_target:
+                return False
+        return True
+
+    def weighted_metric(self, di, si, pi, wi, hi, metric: str) -> float:
+        """Weight-averaged per-class latency metric of one cell, over
+        SERVED post-warmup requests (shed requests are priced by
+        :meth:`class_miss_rates` / :meth:`feasible`, not here; a class with
+        no served sample drops out of the average)."""
+        lat = self.request_latency(di, si, pi, wi, hi)
+        post = self._post_warm()
+        total = value = 0.0
+        for ci, cls in enumerate(self.classes):
+            sel = (self.request_class == ci) & post & ~np.isnan(lat)
+            if not sel.any():
+                continue
+            value += cls.weight * _sample_metric(lat[sel], metric)
+            total += cls.weight
+        return value / total if total else math.inf
+
+
+def _serving_common(
+    dists, n_workers, request_rate, batch_size, slo_classes, policies,
+    max_waits, sheds, n_requests, seed, job_load, warmup, arrivals,
+    class_labels, device,
+):
+    """Shared validation + CRN draw block of the serving sweep and its
+    standalone companion.  RNG consumption order (the parity contract):
+    request arrivals first (unless given), then class labels (unless
+    given), then the primary draw matrix, then the alternate matrix —
+    always all four, so draws are axis- and device-independent.  The two
+    matrices are moved to ``device``; the trace stays on the host."""
+    dist_seq = _normalize_dists(dists)
+    for d in dist_seq:
+        if isinstance(d, Empirical):
+            raise TypeError(
+                "the serving sweep requires mu-exposing distributions "
+                "(Exp/SExp); Empirical is not supported on this path"
+            )
+    classes = _validate_classes(slo_classes)
+    pol_seq = _validate_policies(policies)
+    _validate_load(request_rate, job_load)
+    if batch_size < 1:
+        raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+    mw_seq = tuple(float(w) for w in max_waits)
+    if not mw_seq or any(not w > 0 for w in mw_seq):
+        raise ValueError(f"max_waits must be positive, got {max_waits}")
+    shed_seq = tuple(sheds)
+    if not shed_seq or not all(isinstance(s, ShedPolicy) for s in shed_seq):
+        raise TypeError(f"sheds must be ShedPolicy instances: {sheds}")
+    warm = _resolve_warmup(n_requests, warmup)
+
+    rng = np.random.default_rng(seed)
+    arr_req = _resolve_arrivals(arrivals, n_requests, request_rate, rng)
+    names = tuple(c.name for c in classes)
+    if class_labels is None:
+        shares = np.array([c.share for c in classes], dtype=float)
+        cum = np.cumsum(shares / shares.sum())
+        cls_idx = np.minimum(
+            np.searchsorted(cum, rng.random(n_requests), side="right"),
+            len(classes) - 1,
+        ).astype(np.int64)
+    else:
+        by_name = {n: i for i, n in enumerate(names)}
+        try:
+            cls_idx = np.array(
+                [by_name[str(c)] for c in class_labels], dtype=np.int64
+            )
+        except KeyError as e:
+            raise ValueError(f"unknown class label {e.args[0]!r}") from None
+        if len(cls_idx) != n_requests:
+            raise ValueError(
+                f"class_labels has {len(cls_idx)} entries for "
+                f"{n_requests} requests"
+            )
+    unit = _draws(rng, (n_requests, n_workers), device)
+    alt_unit = _draws(rng, (n_requests, n_workers), device)
+    rel = np.array(
+        [math.inf if c.deadline is None else c.deadline for c in classes]
+    )
+    deadlines = arr_req + rel[cls_idx]
+    weights = np.array([c.weight for c in classes], dtype=float)
+    return (dist_seq, classes, pol_seq, mw_seq, shed_seq, warm, arr_req,
+            names, cls_idx, unit, alt_unit, deadlines, weights)
+
+
+def _serving_formation(
+    dist, n_batches, n_workers, batch_size, max_wait, shed, arr_req,
+    cls_idx, names, weights, deadlines, job_load, cache,
+):
+    """Formation for one (dist, B, max_wait, shed) cell, memoized: 'cap'
+    sheds throttle against the cell's drain rate (so formation depends on
+    (dist, B)); other kinds share one formation per (max_wait, shed)."""
+    if shed.kind == "cap":
+        r = n_workers // n_batches
+        drain = shed.utilization * n_batches / _mean_min_service(
+            dist, r, job_load
+        )
+        q_max = _THROTTLE_DEPTH * n_batches
+        key = (max_wait, shed, drain, q_max)
+    else:
+        drain, q_max = None, math.inf
+        key = (max_wait, shed)
+    if key not in cache:
+        with _stage("formation"):
+            cache[key] = _form_schedule(
+                arr_req, cls_idx, names, weights, batch_size, max_wait, shed,
+                deadlines, drain, q_max,
+            )
+    return cache[key]
+
+
+def _serving_cache_key(seed, n_requests, n_workers, arrivals, class_labels,
+                       splits, n_jobs):
+    """Group-minima cache key of one serving dispatch.  The minima of rows
+    ``[:n_jobs]`` depend on ``n_jobs``, and the draws on whether the
+    arrivals and the class labels were given (each one given consumes no
+    randomness), so the key holds all three."""
+    return ("serving", seed, n_requests, n_workers, arrivals is not None,
+            class_labels is not None, tuple(splits), n_jobs,
+            _wb_cache_tag(None))
+
+
+def sweep_sojourn_serving(
+    dists: ServiceDistribution | Sequence[ServiceDistribution],
+    n_workers: int,
+    request_rate: float,
+    batch_size: int,
+    slo_classes: Sequence[SloClass],
+    policies: Sequence[PolicyCandidate],
+    max_waits: Sequence[float] = (math.inf,),
+    sheds: Sequence[ShedPolicy] = (ShedPolicy("none"),),
+    n_requests: int = 20_000,
+    seed: int = 0,
+    feasible_b: Sequence[int] | None = None,
+    job_load: float = 1.0,
+    warmup: int | None = None,
+    arrivals: Sequence[float] | None = None,
+    class_labels: Sequence[str] | None = None,
+    device=None,
+) -> ServingSweepResult:
+    """Request-level latencies for ALL (B, policy, max_wait, shed) serving
+    cells x distributions, under multi-tenant SLO classes.
+
+    One shared request trace (Poisson at ``request_rate``, or
+    ``arrivals``/``class_labels`` for trace replay) goes through the WFQ
+    formation pre-pass once per (max_wait, shed) combo
+    (:func:`_form_schedule`, on the host), and each combo's job stream is
+    scanned by the ``sojourn_cells`` kernel on ``device`` through the same
+    seam as :func:`sweep_sojourn_policies`, slicing rows ``[:J]`` of one
+    shared primary + alternate draw matrix (common random numbers across
+    every axis).  Each job carries the FULL ``job_load`` (padded-batch
+    assumption: a partially-filled batch costs as much as a full one).
+
+    One launch per combo covers every (dist, B, policy) cell; under 'cap'
+    the throttled formation depends on (dist, B), so each (dist, B) has a
+    launch of its own.  Every cell is bit-equal to
+    :func:`simulate_sojourn_serving` at the same seed and knobs, and to the
+    reference's ``pallas`` lane.
+    """
+    dev = resolve_device(device)
+    splits, _ = _resolve_splits(n_workers, feasible_b)
+    (dist_seq, classes, pol_seq, mw_seq, shed_seq, warm, arr_req, names,
+     cls_idx, unit, alt_unit, deadlines, weights) = _serving_common(
+        dists, n_workers, request_rate, batch_size, slo_classes, policies,
+        max_waits, sheds, n_requests, seed, job_load, warmup, arrivals,
+        class_labels, dev,
+    )
+    n_d, n_s, n_p = len(dist_seq), len(splits), len(pol_seq)
+    n_w, n_h = len(mw_seq), len(shed_seq)
+    req_job = np.full((n_d, n_s, n_w, n_h, n_requests), -1, dtype=np.int64)
+    formed_out = [[[[None] * n_h for _ in range(n_w)] for _ in range(n_s)]
+                  for _ in range(n_d)]
+    samples_out = [[[[None] * n_h for _ in range(n_w)] for _ in range(n_s)]
+                   for _ in range(n_d)]
+    extra = np.zeros((n_d, n_s, n_p, n_w, n_h))
+    form_cache: dict = {}
+
+    for wi, mw in enumerate(mw_seq):
+        for hi, shed in enumerate(shed_seq):
+            if shed.kind == "cap":
+                groups = [((di,), (si,))
+                          for di in range(n_d) for si in range(n_s)]
+            else:
+                groups = [(tuple(range(n_d)), tuple(range(n_s)))]
+            for dis, sis in groups:
+                formed, rj = _serving_formation(
+                    dist_seq[dis[0]], splits[sis[0]], n_workers, batch_size,
+                    mw, shed, arr_req, cls_idx, names, weights, deadlines,
+                    job_load, form_cache,
+                )
+                n_jobs = len(formed)
+                g_splits = [splits[si] for si in sis]
+                if n_jobs == 0:
+                    smp = np.empty((len(dis), len(sis), n_p, 0))
+                    xtr = np.zeros((len(dis), len(sis), n_p))
+                else:
+                    smp, xtr = _sweep_policies_accel(
+                        tuple(dist_seq[di] for di in dis), g_splits, pol_seq,
+                        formed, unit[:n_jobs], alt_unit[:n_jobs], None,
+                        job_load, n_workers, 0, None,
+                        _serving_cache_key(seed, n_requests, n_workers,
+                                           arrivals, class_labels, g_splits,
+                                           n_jobs),
+                    )
+                for gi, di in enumerate(dis):
+                    for gj, si in enumerate(sis):
+                        req_job[di, si, wi, hi] = rj
+                        formed_out[di][si][wi][hi] = formed
+                        samples_out[di][si][wi][hi] = smp[gi, gj]
+                        extra[di, si, :, wi, hi] = xtr[gi, gj]
+
+    return ServingSweepResult(
+        n_workers=n_workers,
+        batch_size=batch_size,
+        splits=tuple(splits),
+        policies=pol_seq,
+        max_waits=mw_seq,
+        sheds=shed_seq,
+        dists=dist_seq,
+        classes=classes,
+        request_arrivals=arr_req,
+        request_class=cls_idx,
+        deadlines=deadlines,
+        warmup=warm,
+        formed=tuple(tuple(tuple(tuple(w) for w in s) for s in d)
+                     for d in formed_out),
+        req_job=req_job,
+        samples=tuple(tuple(tuple(tuple(w) for w in s) for s in d)
+                      for d in samples_out),
+        extra_fraction=extra,
+        backend=device_name(dev),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingSimResult:
+    """Standalone replay of ONE serving cell (see
+    :func:`simulate_sojourn_serving`)."""
+
+    latency: np.ndarray  # (R,) request latency, NaN = shed
+    shed: np.ndarray  # (R,) bool
+    request_class: np.ndarray  # (R,) class index
+    formed: np.ndarray  # (J,) job formation times
+    req_job: np.ndarray  # (R,) job index, -1 = shed
+    job_sojourns: np.ndarray  # (J,)
+    extra_fraction: float
+    warmup: int
+
+
+def simulate_sojourn_serving(
+    dist: ServiceDistribution,
+    n_workers: int,
+    n_batches: int,
+    request_rate: float,
+    batch_size: int,
+    slo_classes: Sequence[SloClass],
+    policy: PolicyCandidate,
+    max_wait: float = math.inf,
+    shed: ShedPolicy = ShedPolicy("none"),
+    n_requests: int = 20_000,
+    seed: int = 0,
+    job_load: float = 1.0,
+    warmup: int | None = None,
+    arrivals: Sequence[float] | None = None,
+    class_labels: Sequence[str] | None = None,
+    device=None,
+) -> ServingSimResult:
+    """Standalone replay of ONE (B, policy, max_wait, shed) serving cell.
+
+    The companion of :func:`sweep_sojourn_serving`: the same RNG order
+    (request arrivals, class labels, primary matrix, alternate matrix — the
+    FULL ``(n_requests, n_workers)`` matrices are drawn and the job stream
+    slices rows ``[:J]``), the same formation pre-pass, then one
+    single-cell ``sojourn_cells`` call of the same seam.  A kernel program
+    reads only its own cell, so the latencies are bit-equal to the
+    matching sweep cell at the same seed.
+    """
+    dev = resolve_device(device)
+    if n_workers % n_batches:
+        raise ValueError(
+            f"B={n_batches} infeasible: must divide N={n_workers}"
+        )
+    (dist_seq, classes, pol_seq, mw_seq, shed_seq, warm, arr_req, names,
+     cls_idx, unit, alt_unit, deadlines, weights) = _serving_common(
+        dist, n_workers, request_rate, batch_size, slo_classes, (policy,),
+        (max_wait,), (shed,), n_requests, seed, job_load, warmup, arrivals,
+        class_labels, dev,
+    )
+    formed, req_job = _serving_formation(
+        dist_seq[0], n_batches, n_workers, batch_size, mw_seq[0],
+        shed_seq[0], arr_req, cls_idx, names, weights, deadlines, job_load,
+        {},
+    )
+    n_jobs = len(formed)
+    if n_jobs:
+        smp, xtr = _sweep_policies_accel(
+            dist_seq, [n_batches], pol_seq, formed, unit[:n_jobs],
+            alt_unit[:n_jobs], None, job_load, n_workers, 0, None,
+            _serving_cache_key(seed, n_requests, n_workers, arrivals,
+                               class_labels, [n_batches], n_jobs),
+        )
+        soj, extra_fraction = smp[0, 0, 0], float(xtr[0, 0, 0])
+    else:
+        soj, extra_fraction = np.empty(0), 0.0
+    latency = np.full(n_requests, np.nan)
+    served = req_job >= 0
+    latency[served] = (
+        formed[req_job[served]] - arr_req[served] + soj[req_job[served]]
+    )
+    return ServingSimResult(
+        latency=latency,
+        shed=~served,
+        request_class=cls_idx,
+        formed=formed,
+        req_job=req_job,
+        job_sojourns=soj,
+        extra_fraction=extra_fraction,
+        warmup=warm,
     )

@@ -25,7 +25,8 @@ to its plain version within 1e-4 * (1 + |plain|) in float32 and
 in bfloat16 it runs its tensor-core kernel (HMMA in its SASS), in float32
 its FMA kernel, and it reads the model's strided views of one activation
 bit for bit as it reads copies.  The dense and hybrid LMs' logits on the
-card meet the CPU's within 4e-2.
+card meet the CPU's within 4e-2.  The serving sweep and its standalone
+replay give on the card exactly what they give on the CPU.
 """
 
 import numpy as np
@@ -36,7 +37,7 @@ from repro_torch.core import planner as TP
 from repro_torch.core import simulator as TS
 from repro_torch.core.coding import CodingCandidate
 from repro_torch.core.order_stats import Empirical, ShiftedExponential
-from repro_torch.core.policies import PolicyCandidate
+from repro_torch.core.policies import PolicyCandidate, ShedPolicy, SloClass
 from repro_torch.kernels import _build, launch_counts
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels.coded import COMBINE_RTOL, combine, combine_plain
@@ -364,6 +365,43 @@ def test_default_device_plan_runs_on_card(cuda):
     assert on_card.n_batches == on_cpu.n_batches
     assert on_card.policy == on_cpu.policy
     assert on_card.spectrum.points == on_cpu.spectrum.points
+
+
+@pytest.mark.parametrize("policies", [
+    (PolicyCandidate(), PolicyCandidate("hedged", hedge_fraction=1.0)),
+    POLS,
+], ids=["none_hedged", "four"])
+def test_serving_sweep_on_card_equals_cpu(cuda, policies):
+    """The serving sweep's cells and the standalone replay on the card
+    equal the CPU's bit for bit; one launch a (max_wait, shed) combo, and
+    one a (max_wait, split) under cap."""
+    classes = (SloClass("premium", share=0.3, weight=4.0, deadline=0.8,
+                        miss_target=0.05), SloClass("batch", share=0.7))
+    kw = dict(n_workers=8, request_rate=30.0, batch_size=4,
+              slo_classes=classes, policies=policies,
+              max_waits=(0.3, float("inf")),
+              sheds=(ShedPolicy(), ShedPolicy("cap", cap=24),
+                     ShedPolicy("expired")),
+              n_requests=1200, seed=7, feasible_b=(2, 4, 8), job_load=0.5)
+    before = launch_counts()["sojourn_cells"]
+    on_card = TS.sweep_sojourn_serving(DISTS[0], device="cuda", **kw)
+    assert launch_counts()["sojourn_cells"] == before + 2 * 2 + 2 * 3
+    on_cpu = TS.sweep_sojourn_serving(DISTS[0], device="cpu", **kw)
+    assert on_card.backend == "cuda"
+    np.testing.assert_array_equal(on_card.req_job, on_cpu.req_job)
+    np.testing.assert_array_equal(on_card.extra_fraction,
+                                  on_cpu.extra_fraction)
+    for si in range(3):
+        for wi in range(2):
+            for hi in range(3):
+                np.testing.assert_array_equal(on_card.samples[0][si][wi][hi],
+                                              on_cpu.samples[0][si][wi][hi])
+    sim = TS.simulate_sojourn_serving(
+        DISTS[0], 8, 4, kw["request_rate"], 4, classes, policies[-1],
+        max_wait=0.3, shed=ShedPolicy("cap", cap=24), n_requests=1200,
+        seed=7, job_load=0.5, device="cuda")
+    np.testing.assert_array_equal(
+        sim.latency, on_cpu.request_latency(0, 1, len(policies) - 1, 0, 1))
 
 
 ATT_TOL = {torch.float32: dict(atol=5e-5, rtol=5e-5),
