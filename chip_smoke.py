@@ -45,6 +45,39 @@ non-zero:
                       (formation pre-pass, scoring) and, under the
                       profiler, the card's busy time and
                       ``sojourn_cells``' device time.
+4c. ``tuner``        the re-plan loop: ``plan_heterogeneous``,
+                      ``benchmarks/bench_planner.py``'s skewed fleet (N 64,
+                      SExp(0.25, 1.0), rates [0.1] + linspace(0.7, 1.3,
+                      63), 20,000 trials) under "mean" (the coverage rule,
+                      float64), its ``drop_slowest(4)`` shrink, and a
+                      load-aware p99 over {none, clone 0.9, relaunch 0.9,
+                      hedged 0.1}: one ``sojourn_cells`` launch a B (7).
+                      ``plan_empirical``: the bench's 2,000-draw pool at K
+                      4, 16 and 64 under "mean", then K 16 under the p99
+                      portfolio with mds s in {4, 8, 16} (overheads
+                      measured by ``combine``): 2 ``sojourn_cells``
+                      launches (the portfolio, the coded race's queue) and
+                      one ``coded_cells``.  Each decision must be the
+                      reference's (pinned by ``tests/test_torch_chip_
+                      pins.py``) and the card's plans the CPU's (the
+                      load-aware ones at 500 jobs).  ``tuner_switch``: the
+                      online policy switch of ``benchmarks/bench_serving_
+                      latency.py`` through ``StragglerTuner`` (the
+                      reference's adopted policies, moves and final B).
+                      ``tuner_fleet``: 1,024 workers from B 256, telemetry
+                      from ``StepTimeSimulator`` (8 workers slowed 4x, a
+                      fault, a lognormal pool from step 40), censored as
+                      the paper's rule leaves it, re-planned by the
+                      rate-aware planner and the goodness-of-fit gate's
+                      empirical fallback (K 20 x 11 B x 4 policies in one
+                      launch); each attempt's planner, wall against the
+                      1 s budget, stages and launches, then each kind's
+                      last re-plan under the profiler.  The widest
+                      ``sojourn_cells`` dispatch of each p99 plan and of
+                      each kind's last ``tuner_fleet`` re-plan is held
+                      bit-equal to the plain version on its first 2,000
+                      jobs at its own cells, groups and policies, and
+                      ``plan_empirical``'s ``coded_cells`` call in full.
 5. ``serve``          qwen2-0.5b at full width (24 layers, d_model 896,
                       vocab 151,936; random bf16 weights from a seeded
                       generator) serves 8 prompts of 1,024 tokens and 32
@@ -113,7 +146,7 @@ non-zero:
                       the planner's shape (strip kernel) and 1024 x 1024
                       x 2048 (tiled kernel).
 
-Each path of phases 2-6 and 4b runs with the launch counts and the sweeps'
+Each path of phases 2-6, 4b and 4c runs with the launch counts and the sweeps'
 stage seconds (``simulator.STAGE_SECONDS``) set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.  One more
 run of phases 2 and 3 under ``torch.profiler`` gives the card's busy time.
@@ -127,6 +160,7 @@ repo.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -166,6 +200,37 @@ SERVING_LAUNCHES = 3 * 2 + 3 * 5
 # B in {16..256}, a 40,000-request Poisson trace
 SERVING_FLEET_N, SERVING_FLEET_B = 1024, (16, 32, 64, 128, 256)
 SERVING_FLEET_REQUESTS = 40_000
+# phase 4c: benchmarks/bench_planner.py's skewed fleet (N 64, SExp(0.25,
+# 1.0), rates [0.1] + linspace(0.7, 1.3, 63), 20,000 trials) and its
+# 2,000-draw bootstrap pool; the reference's decisions there, pinned on the
+# CPU by tests/test_torch_hetero_empirical.py::
+# test_plan_heterogeneous_decisions_are_the_references and
+# test_plan_empirical_decisions_are_the_references: B* under "mean", the
+# shrink's B* and dropped workers, and (B*, policy kind, quantile) under the
+# load-aware p99 portfolio; the empirical (B*, confidence, vote_share) by K
+PLAN_N, PLAN_TRIALS = 64, 20_000
+HETERO_DECISIONS = {"mean": 16, "shrink": (15, (0, 1, 2, 3)),
+                    "p99": (32, "clone", 0.9)}
+_ONE_B16 = ((1, 0.0), (2, 0.0), (4, 0.0), (8, 0.0), (16, 1.0), (32, 0.0),
+            (64, 0.0))
+EMPIRICAL_DECISIONS = {
+    4: (16, 1.0, _ONE_B16), 16: (16, 1.0, _ONE_B16),
+    64: (16, 0.96875, ((1, 0.0), (2, 0.0), (4, 0.0), (8, 0.0),
+                       (16, 0.96875), (32, 0.03125), (64, 0.0)))}
+# the load-aware plans also run on the CPU (the plain scan) for card ==
+# CPU, at this many jobs: the plain scan takes ~150 s at 20,000
+PLAN_CHECK_JOBS = 500
+# the tuner_fleet path: 1,024 workers from B 256, slow workers (4x), a
+# fault on worker 100 for steps 30-39, and from step 40 a lognormal pool;
+# 60 steps (the fallback re-plans every step once its wall is in budget)
+TUNER_FLEET_N, TUNER_FLEET_B0, TUNER_FLEET_STEPS = 1024, 256, 60
+TUNER_FLEET_SLOW, TUNER_FLEET_DRIFT = tuple(range(8)), 40
+# benchmarks/bench_serving_latency.py's online policy switch (N 16, 4,000
+# trials): the reference's adopted (kind, quantile) in each regime, its
+# moves (step, old B, new B) and final B, pinned on the CPU by
+# tests/test_torch_chip_pins.py::test_tuner_switch_decision_is_the_references
+SWITCH_DECISION = {"adopted": (("relaunch", 0.8), ("clone", 0.8)),
+                   "moves": ((4, 4, 1), (44, 1, 16)), "final_b": 16}
 # the serve phase: qwen2-0.5b at full width
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = 8, 1024, 32, 2048
 # card against CPU: full width, depth 2.  Either bf16 run rounds the
@@ -379,12 +444,18 @@ def main() -> int:
         over the names (each wrapper and library call here launches each
         of its kernels once a call).  The profiler can miss the first
         launches of a window, so a sum over the window divided by ``reps``
-        would undercount; the events it recorded are printed."""
+        would undercount; the events it recorded are printed.  A window
+        that recorded nothing is tried twice more; a third empty one fails
+        the run, since the row's roofline share needs the time."""
         warm_up(fn)
-        _, _, n_events, by_name, count = device_busy(fn, reps)
-        print(f"    (profiler: {n_events} device events recorded for {reps} "
-              f"calls: {sorted(count.values())})")
-        return sum(by_name[k] / count[k] for k in by_name) * 1e3
+        for _ in range(3):
+            _, _, n_events, by_name, count = device_busy(fn, reps)
+            print(f"    (profiler: {n_events} device events recorded for "
+                  f"{reps} calls: {sorted(count.values())})")
+            if by_name:
+                return sum(by_name[k] / count[k] for k in by_name) * 1e3
+        raise AssertionError(f"three profiler windows of {reps} calls "
+                             "recorded no device event")
 
     def print_busy(name, wall, busy, n_events, by_name, count, top=6,
                    shares=None):
@@ -755,9 +826,469 @@ def main() -> int:
         "decision": {**decision(fsplan), "max_wait": repr(fsplan.max_wait)},
         "points": fpts, "sojourn_dispatches": fleet_dispatches, **fs_busy}
 
-    # -- 5. serve and 6. serve_hybrid -------------------------------------
-    import dataclasses
+    # -- 4c. tuner: the rate-aware and bootstrap planners, the online tuner -
+    from repro_torch.core.order_stats import Exponential
+    from repro_torch.core.planner import (EmpiricalPlanner,
+                                          HeterogeneousPlanner, make_planner)
+    from repro_torch.core.policies import replica_major_nonoverlapping
+    from repro_torch.core.replication import ReplicationPlan
+    from repro_torch.core.simulator import (FaultEvent, StepTimeSimulator,
+                                            censored_observations,
+                                            completion_from_step_times)
+    from repro_torch.core.tuner import StragglerTuner, TunerConfig
 
+    def plan_decision(p):
+        return {"n_batches": p.n_batches,
+                "policy": None if p.policy is None else (p.policy.kind,
+                                                         p.policy.quantile),
+                "speculation_quantile": p.speculation_quantile,
+                "coding": None if p.coding is None else p.coding.describe(),
+                "confidence": p.confidence, "vote_share": p.vote_share,
+                "closed_form_mean": p.closed_form_mean}
+
+    def same_plans(tag, card_plan, cpu_plan):
+        if (plan_decision(card_plan) != plan_decision(cpu_plan)
+                or spectrum_points(card_plan) != spectrum_points(cpu_plan)):
+            raise AssertionError(
+                f"{tag} differs between the card and the CPU: "
+                f"{plan_decision(card_plan)} against {plan_decision(cpu_plan)}")
+        print(f"[{tag}] card plan == CPU plan: {plan_decision(card_plan)}")
+
+    # the new paths' profiled re-plans run after phase 7, so that phase 7's
+    # profiler windows follow the same profiler sessions as before
+    deferred_profiles: list = []  # (phase, key, tag, fn)
+
+    def busy_of(tag, fn):
+        out = print_busy(tag, *device_busy(fn),
+                         shares={"sojourn_cells": "sojourn_cells_kernel",
+                                 "coded_cells": "coded_",
+                                 "combine": "combine"})
+        if out["device_busy_s"] is None:
+            raise AssertionError(f"the profiler saw no device work in {tag}")
+        return out
+
+    # sojourn_cells' chain bound, for phase 4c's checks and phase 7's rows
+    sm_clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+
+    def resolving_programs(a_, kw):
+        """(C, P) mask of the programs that resolve triggers: clone or
+        relaunch at a finite threshold, when the launch resolves."""
+        thr_ = a_[4]
+        armed = torch.tensor([k in (1, 2) for k in a_[3].tolist()],
+                             device=thr_.device)[None, :] & (thr_ < math.inf)
+        return armed & bool(kw.get("resolve", True))
+
+    def chain_bound_ms(a_, kw, extra):
+        """The least time of the launch's longest program on the chain of
+        dependent steps its code runs (``csrc/sojourn_cells.cu``): each of
+        J dispatches stores the picked set and reloads its node (L cycles),
+        then needs the free root's key and then its index (two dependent
+        warp reductions, R each) before the next can pick; a program that
+        resolves triggers waits on the trigger root's key, job id and set
+        instead (3 R), and on one more walk (L + 2 R) for each trigger that
+        fired in this run.  L and R from the probe, at the card's top SM
+        clock; the kernel's other instructions are left out."""
+        lat, red = chain_cycles["sts_syncwarp_lds128"], chain_cycles["redux"]
+        ng_ = a_[6]
+        n_jobs = a_[1].shape[1]
+        resolving = resolving_programs(a_, kw)
+        cycles = torch.where(
+            resolving, n_jobs * (lat + 3 * red) + extra.double() * (lat + 2 * red),
+            torch.full_like(extra, n_jobs, dtype=torch.float64)
+            * (lat + 2 * red))
+        cycles = torch.where(ng_[:, None] > 0, cycles, torch.zeros_like(cycles))
+        return cycles.max().item() / (sm_clock_mhz * 1e6) * 1e3
+
+    def soj_prefix_check(tag, a_, kw_):
+        """Hold one ``sojourn_cells`` dispatch bit-equal to the plain
+        version on its first SOJOURN_PLAIN_JOBS jobs, at the dispatch's own
+        cells, groups and policies (the plain version loops over jobs in
+        Python); time both there."""
+        j_ = min(SOJOURN_PLAIN_JOBS, a_[1].shape[1])
+        cut_ = (a_[0][:j_].contiguous(), a_[1][:, :j_].contiguous(),
+                a_[2][:, :j_].contiguous(), a_[3], a_[4],
+                a_[5][:, :j_].contiguous(), a_[6])
+        out_c, x_c = SK.sojourn_cells(*cut_, **kw_)
+        k_ms = cuda_ms(lambda: SK.sojourn_cells(*cut_, **kw_), 3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_p, x_p = SK.sojourn_cells_plain(*cut_, **kw_)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        if not (torch.equal(out_c, out_p) and torch.equal(x_c, x_p)):
+            diff = (out_c - out_p).abs().max().item()
+            raise AssertionError(f"sojourn_cells ({tag}) differs from its "
+                                 f"plain version: max |diff| {diff}")
+        chain = chain_bound_ms(cut_, kw_, x_c)
+        bytes_ = nbytes(*cut_, out_c, x_c) / HBM_BYTES_PER_S * 1e3
+        return {"plain_jobs": j_, "ms_at_plain_jobs": k_ms, "plain_ms": p_ms,
+                "max_abs_err": 0.0,
+                "bound_ms_at_plain_jobs": max(chain, bytes_),
+                "bound_by_at_plain_jobs": ("operations" if chain >= bytes_
+                                           else "bytes")}
+
+    # the widest sojourn_cells dispatch (and the coded_cells calls) of each
+    # 4c path, held against the plain versions at the path's own shapes
+    plain_checks: list = []
+
+    def hold_widest(tag, calls):
+        (a_, kw_) = max(calls, key=lambda c: c[0][1].numel())
+        e = {"name": "sojourn_cells", "case": tag,
+             "shape": [int(v) for v in a_[1].shape] + [int(a_[3].shape[0])],
+             "resolve": bool(kw_.get("resolve", True)),
+             **soj_prefix_check(tag, a_, kw_)}
+        print(f"[{tag}] sojourn_cells widest dispatch C,J,G,P={e['shape']}: "
+              f"first {e['plain_jobs']} jobs bit-equal to the plain version "
+              f"(kernel {e['ms_at_plain_jobs']:.3f} ms, bound "
+              f"{e['bound_ms_at_plain_jobs']:.4f} ms "
+              f"({e['bound_by_at_plain_jobs']}), plain {e['plain_ms']:.1f} "
+              "ms)")
+        plain_checks.append(e)
+        return e
+
+    def hold_coded(tag, calls):
+        out_ = []
+        for (times_, ks_), _ in calls:
+            if not torch.equal(SK.coded_cells(times_, ks_),
+                               SK.coded_cells_plain(times_, ks_.to(dev))):
+                raise AssertionError(f"coded_cells ({tag}) differs from its "
+                                     f"plain version at {tuple(times_.shape)}")
+            out_.append({"name": "coded_cells", "case": tag,
+                         "shape": list(times_.shape), "ks": ks_.tolist(),
+                         "max_abs_err": 0.0})
+        print(f"[{tag}] coded_cells {[e['shape'] for e in out_]}: bit-equal "
+              "to the plain version")
+        plain_checks.extend(out_)
+        return out_
+
+    bench_dist = ShiftedExponential(0.25, 1.0)
+    bench_pols = (PolicyCandidate("none"),
+                  PolicyCandidate("clone", quantile=0.9),
+                  PolicyCandidate("relaunch", quantile=0.9),
+                  PolicyCandidate("hedged", hedge_fraction=0.1))
+    p99_objective = Objective(metric="p99", utilization=0.7,
+                              policies=bench_pols)
+
+    t_4c = time.perf_counter()
+    _phase("plan_heterogeneous")
+    skew = ClusterSpec(n_workers=PLAN_N, dist=bench_dist, rates=tuple(
+        np.concatenate([[0.1], np.linspace(0.7, 1.3, PLAN_N - 1)])))
+    shrunk, dropped = skew.drop_slowest(4)
+
+    def hetero(spec_, objective_, device, trials=PLAN_TRIALS):
+        return HeterogeneousPlanner(n_trials=trials, seed=0,
+                                    device=device).plan(spec_, objective_)
+
+    def hetero_path():
+        parts, walls = {}, {}
+        for name, spec_, obj_ in (
+                ("mean", skew, Objective(metric="mean")),
+                ("shrink", shrunk, Objective(metric="mean")),
+                ("p99", skew, p99_objective)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parts[name] = hetero(spec_, obj_, "cuda")
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+        return parts, walls
+
+    hetero_calls: list = []
+    orig = capture(SK, "sojourn_cells", hetero_calls)
+    try:
+        (hplans, hwalls), hcounts, hwall, hstages = run_path(
+            "plan_heterogeneous", hetero_path)
+    finally:
+        SK.sojourn_cells = orig
+    if hcounts["sojourn_cells"] != len(skew.feasible_batches()):
+        raise AssertionError(
+            f"plan_heterogeneous launched sojourn_cells "
+            f"{hcounts['sojourn_cells']} times, want one a B "
+            f"({len(skew.feasible_batches())})")
+    got = {"mean": hplans["mean"].n_batches,
+           "shrink": (hplans["shrink"].n_batches, dropped),
+           "p99": (hplans["p99"].n_batches, hplans["p99"].policy.kind,
+                   hplans["p99"].policy.quantile)}
+    if got != HETERO_DECISIONS or any(p.backend != "cuda"
+                                      for p in hplans.values()):
+        raise AssertionError(f"plan_heterogeneous decided {got}, the "
+                             f"reference {HETERO_DECISIONS}")
+    print(f"[plan_heterogeneous] N={PLAN_N}, {PLAN_TRIALS} trials: the "
+          f"reference's decisions {got}; walls (s) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in hwalls.items()))
+    for name in ("mean", "shrink"):
+        same_plans(f"plan_heterogeneous {name}", hplans[name], hetero(
+            skew if name == "mean" else shrunk, Objective(metric="mean"),
+            "cpu"))
+    same_plans(f"plan_heterogeneous p99 at {PLAN_CHECK_JOBS} jobs",
+               hetero(skew, p99_objective, "cuda", PLAN_CHECK_JOBS),
+               hetero(skew, p99_objective, "cpu", PLAN_CHECK_JOBS))
+    hetero_widest = hold_widest("plan_heterogeneous p99", hetero_calls)
+    del hetero_calls
+    deferred_profiles.append(("plan_heterogeneous", "p99_profile",
+                              "plan_heterogeneous p99",
+                              lambda: hetero(skew, p99_objective, "cuda")))
+    report["phases"]["plan_heterogeneous"] = {
+        "wall_s": hwall, "walls_s": hwalls, "stages_s": hstages,
+        "launches": hcounts, "decisions": got,
+        "points": {k: spectrum_points(p) for k, p in hplans.items()},
+        "card_equals_cpu": True, "plain_check": hetero_widest}
+
+    _phase("plan_empirical")
+    pool = Empirical(tuple(bench_dist.sample(np.random.default_rng(0),
+                                             2_000)))
+    pool_spec = ClusterSpec(n_workers=PLAN_N, dist=pool)
+    emp_codes = tuple(CodingCandidate("mds", s_) for s_ in (4, 8, 16))
+    emp_objective = Objective(metric="p99", utilization=0.7,
+                              policies=bench_pols, coding=emp_codes)
+
+    def empirical(k, objective_, device, trials=PLAN_TRIALS):
+        return EmpiricalPlanner(n_trials=trials, seed=0, n_resamples=k,
+                                device=device).plan(pool_spec, objective_)
+
+    def empirical_path():
+        parts, walls = {}, {}
+        for name, k, obj_ in ((4, 4, Objective(metric="mean")),
+                              (16, 16, Objective(metric="mean")),
+                              (64, 64, Objective(metric="mean")),
+                              ("p99", 16, emp_objective)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parts[name] = empirical(k, obj_, "cuda")
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+        return parts, walls
+
+    emp_calls: list = []
+    emp_coded_calls: list = []
+    orig = capture(SK, "sojourn_cells", emp_calls)
+    orig_coded = capture(SK, "coded_cells", emp_coded_calls)
+    try:
+        (eplans, ewalls), ecounts, ewall, estages = run_path(
+            "plan_empirical", empirical_path)
+    finally:
+        SK.sojourn_cells, SK.coded_cells = orig, orig_coded
+    # the portfolio's one launch of 16 x 7 x 4 programs, and the coded
+    # race's queue (sojourn_cells at G = 1) on its k-of-N service column
+    if (ecounts["sojourn_cells"] != 2 or ecounts["coded_cells"] != 1
+            or ecounts["combine"] <= 0):
+        raise AssertionError(f"plan_empirical launched {ecounts}, want "
+                             "sojourn_cells 2, coded_cells 1, combine > 0")
+    got = {k: (eplans[k].n_batches, eplans[k].confidence,
+               eplans[k].vote_share) for k in (4, 16, 64)}
+    if got != EMPIRICAL_DECISIONS:
+        raise AssertionError(f"plan_empirical decided {got}, the reference "
+                             f"{EMPIRICAL_DECISIONS}")
+    ep = eplans["p99"]
+    print(f"[plan_empirical] the reference's votes at K 4, 16, 64: {got}; "
+          f"K 16 load-aware p99: B={ep.n_batches} policy={ep.policy} "
+          f"coding={ep.coding} confidence={ep.confidence}; walls (s) "
+          + ", ".join(f"K{k} {v:.3f}" if k != "p99" else f"p99 {v:.3f}"
+                      for k, v in ewalls.items()))
+    for k in (4, 16, 64):
+        same_plans(f"plan_empirical K {k}", eplans[k],
+                   empirical(k, Objective(metric="mean"), "cpu"))
+    # the coded race with the card's measured overheads on both sides
+    resolved = SimulatedPlanner(device="cuda")._resolved_coding(
+        emp_objective, PLAN_N, dev)
+    check_obj = dataclasses.replace(emp_objective, coding=resolved)
+    same_plans(f"plan_empirical p99 at {PLAN_CHECK_JOBS} jobs",
+               empirical(16, check_obj, "cuda", PLAN_CHECK_JOBS),
+               empirical(16, check_obj, "cpu", PLAN_CHECK_JOBS))
+    emp_checks = [hold_widest("plan_empirical p99", emp_calls),
+                  *hold_coded("plan_empirical p99", emp_coded_calls)]
+    del emp_calls, emp_coded_calls
+    deferred_profiles.append(("plan_empirical", "p99_profile",
+                              "plan_empirical p99",
+                              lambda: empirical(16, check_obj, "cuda")))
+    report["phases"]["plan_empirical"] = {
+        "wall_s": ewall, "walls_s": {str(k): v for k, v in ewalls.items()},
+        "stages_s": estages, "launches": ecounts,
+        "decisions": {str(k): v for k, v in got.items()},
+        "p99_decision": plan_decision(ep), "card_equals_cpu": True,
+        "plain_checks": emp_checks}
+
+    _phase("tuner_switch")
+    switch_pols = (
+        *(PolicyCandidate("clone", quantile=q) for q in (0.8, 0.9)),
+        *(PolicyCandidate("relaunch", quantile=q) for q in (0.8, 0.9)),
+        PolicyCandidate("hedged", hedge_fraction=0.1),
+        PolicyCandidate("hedged", hedge_fraction=0.3))
+
+    def tuner_switch():
+        tuner = StragglerTuner(
+            ReplicationPlan(n_data=16, n_batches=4),
+            TunerConfig(mode="simulate", sim_trials=4_000, sim_seed=0,
+                        min_samples=64, cooldown_steps=8, window_steps=16,
+                        improvement_threshold=0.05, metric="p99",
+                        device="cuda"),
+            policy_candidates=switch_pols)
+        rng = np.random.default_rng(0)
+        adopted, moves, attempts = [], [], []
+        for dist_, steps in ((Exponential(2.0), 24),
+                             (ShiftedExponential(0.5, 2.0), 32)):
+            for _ in range(steps):
+                tuner.observe(dist_.sample(rng, 16))
+                tuner.observe_load(13.0)
+                before = tuner._last_attempt
+                rp = tuner.maybe_replan()
+                if tuner._last_attempt != before:
+                    attempts.append((tuner._last_attempt,
+                                     tuner.last_replan_seconds))
+                if rp is not None:
+                    moves.append((rp.step, rp.old_batches, rp.new_batches))
+                    tuner.apply(rp)
+            pol = tuner.last_plan.policy
+            adopted.append((pol.kind, pol.quantile))
+        return {"adopted": tuple(adopted), "moves": tuple(moves),
+                "final_b": tuner.plan.n_batches}, attempts
+
+    (switch, switch_attempts), scounts4, swall4, sstages4 = run_path(
+        "tuner_switch", tuner_switch)
+    if switch != SWITCH_DECISION:
+        raise AssertionError(f"tuner_switch decided {switch}, the reference "
+                             f"{SWITCH_DECISION}")
+    if scounts4["sojourn_cells"] != len(switch_attempts):
+        raise AssertionError(f"tuner_switch launched sojourn_cells "
+                             f"{scounts4['sojourn_cells']} times in "
+                             f"{len(switch_attempts)} re-plans")
+    print(f"[tuner_switch] the reference's decision {switch}; re-plans "
+          "(step, wall s): "
+          + ", ".join(f"{s_} {w:.3f}" for s_, w in switch_attempts))
+    report["phases"]["tuner_switch"] = {
+        "wall_s": swall4, "stages_s": sstages4, "launches": scounts4,
+        "decision": switch, "attempts": switch_attempts}
+
+    _phase("tuner_fleet")
+    fleet_n, fleet_b0, fleet_steps = (TUNER_FLEET_N, TUNER_FLEET_B0,
+                                      TUNER_FLEET_STEPS)
+    fleet_dist = ShiftedExponential(0.05, 2.0)
+    drift_pool = Empirical(tuple(np.random.default_rng(1).lognormal(
+        -1.1, 1.0, 2_000)))
+    fleet_rate = Objective(utilization=0.7).offered_rate(
+        ClusterSpec(n_workers=fleet_n, dist=fleet_dist))
+    fleet_cfg = TunerConfig(
+        mode="simulate", heterogeneous=True, sim_trials=4_000,
+        window_steps=50, cooldown_steps=20, metric="p99", gof_alpha=0.01,
+        bootstrap_resamples=20, replan_time_budget=1.0, device="cuda")
+    n_splits = len(ClusterSpec(n_workers=fleet_n,
+                               dist=fleet_dist).feasible_batches())
+    cells_bytes = (2 * fleet_cfg.bootstrap_resamples * n_splits
+                   * fleet_cfg.sim_trials * fleet_n * 4)
+    print(f"[tuner_fleet] N={fleet_n}, B0={fleet_b0}, {fleet_steps} steps, "
+          f"job rate {fleet_rate:.4f} (utilization 0.7 of the unreplicated "
+          f"fleet); the empirical fallback's svc + alt cells: "
+          f"{fleet_cfg.bootstrap_resamples} x {n_splits} x "
+          f"{fleet_cfg.sim_trials} x {fleet_n} float32 x 2 = "
+          f"{cells_bytes / 1e9:.2f} GB")
+    fleet_attempts: list = []
+    last_by_planner: dict = {}
+    # the widest sojourn_cells dispatch of the last re-plan of each kind
+    fleet_calls: list = []
+    fleet_widest: dict = {}
+
+    def tuner_fleet():
+        slow = {w: 4.0 for w in TUNER_FLEET_SLOW}
+        # the fault ends before the drift, so the drifted fleet has none
+        sims = (StepTimeSimulator(
+            fleet_dist, fleet_n, seed=0, slow_workers=slow,
+            faults=[FaultEvent(worker=100, start_step=30, end_step=40)]),
+                StepTimeSimulator(drift_pool, fleet_n, seed=1,
+                                  slow_workers=slow))
+        tuner = StragglerTuner(
+            ReplicationPlan(n_data=fleet_n, n_batches=fleet_b0), fleet_cfg,
+            policy_candidates=bench_pols[1:])
+        layout = replica_major_nonoverlapping(fleet_n, fleet_b0)
+        for step in range(fleet_steps):
+            loads = np.full(fleet_n, fleet_n / tuner.plan.n_batches)
+            times = sims[step >= TUNER_FLEET_DRIFT].next_step(loads)
+            _, used = completion_from_step_times(times, layout)
+            obs, cens = censored_observations(times, layout, used)
+            tuner.observe(obs / loads, cens)
+            tuner.observe_load(fleet_rate)
+            c0, s0 = _build.launch_counts(), dict(SIM.STAGE_SECONDS)
+            before = tuner._last_attempt
+            fleet_calls.clear()
+            rp = tuner.maybe_replan()
+            if tuner._last_attempt == before:
+                continue
+            c1 = _build.launch_counts()
+            plan_ = tuner.last_plan
+            if fleet_calls:
+                fleet_widest[plan_.planner] = max(
+                    fleet_calls, key=lambda c: c[0][1].numel())
+                fleet_calls.clear()
+            attempt = {
+                "step": tuner._last_attempt, "planner": plan_.planner,
+                "gof_rejected": tuner.last_gof.rejected,
+                "gof_statistic": tuner.last_gof.statistic,
+                "gof_threshold": tuner.last_gof.threshold,
+                "wall_s": tuner.last_replan_seconds,
+                "within_budget": tuner.last_replan_seconds
+                <= fleet_cfg.replan_time_budget,
+                "stages_s": {k: v - s0.get(k, 0.0)
+                             for k, v in SIM.STAGE_SECONDS.items()},
+                "launches": {k: c1[k] - c0.get(k, 0) for k in c1},
+                "old_b": tuner.plan.n_batches, "plan_b": plan_.n_batches,
+                "policy": (plan_.policy.kind, plan_.policy.quantile),
+                "moved": rp is not None}
+            fleet_attempts.append(attempt)
+            last_by_planner[plan_.planner] = (plan_.spec, plan_.objective)
+            print(f"[tuner_fleet] step {attempt['step']}: "
+                  f"{attempt['planner']} (KS {attempt['gof_statistic']:.4f}"
+                  f" against {attempt['gof_threshold']:.4f}"
+                  f"{', rejected' if attempt['gof_rejected'] else ''}), "
+                  f"wall {attempt['wall_s']:.3f} s against the "
+                  f"{fleet_cfg.replan_time_budget} s budget, at B "
+                  f"{attempt['old_b']} the plan's B {attempt['plan_b']} "
+                  f"{'(moved)' if rp is not None else '(no move)'}, policy "
+                  f"{attempt['policy']}, launches "
+                  f"{ {k: v for k, v in attempt['launches'].items() if v} }, "
+                  "stages (host s): " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in attempt["stages_s"].items()
+                      if v))
+            if rp is not None:
+                tuner.apply(rp)
+                layout = rp.plan.assignment
+        return tuner
+
+    orig = capture(SK, "sojourn_cells", fleet_calls)
+    try:
+        fleet_tuner, fcounts4, fwall4, fstages4 = run_path("tuner_fleet",
+                                                           tuner_fleet)
+    finally:
+        SK.sojourn_cells = orig
+    kinds = {a["planner"] for a in fleet_attempts}
+    if not {"heterogeneous", "empirical"} <= kinds:
+        raise AssertionError(f"tuner_fleet re-planned only through {kinds}")
+    want = sum(n_splits if a["planner"] == "heterogeneous" else 1
+               for a in fleet_attempts)
+    if fcounts4["sojourn_cells"] != want:
+        raise AssertionError(f"tuner_fleet launched sojourn_cells "
+                             f"{fcounts4['sojourn_cells']} times, want {want}")
+    fleet_checks = {
+        kind_: hold_widest(f"tuner_fleet last {kind_} re-plan", [call_])
+        for kind_, call_ in sorted(fleet_widest.items())}
+    del fleet_widest
+    report["phases"]["tuner_fleet"] = {
+        "wall_s": fwall4, "stages_s": fstages4, "launches": fcounts4,
+        "job_rate": fleet_rate, "cells_bytes": cells_bytes,
+        "attempts": fleet_attempts, "final_b": fleet_tuner.plan.n_batches,
+        "plain_checks": fleet_checks}
+    # the last re-plan of each kind again, under the profiler (after 7)
+    for kind_, (spec_, obj_) in last_by_planner.items():
+        planner_ = make_planner(
+            "empirical" if kind_ == "empirical" else "simulate",
+            heterogeneous=True, n_trials=fleet_cfg.sim_trials,
+            n_resamples=fleet_cfg.bootstrap_resamples, device="cuda")
+        deferred_profiles.append((
+            "tuner_fleet", f"{kind_}_profile", f"tuner_fleet {kind_} re-plan",
+            lambda p_=planner_, s_=spec_, o_=obj_: p_.plan(s_, o_)))
+    print(f"[tuner] phase 4c: {time.perf_counter() - t_4c:.1f} s")
+
+    # -- 5. serve and 6. serve_hybrid -------------------------------------
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import ServeConfig, generate, run_serving
     from repro_torch.models import (count_params, decode_step, init_params,
@@ -991,39 +1522,6 @@ def main() -> int:
     # ones, the shapes of the earlier per-family dispatches
     (args, kw), = soj_calls
     arr, svc, alt, kinds, thr, hm, ng = args
-    sm_clock_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.split()[0])
-
-    def resolving_programs(a_, kw):
-        """(C, P) mask of the programs that resolve triggers: clone or
-        relaunch at a finite threshold, when the launch resolves."""
-        thr_ = a_[4]
-        armed = torch.tensor([k in (1, 2) for k in a_[3].tolist()],
-                             device=thr_.device)[None, :] & (thr_ < math.inf)
-        return armed & bool(kw.get("resolve", True))
-
-    def chain_bound_ms(a_, kw, extra):
-        """The least time of the launch's longest program on the chain of
-        dependent steps its code runs (``csrc/sojourn_cells.cu``): each of
-        J dispatches stores the picked set and reloads its node (L cycles),
-        then needs the free root's key and then its index (two dependent
-        warp reductions, R each) before the next can pick; a program that
-        resolves triggers waits on the trigger root's key, job id and set
-        instead (3 R), and on one more walk (L + 2 R) for each trigger that
-        fired in this run.  L and R from the probe, at the card's top SM
-        clock; the kernel's other instructions are left out."""
-        lat, red = chain_cycles["sts_syncwarp_lds128"], chain_cycles["redux"]
-        ng_ = a_[6]
-        n_jobs = a_[1].shape[1]
-        resolving = resolving_programs(a_, kw)
-        cycles = torch.where(
-            resolving, n_jobs * (lat + 3 * red) + extra.double() * (lat + 2 * red),
-            torch.full_like(extra, n_jobs, dtype=torch.float64)
-            * (lat + 2 * red))
-        cycles = torch.where(ng_[:, None] > 0, cycles, torch.zeros_like(cycles))
-        return cycles.max().item() / (sm_clock_mhz * 1e6) * 1e3
 
     def soj_entry(tag, a_, kw, reps):
         out_k, x_k = SK.sojourn_cells(*a_, **kw)
@@ -1056,50 +1554,20 @@ def main() -> int:
             "library_ms": None}
 
     head = soj_entry("plan_policies dispatch", args, kw, 3)
-    j = min(SOJOURN_PLAIN_JOBS, svc.shape[1])
-    cut = (arr[:j].contiguous(), svc[:, :j].contiguous(),
-           alt[:, :j].contiguous(), kinds, thr, hm[:, :j].contiguous(), ng)
-    out_c, x_c = SK.sojourn_cells(*cut, **kw)
-    head["ms_at_plain_jobs"] = cuda_ms(lambda: SK.sojourn_cells(*cut, **kw), 3)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out_p, x_p = SK.sojourn_cells_plain(*cut, **kw)
-    torch.cuda.synchronize()
-    head["plain_ms"] = (time.perf_counter() - t0) * 1e3
-    head["plain_jobs"] = j
-    head["max_abs_err"] = 0.0
-    if not (torch.equal(out_c, out_p) and torch.equal(x_c, x_p)):
-        diff = (out_c - out_p).abs().max().item()
-        raise AssertionError(
-            f"sojourn_cells differs from its plain version: max |diff| {diff}")
+    head.update(soj_prefix_check("plan_policies", args, kw))
+    j = head["plain_jobs"]
     soj_entries = [head]
     # serving_fleet's widest dispatch (trigger-free), the same way
     sargs, skw = serving_widest
     serving_e = soj_entry("serving_fleet widest dispatch", sargs, skw, 3)
-    sj = min(SOJOURN_PLAIN_JOBS, sargs[1].shape[1])
-    scut = (sargs[0][:sj].contiguous(), sargs[1][:, :sj].contiguous(),
-            sargs[2][:, :sj].contiguous(), sargs[3], sargs[4],
-            sargs[5][:, :sj].contiguous(), sargs[6])
-    out_c, x_c = SK.sojourn_cells(*scut, **skw)
-    serving_e["ms_at_plain_jobs"] = cuda_ms(
-        lambda: SK.sojourn_cells(*scut, **skw), 3)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out_p, x_p = SK.sojourn_cells_plain(*scut, **skw)
-    torch.cuda.synchronize()
-    serving_e["plain_ms"] = (time.perf_counter() - t0) * 1e3
-    serving_e["plain_jobs"] = sj
+    serving_e.update(soj_prefix_check("serving_fleet", sargs, skw))
+    sj = serving_e["plain_jobs"]
     # the same shape's launches in serving_fleet's profiled plan
     plan_ms = [d_["device_ms"] for d_ in fleet_dispatches
                if "device_ms" in d_ and [d_["cells"], d_["jobs"],
                                          d_["groups"], d_["policies"]]
                == serving_e["shape"]]
     serving_e["plan_device_ms"] = plan_ms
-    serving_e["max_abs_err"] = 0.0
-    if not (torch.equal(out_c, out_p) and torch.equal(x_c, x_p)):
-        diff = (out_c - out_p).abs().max().item()
-        raise AssertionError(f"sojourn_cells (serving_fleet) differs from "
-                             f"its plain version: max |diff| {diff}")
     print(f"[kernels] sojourn_cells first {sj} jobs of serving_fleet's "
           f"widest dispatch: kernel {serving_e['ms_at_plain_jobs']:.3f} ms, "
           f"plain {serving_e['plain_ms']:.1f} ms, bit-equal; the shape's "
@@ -1158,6 +1626,7 @@ def main() -> int:
                  "chain_cycles": chain_cycles, "sm_clock_mhz": sm_clock_mhz,
                  "serving_fleet": serving_e})
     extra_rows.extend(soj_entries)
+    extra_rows.extend(plain_checks)  # 4c's dispatches, checked in 4c
 
     # coded_cells: the planner's shape, the fleet's cells, then long rows
     # with duplicates; beside them the launch floor, the radix passes'
@@ -1755,6 +2224,11 @@ def main() -> int:
                  "tflops": s_rates["tflops"], "gbps": s_rates["gbps"],
                  "max_abs_err_state_bf16": ssd_errs["bfloat16_state"]})
     del sx, sdt, sb, sc_, y_out, st_out
+
+    # -- 4c's profiled re-plans -----------------------------------------
+    _phase("tuner profiles")
+    for phase_, key_, tag_, fn_ in deferred_profiles:
+        report["phases"][phase_][key_] = busy_of(tag_, fn_)
 
     report["kernels"] = rows
     report["kernel_shapes"] = extra_rows

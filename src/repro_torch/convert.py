@@ -5,8 +5,11 @@ plain fields, read by attribute name — into the port's object of the same
 name: service distributions (``Exponential``, ``ShiftedExponential``,
 ``Empirical`` with its atoms and weights exactly as stored), the
 candidates (``PolicyCandidate``, ``CodingCandidate``, ``SloClass``,
-``ShedPolicy``), ``ClusterSpec`` and ``Objective``.  Tuples and lists are
-converted entry by entry; ``None`` and plain numbers pass through.
+``ShedPolicy``), ``ClusterSpec``, ``Objective``, the placements
+(``Assignment``, ``ReplicationPlan``), the telemetry's ``FaultEvent`` and
+the tuner's ``TunerConfig`` (whose sweep engine is not carried: the
+port's ``device`` keeps its default).  Tuples and lists are converted
+entry by entry; ``None``, plain numbers and frozensets pass through.
 
 :func:`params_from_reference` turns the reference's LM parameter pytree
 (as numpy arrays, dense or hybrid family) into the port's parameter tree.
@@ -25,7 +28,10 @@ import torch
 from .core.coding import CodingCandidate
 from .core.order_stats import Empirical, Exponential, ShiftedExponential
 from .core.planner import ClusterSpec, Objective
-from .core.policies import PolicyCandidate, ShedPolicy, SloClass
+from .core.policies import Assignment, PolicyCandidate, ShedPolicy, SloClass
+from .core.replication import ReplicationPlan
+from .core.simulator import FaultEvent
+from .core.tuner import TunerConfig
 from .device import resolve_device
 
 __all__ = ["from_reference", "empirical_from_fields", "params_from_reference"]
@@ -62,6 +68,17 @@ _SIMPLE = {
     "ShedPolicy": (ShedPolicy, ("kind", "cap", "utilization")),
     "ClusterSpec": (ClusterSpec, ("n_workers", "dist", "rates", "feasible_b",
                                   "batch_divisor", "max_batches")),
+    "Assignment": (Assignment, ("n_workers", "n_units", "batches",
+                                "worker_batch")),
+    "ReplicationPlan": (ReplicationPlan, ("n_data", "n_batches")),
+    "FaultEvent": (FaultEvent, ("worker", "start_step", "end_step")),
+    "TunerConfig": (TunerConfig, ("window_steps", "min_samples",
+                                  "improvement_threshold", "cooldown_steps",
+                                  "metric", "mode", "heterogeneous",
+                                  "sim_trials", "sim_seed",
+                                  "replan_time_budget", "miss_rate_target",
+                                  "miss_window", "gof_alpha",
+                                  "bootstrap_resamples")),
     "Objective": (Objective, ("metric", "improvement_threshold",
                               "cooldown_steps", "arrival_rate", "utilization",
                               "job_load", "speculation_quantiles", "policies",
@@ -72,7 +89,8 @@ _SIMPLE = {
 
 def from_reference(obj):
     """The port's twin of a reference object (see the module docstring)."""
-    if obj is None or isinstance(obj, (bool, int, float, str, np.number)):
+    if obj is None or isinstance(obj, (bool, int, float, str, np.number,
+                                       frozenset)):
         return obj
     if isinstance(obj, (tuple, list)):
         return type(obj)(from_reference(x) for x in obj)

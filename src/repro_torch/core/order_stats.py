@@ -33,6 +33,7 @@ of each batch's replica set.
 
 from __future__ import annotations
 
+import abc
 import dataclasses
 import functools
 import itertools
@@ -73,20 +74,24 @@ def generalized_harmonic(n: int, p: int = 2) -> float:
 
 
 @dataclasses.dataclass(frozen=True)
-class ServiceDistribution:
+class ServiceDistribution(abc.ABC):
     """Base class: service time of ONE unit of data on one worker."""
 
+    @abc.abstractmethod
     def scaled(self, size: float) -> "ServiceDistribution":
-        raise NotImplementedError
+        """The service time of ``size`` units of data."""
 
+    @abc.abstractmethod
     def sample(self, rng, shape):  # numpy rng
-        raise NotImplementedError
+        """Draws of the given shape from a numpy Generator."""
 
+    @abc.abstractmethod
     def mean(self) -> float:
-        raise NotImplementedError
+        """E[T]."""
 
+    @abc.abstractmethod
     def var(self) -> float:
-        raise NotImplementedError
+        """Var[T]."""
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,6 @@
 """Unified planner: one ``ClusterSpec -> Plan`` control plane, on a device.
 
-The port of the planning half of ``repro.core.planner``.  The paper's
+The port of ``repro.core.planner``.  The paper's
 result is a single decision — factor N workers into (B batches x r
 replicas) under a fitted service distribution — and every runtime layer
 describes its fleet as a :class:`ClusterSpec`, states what it cares about
@@ -13,7 +13,7 @@ as an :class:`Objective`, and receives a :class:`Plan`:
     plan.predicted        # SpectrumPoint(mean/var/p99/p999) at the chosen B
     plan.spectrum         # the full sweep (for hysteresis comparisons)
 
-Two implementations of the :class:`Planner` strategy are ported:
+Four implementations of the :class:`Planner` strategy:
 
 * :class:`AnalyticPlanner` — closed-form sweep (Thms 2-4); homogeneous
   Exp/SExp only.
@@ -24,12 +24,23 @@ Two implementations of the :class:`Planner` strategy are ported:
   policy portfolio, coded candidates and, for ``Objective.slo_classes``,
   the multi-tenant serving sweep (per-request latencies of every (B,
   policy, max_wait, shed) cell, ranked feasibility-first).
-
-The rate-aware and bootstrap planners of the reference are not ported yet.
+* :class:`HeterogeneousPlanner` — the rate-aware extension: every
+  candidate B scored under the ``rate_aware_assignment`` placement it
+  emits, with per-worker ``rates``, one per-B simulation a B on one seed
+  (the coverage rule, or one ``sojourn_cells`` launch a B when the
+  objective is load-aware), plus the closed-form
+  ``expected_completion_rates`` companion.  On a homogeneous spec it is
+  :class:`SimulatedPlanner`.
+* :class:`EmpiricalPlanner` — plans over K bootstrap resamples of an
+  :class:`~repro_torch.core.order_stats.Empirical` distribution (the
+  resamples ride the dists axis of one sweep), picks B* by majority vote
+  of the per-resample argmins, and reports the vote as
+  :attr:`Plan.confidence` / :attr:`Plan.vote_share`.
 """
 
 from __future__ import annotations
 
+import abc
 import dataclasses
 import math
 from typing import Optional, Sequence
@@ -40,6 +51,7 @@ from ..device import device_name, resolve_device
 from .coding import CodingCandidate
 from .estimator import FitResult
 from .order_stats import (
+    Empirical,
     Exponential,
     ServiceDistribution,
     ShiftedExponential,
@@ -75,6 +87,8 @@ __all__ = [
     "Planner",
     "AnalyticPlanner",
     "SimulatedPlanner",
+    "HeterogeneousPlanner",
+    "EmpiricalPlanner",
     "make_planner",
 ]
 
@@ -680,7 +694,7 @@ class Plan:
         return 1.0 - self.score / max(cur, 1e-30)
 
 
-class Planner:
+class Planner(abc.ABC):
     """Strategy interface: ``plan(spec, objective) -> Plan``.
 
     Subclasses implement :meth:`sweep_spectrum`; selection (argmin of the
@@ -712,10 +726,11 @@ class Planner:
     # attaching tenant classes to the Objective.
     consumes_classes = False
 
+    @abc.abstractmethod
     def sweep_spectrum(
         self, spec: ClusterSpec, objective: Objective
     ) -> SpectrumResult:
-        raise NotImplementedError
+        """The objective metric of every feasible B."""
 
     def assignment_for(self, spec: ClusterSpec, n_batches: int) -> Assignment:
         """Placement for the chosen B: rate-aware on skewed fleets, the
@@ -1225,21 +1240,477 @@ class SimulatedPlanner(Planner):
         )
 
 
+@dataclasses.dataclass
+class HeterogeneousPlanner(SimulatedPlanner):
+    """Rate-aware planning for skewed fleets, on a torch device.
+
+    Every candidate B is scored under the PLACEMENT THE PLAN EMITS:
+    ``rate_aware_assignment`` (balance aggregate batch rates, not replica
+    counts) simulated with the per-worker ``rates``.  Scoring the
+    contiguous layout instead would pile clustered slow hosts into one
+    batch and mis-rank mid-size B.  Every candidate B is simulated from
+    one seed, so all share the same draw matrix (common random numbers).
+    ``Plan.closed_form_mean`` carries ``expected_completion_rates`` of the
+    emitted placement when B is small enough for inclusion-exclusion.
+
+    Three branches on a skewed spec: a load-aware objective with a policy
+    portfolio runs one :func:`~repro_torch.core.simulator.
+    simulate_sojourn_policies` a feasible B (one ``sojourn_cells`` launch
+    each); with ``speculation_quantiles``, one :func:`~repro_torch.core.
+    simulator.simulate_sojourn_quantiles` a B (the same kernel); otherwise
+    the coverage rule, :func:`~repro_torch.core.simulator.
+    simulate_coverage`, in float64.  A homogeneous spec (no rates, or all
+    equal) takes :class:`SimulatedPlanner`'s batched sweeps, bit for bit.
+
+    >>> skewed = ClusterSpec(n_workers=8, dist=Exponential(mu=2.0),
+    ...                      rates=(0.2, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0))
+    >>> plan = HeterogeneousPlanner(n_trials=2_000, seed=0,
+    ...                             device="cpu").plan(skewed)
+    >>> plan.assignment.n_workers
+    8
+    """
+
+    name = "heterogeneous"
+    consumes_rates = True
+
+    def _sweep_rates(self, spec: ClusterSpec) -> Optional[np.ndarray]:
+        return np.asarray(spec.rates) if spec.rates is not None else None
+
+    def sweep_spectrum(
+        self, spec: ClusterSpec, objective: Objective
+    ) -> SpectrumResult:
+        self._spec_q_by_b = {}
+        self._policy_by_b = {}
+        if not spec.heterogeneous:
+            return super().sweep_spectrum(spec, objective)
+        from .simulator import (
+            simulate_coverage,
+            simulate_sojourn_policies,
+            simulate_sojourn_quantiles,
+        )
+
+        dev = self._resolve_device()
+        pts = []
+        if objective.load_aware:
+            # one draw set per B (arrivals, primary and alternate matrix),
+            # shared by every candidate of that B; the seed makes them
+            # common across B as well
+            rate = objective.offered_rate(spec)
+            if objective.policies:
+                stable = [
+                    objective.charged_utilization(spec, p) < 1.0
+                    for p in objective.policies
+                ]
+                labels = objective.policies
+            else:
+                stable = None
+                labels = (None, *(objective.speculation_quantiles or ()))
+            for b in spec.feasible_batches():
+                kw = dict(
+                    n_jobs=self.n_trials,
+                    seed=self.seed,
+                    rates=spec.rates,
+                    job_load=objective.job_load,
+                    worker_batch=rate_aware_assignment(
+                        spec.n_workers, b, spec.rates
+                    ).worker_batch,
+                    arrivals=objective.arrivals,
+                    device=dev,
+                )
+                if objective.policies:
+                    sample_sets = simulate_sojourn_policies(
+                        spec.dist, spec.n_workers, b, arrival_rate=rate,
+                        policies=labels, **kw,
+                    )
+                else:
+                    sample_sets = simulate_sojourn_quantiles(
+                        spec.dist, spec.n_workers, b, arrival_rate=rate,
+                        quantiles=labels, **kw,
+                    )
+                point, best = _best_speculative_point(
+                    b, spec.n_workers // b, sample_sets, labels,
+                    objective.metric, feasible=stable,
+                )
+                if objective.policies:
+                    self._policy_by_b[b] = best
+                else:
+                    self._spec_q_by_b[b] = best
+                pts.append(point)
+            return result_from_points(pts)
+        for b in spec.feasible_batches():
+            sim = simulate_coverage(
+                spec.dist,
+                rate_aware_assignment(spec.n_workers, b, spec.rates),
+                n_trials=self.n_trials,
+                seed=self.seed,
+                rates=spec.rates,
+                device=dev,
+            )
+            pts.append(point_from_samples(b, spec.n_workers // b, sim.samples))
+        return result_from_points(pts)
+
+
+@dataclasses.dataclass
+class EmpiricalPlanner(SimulatedPlanner):
+    """Bootstrap planner: B* from resamples of the OBSERVED distribution.
+
+    The spec's :class:`~repro_torch.core.order_stats.Empirical`
+    distribution (censoring-aware, straight from tuner telemetry) is
+    bootstrap-resampled ``n_resamples`` times on the host stream
+    ``np.random.default_rng((seed, 0xB007))``; every resample is swept over
+    ALL feasible B in ONE sweep call (the resamples ride the dists axis, so
+    they share the CRN draw matrix, and a load-aware portfolio is one
+    ``sojourn_cells`` launch of K x B x P programs), and B* is chosen by
+    MAJORITY VOTE of the per-resample argmins (the pooled metric breaks
+    ties).  The vote lands on the Plan as :attr:`Plan.vote_share` /
+    :attr:`Plan.confidence`.  The emitted prediction and spectrum pool the
+    samples of all resamples per B.
+
+    A parametric ``spec.dist`` is accepted: a ``pool_size`` synthetic pool
+    is drawn from it first.  Rate skew composes (each resample is coupled
+    by rank and divided by the per-worker rate, every B scored under its
+    rate-aware placement), except with the legacy
+    ``speculation_quantiles`` axis, which raises.  Coded candidates race on
+    the same resamples (``coded_cells``, overheads measured through
+    ``combine``) and are adopted only when the pooled race AND a majority
+    of resamples agree.
+
+    >>> pool = np.random.default_rng(0).lognormal(0.0, 1.0, 2_000)
+    >>> spec = ClusterSpec(n_workers=16, dist=Empirical(tuple(pool)))
+    >>> plan = EmpiricalPlanner(n_trials=2_000, seed=0, n_resamples=8,
+    ...                         device="cpu").plan(
+    ...     spec, Objective(metric="mean"))
+    >>> 0.0 < plan.confidence <= 1.0
+    True
+    """
+
+    n_resamples: int = 20
+    pool_size: int = 512
+
+    name = "empirical"
+    consumes_empirical = True
+    consumes_rates = True
+    # the serving sweep needs a mu-exposing parametric dist
+    consumes_classes = False
+
+    def _sweep_rates(self, spec: ClusterSpec) -> Optional[np.ndarray]:
+        # only skewed rates are fed through: a uniform fleet keeps the
+        # rate-free stream bit for bit
+        return np.asarray(spec.rates) if spec.heterogeneous else None
+
+    def _sweep_worker_batches(self, spec: ClusterSpec, splits):
+        """Per-split rate-aware placements (None on a uniform fleet)."""
+        if not spec.heterogeneous:
+            return None
+        return tuple(
+            rate_aware_assignment(spec.n_workers, b, spec.rates).worker_batch
+            for b in splits
+        )
+
+    def _bootstrap_dists(self, spec: ClusterSpec) -> tuple[Empirical, ...]:
+        if self.n_resamples < 1:
+            raise ValueError(
+                f"n_resamples must be >= 1, got {self.n_resamples}"
+            )
+        # a stream of its own: resampling noise and simulation noise must
+        # not be correlated
+        rng = np.random.default_rng((self.seed, 0xB007))
+        base = spec.dist
+        if not isinstance(base, Empirical):
+            base = Empirical(tuple(base.sample(rng, self.pool_size)))
+        return tuple(base.bootstrap(rng) for _ in range(self.n_resamples))
+
+    def _reduce_votes(
+        self,
+        splits: Sequence[int],
+        n_workers: int,
+        per_cell_samples,  # (k, s) -> 1-D samples of resample k at splits[s]
+        metric: Metric,
+        pooled: bool = True,
+    ) -> Optional[SpectrumResult]:
+        """Votes (on ``self._votes``), each resample's best replication
+        score (on ``self._resample_best``, what the coded race votes
+        against) and, unless ``pooled=False``, the pooled spectrum."""
+        k_count = self.n_resamples
+        cells = [
+            [per_cell_samples(k, s) for s in range(len(splits))]
+            for k in range(k_count)
+        ]
+        votes: dict[int, int] = {b: 0 for b in splits}
+        resample_best: list[float] = []
+        for k in range(k_count):
+            scores = [
+                metric_value(
+                    point_from_samples(b, n_workers // b, cells[k][s]),
+                    metric,
+                )
+                for s, b in enumerate(splits)
+            ]
+            votes[splits[int(np.argmin(scores))]] += 1
+            resample_best.append(min(scores))
+        self._votes = votes
+        self._resample_best = resample_best
+        if not pooled:
+            return None
+        return result_from_points(
+            point_from_samples(
+                b,
+                n_workers // b,
+                np.concatenate([cells[k][s] for k in range(k_count)]),
+            )
+            for s, b in enumerate(splits)
+        )
+
+    def _reduce_candidates(self, spec, objective, splits, samples, labels,
+                           allowed, chosen: dict):
+        """Votes and pooled spectrum of a (resample, B, candidate) sweep.
+
+        The candidate REPORTED per B (into ``chosen``) comes from the
+        pooled samples; each resample votes for the B it would run under
+        the candidate it would pick; the pooled spectrum describes the
+        reported candidates.  ``allowed`` lists the candidate indices that
+        may win.
+        """
+        n = spec.n_workers
+        metric = objective.metric
+        best_index: dict[int, int] = {}
+        for s, b in enumerate(splits):
+            pooled_pts = [
+                point_from_samples(b, n // b, samples[:, s, ci, :].ravel())
+                for ci in range(len(labels))
+            ]
+            best_index[b] = min(
+                allowed, key=lambda ci: metric_value(pooled_pts[ci], metric)
+            )
+            chosen[b] = labels[best_index[b]]
+
+        def cell(k: int, s: int):
+            pts = [
+                point_from_samples(splits[s], n // splits[s],
+                                   samples[k, s, ci])
+                for ci in range(len(labels))
+            ]
+            ci = min(allowed, key=lambda i: metric_value(pts[i], metric))
+            return samples[k, s, ci]
+
+        self._reduce_votes(splits, n, cell, metric, pooled=False)
+        return result_from_points(
+            point_from_samples(
+                b, n // b, samples[:, s, best_index[b], :].ravel()
+            )
+            for s, b in enumerate(splits)
+        )
+
+    def sweep_spectrum(
+        self, spec: ClusterSpec, objective: Objective
+    ) -> SpectrumResult:
+        from .simulator import (
+            sweep_simulate,
+            sweep_sojourn,
+            sweep_sojourn_policies,
+            sweep_sojourn_speculative,
+        )
+
+        self._spec_q_by_b = {}
+        self._policy_by_b = {}
+        if spec.has_skewed_rates and objective.speculation_quantiles:
+            raise ValueError(
+                "EmpiricalPlanner cannot combine a rate-skewed fleet with "
+                "the legacy speculation_quantiles axis — express clone "
+                "triggers as PolicyCandidate('clone', q) entries in "
+                "Objective.policies (the policy axis threads the rate-aware "
+                "placement through the bootstrap sweep), or use "
+                "HeterogeneousPlanner (make_planner('simulate', "
+                "heterogeneous=True))."
+            )
+        dists = self._bootstrap_dists(spec)
+        # the coded race must reuse THESE resamples
+        self._last_dists = dists
+        splits = spec.feasible_batches()
+        rates = self._sweep_rates(spec)
+        worker_batches = self._sweep_worker_batches(spec, splits)
+        dev = self._resolve_device()
+        common = dict(n_jobs=self.n_trials, seed=self.seed,
+                      feasible_b=splits, job_load=objective.job_load,
+                      arrivals=objective.arrivals, device=dev)
+        if objective.load_aware and objective.policies:
+            res = sweep_sojourn_policies(
+                dists, spec.n_workers,
+                arrival_rate=objective.offered_rate(spec),
+                policies=objective.policies, rates=rates,
+                worker_batches=worker_batches, **common,
+            )
+            # the stability gate (charged utilization < 1) masks candidates
+            # whose redundant work overloads the fleet, unless it masks all
+            stable = [
+                objective.charged_utilization(spec, p) < 1.0
+                for p in res.policies
+            ]
+            allowed = ([i for i, ok in enumerate(stable) if ok]
+                       if any(stable) else list(range(len(res.policies))))
+            return self._reduce_candidates(
+                spec, objective, splits, res.samples, res.policies, allowed,
+                self._policy_by_b,
+            )
+        if objective.load_aware and objective.speculation_quantiles:
+            quantiles = (None, *objective.speculation_quantiles)
+            res = sweep_sojourn_speculative(
+                dists, spec.n_workers,
+                arrival_rate=objective.offered_rate(spec),
+                quantiles=quantiles, **common,
+            )
+            return self._reduce_candidates(
+                spec, objective, splits, res.samples, quantiles,
+                list(range(len(quantiles))), self._spec_q_by_b,
+            )
+        if objective.load_aware:
+            res = sweep_sojourn(
+                dists, spec.n_workers,
+                arrival_rate=objective.offered_rate(spec), rates=rates,
+                worker_batches=worker_batches, **common,
+            )
+        else:
+            res = sweep_simulate(
+                dists,
+                spec.n_workers,
+                n_trials=self.n_trials,
+                seed=self.seed,
+                feasible_b=splits,
+                rates=rates,
+                device=dev,
+                worker_batches=worker_batches,
+            )
+        return self._reduce_votes(
+            splits,
+            spec.n_workers,
+            lambda k, s: res.samples[k, s],
+            objective.metric,
+        )
+
+    def _coded_points(
+        self, spec: ClusterSpec, objective: Objective
+    ) -> list[tuple[CodingCandidate, SpectrumPoint]]:
+        if not objective.coding:
+            return []
+        dists = getattr(self, "_last_dists", None)
+        if dists is None:
+            self._last_dists = dists = self._bootstrap_dists(spec)
+        res = self._coded_sweep(spec, objective, dists)
+        # the coded race's own vote: the fraction of resamples whose best
+        # coded candidate beats the replication score that SAME resample
+        # voted for (Plan.confidence when coding wins)
+        resample_best = getattr(self, "_resample_best", None)
+        if resample_best is not None and len(resample_best) == len(dists):
+            metric = objective.metric
+            wins = 0
+            for k in range(len(dists)):
+                coded_best = min(
+                    metric_value(
+                        point_from_samples(
+                            spec.n_workers, 1, res.samples[k, ci]
+                        ),
+                        metric,
+                    )
+                    for ci in range(len(res.candidates))
+                )
+                wins += coded_best < resample_best[k]
+            self._coding_votes = wins / len(dists)
+        # pooled points, matching the pooled replication spectrum
+        return [
+            (
+                res.candidates[ci],
+                point_from_samples(
+                    spec.n_workers, 1, res.samples[:, ci, :].ravel()
+                ),
+            )
+            for ci in range(len(res.candidates))
+        ]
+
+    def _select_coding(
+        self,
+        spec: ClusterSpec,
+        objective: Objective,
+        best: SpectrumPoint,
+    ) -> tuple[SpectrumPoint, Optional[CodingCandidate]]:
+        """Adopt coding only when the pooled race AND a majority of the
+        resamples agree."""
+        self._coding_votes = None
+        predicted, coding = super()._select_coding(spec, objective, best)
+        if coding is not None and (
+            self._coding_votes is not None and self._coding_votes <= 0.5
+        ):
+            return best, None
+        return predicted, coding
+
+    def plan(
+        self, spec: ClusterSpec, objective: Optional[Objective] = None
+    ) -> Plan:
+        """Sweep the resamples, pick B* by majority vote (pooled metric
+        breaks ties), race it against any coded candidates, and report the
+        vote on the Plan."""
+        objective = objective if objective is not None else Objective()
+        if objective.slo_classes:
+            raise ValueError(
+                "EmpiricalPlanner cannot score multi-tenant serving "
+                "objectives (slo_classes): the serving sweep's admission "
+                "model needs a parametric service distribution; use "
+                "SimulatedPlanner (make_planner('simulate'))"
+            )
+        spectrum = self.sweep_spectrum(spec, objective)
+        votes = self._votes
+        total = sum(votes.values())
+        best_b = max(
+            (p.n_batches for p in spectrum.points),
+            key=lambda b: (
+                votes.get(b, 0),
+                -metric_value(spectrum.at(b), objective.metric),
+            ),
+        )
+        best = spectrum.at(best_b)
+        predicted, coding = self._select_coding(spec, objective, best)
+        assignment = self.assignment_for(spec, predicted.n_batches)
+        if coding is None:
+            decisions = self._decision_fields(best_b)
+            confidence = votes.get(best_b, 0) / total
+        else:
+            decisions = {"policy": None, "speculation_quantile": None}
+            confidence = self._coding_votes
+        return Plan(
+            spec=spec,
+            objective=objective,
+            replication=ReplicationPlan(
+                n_data=spec.n_workers, n_batches=predicted.n_batches
+            ),
+            assignment=assignment,
+            predicted=predicted,
+            spectrum=spectrum,
+            planner=self.name,
+            closed_form_mean=self._closed_form_mean(spec, assignment),
+            backend=self._plan_backend(),
+            coding=coding,
+            **decisions,
+            confidence=confidence,
+            vote_share=tuple(
+                (p.n_batches, votes.get(p.n_batches, 0) / total)
+                for p in spectrum.points
+            ),
+        )
+
+
 def make_planner(
     mode: str = "analytic",
     heterogeneous: bool = False,
     n_trials: int = 20_000,
     seed: int = 0,
     device: Optional[str] = None,
+    n_resamples: int = 20,
 ) -> Planner:
     """Map the tuner knobs (mode / heterogeneous / sim_*) to a Planner.
 
-    Ported modes: ``'analytic'`` and ``'simulate'`` (homogeneous).  The
-    rate-aware (``heterogeneous=True``) and ``'empirical'`` planners are
-    not ported yet and raise ``NotImplementedError``.
-
-    >>> make_planner(mode="simulate", device="cpu").name
-    'simulated'
+    >>> make_planner(mode="simulate", heterogeneous=True).name
+    'heterogeneous'
+    >>> make_planner(mode="empirical").name
+    'empirical'
     """
     if mode == "analytic":
         if heterogeneous:
@@ -1249,15 +1720,14 @@ def make_planner(
             )
         return AnalyticPlanner()
     if mode == "simulate":
-        if heterogeneous:
-            raise NotImplementedError(
-                "the rate-aware HeterogeneousPlanner is not yet ported to "
-                "repro_torch"
-            )
-        return SimulatedPlanner(n_trials=n_trials, seed=seed, device=device)
+        cls = HeterogeneousPlanner if heterogeneous else SimulatedPlanner
+        return cls(n_trials=n_trials, seed=seed, device=device)
     if mode == "empirical":
-        raise NotImplementedError(
-            "the bootstrap EmpiricalPlanner is not yet ported to repro_torch"
+        # heterogeneous is accepted: EmpiricalPlanner consumes rate skew
+        # directly, so the knob only matters for the other modes
+        return EmpiricalPlanner(
+            n_trials=n_trials, seed=seed, device=device,
+            n_resamples=n_resamples,
         )
     raise ValueError(
         f"unknown planner mode {mode!r} (use 'analytic'|'simulate'|'empirical')"

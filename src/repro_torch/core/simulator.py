@@ -17,6 +17,16 @@ matrix of unit-exponential draws (common random numbers), on ``device``
   multi-tenant serving sweep: per-request latencies of every (B, policy,
   max_wait, shed) cell under SLO classes, the job streams of a host-side
   WFQ formation pre-pass scanned by ``sojourn_cells``.
+* :func:`simulate_maxmin`, :func:`simulate_coverage` — batch completion of
+  ONE placement (balanced, or any :class:`Assignment` under the coverage
+  rule) in float64 torch ops; :func:`simulate_coverage_reference` is the
+  per-trial host walk they are held to.
+* :func:`simulate_sojourn`, :func:`simulate_sojourn_quantiles`,
+  :func:`simulate_sojourn_policies` — sojourns of ONE (B, placement), one
+  ``sojourn_cells`` launch each, the rate-aware planner's per-B path.
+* :class:`StepTimeSimulator`, :func:`completion_from_step_times`,
+  :func:`censored_observations` — per-step, per-worker telemetry on the
+  host (numpy), the tuner's input.
 
 Randomness and precision follow the reference exactly: the draws are
 ``np.random.default_rng(seed)`` in the reference's order (arrivals, then
@@ -52,6 +62,7 @@ from ..kernels import sojourn_sweep as _ss
 from .coding import CodingCandidate
 from .order_stats import Empirical, ServiceDistribution
 from .policies import (
+    Assignment,
     PolicyCandidate,
     ShedPolicy,
     SloClass,
@@ -75,6 +86,16 @@ __all__ = [
     "sweep_sojourn_coded",
     "sweep_sojourn_serving",
     "simulate_sojourn_serving",
+    "simulate_maxmin",
+    "simulate_coverage",
+    "simulate_coverage_reference",
+    "simulate_sojourn",
+    "simulate_sojourn_quantiles",
+    "simulate_sojourn_policies",
+    "StepTimeSimulator",
+    "FaultEvent",
+    "censored_observations",
+    "completion_from_step_times",
     "STAGE_SECONDS",
     "reset_stage_seconds",
 ]
@@ -225,6 +246,17 @@ def _draws(rng: np.random.Generator, shape, device) -> torch.Tensor:
         return torch.as_tensor(host, device=device)
 
 
+def _draw_worker_times(dist: ServiceDistribution, loads: np.ndarray,
+                       n_trials: int, seed: int, rates: np.ndarray | None,
+                       device) -> torch.Tensor:
+    """(n_trials, N) float64 worker times ``unit_time_j * loads_j`` on the
+    device: the per-placement entry points' one draw matrix."""
+    rng = np.random.default_rng(seed)
+    unit = _draws(rng, (n_trials, len(loads)), device)
+    return _unit_times(unit, dist, rates) * torch.as_tensor(
+        np.asarray(loads, dtype=np.float64), device=device)
+
+
 # ---------------------------------------------------------------------------
 # validation (shared with the reference's contracts)
 # ---------------------------------------------------------------------------
@@ -301,6 +333,17 @@ def _validate_policies(
                 f"policies must be PolicyCandidate instances, got {type(p).__name__}"
             )
     return seq
+
+
+def _validate_quantiles(quantiles) -> None:
+    for q in quantiles:
+        if q is not None and not 0.0 < q < 1.0:
+            raise ValueError(f"speculation quantile must be in (0, 1), got {q}")
+
+
+def _trigger_policy(q: float | None) -> PolicyCandidate:
+    """The policy cell of a speculation quantile (None: no speculation)."""
+    return PolicyCandidate("none") if q is None else PolicyCandidate("clone", q)
 
 
 def _validate_coding_candidates(
@@ -459,6 +502,134 @@ def sweep_simulate(
         samples=samples.cpu().numpy(),
         backend=device_name(dev),
     )
+
+
+# ---------------------------------------------------------------------------
+# batch completion of ONE placement: max-min and the coverage rule
+# ---------------------------------------------------------------------------
+
+# (trials, N, W) int64 words the coverage scan holds at once
+_COVERAGE_CHUNK_WORDS = 1 << 25
+
+
+def simulate_maxmin(
+    dist: ServiceDistribution,
+    n_workers: int,
+    n_batches: int,
+    n_trials: int = 20_000,
+    seed: int = 0,
+    rates: Sequence[float] | None = None,
+    device=None,
+) -> SimResult:
+    """Completion time of balanced non-overlapping replication, float64.
+
+    Worker j serves batch ``j // r`` (``rates`` optional, length N); the
+    completion is ``max_b min_{j in b} T_j`` of the shared draw matrix, so
+    it equals the reference's float64 samples bit for bit.
+    """
+    if n_workers % n_batches:
+        raise ValueError(f"B={n_batches} must divide N={n_workers}")
+    r = n_workers // n_batches
+    rates_arr = _validate_rates(rates, n_workers)
+    dev = resolve_device(device)
+    loads = np.full(n_workers, n_workers / n_batches)
+    times = _draw_worker_times(dist, loads, n_trials, seed, rates_arr, dev)
+    completion = times.reshape(n_trials, n_batches, r).amin(dim=2).amax(dim=1)
+    return SimResult(completion.cpu().numpy())
+
+
+def _pack_coverage(assignment: Assignment) -> tuple[np.ndarray, np.ndarray]:
+    """Per-worker coverage bitmasks: ``masks`` (N, W) uint64 with W =
+    ceil(units/64), and ``full`` (W,) the all-units mask."""
+    cov = assignment.coverage_matrix()  # (N, units) bool
+    n, units = cov.shape
+    words = (units + 63) // 64
+    masks = np.zeros((n, words), dtype=np.uint64)
+    full = np.zeros(words, dtype=np.uint64)
+    for w in range(words):
+        chunk = cov[:, w * 64 : (w + 1) * 64]
+        weights = np.uint64(1) << np.arange(chunk.shape[1], dtype=np.uint64)
+        masks[:, w] = (chunk.astype(np.uint64) * weights).sum(axis=1)
+        full[w] = weights.sum()
+    return masks, full
+
+
+def _prefix_or(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive bitwise-OR scan of ``x`` (T, N, W) along N: log2(N)
+    Hillis-Steele steps (torch has no cumulative OR)."""
+    shift = 1
+    while shift < x.shape[1]:
+        x = torch.cat((x[:, :shift], x[:, shift:] | x[:, :-shift]), dim=1)
+        shift *= 2
+    return x
+
+
+def simulate_coverage(
+    dist: ServiceDistribution,
+    assignment: Assignment,
+    n_trials: int = 20_000,
+    seed: int = 0,
+    rates: Sequence[float] | None = None,
+    device=None,
+) -> SimResult:
+    """Completion time under the coverage rule for any assignment.
+
+    The first time the union of finished workers' batches covers every
+    data unit: sort each trial's float64 worker times, OR the sorted
+    workers' coverage words cumulatively (:func:`_prefix_or`, in chunks of
+    trials), and read the time of the first fully covered prefix.  Tied
+    times cannot change that time, so it equals the reference's samples
+    bit for bit.
+    """
+    loads = assignment.worker_load()
+    rates_arr = _validate_rates(rates, assignment.n_workers)
+    dev = resolve_device(device)
+    times = _draw_worker_times(dist, loads, n_trials, seed, rates_arr, dev)
+    masks, full = _pack_coverage(assignment)
+    n, words = masks.shape
+    masks_t = torch.as_tensor(masks.view(np.int64), device=dev)
+    full_t = torch.as_tensor(full.view(np.int64), device=dev)
+    sorted_times, order = torch.sort(times, dim=1)
+    first = torch.empty(n_trials, dtype=torch.int64, device=dev)
+    chunk = max(1, _COVERAGE_CHUNK_WORDS // (n * words))
+    for lo in range(0, n_trials, chunk):
+        cum = _prefix_or(masks_t[order[lo:lo + chunk]])
+        # a prefix's union only grows: the first covered prefix's index is
+        # the number of prefixes that do not cover
+        first[lo:lo + chunk] = (cum != full_t).any(dim=2).sum(dim=1)
+    completion = sorted_times.gather(1, first[:, None])[:, 0]
+    return SimResult(completion.cpu().numpy())
+
+
+def simulate_coverage_reference(
+    dist: ServiceDistribution,
+    assignment: Assignment,
+    n_trials: int = 20_000,
+    seed: int = 0,
+    rates: Sequence[float] | None = None,
+    device=None,
+) -> SimResult:
+    """The oracle of :func:`simulate_coverage`: the same draws (made on
+    ``device``), then a per-trial Python walk over the sorted workers on
+    the host."""
+    loads = assignment.worker_load()
+    rates_arr = _validate_rates(rates, assignment.n_workers)
+    times = _draw_worker_times(dist, loads, n_trials, seed, rates_arr,
+                               resolve_device(device)).cpu().numpy()
+    masks, full = _pack_coverage(assignment)
+    order = np.argsort(times, axis=1)
+    sorted_times = np.take_along_axis(times, order, axis=1)
+    completion = np.empty(n_trials, dtype=float)
+    for t in range(n_trials):
+        acc = np.zeros_like(full)
+        done_time = sorted_times[t, -1]
+        for k in range(assignment.n_workers):
+            acc |= masks[order[t, k]]
+            if np.array_equal(acc, full):
+                done_time = sorted_times[t, k]
+                break
+        completion[t] = done_time
+    return SimResult(completion)
 
 
 # ---------------------------------------------------------------------------
@@ -972,9 +1143,7 @@ def sweep_sojourn_speculative(
     q_seq = tuple(quantiles)
     if not q_seq:
         raise ValueError("at least one speculation quantile required")
-    for q in q_seq:
-        if q is not None and not 0.0 < q < 1.0:
-            raise ValueError(f"speculation quantile must be in (0, 1), got {q}")
+    _validate_quantiles(q_seq)
     _validate_load(arrival_rate, job_load)
     rates_arr = _validate_rates(rates, n_workers)
     warm = _resolve_warmup(n_jobs, warmup)
@@ -985,10 +1154,7 @@ def sweep_sojourn_speculative(
     arrivals = _resolve_arrivals(arrivals, n_jobs, arrival_rate, rng)
     unit = _draws(rng, (n_jobs, n_workers), dev)
     clone_unit = _draws(rng, (n_jobs, n_workers), dev)
-    pol_seq = tuple(
-        PolicyCandidate("none") if q is None else PolicyCandidate("clone", q)
-        for q in q_seq
-    )
+    pol_seq = tuple(_trigger_policy(q) for q in q_seq)
     cache_key = ("sojourn", seed, n_jobs, n_workers, arrivals_given,
                  tuple(splits), None)
     samples, clones = _sweep_policies_accel(
@@ -1084,6 +1250,154 @@ def sweep_sojourn_policies(
         samples=samples,
         extra_fraction=extra,
         backend=device_name(dev),
+    )
+
+
+# ---------------------------------------------------------------------------
+# sojourns of ONE (B, placement): the rate-aware planner's per-B path
+# ---------------------------------------------------------------------------
+
+
+def _resolve_sojourn_args(
+    n_workers, n_batches, arrival_rate, quantiles,
+    n_jobs, rates, job_load, warmup, worker_batch,
+):
+    """Shared validation + worker->set map of the per-B sojourn entry
+    points: ``(wb, rates_arr, warmup)``."""
+    _validate_load(arrival_rate, job_load)
+    _validate_quantiles(quantiles)
+    if worker_batch is None:
+        if n_workers % n_batches:
+            raise ValueError(f"B={n_batches} must divide N={n_workers}")
+        wb = np.arange(n_workers) // (n_workers // n_batches)
+    else:
+        wb = np.asarray(worker_batch, dtype=int)
+        if wb.shape != (n_workers,):
+            raise ValueError(f"worker_batch shape {wb.shape} != ({n_workers},)")
+    return wb, _validate_rates(rates, n_workers), _resolve_warmup(n_jobs, warmup)
+
+
+def _per_b_sojourns(dist, n_workers, n_batches, arrival_rate, pol_seq, n_jobs,
+                    seed, rates_arr, job_load, warm, wb, worker_batch,
+                    arrivals, device) -> list[np.ndarray]:
+    """Post-warmup sojourns of one (B, placement) under every policy: one
+    ``sojourn_cells`` launch (a single-cell call of the sweeps' seam).
+
+    Draws in the reference's order: arrivals, the primary matrix, then the
+    alternate matrix only when some policy is not ``'none'``, so a later
+    draw from the same seed is the reference's too.  The group-minima
+    cache key carries the placement.
+    """
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    arr = _resolve_arrivals(arrivals, n_jobs, arrival_rate, rng)
+    unit = _draws(rng, (n_jobs, n_workers), dev)
+    alt_unit = (_draws(rng, (n_jobs, n_workers), dev)
+                if any(p.kind != "none" for p in pol_seq) else None)
+    wbs = None if worker_batch is None else (wb,)
+    cache_key = ("sojourn", seed, n_jobs, n_workers, arrivals is not None,
+                 (n_batches,), _wb_cache_tag(wbs))
+    samples, _ = _sweep_policies_accel(
+        (dist,), [n_batches], pol_seq, arr, unit, alt_unit, rates_arr,
+        job_load, n_workers, warm, wbs, cache_key,
+    )
+    return [samples[0, 0, pi] for pi in range(len(pol_seq))]
+
+
+def simulate_sojourn(
+    dist: ServiceDistribution,
+    n_workers: int,
+    n_batches: int,
+    arrival_rate: float,
+    n_jobs: int = 4_000,
+    seed: int = 0,
+    rates: Sequence[float] | None = None,
+    job_load: float = 1.0,
+    warmup: int | None = None,
+    worker_batch: Sequence[int] | None = None,
+    speculation_quantile: float | None = None,
+    arrivals: Sequence[float] | None = None,
+    device=None,
+) -> SimResult:
+    """Sojourn times of one (B, r) split under Poisson batch-job arrivals.
+
+    ``worker_batch`` supplies the worker -> set map (default: contiguous
+    ``j // r``); ``speculation_quantile`` switches on the clone trigger at
+    that quantile of the set-service times (its alternate draws are made
+    only then); ``arrivals`` overrides the Poisson sequence.  The first
+    ``warmup`` jobs (default 10%) are dropped.  One ``sojourn_cells``
+    launch, float32.
+    """
+    wb, rates_arr, warm = _resolve_sojourn_args(
+        n_workers, n_batches, arrival_rate, (speculation_quantile,),
+        n_jobs, rates, job_load, warmup, worker_batch,
+    )
+    samples = _per_b_sojourns(
+        dist, n_workers, n_batches, arrival_rate,
+        (_trigger_policy(speculation_quantile),), n_jobs, seed, rates_arr,
+        job_load, warm, wb, worker_batch, arrivals, device,
+    )
+    return SimResult(samples[0])
+
+
+def simulate_sojourn_quantiles(
+    dist: ServiceDistribution,
+    n_workers: int,
+    n_batches: int,
+    arrival_rate: float,
+    quantiles: Sequence[float | None],
+    n_jobs: int = 4_000,
+    seed: int = 0,
+    rates: Sequence[float] | None = None,
+    job_load: float = 1.0,
+    warmup: int | None = None,
+    worker_batch: Sequence[int] | None = None,
+    arrivals: Sequence[float] | None = None,
+    device=None,
+) -> list[np.ndarray]:
+    """Sojourn samples of ONE (B, placement) at several clone triggers
+    (``None`` = none), from one arrival sequence, draw matrix and clone
+    matrix: entry ``k`` is bit-equal to ``simulate_sojourn(...,
+    speculation_quantile=quantiles[k])`` at the same seed."""
+    wb, rates_arr, warm = _resolve_sojourn_args(
+        n_workers, n_batches, arrival_rate, quantiles,
+        n_jobs, rates, job_load, warmup, worker_batch,
+    )
+    return _per_b_sojourns(
+        dist, n_workers, n_batches, arrival_rate,
+        tuple(_trigger_policy(q) for q in quantiles), n_jobs, seed,
+        rates_arr, job_load, warm, wb, worker_batch, arrivals, device,
+    )
+
+
+def simulate_sojourn_policies(
+    dist: ServiceDistribution,
+    n_workers: int,
+    n_batches: int,
+    arrival_rate: float,
+    policies: Sequence[PolicyCandidate],
+    n_jobs: int = 4_000,
+    seed: int = 0,
+    rates: Sequence[float] | None = None,
+    job_load: float = 1.0,
+    warmup: int | None = None,
+    worker_batch: Sequence[int] | None = None,
+    arrivals: Sequence[float] | None = None,
+    device=None,
+) -> list[np.ndarray]:
+    """Sojourn samples of ONE (B, placement) under several straggler
+    policies: the per-B path of the rate-aware planner.  Every candidate
+    shares one arrival sequence, primary matrix and (only when some
+    candidate is not ``'none'``) alternate matrix; one ``sojourn_cells``
+    launch scores them all."""
+    pol_seq = _validate_policies(policies)
+    wb, rates_arr, warm = _resolve_sojourn_args(
+        n_workers, n_batches, arrival_rate, (None,),
+        n_jobs, rates, job_load, warmup, worker_batch,
+    )
+    return _per_b_sojourns(
+        dist, n_workers, n_batches, arrival_rate, pol_seq, n_jobs, seed,
+        rates_arr, job_load, warm, wb, worker_batch, arrivals, device,
     )
 
 
@@ -1718,3 +2032,138 @@ def simulate_sojourn_serving(
         extra_fraction=extra_fraction,
         warmup=warm,
     )
+
+
+# ---------------------------------------------------------------------------
+# runtime-facing step-time telemetry (host numpy)
+# ---------------------------------------------------------------------------
+
+
+def _iid_times_from_unit(unit: np.ndarray, loads: np.ndarray,
+                         dist: ServiceDistribution,
+                         rates: np.ndarray | None) -> np.ndarray:
+    """Worker times ``loads_j * unit_time_j`` of one step, on the host.
+
+    Parametric: ``shift + E/(mu*rate)``.  Empirical: an i.i.d. inverse-ECDF
+    lookup of each draw's uniform (``1 - exp(-E)``), with a rate scaling
+    the whole draw; a rank coupling over one N-vector would repeat the same
+    N quantiles every step.
+    """
+    if isinstance(dist, Empirical):
+        core = dist.ppf(-np.expm1(-unit))
+        core = core if rates is None else core / rates
+    else:
+        shift, mu = _dist_params(dist)
+        core = shift + unit / (mu if rates is None else mu * rates)
+    return core * loads
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultEvent:
+    """A scheduled fault: worker ``worker`` is dead during steps
+    [start_step, end_step)."""
+
+    worker: int
+    start_step: int
+    end_step: int
+
+
+class StepTimeSimulator:
+    """Per-step, per-worker service times for the tuner and the runtime.
+
+    On top of the base distribution: i.i.d. randomness (the paper's
+    model), persistent slow workers (``slow_workers``: a multiplicative
+    slowdown), per-worker base rates (``rates``: worker j's exponential
+    part runs at ``mu * rates[j]``) and transient faults (``np.inf`` for a
+    dead worker).  One ``standard_exponential(N)`` a step from
+    ``np.random.default_rng(seed)``, the reference's stream.
+    """
+
+    def __init__(
+        self,
+        dist: ServiceDistribution,
+        n_workers: int,
+        seed: int = 0,
+        slow_workers: dict[int, float] | None = None,
+        faults: Sequence[FaultEvent] = (),
+        rates: Sequence[float] | None = None,
+    ):
+        self._dist = dist
+        self._n = n_workers
+        self._rng = np.random.default_rng(seed)
+        self._slow = dict(slow_workers or {})
+        for w in self._slow:
+            if not 0 <= w < n_workers:
+                raise ValueError(f"slow worker id {w} out of range")
+        self._rates = _validate_rates(rates, n_workers)
+        self._faults = list(faults)
+        self.step = 0
+
+    def next_step(self, loads: np.ndarray | None = None) -> np.ndarray:
+        """One step of per-worker service times; ``loads`` are the units of
+        data per worker (default 1.0 each)."""
+        if loads is None:
+            loads = np.ones(self._n)
+        loads = np.asarray(loads, dtype=float)
+        if loads.shape != (self._n,):
+            raise ValueError(f"loads shape {loads.shape} != ({self._n},)")
+        unit = self._rng.standard_exponential(self._n)
+        times = _iid_times_from_unit(unit, loads, self._dist, self._rates)
+        for w, factor in self._slow.items():
+            times[w] *= factor
+        for ev in self._faults:
+            if ev.start_step <= self.step < ev.end_step:
+                times[ev.worker] = np.inf
+        self.step += 1
+        return times
+
+    def alive_mask(self) -> np.ndarray:
+        mask = np.ones(self._n, dtype=bool)
+        for ev in self._faults:
+            if ev.start_step <= self.step < ev.end_step:
+                mask[ev.worker] = False
+        return mask
+
+
+def censored_observations(
+    times: np.ndarray, assignment: Assignment, used: np.ndarray
+) -> tuple[np.ndarray, np.ndarray]:
+    """Per-worker (observed_time, censored) telemetry under the paper's rule.
+
+    A batch's first response cancels its other replicas, so an unused
+    replica is recorded AT its batch's cancellation time and marked
+    censored; a dead worker (inf) too, or stays inf when its whole batch
+    died.
+    """
+    times = np.asarray(times, dtype=float)
+    used = np.asarray(used, dtype=bool)
+    batch_done = np.full(assignment.n_batches, np.inf)
+    for w, b in enumerate(assignment.worker_batch):
+        t = times[w]
+        if np.isfinite(t) and t < batch_done[b]:
+            batch_done[b] = t
+    cancel = np.array([batch_done[b] for b in assignment.worker_batch])
+    return np.minimum(times, cancel), ~used
+
+
+def completion_from_step_times(
+    times: np.ndarray, assignment: Assignment
+) -> tuple[float, np.ndarray]:
+    """The paper's completion rule on one step of worker times.
+
+    Returns ``(completion_time, used_mask)``: the fastest replica of each
+    batch is used; a batch with no finite replica makes the step's
+    completion inf.
+    """
+    b = assignment.n_batches
+    used = np.zeros(assignment.n_workers, dtype=bool)
+    batch_done = np.full(b, np.inf)
+    for batch in range(b):
+        members = [j for j, wb in enumerate(assignment.worker_batch)
+                   if wb == batch]
+        t = times[members]
+        k = int(np.argmin(t))
+        if np.isfinite(t[k]):
+            batch_done[batch] = t[k]
+            used[members[k]] = True
+    return float(batch_done.max()), used

@@ -26,18 +26,32 @@ in bfloat16 it runs its tensor-core kernel (HMMA in its SASS), in float32
 its FMA kernel, and it reads the model's strided views of one activation
 bit for bit as it reads copies.  The dense and hybrid LMs' logits on the
 card meet the CPU's within 4e-2.  The serving sweep and its standalone
-replay give on the card exactly what they give on the CPU.
+replay give on the card exactly what they give on the CPU.  So do the
+per-placement entry points (``simulate_maxmin``, ``simulate_coverage``,
+the per-B sojourns, ``simulate_gradient_coding``), the rate-aware and
+bootstrap planners and the tuner fed the same telemetry
+(``compare_schemes``' float64 means within 1e-12 relative: the card sums
+in another order).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import gradient_coding as TG
 from repro_torch.core import planner as TP
 from repro_torch.core import simulator as TS
+from repro_torch.core import tuner as TT
 from repro_torch.core.coding import CodingCandidate
 from repro_torch.core.order_stats import Empirical, ShiftedExponential
-from repro_torch.core.policies import PolicyCandidate, ShedPolicy, SloClass
+from repro_torch.core.policies import (
+    PolicyCandidate,
+    ShedPolicy,
+    SloClass,
+    balanced_nonoverlapping,
+    overlapping_cyclic,
+    rate_aware_assignment,
+)
 from repro_torch.kernels import _build, launch_counts
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels.coded import COMBINE_RTOL, combine, combine_plain
@@ -365,6 +379,107 @@ def test_default_device_plan_runs_on_card(cuda):
     assert on_card.n_batches == on_cpu.n_batches
     assert on_card.policy == on_cpu.policy
     assert on_card.spectrum.points == on_cpu.spectrum.points
+
+
+def test_per_placement_entries_on_card_equal_cpu(cuda):
+    rates = np.random.default_rng(0).uniform(0.2, 3.0, 96)
+    for a in (balanced_nonoverlapping(8, 4), overlapping_cyclic(16, 4),
+              rate_aware_assignment(12, 3, rates[:12]),
+              balanced_nonoverlapping(96, 8)):
+        for dist in DISTS:
+            for r in (None, rates[:a.n_workers]):
+                on = [TS.simulate_coverage(dist, a, n_trials=500, seed=7,
+                                           rates=r, device=d).samples
+                      for d in ("cuda", "cpu")]
+                np.testing.assert_array_equal(*on)
+    for dist in DISTS:
+        on = [TS.simulate_maxmin(dist, 12, 4, n_trials=500, seed=2,
+                                 rates=rates[:12], device=d).samples
+              for d in ("cuda", "cpu")]
+        np.testing.assert_array_equal(*on)
+        on = [TG.simulate_gradient_coding(dist, 16, 5, n_trials=500, seed=3,
+                                          device=d).samples
+              for d in ("cuda", "cpu")]
+        np.testing.assert_array_equal(*on)
+        wb = rate_aware_assignment(12, 4, rates[:12]).worker_batch
+        for kw in (dict(), dict(rates=rates[:12], worker_batch=wb)):
+            on = [TS.simulate_sojourn_policies(
+                dist, 12, 4, 2.0, POLS, n_jobs=300, seed=3, device=d, **kw)
+                for d in ("cuda", "cpu")]
+            for x, y in zip(*on):
+                np.testing.assert_array_equal(x, y)
+            on = [TS.simulate_sojourn_quantiles(
+                dist, 12, 4, 2.0, (None, 0.9), n_jobs=300, seed=3, device=d,
+                **kw) for d in ("cuda", "cpu")]
+            for x, y in zip(*on):
+                np.testing.assert_array_equal(x, y)
+    card, host = (TG.compare_schemes(DISTS[0], 12, n_trials=500, device=d)
+                  for d in ("cuda", "cpu"))
+    for part in ("replication", "coding"):
+        for k, v in host[part].items():
+            assert card[part][k] == pytest.approx(v, rel=1e-12, abs=0.0)
+
+
+_SKEWED = TP.ClusterSpec(n_workers=12, dist=DISTS[0],
+                         rates=tuple(np.linspace(0.3, 1.7, 12)))
+_POOL = TP.ClusterSpec(n_workers=12, dist=Empirical(
+    np.random.default_rng(3).lognormal(-1.0, 0.8, 600)))
+_CODES = tuple(CodingCandidate("mds", s, encode_overhead=0.002,
+                               decode_overhead=0.003) for s in (2, 4))
+
+
+@pytest.mark.parametrize("planner,spec,obj", [
+    ("heterogeneous", _SKEWED, TP.Objective(metric="mean")),
+    ("heterogeneous", _SKEWED, TP.Objective(metric="p99", utilization=0.6,
+                                            policies=POLS)),
+    ("heterogeneous", _SKEWED, TP.Objective(
+        metric="p99", utilization=0.6, speculation_quantiles=(0.8, 0.9))),
+    ("empirical", _POOL, TP.Objective(metric="mean", coding=_CODES)),
+    ("empirical", _POOL, TP.Objective(metric="p99", utilization=0.7,
+                                      policies=POLS, coding=_CODES)),
+    ("empirical", _SKEWED, TP.Objective(metric="p99", utilization=0.6,
+                                        policies=POLS)),
+])
+def test_new_planners_on_card_equal_cpu(cuda, planner, spec, obj):
+    mode = "empirical" if planner == "empirical" else "simulate"
+    plans = [TP.make_planner(mode, heterogeneous=True, n_trials=300,
+                             n_resamples=4, device=d).plan(spec, obj)
+             for d in ("cuda", "cpu")]
+    card, host = plans
+    assert (card.backend, host.backend) == ("cuda", "cpu")
+    for f in ("n_batches", "policy", "speculation_quantile", "coding",
+              "confidence", "vote_share", "closed_form_mean"):
+        assert getattr(card, f) == getattr(host, f), f
+    assert card.spectrum.points == host.spectrum.points
+
+
+def test_tuner_on_card_equals_cpu(cuda):
+    sim = TS.StepTimeSimulator(DISTS[0], 12, seed=0, slow_workers={0: 4.0})
+    steps = [sim.next_step() for _ in range(12)]
+    tuners = {d: TT.StragglerTuner(
+        TT.ReplicationPlan(12, 4),
+        TT.TunerConfig(mode="simulate", heterogeneous=True, sim_trials=200,
+                       cooldown_steps=2, metric="p99", gof_alpha=0.01,
+                       bootstrap_resamples=3, device=d),
+        policy_candidates=POLS[1:]) for d in ("cuda", "cpu")}
+    for t in steps:
+        moves = []
+        for tuner in tuners.values():
+            tuner.observe(t)
+            tuner.observe_load(10.0)
+            rp = tuner.maybe_replan()
+            moves.append(None if rp is None else (
+                rp.step, rp.old_batches, rp.new_batches, rp.predicted_old,
+                rp.predicted_new))
+            if rp is not None:
+                tuner.apply(rp)
+        assert moves[0] == moves[1]
+        a, b = (tuner.last_plan for tuner in tuners.values())
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert (a.planner, a.n_batches, a.policy) == (
+                b.planner, b.n_batches, b.policy)
+            assert a.spectrum.points == b.spectrum.points
 
 
 @pytest.mark.parametrize("policies", [

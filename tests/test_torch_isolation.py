@@ -42,7 +42,9 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.configs.qwen2_0_5b",
             "repro_torch.configs.zamba2_7b", "repro_torch.models.ssm",
             "repro_torch.models.zamba",
-            "repro_torch.kernels.ssm_scan.ops"} <= set(mods)
+            "repro_torch.kernels.ssm_scan.ops",
+            "repro_torch.core.tuner",
+            "repro_torch.core.gradient_coding"} <= set(mods)
     code = "\n".join([
         "import importlib, sys",
         "sys.modules['jax'] = None",

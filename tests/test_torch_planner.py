@@ -126,10 +126,19 @@ def test_default_device_is_cuda_and_raises_without_one():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TP.make_planner("empirical")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TP.make_planner("simulate", heterogeneous=True)
+    """The modes this test once saw refused (the rate-aware and bootstrap
+    planners) are ported: each now plans on the CPU."""
+    skewed = from_reference(RP.ClusterSpec(
+        n_workers=8, dist=HEAVY, rates=(0.2,) + (1.0,) * 7))
+    het = TP.make_planner("simulate", heterogeneous=True, n_trials=300,
+                          device="cpu")
+    plan = het.plan(skewed, TP.Objective(metric="mean"))
+    assert plan.planner == "heterogeneous" and plan.backend == "cpu"
+    assert plan.n_batches in skewed.feasible_batches()
+    emp = TP.make_planner("empirical", n_trials=300, device="cpu",
+                          n_resamples=3)
+    plan = emp.plan(skewed, TP.Objective(metric="mean"))
+    assert plan.planner == "empirical" and 0.0 < plan.confidence <= 1.0
     assert TP.make_planner("analytic").name == "analytic"
     spec = from_reference(RP.ClusterSpec(n_workers=8, dist=HEAVY))
     obj = from_reference(RP.Objective(
