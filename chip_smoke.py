@@ -78,7 +78,35 @@ non-zero:
                       bit-equal to the plain version on its first 2,000
                       jobs at its own cells, groups and policies, and
                       ``plan_empirical``'s ``coded_cells`` call in full.
-5. ``serve``          qwen2-0.5b at full width (24 layers, d_model 896,
+4d. ``engine``       the replicated serving engine
+                      (``repro_torch.serving``).  ``engine_multitenant``:
+                      ``benchmarks/bench_multitenant.py``'s two
+                      deployments (16 groups, 4,000 requests): the FIFO
+                      baseline misses the premium target, the swept
+                      engine plans on the card (21 ``sojourn_cells``
+                      launches: 3 x 2 + 3 x 5 feasible B) and holds both
+                      class targets, and both
+                      ``run_load`` results equal the reference's, pinned
+                      by ``tests/test_torch_chip_pins.py``.
+                      ``engine_fleet``: the same on 1,024 groups serving
+                      40,000 requests, from the engine's own plan (4,000
+                      trials, every B dividing 1,024: 3 x 2 + 3 x 11 = 39
+                      launches), its widest ``sojourn_cells`` dispatch held
+                      bit-equal to the plain version on its first 2,000
+                      jobs; plan wall, event-loop wall and requests a
+                      second.  ``engine_model``: the tuner-on engine
+                      (qwen2-0.5b reduced, 16 groups from B 16, the p99
+                      portfolio, 2,000 requests) with real prefill and
+                      decode for every batch (``flash_attention``,
+                      ``decode_attention``) and one ``sojourn_cells``
+                      launch a re-plan: the reference's moves, final B,
+                      policy and p99 sojourn, the launch counts the path
+                      implies, every request's tokens, the first batch's
+                      prefill logits within 0.125 of the CPU's; then
+                      ``engine_hybrid`` (zamba2-7b reduced, 256 requests,
+                      tuner off) adds ``ssd_scan``, its schedule the
+                      model-free engine's on the CPU.
+5. ``serve``        qwen2-0.5b at full width (24 layers, d_model 896,
                       vocab 151,936; random bf16 weights from a seeded
                       generator) serves 8 prompts of 1,024 tokens and 32
                       new tokens each through ``generate`` (prefill on
@@ -146,7 +174,7 @@ non-zero:
                       the planner's shape (strip kernel) and 1024 x 1024
                       x 2048 (tiled kernel).
 
-Each path of phases 2-6, 4b and 4c runs with the launch counts and the sweeps'
+Each path of phases 2-6, 4b, 4c and 4d runs with the launch counts and the sweeps'
 stage seconds (``simulator.STAGE_SECONDS``) set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.  One more
 run of phases 2 and 3 under ``torch.profiler`` gives the card's busy time.
@@ -253,6 +281,160 @@ HCHECK_LAYERS, HCHECK_PROMPT = 7, 256
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # the bf16 scan's tensor-core kernel, as the profiler names it
 SSD_BF16_KERNEL = "ssd_mma_kernel"
+# phase 4d: the serving engine.  engine_multitenant serves
+# benchmarks/bench_multitenant.py's two deployments (16 groups, 4,000
+# requests); engine_fleet the swept one on 1,024 groups (40,000 requests);
+# engine_model the tuner-on engine with real prefill and decode (2,000
+# requests), then its hybrid variant with the tuner off (256 requests)
+ENGINE_REQUESTS = {"multitenant": 4_000, "fleet": 40_000, "model": 2_000,
+                   "hybrid": 256}
+ENGINE_FLEET_N = 1024
+# the reference's run_load results there (engine_summary), pinned on the
+# CPU on the reference's pallas lane by tests/test_torch_chip_pins.py::
+# test_engine_multitenant_numbers_are_the_references,
+# test_engine_fleet_numbers_are_the_references and
+# test_engine_model_decision_is_the_references
+ENGINE_MULTITENANT = {
+    "fifo": {"final_B": 4, "max_wait": 0.5, "shed": "none", "policy": "none",
+             "n_dropped": 0, "p99_sojourn": 2.1728785469115803,
+             "classes": {
+                 "premium": (971, 0, 0.7837281153450052, 1.3732898635598518,
+                             2.185688634318429),
+                 "standard": (3029, 0, 0.0, 1.3502471428310616,
+                              2.1686648119370995)}},
+    "swept": {"final_B": 2, "max_wait": math.inf, "shed": "cap",
+              "policy": "none", "n_dropped": 607,
+              "p99_sojourn": 1.1709038943726178,
+              "classes": {
+                  "premium": (971, 0, 0.0, 0.1821336183907882,
+                              0.40423098197575863),
+                  "standard": (2422, 607, 0.20039617035325188,
+                               0.660503373499655, 1.1940035460334617)}}}
+ENGINE_FLEET = {
+    "fifo": {"final_B": 4, "max_wait": 0.5, "shed": "none", "policy": "none",
+             "n_dropped": 0, "p99_sojourn": 47.06125397482628,
+             "classes": {
+                 "premium": (9850, 0, 0.9843654822335025, 23.703189052585653,
+                             47.03173592663555),
+                 "standard": (30150, 0, 0.9364510779436153, 23.7775919308912,
+                              47.07750759734238)}},
+    "swept": {"final_B": 64, "max_wait": 0.2, "shed": "cap", "policy": "none",
+              "n_dropped": 12952, "p99_sojourn": 0.2153164663090504,
+              "classes": {
+                  "premium": (9850, 0, 0.0, 0.09832297135023539,
+                              0.21077666090547134),
+                  "standard": (17198, 12952, 0.42958540630182424,
+                               0.10864217338827749, 0.21600152657788435)}}}
+ENGINE_MODEL = {"moves": ((64, 16, 2), (320, 2, 4)), "final_B": 4,
+                "policy": ("clone", 0.9), "p99_sojourn": 2.765449880444606}
+
+
+def engine_kwargs(core, path: str, n_groups: int = 16) -> dict:
+    """``ServeEngineConfig`` keywords of phase 4d's paths, built from
+    ``core``'s ``SloClass``, ``ShedPolicy`` and ``PolicyCandidate`` (the
+    port's on the card, the reference's where the pins are computed).
+
+    ``fifo`` and ``swept`` are ``benchmarks/bench_multitenant.py``'s
+    ``_engine(n_groups, swept=...)``; ``model`` the tuner-on engine (B 16
+    of 16 groups, the p99 portfolio {none, clone 0.9, relaunch 0.9,
+    hedged 0.1}, utilization 0.7); ``hybrid`` the same with
+    ``arch="zamba2-7b"`` and the tuner off."""
+    if path in ("fifo", "swept"):
+        kw = dict(
+            n_server_groups=n_groups, n_batches=4, delta=0.02, mu=2.0,
+            batch_size=4, utilization=0.95, arrival_kind="multitenant",
+            slo_classes=(
+                core.SloClass("premium", share=0.25, weight=4.0,
+                              deadline=0.8, miss_target=0.05),
+                core.SloClass("standard", share=0.75, weight=1.0,
+                              deadline=3.0, miss_target=0.5)),
+            execute_model=False, straggler_policy="none", seed=0,
+            max_wait=0.5)
+        if path == "fifo":
+            return dict(kw, queue_discipline="fifo")
+        return dict(
+            kw, queue_discipline="wfq",
+            max_wait_candidates=(0.2, 0.5, math.inf),
+            shed_candidates=(core.ShedPolicy("cap", cap=48),
+                             core.ShedPolicy("expired")),
+            policy_candidates=(core.PolicyCandidate(),
+                               core.PolicyCandidate("hedged",
+                                                    hedge_fraction=1.0)),
+            plan_initial=True, planner_mode="simulate")
+    kw = dict(
+        arch="qwen2-0.5b", n_server_groups=16, n_batches=16, batch_size=4,
+        prompt_len=16, gen_tokens=8, max_len=64, delta=0.02, mu=2.0,
+        utilization=0.7, tuner=True, planner_mode="simulate", metric="p99",
+        policy_candidates=(
+            core.PolicyCandidate(), core.PolicyCandidate("clone", quantile=0.9),
+            core.PolicyCandidate("relaunch", quantile=0.9),
+            core.PolicyCandidate("hedged", hedge_fraction=0.1)),
+        execute_model=True, seed=0)
+    if path == "hybrid":
+        return dict(kw, arch="zamba2-7b", tuner=False)
+    return kw
+
+
+def engine_summary(out: dict) -> dict:
+    """The decision and numbers of one ``run_load`` result that phase 4d
+    holds to the reference's: final B, max_wait, shed, policy, drops, p99
+    sojourn and, per tenant class, (served, dropped, miss rate, mean and
+    p99 sojourn).  The class means are ``math.fsum`` over the served
+    requests' sojourns, correctly rounded: numpy's pairwise sum behind
+    ``run_load``'s means can differ in the last bit from one host CPU to
+    another."""
+    sojourns: dict = {}
+    for s in out["stats"]:
+        if not s.dropped:
+            sojourns.setdefault(s.slo, []).append(s.latency)
+    return {
+        "final_B": out["final_B"], "max_wait": out["max_wait"],
+        "shed": out["shed"], "policy": out["policy"],
+        "n_dropped": out["n_dropped"], "p99_sojourn": out["p99_sojourn"],
+        "classes": {k: (v["served"], v["dropped"], v["miss_rate"],
+                        math.fsum(sojourns[k]) / v["served"],
+                        v["p99_sojourn"])
+                    for k, v in (out["class_stats"] or {}).items()}}
+
+
+def replan_log(eng) -> list:
+    """Wrap ``eng.tuner.maybe_replan`` (the port's or the reference's) to
+    record each attempt as it was made: (step, wall seconds, the tuner's
+    ``last_plan``, the ``RescalePlan`` or None)."""
+    tuner, log = eng.tuner, []
+    orig = tuner.maybe_replan
+
+    def wrapped():
+        before = tuner._last_attempt
+        rp = orig()
+        if tuner._last_attempt != before:
+            log.append((tuner._last_attempt, tuner.last_replan_seconds,
+                        tuner.last_plan, rp))
+        return rp
+    tuner.maybe_replan = wrapped
+    return log
+
+
+def attempt_summary(attempt) -> tuple:
+    """One ``replan_log`` entry as (step, wall seconds, B, (policy kind,
+    quantile) or None, the move (step, old B, new B) or None)."""
+    step, seconds, plan, rp = attempt
+    pol = plan.policy
+    return (step, seconds, plan.n_batches,
+            None if pol is None else (pol.kind, pol.quantile),
+            None if rp is None else (rp.step, rp.old_batches,
+                                     rp.new_batches))
+
+
+def model_decision(out: dict, eng, log: list) -> dict:
+    """engine_model's decision: the tuner's moves, the final B, the
+    adopted policy and the p99 sojourn."""
+    pol = eng.policy
+    return {"moves": tuple((rp.step, rp.old_batches, rp.new_batches)
+                           for *_, rp in log if rp is not None),
+            "final_B": out["final_B"],
+            "policy": None if pol is None else (pol.kind, pol.quantile),
+            "p99_sojourn": out["p99_sojourn"]}
 
 
 def _fail(msg: str, code: int) -> None:
@@ -298,7 +480,10 @@ def main() -> int:
     from repro_torch.kernels.sojourn_sweep import kernel as SK
     from repro_torch.kernels.sojourn_sweep import ops as SOPS
     from repro_torch.kernels.ssm_scan import ops as SSD
+    from repro_torch.kernels.decode_attention import ops as DA
+    from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.models import ssm as SSM_MODEL
+    from repro_torch.models import transformer as ATTN_MODEL
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -340,6 +525,31 @@ def main() -> int:
 
         setattr(module, attr, wrapped)
         return orig
+
+    def att_err(kernel, out, ref, dtype_name):
+        """(max |kernel - plain|, RMS of plain, whether every element is
+        within the kernel's and dtype's tolerance)."""
+        ref = ref.float()
+        diff = (out.float() - ref).abs()
+        rms = ref.square().mean().sqrt()
+        if kernel == "decode_attention" and dtype_name == "bfloat16":
+            limit = DECODE_BF16_RMS_FRAC * rms
+        else:
+            limit = ATT_TOL[dtype_name] * (1.0 + ref.abs())
+        return diff.max().item(), rms.item(), bool((diff <= limit).all())
+
+    def ssd_err(y_k, st_k, y_p, st_p, dtype_name):
+        """(max |y - plain|, max |state - plain|, whether y lies within
+        SSD_TOL[dtype] * (1 + |plain|), the state within the float32
+        tolerance, and y is finite)."""
+        ref = y_p.float()
+        diff = (y_k.float() - ref).abs()
+        sdiff = (st_k - st_p).abs()
+        ok = (bool((diff <= SSD_TOL[dtype_name] * (1.0 + ref.abs())).all())
+              and bool((sdiff <= SSD_TOL["float32"]
+                        * (1.0 + st_p.abs())).all())
+              and bool(torch.isfinite(y_k).all()))
+        return diff.max().item(), sdiff.max().item(), ok
 
     def warm_up(fn, seconds: float = 0.05) -> None:
         """Call ``fn`` until ``seconds`` of synchronised wall time have
@@ -1288,6 +1498,271 @@ def main() -> int:
             lambda p_=planner_, s_=spec_, o_=obj_: p_.plan(s_, o_)))
     print(f"[tuner] phase 4c: {time.perf_counter() - t_4c:.1f} s")
 
+    # -- 4d. engine: the replicated serving engine -----------------------
+    from repro_torch import core as CORE
+    from repro_torch.models import params_to, prefill
+    from repro_torch.serving import ReplicatedServingEngine, ServeEngineConfig
+
+    t_4d = time.perf_counter()
+
+    def serving_engine(path, n_groups=16, **kw):
+        return ReplicatedServingEngine(ServeEngineConfig(
+            **{**engine_kwargs(CORE, path, n_groups), **kw}, device="cuda"))
+
+    def deployment(tag, n_groups, n_requests, pins):
+        """The FIFO baseline, then the swept engine (its plan on the card
+        under the launch counts, then its event loop); both held to the
+        reference's pinned run_load results.  Returns the report and the
+        plan's sojourn_cells dispatches."""
+        t0 = time.perf_counter()
+        fifo = serving_engine("fifo", n_groups).run_load(n_requests)
+        fifo_s = time.perf_counter() - t0
+        calls: list = []
+        orig_ = capture(SK, "sojourn_cells", calls)
+        try:
+            eng, pcounts, plan_s, _ = run_path(
+                tag, lambda: serving_engine("swept", n_groups))
+        finally:
+            SK.sojourn_cells = orig_
+        # one launch a (max_wait, shed) combo, 3 x (none, expired), and
+        # under the cap one a (max_wait, split): 3 x the feasible B
+        n_splits = len(ClusterSpec(n_workers=n_groups,
+                                   dist=sexp).feasible_batches())
+        want_launches = 3 * 2 + 3 * n_splits
+        if pcounts["sojourn_cells"] != want_launches:
+            raise AssertionError(
+                f"{tag}'s plan launched sojourn_cells "
+                f"{pcounts['sojourn_cells']} times, want {want_launches}")
+        t0 = time.perf_counter()
+        swept = eng.run_load(n_requests)
+        loop_s = time.perf_counter() - t0
+        got = {"fifo": engine_summary(fifo), "swept": engine_summary(swept)}
+        for c in eng.sc.slo_classes:
+            miss = swept["class_stats"][c.name]["miss_rate"]
+            print(f"[{tag}] {c.name}: FIFO miss "
+                  f"{fifo['class_stats'][c.name]['miss_rate']:.4f} "
+                  f"dropped {fifo['class_stats'][c.name]['dropped']}; "
+                  f"swept miss {miss:.4f} (target {c.miss_target}) dropped "
+                  f"{swept['class_stats'][c.name]['dropped']}")
+            if miss > c.miss_target:
+                raise AssertionError(f"{tag}: the swept plan misses "
+                                     f"{c.name}'s target: {miss}")
+        if fifo["class_stats"]["premium"]["miss_rate"] <= 0.05:
+            raise AssertionError(f"{tag}: the FIFO baseline holds the "
+                                 "premium target")
+        if got != pins:
+            raise AssertionError(f"{tag} differs from the reference: {got} "
+                                 f"against {pins}")
+        print(f"[{tag}] {n_groups} groups, {n_requests} requests: plan wall "
+              f"{plan_s:.3f} s ({pcounts['sojourn_cells']} sojourn_cells "
+              f"launches), event loop {loop_s:.3f} s "
+              f"({n_requests / loop_s:.0f} requests/s; FIFO "
+              f"{fifo_s:.3f} s); swept B {swept['final_B']}, max_wait "
+              f"{swept['max_wait']}, shed {swept['shed']}, policy "
+              f"{swept['policy']}, p99 sojourn {swept['p99_sojourn']:.6f} "
+              f"(FIFO {fifo['p99_sojourn']:.6f}): the reference's")
+        return {"plan_s": plan_s, "loop_s": loop_s, "fifo_s": fifo_s,
+                "requests_per_s": n_requests / loop_s, "launches": pcounts,
+                "summary": got}, calls
+
+    _phase("engine_multitenant")
+    mt_report, _ = deployment("engine_multitenant", 16,
+                              ENGINE_REQUESTS["multitenant"],
+                              ENGINE_MULTITENANT)
+    report["phases"]["engine_multitenant"] = mt_report
+
+    _phase("engine_fleet")
+    fleet_report, fleet_engine_calls = deployment(
+        "engine_fleet", ENGINE_FLEET_N, ENGINE_REQUESTS["fleet"],
+        ENGINE_FLEET)
+    fleet_report["plain_check"] = hold_widest("engine_fleet plan",
+                                              fleet_engine_calls)
+    del fleet_engine_calls
+    report["phases"]["engine_fleet"] = fleet_report
+
+    _phase("engine_model")
+
+    def record_call(seen, mod, attr, key=None):
+        """Patch the model's ``mod.attr`` to keep (key, args, kw, output)
+        of its first call, or, with ``key``, of the first call with the
+        largest key(args).  Outputs are cloned (decode updates the scan's
+        final state in place), and so are a keyed call's inputs (the
+        decode caches are written again by later steps).  Returns the
+        original."""
+        orig = getattr(mod, attr)
+
+        def copy(ts):
+            return tuple(t.clone() if torch.is_tensor(t) else t for t in ts)
+
+        def wrapped(*args, **kw):
+            out = orig(*args, **kw)
+            k_ = 0 if key is None else key(args)
+            if attr not in seen or k_ > seen[attr][0]:
+                seen[attr] = (k_, args if key is None else copy(args), kw,
+                              copy(out) if isinstance(out, tuple)
+                              else out.clone())
+            return out
+
+        setattr(mod, attr, wrapped)
+        return orig
+
+    def hold_model_calls(tag, seen):
+        """Hold each kernel call ``record_call`` kept, its output as the
+        path got it, against the plain version on the same inputs:
+        attention at ATT_TOL (decode in bf16 within DECODE_BF16_RMS_FRAC of
+        the plain output's RMS), ssd_scan at SSD_TOL; time both."""
+        plains = {"flash_attention": FA.flash_attention_plain,
+                  "decode_attention": DA.decode_attention_plain,
+                  "ssd_scan": SSD.ssd_scan_plain}
+        kernels = {"flash_attention": FA.flash_attention,
+                   "decode_attention": DA.decode_attention,
+                   "ssd_scan": SSD.ssd_scan}
+        out_ = []
+        for name in sorted(seen):
+            _, args_, kw_, got = seen[name]
+            dname = str(args_[0].dtype).split(".")[1]
+            want = plains[name](*args_, **kw_)
+            if name == "ssd_scan":
+                err, serr, ok = ssd_err(*got, *want, dname)
+                extra = {"max_abs_err_state": serr, "tolerance": SSD_TOL}
+            else:
+                err, rms, ok = att_err(name, got, want, dname)
+                extra = {"plain_rms": rms, "tolerance": (
+                    {"bfloat16_rms_frac": DECODE_BF16_RMS_FRAC}
+                    if name == "decode_attention" and dname == "bfloat16"
+                    else ATT_TOL)}
+                if name == "decode_attention":
+                    extra["cache_len"] = args_[3]
+            if not ok:
+                raise AssertionError(f"{name} ({tag}) differs from its plain "
+                                     f"version: {err} ({extra})")
+            e = {"name": name, "case": tag, "dtype": dname,
+                 "shape": [list(a.shape) for a in args_ if torch.is_tensor(a)],
+                 "max_abs_err": err, **extra,
+                 "ms": cuda_ms(lambda: kernels[name](*args_, **kw_), 10),
+                 "plain_ms": cuda_ms(lambda: plains[name](*args_, **kw_), 3)}
+            print(f"[{tag}] {name} {e['shape']} {dname} as the path ran it: "
+                  f"within tolerance of the plain version (max err "
+                  f"{err:.3e}; kernel {e['ms']:.4f} ms, plain "
+                  f"{e['plain_ms']:.4f} ms)")
+            out_.append(e)
+        plain_checks.extend(out_)
+        return out_
+
+    def model_path(path, want_replans):
+        """Serve on the card with real prefill and decode; check the
+        tokens, the launch counts the path implies, the path's first
+        prefill attention and scan and its longest decode attention against
+        the plain versions, and the first batch's prefill logits against
+        the same batch on the CPU."""
+        eng = serving_engine(path)
+        cfg_ = eng.cfg
+        log = replan_log(eng) if eng.sc.tuner else []
+        model_s = [0.0]
+        orig_gen = eng._generate_for_job
+
+        def timed_gen(job):
+            t0 = time.perf_counter()
+            orig_gen(job)
+            model_s[0] += time.perf_counter() - t0
+        eng._generate_for_job = timed_gen
+        n_req = ENGINE_REQUESTS[path]
+        seen: dict = {}
+        origs = [(ATTN_MODEL, "flash_attention", record_call(
+                     seen, ATTN_MODEL, "flash_attention")),
+                 (ATTN_MODEL, "decode_attention", record_call(
+                     seen, ATTN_MODEL, "decode_attention", lambda a: a[3])),
+                 (SSM_MODEL, "ssd_scan", record_call(
+                     seen, SSM_MODEL, "ssd_scan"))]
+        try:
+            out, counts, wall, _ = run_path(f"engine_{path}",
+                                            lambda: eng.run_load(n_req))
+        finally:
+            for mod, attr, orig in origs:
+                setattr(mod, attr, orig)
+        jobs = eng.last_master.completed_jobs
+        served = [s for s in out["stats"] if not s.dropped]
+        if len(served) != n_req or not all(
+                s.tokens.shape == (eng.sc.gen_tokens,)
+                and ((s.tokens >= 0) & (s.tokens < cfg_.vocab_size)).all()
+                for s in served):
+            raise AssertionError(f"engine_{path}: a served request lacks "
+                                 "its tokens")
+        if cfg_.family == "hybrid":
+            n_attn = segment_layout(cfg_)[0]
+            want = {"ssd_scan": len(jobs) * cfg_.n_layers}
+        else:
+            n_attn, want = cfg_.n_layers, {}
+        want.update({
+            "flash_attention": len(jobs) * n_attn,
+            "decode_attention": len(jobs) * (eng.sc.gen_tokens - 1) * n_attn,
+            "sojourn_cells": len(log)})
+        for k, n in want.items():
+            if counts[k] != n:
+                raise AssertionError(f"engine_{path} launched {k} "
+                                     f"{counts[k]} times, want {n}")
+        if want_replans and not log:
+            raise AssertionError(f"engine_{path} never re-planned")
+        held = hold_model_calls(f"engine_{path}", seen)
+        if {e["name"] for e in held} != {k for k in want
+                                         if k != "sojourn_cells"}:
+            raise AssertionError(f"engine_{path} held {sorted(seen)}, not "
+                                 "every model kernel of the path")
+        del seen
+        # the first completed batch's prefill, card against CPU
+        prompts = eng._prompts([r.request_id for r in jobs[0].requests])
+        logits_c, _ = prefill(cfg_, eng.params, {"tokens": prompts},
+                              eng.sc.max_len)
+        logits_h, _ = prefill(cfg_, params_to(eng.params, "cpu"),
+                              {"tokens": prompts.cpu()}, eng.sc.max_len)
+        err = (logits_c.float().cpu() - logits_h.float()).abs().max().item()
+        if not err <= LOGIT_TOL:
+            raise AssertionError(f"engine_{path}: the first batch's prefill "
+                                 f"logits differ from the CPU's by {err}")
+        replan_s = sum(a[1] for a in log)
+        print(f"[engine_{path}] {cfg_.name}, {n_req} requests in "
+              f"{len(jobs)} batches: wall {wall:.3f} s, model "
+              f"{model_s[0]:.3f} s ({model_s[0] / wall:.1%} of the wall), "
+              f"{len(log)} re-plans in {replan_s:.3f} s; launches "
+              f"{ {k: counts[k] for k in want} } = the path's "
+              f"{ {k: n for k, n in want.items()} } (prefill: batches x "
+              f"{n_attn} attention layers; decode: batches x "
+              f"{eng.sc.gen_tokens - 1} steps x {n_attn}, one launch a "
+              f"step and layer); first batch's prefill logits within "
+              f"{err:.5f} of the CPU's (tolerance {LOGIT_TOL})")
+        return eng, out, log, {
+            "wall_s": wall, "model_s": model_s[0],
+            "model_share": model_s[0] / wall, "replans": len(log),
+            "replan_s": replan_s, "batches": len(jobs), "launches": counts,
+            "prefill_logit_err": err, "p99_sojourn": out["p99_sojourn"],
+            "plain_checks": held,
+            "attempts": [list(attempt_summary(a)) for a in log]}
+
+    from repro_torch.models.zamba import segment_layout
+
+    eng_m, out_m, log_m, model_report = model_path("model", True)
+    decided = model_decision(out_m, eng_m, log_m)
+    if decided != ENGINE_MODEL:
+        raise AssertionError(f"engine_model decided {decided}, the "
+                             f"reference {ENGINE_MODEL}")
+    print(f"[engine_model] the reference's decision: {decided}")
+    model_report["decision"] = decided
+    del eng_m
+    _, out_h, _, hybrid_engine_report = model_path("hybrid", False)
+    # the hybrid schedule is the model-free engine's on the CPU
+    cpu_h = ReplicatedServingEngine(ServeEngineConfig(
+        **{**engine_kwargs(CORE, "hybrid"), "execute_model": False},
+        device="cpu")).run_load(ENGINE_REQUESTS["hybrid"])
+    if ([(s.arrival, s.dispatched, s.completion) for s in out_h["stats"]]
+            != [(s.arrival, s.dispatched, s.completion)
+                for s in cpu_h["stats"]]):
+        raise AssertionError("engine_hybrid's schedule differs from the "
+                             "model-free engine's on the CPU")
+    print("[engine_hybrid] schedule == the model-free engine's on the CPU")
+    report["phases"]["engine_model"] = {"model": model_report,
+                                        "hybrid": hybrid_engine_report}
+    print(f"[engine] phase 4d: {time.perf_counter() - t_4d:.1f} s")
+
     # -- 5. serve and 6. serve_hybrid -------------------------------------
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import ServeConfig, generate, run_serving
@@ -1626,7 +2101,7 @@ def main() -> int:
                  "chain_cycles": chain_cycles, "sm_clock_mhz": sm_clock_mhz,
                  "serving_fleet": serving_e})
     extra_rows.extend(soj_entries)
-    extra_rows.extend(plain_checks)  # 4c's dispatches, checked in 4c
+    extra_rows.extend(plain_checks)  # 4c's and 4d's dispatches, checked there
 
     # coded_cells: the planner's shape, the fleet's cells, then long rows
     # with duplicates; beside them the launch floor, the radix passes'
@@ -1905,20 +2380,6 @@ def main() -> int:
 
     # flash_attention and decode_attention at the serve phase's shapes
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import ops as DA
-    from repro_torch.kernels.flash_attention import ops as FA
-
-    def att_err(kernel, out, ref, dtype_name):
-        """(max |kernel - plain|, RMS of plain, whether every element is
-        within the kernel's and dtype's tolerance)."""
-        ref = ref.float()
-        diff = (out.float() - ref).abs()
-        rms = ref.square().mean().sqrt()
-        if kernel == "decode_attention" and dtype_name == "bfloat16":
-            limit = DECODE_BF16_RMS_FRAC * rms
-        else:
-            limit = ATT_TOL[dtype_name] * (1.0 + ref.abs())
-        return diff.max().item(), rms.item(), bool((diff <= limit).all())
 
     def att_rand(shape, seed, dtype):
         g = torch.Generator(device="cuda").manual_seed(seed)
@@ -2169,18 +2630,12 @@ def main() -> int:
         y_p, st_p = SSD.ssd_scan_plain(*args)
         torch.cuda.synchronize()
         name = str(dtype).split(".")[1]
-        ref = y_p.float()
-        diff = (y_k.float() - ref).abs()
-        sdiff = (st_k - st_p).abs()
-        ok = bool((diff <= SSD_TOL[name] * (1.0 + ref.abs())).all()) and bool(
-            (sdiff <= SSD_TOL["float32"] * (1.0 + st_p.abs())).all())
-        if not ok or not torch.isfinite(y_k).all():
+        err, serr, ok = ssd_err(y_k, st_k, y_p, st_p, name)
+        if not ok:
             raise AssertionError(f"ssd_scan differs from its plain version "
-                                 f"in {name}: y {diff.max().item()}, state "
-                                 f"{sdiff.max().item()}")
-        ssd_errs[name] = diff.max().item()
-        ssd_errs[name + "_state"] = sdiff.max().item()
-        del args, y_k, st_k, y_p, st_p, ref, diff, sdiff
+                                 f"in {name}: y {err}, state {serr}")
+        ssd_errs[name], ssd_errs[name + "_state"] = err, serr
+        del args, y_k, st_k, y_p, st_p
     fn = lambda: SSD.ssd_scan(sx, sdt, salog, sb, sc_, sd)  # noqa: E731
     s_ms = cuda_ms(fn, 20)
     s_dev = device_ms(fn, 20)

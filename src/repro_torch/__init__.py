@@ -1,6 +1,6 @@
 """PyTorch and CUDA port of the replication planner (``repro``'s twin).
 
-The package runs two paths on an NVIDIA GPU through hand-written CUDA
+The package runs three paths on an NVIDIA GPU through hand-written CUDA
 kernels:
 
 * planning — ``ClusterSpec`` + ``Objective`` -> ``SimulatedPlanner.plan()``
@@ -14,7 +14,16 @@ kernels:
   family, zamba2-7b, then the fleet plan) — through flash attention
   (``flash_attention``) in prefill, split-KV decode attention
   (``decode_attention``) in decode, and the SSD chunked scan
-  (``ssd_scan``) in every Mamba-2 block of prefill.
+  (``ssd_scan``) in every Mamba-2 block of prefill;
+* the replicated serving engine — ``serving.ReplicatedServingEngine``:
+  requests arrive (``serving.arrivals``), the event-driven master
+  (``serving.queueing``) forms batches and dispatches each to r = N/B
+  replica sets, the fastest wins, and the tuner re-plans B, the policy,
+  ``max_wait`` and shedding from the engine's own telemetry — through
+  ``sojourn_cells`` in every simulated plan and re-plan (the serving
+  sweep with tenant classes), and, with ``execute_model``, prefill and
+  decode of every completed batch on ``flash_attention``,
+  ``decode_attention`` and (hybrid) ``ssd_scan``.
 
 It imports ``torch`` and numpy, never ``jax`` and nothing of ``repro``.
 

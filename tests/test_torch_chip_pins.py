@@ -20,6 +20,16 @@ constant:
   lane: the policy adopted in each regime, every move and the final B.
   ``tests/test_torch_tuner.py`` holds the port's tuner to the
   reference's, attempt by attempt, at 600 trials.
+* ``ENGINE_MULTITENANT``, ``ENGINE_FLEET`` and ``ENGINE_MODEL`` — phase
+  4d's serving engine (``chip_smoke.engine_kwargs`` builds the
+  reference's configurations too): ``benchmarks/bench_multitenant.py``'s
+  FIFO and swept deployments on 16 groups (4,000 requests) and on 1,024
+  (40,000), their ``run_load`` decision and per-class numbers; the
+  tuner-on engine's moves, final B, policy and p99 sojourn (2,000
+  requests).  Every planner call on the reference's ``pallas`` lane at
+  the engine's own 4,000 trials; ``tests/test_torch_serving_engine.py``
+  holds the port's CPU lane bit-equal to that lane on the same kinds of
+  engine at smaller sizes.
 
 Reference sweeps start from an empty group-minima cache.
 """
@@ -146,3 +156,52 @@ def test_tuner_switch_decision_is_the_references():
     assert chip_smoke.SWITCH_DECISION == {
         "adopted": tuple(adopted), "moves": tuple(moves),
         "final_b": tuner.plan.n_batches}
+
+
+# -- phase 4d: the serving engine -------------------------------------------
+
+def _ref_engine(path, n_groups=16):
+    from repro import core as RC
+    from repro.serving import ReplicatedServingEngine, ServeEngineConfig
+
+    kw = chip_smoke.engine_kwargs(RC, path, n_groups)
+    return ReplicatedServingEngine(ServeEngineConfig(
+        **dict(kw, execute_model=False), sim_backend="pallas"))
+
+
+def test_engine_multitenant_numbers_are_the_references():
+    """chip_smoke.py's engine_multitenant: bench_multitenant's FIFO
+    baseline and swept deployment (16 groups, 4,000 requests), their
+    run_load results, the swept plan on the reference's pallas lane."""
+    n = chip_smoke.ENGINE_REQUESTS["multitenant"]
+    _clear()
+    got = {path: chip_smoke.engine_summary(_ref_engine(path).run_load(n))
+           for path in ("fifo", "swept")}
+    assert chip_smoke.ENGINE_MULTITENANT == got
+
+
+def test_engine_fleet_numbers_are_the_references():
+    """chip_smoke.py's engine_fleet: the same two deployments on 1,024
+    groups serving 40,000 requests; the swept engine's plan at its own
+    4,000 trials on the reference's pallas lane.  (The port's CPU lane
+    makes this plan too: tests/test_torch_serving_engine.py holds it
+    bit-equal to the pallas lane on the 16-group deployment.)"""
+    n = chip_smoke.ENGINE_REQUESTS["fleet"]
+    _clear()
+    got = {path: chip_smoke.engine_summary(
+        _ref_engine(path, chip_smoke.ENGINE_FLEET_N).run_load(n))
+        for path in ("fifo", "swept")}
+    assert chip_smoke.ENGINE_FLEET == got
+
+
+def test_engine_model_decision_is_the_references():
+    """chip_smoke.py's engine_model: the tuner-on engine (16 groups from
+    B 16, the p99 portfolio, 2,000 requests, the engine's own 4,000
+    trials) on the reference's pallas lane; its schedule does not depend
+    on the model, so the reference runs without it."""
+    n = chip_smoke.ENGINE_REQUESTS["model"]
+    _clear()
+    eng = _ref_engine("model")
+    log = chip_smoke.replan_log(eng)
+    out = eng.run_load(n)
+    assert chip_smoke.ENGINE_MODEL == chip_smoke.model_decision(out, eng, log)

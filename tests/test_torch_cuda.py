@@ -6,7 +6,7 @@ the ``cuda`` fixture).  On a machine with a card, and without JAX, run
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 (``--noconftest`` because ``tests/conftest.py`` imports JAX).  This file
-imports only ``repro_torch``.  Each kernel must equal its plain version
+imports only ``repro_torch`` and ``chip_smoke.replan_log``.  Each kernel must equal its plain version
 bit for bit (``sojourn_cells``, ``coded_cells``) or within
 ``1e-5 * (|coeffs| @ |blocks|)`` (``combine``), and the sweeps and the
 planner must give on the card exactly what they give on the CPU.
@@ -31,8 +31,13 @@ per-placement entry points (``simulate_maxmin``, ``simulate_coverage``,
 the per-B sojourns, ``simulate_gradient_coding``), the rate-aware and
 bootstrap planners and the tuner fed the same telemetry
 (``compare_schemes``' float64 means within 1e-12 relative: the card sums
-in another order).
+in another order).  A small tuner-on serving engine with the model makes
+on the card the CPU's schedule and re-plans, through ``sojourn_cells``
+and the attention kernels (and ``ssd_scan`` on the hybrid).
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -61,6 +66,9 @@ from repro_torch.models import decode_step, init_params, params_to, prefill
 from repro_torch.kernels.sojourn_sweep import kernel as K
 from repro_torch.kernels.sojourn_sweep import ops as O
 from repro_torch.kernels.ssm_scan import ops as SS
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from chip_smoke import replan_log  # noqa: E402  (main() is not run)
 
 pytestmark = pytest.mark.cuda
 
@@ -814,3 +822,50 @@ def test_ssd_strided_views_equal_copies(cuda, dtype, s, h, p, g, n):
     y_c, st_c = SS.ssd_scan(xs.contiguous(), dt, a_log, b.contiguous(),
                             c.contiguous(), d_skip, init)
     assert torch.equal(y_v, y_c) and torch.equal(st_v, st_c)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "zamba2-7b"])
+def test_serving_engine_on_card_matches_cpu(cuda, arch, monkeypatch):
+    """A small tuner-on engine with the model: on the card its schedule,
+    re-plans and decisions are the CPU engine's (the schedule does not
+    depend on the model), every request gets its tokens, and the card ran
+    ``sojourn_cells`` for the re-plans and the attention kernels (and, on
+    the hybrid, ``ssd_scan``) for the model."""
+    import dataclasses
+
+    from repro_torch.serving import ReplicatedServingEngine, ServeEngineConfig
+    from repro_torch.serving import engine as E
+
+    make = E.make_planner
+    monkeypatch.setattr(E, "make_planner",
+                        lambda *a, **kw: make(*a, **{**kw, "n_trials": 500}))
+    sc = ServeEngineConfig(
+        arch=arch, n_server_groups=8, n_batches=4, batch_size=4,
+        prompt_len=8, gen_tokens=3, max_len=16, delta=0.02, mu=2.0,
+        utilization=0.7, tuner=True, planner_mode="simulate", metric="p99",
+        policy_candidates=POLS, seed=0)
+
+    def run(device, execute_model):
+        eng = ReplicatedServingEngine(dataclasses.replace(
+            sc, device=device, execute_model=execute_model))
+        log = replan_log(eng)
+        out = eng.run_load(320)
+        return eng, out, [(step, plan.n_batches, plan.policy, rp is not None)
+                          for step, _, plan, rp in log]
+
+    _build.reset_launch_counts()
+    card, out_c, log_c = run("cuda", True)
+    counts = launch_counts()
+    _, out_h, log_h = run("cpu", False)
+    assert log_c == log_h and log_c
+    assert [(s.request_id, s.arrival, s.dispatched, s.completion)
+            for s in out_c["stats"]] == [
+        (s.request_id, s.arrival, s.dispatched, s.completion)
+        for s in out_h["stats"]]
+    assert (out_c["final_B"], out_c["policy"]) == (out_h["final_B"],
+                                                   out_h["policy"])
+    assert all(s.tokens.shape == (3,) for s in out_c["stats"])
+    assert counts["sojourn_cells"] == len(log_c)
+    assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0
+    if arch == "zamba2-7b":
+        assert counts["ssd_scan"] > 0

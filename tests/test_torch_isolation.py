@@ -4,8 +4,8 @@
   ``sys.modules["repro"] = None`` (so any import of either fails), every
   module of ``repro_torch`` imports, and so does ``chip_smoke`` as a
   module, without running.
-* With no device given, the planner runs on CUDA or raises — never on the
-  CPU behind the caller's back.
+* With no device given, the planner and the serving engine run on CUDA or
+  raise — never on the CPU behind the caller's back.
 * A CPU tensor through each kernel wrapper runs the plain version and
   leaves every launch counter at 0.
 """
@@ -44,7 +44,9 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.models.zamba",
             "repro_torch.kernels.ssm_scan.ops",
             "repro_torch.core.tuner",
-            "repro_torch.core.gradient_coding"} <= set(mods)
+            "repro_torch.core.gradient_coding",
+            "repro_torch.serving.arrivals", "repro_torch.serving.queueing",
+            "repro_torch.serving.engine"} <= set(mods)
     code = "\n".join([
         "import importlib, sys",
         "sys.modules['jax'] = None",
@@ -88,6 +90,10 @@ def test_default_planner_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
     assert resolve_device("cpu").type == "cpu"
+    from repro_torch.serving import ReplicatedServingEngine, ServeEngineConfig
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ReplicatedServingEngine(ServeEngineConfig())
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():
