@@ -106,6 +106,37 @@ non-zero:
                       ``engine_hybrid`` (zamba2-7b reduced, 256 requests,
                       tuner off) adds ``ssd_scan``, its schedule the
                       model-free engine's on the CPU.
+4e. ``cluster``      the distributed control plane and the cluster
+                      runtime (``repro_torch.distributed``,
+                      ``repro_torch.cluster``).  ``fault_fleet``: 1,024
+                      workers from B 256 (SExp(0.05, 2.0), 32 at rate
+                      0.25), one whole replica group dead: the port's
+                      ``FaultManager`` decides ``replan`` and
+                      ``plan_recovery(metric="p99")`` re-plans the 1,020
+                      survivors on the card; ``RescaleExecutor.shrink(32)``
+                      sheds the slow workers of the healthy fleet; both
+                      make the reference's pinned decisions (B, the
+                      worker->batch map's hash, the dropped ids; pinned by
+                      ``tests/test_torch_chip_pins.py``), and the
+                      recovery's coverage samples at its B equal the host
+                      walk's on 2,000 trials.  ``cluster_live``:
+                      ``benchmarks/bench_cluster.py``'s rows through the
+                      port's ``LocalCluster`` (real worker processes on
+                      localhost, the planners on the card): dispatch smoke,
+                      the clone policy against r = 1 on 8 workers with an
+                      8x straggler, the tuner re-plan with the bench's
+                      analytic planner and with the default simulate one
+                      (``sojourn_cells`` on the live path; its widest
+                      dispatch bit-equal to the plain version on 2,000
+                      jobs), and SIGKILL recovery, each held to the bench's
+                      asserts.  ``cluster_matmul``: 2 workers serve 20
+                      requests of 4 (2048 x 2048) matmuls on the card.
+                      ``collectives``: in a one-rank NCCL group every
+                      ``aggregate_gradients`` mode,
+                      ``replication_aware_pmean`` and
+                      ``hierarchical_allreduce`` return their input's mean
+                      (their semantics across ranks are held on CPU gloo
+                      only, in ``tests/test_torch_replication.py``).
 5. ``serve``        qwen2-0.5b at full width (24 layers, d_model 896,
                       vocab 151,936; random bf16 weights from a seeded
                       generator) serves 8 prompts of 1,024 tokens and 32
@@ -174,7 +205,7 @@ non-zero:
                       the planner's shape (strip kernel) and 1024 x 1024
                       x 2048 (tiled kernel).
 
-Each path of phases 2-6, 4b, 4c and 4d runs with the launch counts and the sweeps'
+Each path of phases 2-6, 4b, 4c, 4d and 4e runs with the launch counts and the sweeps'
 stage seconds (``simulator.STAGE_SECONDS``) set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.  One more
 run of phases 2 and 3 under ``torch.profiler`` gives the card's busy time.
@@ -327,6 +358,49 @@ ENGINE_FLEET = {
                                0.10864217338827749, 0.21600152657788435)}}}
 ENGINE_MODEL = {"moves": ((64, 16, 2), (320, 2, 4)), "final_B": 4,
                 "policy": ("clone", 0.9), "p99_sojourn": 2.765449880444606}
+# phase 4e: fault_fleet, the control plane's fleet-scale fault path: 1,024
+# workers from B 256, SExp(0.05, 2.0), 32 of them at rate 0.25 (the rest
+# 1.0), chosen by default_rng(0).choice(1024, 32, replace=False)
+# (fault_fleet_rates); workers 0, 256, 512 and 768, one whole replica group,
+# marked dead.  The reference's decisions there (repro.distributed, its
+# default planners), each assignment's worker->batch map as
+# assignment_hash: decide() (kind, lost batches, survivors) and
+# plan_recovery(metric="p99") (survivors, B, map, predicted p99), pinned on
+# the CPU by tests/test_torch_chip_pins.py::
+# test_fault_fleet_recovery_is_the_references (slow: about 110 s on the
+# reference's lane); RescaleExecutor.shrink(32, metric="mean") from the
+# healthy fleet (workers, B, map, dropped ids), pinned by
+# test_fault_fleet_shrink_is_the_references
+FAULT_FLEET_N, FAULT_FLEET_B0, FAULT_FLEET_SLOW = 1024, 256, 32
+FAULT_FLEET_DEAD = (0, 256, 512, 768)
+FAULT_FLEET = {
+    "decide": ("replan", (0,), 1020),
+    "recovery": (1020, 102, "7a8c1eae32244868", 5.272800188400028),
+    "shrink": (992, 124, "a292b2ea18983e06",
+               (2, 16, 34, 40, 75, 175, 179, 268, 280, 306, 400, 506, 508,
+                549, 564, 566, 610, 633, 637, 651, 680, 735, 745, 780, 814,
+                827, 844, 866, 872, 916, 946, 977))}
+# the recovery's coverage samples on the card, held bit-equal to the host
+# walk (simulate_coverage_reference) at the chosen B on this many trials
+FAULT_FLEET_CHECK_TRIALS = 2_000
+
+
+def fault_fleet_rates(np):
+    """phase 4e's fault_fleet rates: FAULT_FLEET_SLOW workers at 0.25."""
+    rates = np.ones(FAULT_FLEET_N)
+    rates[np.random.default_rng(0).choice(
+        FAULT_FLEET_N, FAULT_FLEET_SLOW, replace=False)] = 0.25
+    return rates
+
+
+def assignment_hash(worker_batch) -> str:
+    """16 hex digits of the SHA-256 of a worker->batch map as int64."""
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(
+        np.asarray(worker_batch, dtype=np.int64).tobytes()).hexdigest()[:16]
 
 
 def engine_kwargs(core, path: str, n_groups: int = 16) -> dict:
@@ -488,7 +562,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    report: dict = {"phases": {}}
+    report: dict = {"phases": {}, "profiler_fallbacks": []}
     path_counts: dict = {}  # path -> {kernel: launches in that path's run}
 
     def timed_stages(fn):
@@ -648,24 +722,44 @@ def main() -> int:
         busy = busy_us / 1e6 if spans else None
         return wall, busy, len(spans), by_name, count
 
+    def busy_window(fn):
+        """``device_busy(fn)``, its window run again while it recorded no
+        device event (the profiler drops whole windows at random in a
+        process that has run many profiler sessions), 3 windows in all."""
+        for i in range(3):
+            out = device_busy(fn)
+            if out[2]:
+                return out
+            print(f"    (profiler: window {i + 1} of 3 recorded no device "
+                  "event)")
+        return out
+
     def device_ms(fn, reps: int) -> float:
         """Device time of one call after a warm-up: over ``reps`` calls
         under the profiler, the mean duration of each kernel name, summed
         over the names (each wrapper and library call here launches each
         of its kernels once a call).  The profiler can miss the first
         launches of a window, so a sum over the window divided by ``reps``
-        would undercount; the events it recorded are printed.  A window
-        that recorded nothing is tried twice more; a third empty one fails
-        the run, since the row's roofline share needs the time."""
+        would undercount; the events it recorded are printed.  The
+        profiler also drops whole windows at random in a process that has
+        run many profiler sessions, so an empty window is tried again, up
+        to 5 in all; if every one is empty, the time is the
+        median CUDA event pair around one call (``call_ms``: the device
+        time of one call's launches), kept in the report's
+        ``profiler_fallbacks``, and the line printed says so."""
         warm_up(fn)
-        for _ in range(3):
+        for _ in range(5):
             _, _, n_events, by_name, count = device_busy(fn, reps)
             print(f"    (profiler: {n_events} device events recorded for "
                   f"{reps} calls: {sorted(count.values())})")
             if by_name:
                 return sum(by_name[k] / count[k] for k in by_name) * 1e3
-        raise AssertionError(f"three profiler windows of {reps} calls "
-                             "recorded no device event")
+        ms = call_ms(fn, max(reps, 20))
+        report["profiler_fallbacks"].append({"reps": reps, "call_ms": ms})
+        print(f"    (profiler: 5 windows of {reps} calls recorded no "
+              f"device event; device time from CUDA event pairs around one "
+              f"call: {ms:.5f} ms)")
+        return ms
 
     def print_busy(name, wall, busy, n_events, by_name, count, top=6,
                    shares=None):
@@ -769,7 +863,7 @@ def main() -> int:
     print(f"[plan_policies] warm re-plan: wall {warm_wall:.3f} s, stages "
           "(host s): " + ", ".join(f"{k} {v:.3f}"
                                    for k, v in warm_stages.items()))
-    busy = print_busy("plan_policies", *device_busy(fleet_plan))
+    busy = print_busy("plan_policies", *busy_window(fleet_plan))
 
     # the card's plan equals the CPU plan (plain versions) on a small fleet;
     # a check, not part of the path, so its launches are not counted
@@ -822,7 +916,7 @@ def main() -> int:
           f"{[round(w[0], 4) for w in warm]})")
     print("[fleet_grid] best warm run's stages (host s): "
           + ", ".join(f"{k} {v:.3f}" for k, v in best_stages.items()))
-    busy = print_busy("fleet_grid", *device_busy(fleet))
+    busy = print_busy("fleet_grid", *busy_window(fleet))
     report["phases"]["fleet_grid"] = {
         "cold_s": cold, "warm_s": [w[0] for w in warm],
         "warm_stages_s": best_stages, "launches": counts, **busy}
@@ -1010,7 +1104,7 @@ def main() -> int:
     print(f"[serving_fleet] warm re-plan: wall {fswarm:.3f} s, stages "
           "(host s): " + ", ".join(f"{k} {v:.3f}"
                                    for k, v in fswarm_stages.items()))
-    fs_busy = print_busy("serving_fleet", *device_busy(fleet_serving),
+    fs_busy = print_busy("serving_fleet", *busy_window(fleet_serving),
                          shares={"sojourn_cells": "sojourn_cells_kernel"})
     if fs_busy["device_busy_s"] is None:
         raise AssertionError("the profiler saw no device work in "
@@ -1069,7 +1163,7 @@ def main() -> int:
     deferred_profiles: list = []  # (phase, key, tag, fn)
 
     def busy_of(tag, fn):
-        out = print_busy(tag, *device_busy(fn),
+        out = print_busy(tag, *busy_window(fn),
                          shares={"sojourn_cells": "sojourn_cells_kernel",
                                  "coded_cells": "coded_",
                                  "combine": "combine"})
@@ -1763,6 +1857,300 @@ def main() -> int:
                                         "hybrid": hybrid_engine_report}
     print(f"[engine] phase 4d: {time.perf_counter() - t_4d:.1f} s")
 
+    # -- 4e. cluster: the distributed control plane and cluster runtime --
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.cluster import (ChaosEvent, ChaosInjector,
+                                     ClusterConfig, LocalCluster, drive,
+                                     make_deterministic_spec,
+                                     make_matmul_spec, make_sleep_spec)
+    from repro_torch.core.replication import (aggregate_gradients,
+                                              make_rdp_mesh)
+    from repro_torch.core.simulator import (simulate_coverage,
+                                            simulate_coverage_reference)
+    from repro_torch.distributed import (FaultManager, RescaleExecutor,
+                                         RuntimeTopology,
+                                         hierarchical_allreduce,
+                                         replication_aware_pmean)
+    from repro_torch.serving.queueing import Request
+
+    t_4e = time.perf_counter()
+    cluster_report: dict = {}
+
+    _phase("fault_fleet")
+    ff_dist = ShiftedExponential(0.05, 2.0)
+    ff_rates = fault_fleet_rates(np)
+
+    def fault_recovery():
+        fm = FaultManager(ReplicationPlan(FAULT_FLEET_N, FAULT_FLEET_B0),
+                          heartbeat_misses_fatal=1, device="cuda")
+        for w in FAULT_FLEET_DEAD:
+            fm.mark_dead(w)
+        decision = fm.decide()
+        return fm, decision, fm.plan_recovery(ff_dist, rates=ff_rates,
+                                              metric="p99")
+
+    def fault_shrink():
+        ex = RescaleExecutor(RuntimeTopology(
+            ReplicationPlan(FAULT_FLEET_N, FAULT_FLEET_B0), 0),
+            device="cuda")
+        return ex.shrink(FAULT_FLEET_SLOW, dist=ff_dist, rates=ff_rates,
+                         metric="mean")
+
+    (ff_fm, ff_dec, ff_plan), ff_counts, ff_wall, ff_stages = run_path(
+        "fault_fleet recovery", fault_recovery)
+    got_dec = (ff_dec.kind, ff_dec.lost_batches, int(ff_dec.alive.sum()))
+    got_rec = (ff_plan.n_workers, ff_plan.n_batches,
+               assignment_hash(ff_plan.assignment.worker_batch),
+               ff_plan.predicted.p99)
+    if (got_dec != FAULT_FLEET["decide"] or got_rec != FAULT_FLEET["recovery"]
+            or ff_plan.planner != "heterogeneous"
+            or ff_plan.backend != "cuda"):
+        raise AssertionError(f"fault_fleet recovery decided {got_dec}, "
+                             f"{got_rec} ({ff_plan.planner} on "
+                             f"{ff_plan.backend}); the reference "
+                             f"{FAULT_FLEET['decide']}, "
+                             f"{FAULT_FLEET['recovery']}")
+    print(f"[fault_fleet] decide() {got_dec}; plan_recovery(p99) of "
+          f"{ff_plan.n_workers} survivors: B {ff_plan.n_batches}, map "
+          f"{got_rec[2]}, predicted p99 {ff_plan.predicted.p99!r}: the "
+          "reference's")
+    # the recovery's coverage samples at the chosen B against the host
+    # walk, on the same draws (made on the card)
+    surv = tuple(float(r) for r in ff_rates[ff_dec.alive])
+    cov_k = simulate_coverage(ff_dist, ff_plan.assignment,
+                              n_trials=FAULT_FLEET_CHECK_TRIALS, rates=surv,
+                              device="cuda")
+    t0 = time.perf_counter()
+    cov_p = simulate_coverage_reference(
+        ff_dist, ff_plan.assignment, n_trials=FAULT_FLEET_CHECK_TRIALS,
+        rates=surv, device="cuda")
+    cov_walk_s = time.perf_counter() - t0
+    if not np.array_equal(cov_k.samples, cov_p.samples):
+        raise AssertionError("fault_fleet: the card's coverage samples "
+                             "differ from the host walk's")
+    print(f"[fault_fleet] coverage rule at B {ff_plan.n_batches}: the "
+          f"card's first {FAULT_FLEET_CHECK_TRIALS} trials bit-equal to the "
+          f"host walk ({cov_walk_s:.2f} s)")
+    ff_shrink, fs_counts, fs_wall, fs_stages = run_path(
+        "fault_fleet shrink", fault_shrink)
+    got_shrink = (ff_shrink.plan.n_data, ff_shrink.plan.n_batches,
+                  assignment_hash(ff_shrink.assignment.worker_batch),
+                  ff_shrink.dropped_workers)
+    if got_shrink != FAULT_FLEET["shrink"]:
+        raise AssertionError(f"fault_fleet shrink made {got_shrink}, the "
+                             f"reference {FAULT_FLEET['shrink']}")
+    print(f"[fault_fleet] shrink({FAULT_FLEET_SLOW}) under mean: "
+          f"{ff_shrink.plan}, map {got_shrink[2]}, dropped the "
+          f"{len(got_shrink[3])} slow workers: the reference's")
+    # the rate-aware recovery under a plain metric is the coverage rule
+    # (float64 torch ops on the card), not a sojourn scan: count, do not
+    # assume, the hand kernels' launches
+    print(f"[fault_fleet] hand-kernel launches: recovery {ff_counts}, "
+          f"shrink {fs_counts}")
+    cluster_report["fault_fleet"] = {
+        "recovery_wall_s": ff_wall, "recovery_stages_s": ff_stages,
+        "recovery_launches": ff_counts, "decide": list(got_dec),
+        "recovery": list(got_rec), "coverage_check_trials":
+        FAULT_FLEET_CHECK_TRIALS, "coverage_walk_s": cov_walk_s,
+        "shrink_wall_s": fs_wall, "shrink_stages_s": fs_stages,
+        "shrink_launches": fs_counts, "shrink": [*got_shrink[:3],
+                                                 list(got_shrink[3])]}
+    del ff_fm
+
+    def cluster_serve(cfg, n_requests, interarrival, *, slowdowns=None,
+                      events=None, timeout=120.0):
+        """benchmarks/bench_cluster.py's _serve through the port's
+        LocalCluster; returns (summary, coordinator, wall s)."""
+        t0 = time.perf_counter()
+        with LocalCluster(cfg, slowdowns=slowdowns or {}) as cluster:
+            coord = cluster.coordinator
+            base = coord.now()
+            for i in range(n_requests):
+                coord.submit(Request(request_id=i,
+                                     arrival=base + (i + 1) * interarrival))
+            drive(cluster, ChaosInjector(
+                cluster, events(base) if events is not None else []),
+                timeout=timeout)
+            return coord.summary(), coord, time.perf_counter() - t0
+
+    def live_row(tag, *args, **kw):
+        """One cluster run as a path of the main path: its summary, the
+        coordinator's hand-kernel launches (the device warm-up's apart),
+        printed and kept."""
+        (s, coord, wall), counts, _, stages = run_path(
+            tag, lambda: cluster_serve(*args, **kw))
+        served_by = {k: counts[k] - coord.warmup_launches.get(k, 0)
+                     for k in counts}
+        print(f"[{tag}] {s['served']}/{s['requests']} served in {wall:.2f} "
+              f"s: sojourn mean {s['mean_sojourn'] * 1e3:.2f} ms, p50 "
+              f"{s['p50_sojourn'] * 1e3:.2f} ms, p99 "
+              f"{s['p99_sojourn'] * 1e3:.2f} ms; final B {s['final_B']}, "
+              f"generation {s['generation']}, deaths {s['deaths']}, "
+              f"rejoins {s['rejoins']}, redispatches {s['redispatches']}, "
+              f"stale {s['stale_results']}, clones {s['clones']}, replans "
+              f"{s['replans']}; launches {counts} (warm-up "
+              f"{coord.warmup_launches})")
+        cluster_report[tag] = {"summary": s, "wall_s": wall,
+                               "stages_s": stages, "launches": counts,
+                               "warmup_launches": coord.warmup_launches,
+                               "launches_after_warmup": served_by}
+        return s, coord, served_by
+
+    _phase("cluster_live")
+    s, _, _ = live_row("cluster_dispatch_smoke", ClusterConfig(
+        n_workers=2, n_batches=1, batch_size=1, max_wait=0.01,
+        payload=make_deterministic_spec(0.02), device="cuda"), 20, 0.025)
+    if s["served"] != 20:
+        raise AssertionError(f"cluster_dispatch_smoke: {s}")
+    # bench_cluster.py's straggler row: 8 workers at u~0.5, worker 0
+    # slowed 8x; r=1 baseline against the clone policy on the same fleet
+    common = dict(n_workers=8, n_batches=8, batch_size=1, max_wait=0.01,
+                  payload=make_sleep_spec("sexp", work=1.0, delta=0.02,
+                                          mu=50.0),
+                  heartbeat_timeout=0.5, seed=17, device="cuda")
+    s_base, _, _ = live_row("cluster_straggler_baseline",
+                            ClusterConfig(**common), 200, 0.01,
+                            slowdowns={0: 8.0})
+    s_pol, _, _ = live_row("cluster_straggler_policy", ClusterConfig(
+        **common, policy=PolicyCandidate(kind="clone", quantile=0.85),
+        clone_budget=2, min_policy_observations=8), 200, 0.01,
+        slowdowns={0: 8.0})
+    if not (s_base["served"] == s_pol["served"] == 200
+            and s_pol["clones"] >= 1
+            and s_pol["p99_sojourn"] < s_base["p99_sojourn"]):
+        raise AssertionError(f"cluster_straggler_policy: {s_pol} against "
+                             f"the baseline {s_base}")
+    # the tuner row, with the bench's analytic planner and then with the
+    # config's default simulate planner (sojourn_cells on the live path)
+    tuner_common = dict(n_workers=8, n_batches=8, batch_size=1,
+                        max_wait=0.01,
+                        payload=make_sleep_spec("exp", work=1.0, mu=25.0),
+                        metric="p99", tuner=True, min_samples=40,
+                        cooldown=10, seed=3, device="cuda")
+    live_calls: list = []
+    tuner_rows = {}
+    for mode in ("analytic", "simulate"):
+        tag = f"cluster_tuner_{mode}"
+        live_calls.clear()
+        # each re-plan attempt's wall inside the coordinator's event loop,
+        # against the heartbeat timeout it must stay under
+        attempt_walls: list = []
+        orig_replan = StragglerTuner.maybe_replan
+
+        def timed_replan(self, _orig=orig_replan, _walls=attempt_walls):
+            before, t0 = self._last_attempt, time.perf_counter()
+            out = _orig(self)
+            if self._last_attempt != before:
+                _walls.append(time.perf_counter() - t0)
+            return out
+
+        StragglerTuner.maybe_replan = timed_replan
+        orig = capture(SK, "sojourn_cells", live_calls)
+        try:
+            s_t, coord_t, served_by = live_row(
+                tag, ClusterConfig(**tuner_common, planner_mode=mode), 120,
+                0.015)
+        finally:
+            SK.sojourn_cells = orig
+            StragglerTuner.maybe_replan = orig_replan
+        fit = coord_t.tuner.last_fit
+        if not (s_t["served"] == 120 and fit is not None
+                and s_t["replans"] >= 1 and s_t["final_B"] < 8):
+            raise AssertionError(f"{tag}: {s_t}")
+        print(f"[{tag}] fit {type(fit.dist).__name__}(mu={fit.dist.mu:.2f})"
+              f", censored {fit.n_censored}/{fit.n_samples}; "
+              f"B 8 -> {s_t['final_B']}; {len(attempt_walls)} re-plan "
+              f"attempts in the event loop, {sum(attempt_walls):.4f} s in "
+              f"all, the longest {max(attempt_walls, default=0.0):.4f} s "
+              f"(heartbeat timeout {coord_t.config.heartbeat_timeout} s)")
+        cluster_report[tag]["replan_attempt_walls_s"] = attempt_walls
+        tuner_rows[mode] = served_by
+    if tuner_rows["simulate"]["sojourn_cells"] < 1:
+        raise AssertionError("cluster_tuner_simulate's re-plans launched no "
+                             "sojourn_cells")
+    cluster_report["cluster_tuner_simulate"]["plain_check"] = hold_widest(
+        "cluster_tuner_simulate re-plan", live_calls)
+    del live_calls
+    s_k, _, _ = live_row("cluster_kill_recovery", ClusterConfig(
+        n_workers=4, n_batches=4, batch_size=1, max_wait=0.01,
+        payload=make_sleep_spec("sexp", work=1.0, delta=0.02, mu=50.0),
+        heartbeat_timeout=0.4, seed=5, device="cuda"), 80, 0.02,
+        events=lambda base: [ChaosEvent(at=base + 0.4, kind="kill",
+                                        worker=1)])
+    if not (s_k["served"] == 80 and s_k["deaths"] == 1
+            and s_k["generation"] >= 1):
+        raise AssertionError(f"cluster_kill_recovery: {s_k}")
+
+    _phase("cluster_matmul")
+    # the first matmul initialises each worker's CUDA context, which holds
+    # the interpreter lock (and so the heartbeat thread) for about a second;
+    # and a matmul worker imports torch before it registers, which took
+    # over the default 15 s on a shared host's loaded cores
+    mm_cfg = ClusterConfig(
+        n_workers=2, n_batches=2, batch_size=1, max_wait=0.01,
+        payload=make_matmul_spec(size=2048, repeats=4),
+        heartbeat_timeout=5.0, register_timeout=60.0, device="cuda")
+    (s_m, coord_m, mm_wall), mm_counts, _, _ = run_path(
+        "cluster_matmul", lambda: cluster_serve(mm_cfg, 20, 0.05))
+    worker_devices = {w: h.device for w, h in coord_m.workers.items()}
+    elapsed = [job.attempts[-1].reported[job.winner_worker]
+               for job in sorted(coord_m.completed_jobs,
+                                 key=lambda j: j.job_id)]
+    if not (s_m["served"] == 20 and worker_devices
+            and all(str(d).startswith("cuda") for d in
+                    worker_devices.values())):
+        raise AssertionError(f"cluster_matmul: {s_m}, worker devices "
+                             f"{worker_devices}")
+    print(f"[cluster_matmul] 2 workers, 20 requests of 4 (2048 x 2048) "
+          f"matmuls in {mm_wall:.2f} s; worker devices {worker_devices}; "
+          f"per-request elapsed (s) {[round(e, 4) for e in elapsed]}; "
+          f"deaths {s_m['deaths']}")
+    cluster_report["cluster_matmul"] = {
+        "summary": s_m, "wall_s": mm_wall, "launches": mm_counts,
+        "worker_devices": worker_devices, "elapsed_s": elapsed}
+
+    _phase("collectives")
+    # one H100 holds one NCCL rank: a one-rank group, where each
+    # aggregation must return its input's mean (the input itself); the
+    # semantics across ranks are held on CPU gloo in the tests
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        free_port = probe.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port}", rank=0, world_size=1)
+    try:
+        mesh = make_rdp_mesh(ReplicationPlan(1, 1), 1)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        tree = {"w": torch.randn((1024, 1024), generator=gen, device=dev),
+                "b": [torch.randn(4097, generator=gen, device=dev)]}
+        outs = {f"aggregate_gradients {m}": aggregate_gradients(
+            tree, 1.0, m, mesh=mesh)[0]
+            for m in ("psum_all", "hierarchical", "weighted")}
+        batch_group = mesh.get_group("batch")
+        outs["replication_aware_pmean"] = replication_aware_pmean(
+            tree, batch_group)
+        outs["hierarchical_allreduce"] = hierarchical_allreduce(
+            tree, batch_group)
+        torch.cuda.synchronize()
+        errs = {k: max((o["w"] - tree["w"]).abs().max().item(),
+                       (o["b"][0] - tree["b"][0]).abs().max().item())
+                for k, o in outs.items()}
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    if backend != "nccl" or any(e != 0.0 for e in errs.values()):
+        raise AssertionError(f"one-rank {backend} collectives differ from "
+                             f"their input's mean: {errs}")
+    print(f"[collectives] one-rank NCCL group on the card: every mode "
+          f"returns its input's mean exactly: {errs}")
+    cluster_report["collectives"] = {"backend": backend, "max_abs_err": errs}
+    cluster_report["wall_s"] = time.perf_counter() - t_4e
+    report["phases"]["cluster"] = cluster_report
+    print(f"[cluster] phase 4e: {cluster_report['wall_s']:.1f} s")
+
     # -- 5. serve and 6. serve_hybrid -------------------------------------
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import ServeConfig, generate, run_serving
@@ -1832,11 +2220,11 @@ def main() -> int:
                 logits, state = decode_step(cfg, params, state, tok, plen + i)
                 tok = logits[:, -1].argmax(-1, keepdim=True)
 
-        busy_prefill = print_busy(f"{tag} prefill", *device_busy(
+        busy_prefill = print_busy(f"{tag} prefill", *busy_window(
             lambda: prefill(cfg, params, {"tokens": prompts}, max_len)),
             top=10, shares=prefill_shares)
         prefill_state = prefill(cfg, params, {"tokens": prompts}, max_len)
-        busy_decode = print_busy(f"{tag} decode", *device_busy(decode_loop),
+        busy_decode = print_busy(f"{tag} decode", *busy_window(decode_loop),
                                  top=10)
         del prefill_state
         for part, busy, unprofiled in (
@@ -2007,9 +2395,13 @@ def main() -> int:
         fn = lambda: SK.sojourn_cells(*a_, **kw)  # noqa: E731
         ms = cuda_ms(fn, reps)
         one_ms = call_ms(fn, reps)  # median event pair around one call
-        # the profiler's time of the kernel, where it records one
-        _, _, n_ev, by_name, count = device_busy(fn, reps)
-        names = [k for k in by_name if "sojourn_cells_kernel" in k]
+        # the profiler's time of the kernel, where one of three windows
+        # records it
+        for _ in range(3):
+            _, _, n_ev, by_name, count = device_busy(fn, reps)
+            names = [k for k in by_name if "sojourn_cells_kernel" in k]
+            if names:
+                break
         dev_ms = (sum(by_name[k] / count[k] for k in names) * 1e3
                   if names else None)
         if not names:

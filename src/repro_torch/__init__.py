@@ -1,6 +1,6 @@
 """PyTorch and CUDA port of the replication planner (``repro``'s twin).
 
-The package runs three paths on an NVIDIA GPU through hand-written CUDA
+The package runs these paths on an NVIDIA GPU through hand-written CUDA
 kernels:
 
 * planning — ``ClusterSpec`` + ``Objective`` -> ``SimulatedPlanner.plan()``
@@ -23,9 +23,22 @@ kernels:
   ``sojourn_cells`` in every simulated plan and re-plan (the serving
   sweep with tenant classes), and, with ``execute_model``, prefill and
   decode of every completed batch on ``flash_attention``,
-  ``decode_attention`` and (hybrid) ``ssd_scan``.
+  ``decode_attention`` and (hybrid) ``ssd_scan``;
+* the distributed control plane and the cluster runtime --
+  ``distributed`` (``FaultManager``: heartbeats, mask or re-plan, recovery
+  through the planner; ``RescaleExecutor``: re-plans, shrinks that shed the
+  slowest workers; the replication-aware collectives on
+  ``torch.distributed``), ``core.replication`` (the (replica, batch,
+  model) ``DeviceMesh`` and straggler-drop gradient aggregation) and
+  ``cluster`` (``ClusterCoordinator`` over real worker processes on
+  localhost sockets, ``LocalCluster``, chaos injection;
+  ``python -m repro_torch.launch.cluster``) -- through ``sojourn_cells`` in
+  the coordinator's simulated plans and its tuner's load-aware re-plans,
+  with recoveries and shrinks of rate-skewed fleets scored on the device by
+  the coverage rule, and the workers' ``matmul`` payloads on the card.
 
-It imports ``torch`` and numpy, never ``jax`` and nothing of ``repro``.
+It imports ``torch`` and numpy, never ``jax`` and nothing of ``repro``;
+``import repro_torch`` itself loads neither until a name is used.
 
 Device rule: every entry point takes ``device=None``, which means
 ``"cuda"`` and raises ``RuntimeError`` when no card is visible; the CPU
@@ -33,6 +46,15 @@ runs only when asked for (``device="cpu"``), through the kernels' plain
 PyTorch versions.
 """
 
-from .device import device_name, resolve_device
-
 __all__ = ["device_name", "resolve_device"]
+
+
+def __getattr__(name):
+    # the device rule imports torch on first use, so a process that needs
+    # only the cluster's protocol and sleep payloads (a worker) starts
+    # without it
+    if name in __all__:
+        from . import device
+
+        return getattr(device, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -78,8 +78,9 @@ def _f32(x, device) -> torch.Tensor:
 
 
 def sojourn_policy_cells(arrivals, svc, alt, kinds, thresholds, hedge_masks,
-                         n_groups):
-    """Evaluate all (cell, policy) sojourn recursions on ``svc``'s device.
+                         n_groups, devices=None):
+    """Evaluate all (cell, policy) sojourn recursions on ``svc``'s device,
+    or split over ``devices``.
 
     Parameters
     ----------
@@ -91,6 +92,13 @@ def sojourn_policy_cells(arrivals, svc, alt, kinds, thresholds, hedge_masks,
     thresholds : (C, P) trigger delays (``inf`` disables arming).
     hedge_masks : (P, J) bool stride masks (see :func:`hedge_mask`).
     n_groups : (C,) live group count per cell.
+    devices : optional list of devices (e.g. every visible card); the cell
+        axis is split into ``len(devices)`` consecutive parts of
+        ``ceil(C / len(devices))`` cells, part i evaluated on
+        ``devices[i]`` by one launch, and the parts concatenated in order
+        on ``svc``'s device (the reference's ``cells`` mesh).  Every cell's
+        scan reads only its own cell, so the split result equals the
+        one-device result bit for bit.
 
     Returns ``(sojourns (C, P, J) float32, extras (C, P) int32)`` on the
     device.  Float inputs are cast to float32 here (round to nearest).
@@ -99,16 +107,30 @@ def sojourn_policy_cells(arrivals, svc, alt, kinds, thresholds, hedge_masks,
     kinds = _on(kinds, dev, torch.int32)
     thresholds = _f32(thresholds, dev)
     resolve = needs_resolve(kinds, thresholds)
-    return _kernel.sojourn_cells(
-        _f32(arrivals, dev),
-        _f32(svc, dev),
-        _f32(alt, dev),
-        kinds,
-        thresholds,
-        _on(hedge_masks, dev, torch.bool),
-        _on(n_groups, dev, torch.int32),
-        resolve=resolve,
-    )
+    if devices is None or len(devices) <= 1:
+        parts = [(dev, slice(None))]
+    else:
+        step = -(-svc.shape[0] // len(devices))
+        parts = [(torch.device(d), slice(i * step, (i + 1) * step))
+                 for i, d in enumerate(devices)
+                 if i * step < svc.shape[0]]
+    outs = [
+        _kernel.sojourn_cells(
+            _f32(arrivals, d),
+            _f32(svc[cut], d),
+            _f32(alt[cut], d),
+            _on(kinds, d, torch.int32),
+            _f32(thresholds[cut], d),
+            _on(hedge_masks, d, torch.bool),
+            _on(torch.as_tensor(n_groups)[cut], d, torch.int32),
+            resolve=resolve,
+        )
+        for d, cut in parts
+    ]
+    if len(outs) == 1:
+        return outs[0]
+    return (torch.cat([o.to(dev) for o, _ in outs]),
+            torch.cat([x.to(dev) for _, x in outs]))
 
 
 def coded_completion_cells(times, ks):

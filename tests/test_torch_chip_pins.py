@@ -30,6 +30,11 @@ constant:
   the engine's own 4,000 trials; ``tests/test_torch_serving_engine.py``
   holds the port's CPU lane bit-equal to that lane on the same kinds of
   engine at smaller sizes.
+* ``FAULT_FLEET`` -- phase 4e's fault path on 1,024 workers (B 256, 32
+  slow workers, one replica group dead): the reference's ``decide()`` and
+  rate-aware p99 ``plan_recovery`` (``slow``: about 110 s on its numpy
+  lane), and the healthy fleet's ``shrink(32)`` (the port's too, on the
+  CPU, bit for bit: the coverage path is float64).
 
 Reference sweeps start from an empty group-minima cache.
 """
@@ -38,6 +43,7 @@ import os
 import sys
 
 import numpy as np
+import pytest
 
 from repro.core import planner as RP
 from repro.core import simulator as RS
@@ -205,3 +211,71 @@ def test_engine_model_decision_is_the_references():
     log = chip_smoke.replan_log(eng)
     out = eng.run_load(n)
     assert chip_smoke.ENGINE_MODEL == chip_smoke.model_decision(out, eng, log)
+
+
+def _fault_fleet_manager(fm_cls, plan_cls, **kw):
+    fm = fm_cls(plan_cls(chip_smoke.FAULT_FLEET_N, chip_smoke.FAULT_FLEET_B0),
+                heartbeat_misses_fatal=1, **kw)
+    for w in chip_smoke.FAULT_FLEET_DEAD:
+        fm.mark_dead(w)
+    return fm
+
+
+def test_fault_fleet_shrink_is_the_references():
+    """chip_smoke.py's fault_fleet shrink: the healthy 1,024-worker fleet
+    loses its 32 slowest and re-plans under "mean" (reference and port,
+    the port on the CPU)."""
+    from repro.distributed import RescaleExecutor as RExec
+    from repro.distributed import RuntimeTopology as RTopo
+    from repro_torch.core import ReplicationPlan as TPlan
+    from repro_torch.core import ShiftedExponential as TSExp
+    from repro_torch.distributed import RescaleExecutor as TExec
+    from repro_torch.distributed import RuntimeTopology as TTopo
+
+    rates = chip_smoke.fault_fleet_rates(np)
+    got = []
+    for ex, dist in (
+            (RExec(RTopo(RPlan(chip_smoke.FAULT_FLEET_N,
+                               chip_smoke.FAULT_FLEET_B0), 0)),
+             RSExp(0.05, 2.0)),
+            (TExec(TTopo(TPlan(chip_smoke.FAULT_FLEET_N,
+                               chip_smoke.FAULT_FLEET_B0), 0), device="cpu"),
+             TSExp(0.05, 2.0))):
+        topo = ex.shrink(chip_smoke.FAULT_FLEET_SLOW, dist=dist, rates=rates,
+                         metric="mean")
+        got.append((topo.plan.n_data, topo.plan.n_batches,
+                    chip_smoke.assignment_hash(topo.assignment.worker_batch),
+                    topo.dropped_workers))
+    assert got[0] == got[1] == chip_smoke.FAULT_FLEET["shrink"]
+    assert got[0][3] == tuple(sorted(np.nonzero(rates < 1)[0].tolist()))
+
+
+def test_fault_fleet_decision_is_the_references():
+    """chip_smoke.py's fault_fleet decide(): one whole replica group dead
+    (reference and port)."""
+    from repro.distributed import FaultManager as RFM
+    from repro_torch.core import ReplicationPlan as TPlan
+    from repro_torch.distributed import FaultManager as TFM
+
+    for fm in (_fault_fleet_manager(RFM, RPlan),
+               _fault_fleet_manager(TFM, TPlan, device="cpu")):
+        d = fm.decide()
+        assert (d.kind, d.lost_batches, int(d.alive.sum())) == \
+            chip_smoke.FAULT_FLEET["decide"]
+
+
+@pytest.mark.slow
+def test_fault_fleet_recovery_is_the_references():
+    """chip_smoke.py's fault_fleet recovery: the rate-aware p99
+    plan_recovery of the 1,020 survivors on the reference's default
+    (float64 coverage) planner, at its 20,000 trials."""
+    from repro.distributed import FaultManager as RFM
+
+    fm = _fault_fleet_manager(RFM, RPlan)
+    plan = fm.plan_recovery(RSExp(0.05, 2.0),
+                            rates=chip_smoke.fault_fleet_rates(np),
+                            metric="p99")
+    assert plan.planner == "heterogeneous"
+    assert (plan.n_workers, plan.n_batches,
+            chip_smoke.assignment_hash(plan.assignment.worker_batch),
+            plan.predicted.p99) == chip_smoke.FAULT_FLEET["recovery"]

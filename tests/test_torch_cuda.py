@@ -33,7 +33,12 @@ bootstrap planners and the tuner fed the same telemetry
 (``compare_schemes``' float64 means within 1e-12 relative: the card sums
 in another order).  A small tuner-on serving engine with the model makes
 on the card the CPU's schedule and re-plans, through ``sojourn_cells``
-and the attention kernels (and ``ssd_scan`` on the hybrid).
+and the attention kernels (and ``ssd_scan`` on the hybrid).  A 2-worker
+cluster with its planners on the card serves a stream and re-plans
+through ``sojourn_cells``; its workers run ``matmul`` payloads on the card.
+In a one-rank NCCL group every RDP aggregation mode and collective returns
+its input's mean (one card holds one rank; the semantics across ranks are
+held on CPU gloo in ``tests/test_torch_replication.py``).
 """
 
 import os
@@ -869,3 +874,87 @@ def test_serving_engine_on_card_matches_cpu(cuda, arch, monkeypatch):
     assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0
     if arch == "zamba2-7b":
         assert counts["ssd_scan"] > 0
+
+
+def test_cluster_plans_on_the_card(cuda):
+    """Two worker processes; the coordinator's simulate planner and the
+    tuner's load-aware re-plans launch sojourn_cells on the card."""
+    from repro_torch.cluster import (ChaosInjector, ClusterConfig,
+                                     LocalCluster, drive, make_sleep_spec,
+                                     reap_orphans)
+    from repro_torch.serving.queueing import Request
+
+    cfg = ClusterConfig(n_workers=2, batch_size=1, max_wait=0.01,
+                        payload=make_sleep_spec("exp", work=1.0, mu=50.0),
+                        tuner=True, min_samples=16, cooldown=4, metric="p99",
+                        seed=2, device="cuda")
+    _build.reset_launch_counts()
+    try:
+        with LocalCluster(cfg) as cluster:
+            coord = cluster.coordinator
+            base = coord.now()
+            for i in range(48):
+                coord.submit(Request(request_id=i,
+                                     arrival=base + (i + 1) * 0.01))
+            drive(cluster, ChaosInjector(cluster, []), timeout=60.0)
+            s = coord.summary()
+            attempted = coord.tuner._last_attempt
+    finally:
+        reap_orphans()
+    assert s["served"] == 48 and s["deaths"] == 0
+    assert coord.warmup_launches["sojourn_cells"] >= 1
+    assert coord.tuner.last_plan is not None
+    assert coord.tuner.last_plan.backend == "cuda"
+    assert attempted >= 0  # the tuner attempted a re-plan
+    assert launch_counts()["sojourn_cells"] > coord.warmup_launches[
+        "sojourn_cells"]
+
+
+def test_cluster_matmul_workers_run_on_the_card(cuda):
+    from repro_torch.cluster import (ClusterConfig, LocalCluster,
+                                     make_matmul_spec, reap_orphans)
+    from repro_torch.serving.queueing import Request
+
+    cfg = ClusterConfig(n_workers=2, n_batches=2, batch_size=1,
+                        max_wait=0.01, heartbeat_timeout=5.0,
+                        payload=make_matmul_spec(size=256, repeats=2),
+                        device="cuda")
+    try:
+        with LocalCluster(cfg) as cluster:
+            coord = cluster.coordinator
+            for i in range(6):
+                coord.submit(Request(request_id=i, arrival=coord.now()))
+            coord.run(timeout=60.0)
+            devices = {h.device for h in coord.workers.values()}
+    finally:
+        reap_orphans()
+    assert devices == {"cuda:0"}
+
+
+def test_one_rank_nccl_collectives_return_the_mean(cuda, tmp_path):
+    import torch.distributed as dist
+
+    from repro_torch.core.replication import (ReplicationPlan,
+                                              aggregate_gradients,
+                                              make_rdp_mesh)
+    from repro_torch.distributed import (hierarchical_allreduce,
+                                         replication_aware_pmean)
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_rdp_mesh(ReplicationPlan(1, 1), 1)
+        tree = {"w": torch.randn((33, 7), device=cuda),
+                "b": [torch.randn(5, device=cuda)]}
+        group = mesh.get_group("batch")
+        outs = [aggregate_gradients(tree, 1.0, m, mesh=mesh)[0]
+                for m in ("psum_all", "hierarchical", "weighted")]
+        outs += [replication_aware_pmean(tree, group),
+                 hierarchical_allreduce(tree, group)]
+        for out in outs:
+            assert torch.equal(out["w"], tree["w"])
+            assert torch.equal(out["b"][0], tree["b"][0])
+        _, nb = aggregate_gradients(tree, 0.0, "weighted", mesh=mesh)
+        assert float(nb) == 0.0
+    finally:
+        dist.destroy_process_group()

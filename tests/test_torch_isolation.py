@@ -46,7 +46,14 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.core.tuner",
             "repro_torch.core.gradient_coding",
             "repro_torch.serving.arrivals", "repro_torch.serving.queueing",
-            "repro_torch.serving.engine"} <= set(mods)
+            "repro_torch.serving.engine",
+            "repro_torch.distributed", "repro_torch.distributed.collectives",
+            "repro_torch.distributed.elastic", "repro_torch.distributed.fault",
+            "repro_torch.cluster", "repro_torch.cluster.protocol",
+            "repro_torch.cluster.payloads", "repro_torch.cluster.worker",
+            "repro_torch.cluster.harness", "repro_torch.cluster.chaos",
+            "repro_torch.cluster.coordinator",
+            "repro_torch.launch.cluster"} <= set(mods)
     code = "\n".join([
         "import importlib, sys",
         "sys.modules['jax'] = None",
