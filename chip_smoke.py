@@ -162,6 +162,32 @@ non-zero:
                       segment and one trailing block), prompt 256, 4
                       decode steps, as in ``serve``.  Then
                       ``run_serving(ServeConfig(arch="zamba2-7b"))``.
+6b. ``train``         the training path (``repro_torch.launch.train``):
+                      ``Trainer`` at qwen2-0.5b's full width and depth
+                      (24 layers, d_model 896, vocab 151,936, random bf16
+                      weights, float32 AdamW state), seq 512, global batch
+                      32, 8 workers from B 4, worker 3 slowed 8x, the tuner
+                      on the simulate planner, ``TRAIN_STEPS`` steps.
+                      First, at step 0, every parameter leaf's gradient is
+                      finite and every layer's attention projections get a
+                      nonzero one (what a detached kernel output would
+                      lose), and ``FlashAttentionFn``'s output and dq / dk /
+                      dv at the path's shape (q 8 x 512 x 14 x 64, bf16,
+                      causal) lie within 5e-2 x (1 + |plain|) of autograd
+                      through the plain version.  Then the run: the loss
+                      falls (mean of the last 5 below the first 5), the
+                      tuner makes at least one re-plan attempt, and
+                      ``flash_attention`` launches once a layer for each
+                      distinct batch's backward pass; the plan history,
+                      events, median step wall and peak memory are
+                      printed, and after phase 7 two more steps run under
+                      the profiler (busy time, idle share).
+                      ``train_pins``: the reduced trainer on the card and
+                      on the CPU from the same weights, workers 1 and 5
+                      dead from step 3 and checkpoints every 2 steps, so
+                      the card's elastic re-plan restores one: simulated
+                      times, plan history, events, final plan and topology
+                      generation equal exactly, losses within 2e-2.
 7. ``kernels``        each kernel against its plain PyTorch version on the
                       card, at the shapes phases 2, 4, 5 and 6 gave it,
                       with its time, the plain version's, a library call's
@@ -205,7 +231,7 @@ non-zero:
                       the planner's shape (strip kernel) and 1024 x 1024
                       x 2048 (tiled kernel).
 
-Each path of phases 2-6, 4b, 4c, 4d and 4e runs with the launch counts and the sweeps'
+Each path of phases 2-6, 4b-4e and 6b runs with the launch counts and the sweeps'
 stage seconds (``simulator.STAGE_SECONDS``) set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.  One more
 run of phases 2 and 3 under ``torch.profiler`` gives the card's busy time.
@@ -302,6 +328,25 @@ LOGIT_TOL = 0.125
 # every element must lie within a tenth of the plain output's RMS
 ATT_TOL = {"float32": 5e-5, "bfloat16": 5e-2}
 DECODE_BF16_RMS_FRAC = 0.1
+# the train phase: qwen2-0.5b at full width and depth, the tuner on the
+# simulate planner, one slow worker; TRAIN_STEPS steps, enough for the
+# tuner's first re-plan attempt (its window fills after 8 steps of 8
+# workers) and for the loss to fall
+TRAIN_CONFIG = dict(arch="qwen2-0.5b", reduced=False, seq_len=512,
+                    global_batch=32, n_workers=8, n_batches=4,
+                    slow_workers={3: 8.0}, tuner=True,
+                    planner_mode="simulate")
+TRAIN_STEPS = 40
+# train_pins: reduced qwen2-0.5b, card against CPU through a whole-group
+# fault (workers 1 and 5 from step 3) and a checkpoint restore.  The
+# control plane must be equal exactly; the losses within this (the
+# reference and the port agree within 2.5e-4 on the CPU over such runs,
+# tests/test_torch_train_driver.py; the card's bf16 flash kernel rounds
+# the attention weights per 64-key tile and cuBLAS sums in another order)
+TRAIN_PIN_CONFIG = dict(arch="qwen2-0.5b", steps=10, seq_len=64,
+                        global_batch=16, n_workers=8, n_batches=4, lr=1e-3,
+                        checkpoint_every=2)
+TRAIN_PIN_LOSS_TOL = 2e-2
 # the serve_hybrid phase: zamba2-7b at full width and depth
 HYBRID_BATCH, HYBRID_PROMPT, HYBRID_NEW, HYBRID_MAX_LEN = 8, 1024, 16, 2048
 # card against CPU: full width, depth 7 (one segment of six Mamba-2 blocks
@@ -2365,6 +2410,311 @@ def main() -> int:
         ("ssd_scan", "flash_attention", "decode_attention", "sojourn_cells")))
     report["phases"]["serve_hybrid"] = hybrid_report
 
+    # -- 6b. train: the training path at qwen2-0.5b's full width ----------
+    _phase("train")
+    import tempfile
+
+    from repro_torch.core import FaultEvent, StragglerTuner
+    from repro_torch.launch.train import Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    def att_rand(shape, seed, dtype):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def tuner_attempts():
+        """Record every tuner attempt of every trainer tuner (a trainer
+        rebuilds its tuner after a rescale): (step, wall s, moved?)."""
+        log: list = []
+        orig = StragglerTuner.maybe_replan
+
+        def wrapped(self):
+            before = self._last_attempt
+            rp = orig(self)
+            if self._last_attempt != before:
+                log.append((self._last_attempt, self.last_replan_seconds,
+                            rp is not None))
+            return rp
+
+        StragglerTuner.maybe_replan = wrapped
+        return log, lambda: setattr(StragglerTuner, "maybe_replan", orig)
+
+    t_train = time.perf_counter()
+    held_gb = torch.cuda.memory_allocated() / 1e9  # earlier phases' tensors
+    tc = TrainerConfig(steps=TRAIN_STEPS, **TRAIN_CONFIG)
+    tr = Trainer(tc)
+    tcfg = tr.cfg
+    n_params = count_params(tr.params)
+    print(f"[train] {tcfg.name} at full width: {tcfg.n_layers} layers, d "
+          f"{tcfg.d_model}, {tcfg.n_heads} heads / {tcfg.n_kv_heads} KV of "
+          f"{tcfg.head_dim}, vocab {tcfg.vocab_size}: {n_params:,} parameters "
+          f"(bf16), float32 AdamW moments and master; {TRAIN_STEPS} steps of "
+          f"{TRAIN_CONFIG}")
+
+    # every parameter leaf gets a finite gradient at step 0, and the
+    # attention projections a nonzero one: wq and wk reach the loss only
+    # through the attention weights, so a kernel output detached from the
+    # graph would leave them at exactly 0 (not counted: before the path)
+    b0 = tr._device_batch(tr.pipeline.batch_for(0, 0, tc.n_batches))
+    loss0, g0 = tr._grad_fn(tr.params, b0)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(g0)
+    if len(leaves) != len(tree_leaves(tr.params)) or not all(
+            bool(torch.isfinite(g).all()) for g in leaves):
+        raise AssertionError("a parameter leaf got no finite gradient")
+    zero_attn = [(i, n) for i, lp in enumerate(g0["blocks"])
+                 for n in ("wq", "wk", "wv", "bq", "bk", "bv")
+                 if not lp["attn"][n].abs().max().item() > 0]
+    if zero_attn:
+        raise AssertionError(f"zero attention gradients at {zero_attn[:6]}")
+    grad_norms = {"wq_layer0": g0["blocks"][0]["attn"]["wq"].norm().item(),
+                  "wk_layer0": g0["blocks"][0]["attn"]["wk"].norm().item(),
+                  "embed": g0["embed"]["tokens"].norm().item()}
+    print(f"[train] step-0 gradients: {len(leaves)} leaves, all finite; "
+          f"every layer's wq/wk/wv/bq/bk/bv nonzero; loss {loss0:.4f}; "
+          f"norms {grad_norms}")
+    del g0, leaves
+
+    # FlashAttentionFn at the path's own shape, against autograd through
+    # the plain version (not counted: a check, not the path)
+    fb = tc.global_batch // tc.n_batches
+    fshape = ((fb, tc.seq_len, tcfg.n_heads, tcfg.head_dim),
+              (fb, tc.seq_len, tcfg.n_kv_heads, tcfg.head_dim))
+    fq = att_rand(fshape[0], 41, torch.bfloat16)
+    fk = att_rand(fshape[1], 42, torch.bfloat16)
+    fv = att_rand(fshape[1], 43, torch.bfloat16)
+    fdo = att_rand(fshape[0], 44, torch.bfloat16)
+    plain_in = [t.clone().requires_grad_(True) for t in (fq, fk, fv)]
+    fn_in = [t.clone().requires_grad_(True) for t in (fq, fk, fv)]
+    want = FA.flash_attention_plain(*plain_in, causal=True)
+    want.backward(fdo)
+    got = FA.FlashAttentionFn.apply(*fn_in, True, 0)
+    got.backward(fdo)
+    torch.cuda.synchronize()
+    fn_errs = {}
+    for name, a, b in (("out", got.detach(), want.detach()),
+                       ("dq", fn_in[0].grad, plain_in[0].grad),
+                       ("dk", fn_in[1].grad, plain_in[1].grad),
+                       ("dv", fn_in[2].grad, plain_in[2].grad)):
+        err, _, ok = att_err("flash_attention", a, b, "bfloat16")
+        fn_errs[name] = err
+        if not ok:
+            raise AssertionError(f"FlashAttentionFn {name} differs from the "
+                                 f"plain version's autograd by {err}")
+    print(f"[train] FlashAttentionFn at q {list(fshape[0])} k/v "
+          f"{list(fshape[1])} bf16 causal against autograd through the "
+          f"plain version: max |err| {fn_errs} (tolerance "
+          f"{ATT_TOL['bfloat16']} x (1 + |plain|))")
+    del plain_in, fn_in, want, got
+
+    # the kernel's time at the path's shape, forward and forward + backward
+    # through FlashAttentionFn, beside the plain version's autograd and SDPA
+    import torch.nn.functional as F
+
+    leaves3 = [t.detach().requires_grad_(True) for t in (fq, fk, fv)]
+    st = [t.detach().transpose(1, 2).contiguous().requires_grad_(True)
+          for t in (fq, fk, fv)]
+    sdo = fdo.transpose(1, 2).contiguous()
+
+    def fwd_bwd(fn, ins, dout):
+        return torch.autograd.grad(fn(*ins), ins, dout)
+
+    def sdpa_t(a, b_, c):
+        return F.scaled_dot_product_attention(a, b_, c, is_causal=True,
+                                              enable_gqa=True)
+
+    with torch.no_grad():
+        tf_ms = cuda_ms(lambda: FA.flash_attention(fq, fk, fv), 20)
+        tf_plain = cuda_ms(lambda: FA.flash_attention_plain(fq, fk, fv), 5)
+        tf_lib = cuda_ms(lambda: sdpa_t(*st), 20)
+    tb_ms = cuda_ms(lambda: fwd_bwd(
+        lambda a, b_, c: FA.FlashAttentionFn.apply(a, b_, c, True, 0),
+        leaves3, fdo), 10)
+    tb_plain = cuda_ms(lambda: fwd_bwd(
+        lambda a, b_, c: FA.flash_attention_plain(a, b_, c, causal=True),
+        leaves3, fdo), 5)
+    tb_lib = cuda_ms(lambda: fwd_bwd(sdpa_t, st, sdo), 10)
+    pairs = tc.seq_len * (tc.seq_len + 1) // 2
+    t_flops = 4.0 * fb * tcfg.n_heads * tcfg.head_dim * pairs
+    t_bytes = nbytes(fq, fk, fv) + fq.numel() * fq.element_size()
+    t_bound = max(t_flops / BF16_FLOP_PER_S, t_bytes / HBM_BYTES_PER_S) * 1e3
+    # backward: 5 products (QK^T again, dV, dP, dQ, dK) to the forward's 2;
+    # reads q, k, v, dO, writes dq, dk, dv
+    tb_flops = 3.5 * t_flops
+    tb_bytes = 2 * t_bytes + nbytes(fk, fv)
+    tb_bound = max(tb_flops / BF16_FLOP_PER_S,
+                   tb_bytes / HBM_BYTES_PER_S) * 1e3
+    train_flash_row = {
+        "name": "flash_attention", "case": "train (forward)",
+        "shape": [list(fshape[0]), list(fshape[1])], "ms": tf_ms,
+        "plain_ms": tf_plain, "library_ms": tf_lib, "bound_ms": t_bound,
+        "bound_by": ("operations" if t_flops / BF16_FLOP_PER_S
+                     > t_bytes / HBM_BYTES_PER_S else "bytes"),
+        "fwd_bwd_ms": tb_ms, "fwd_bwd_plain_ms": tb_plain,
+        "fwd_bwd_library_ms": tb_lib, "fwd_bwd_bound_ms": tb_bound,
+        "max_abs_err": fn_errs}
+    print(f"[train] flash_attention at the path's shape: forward "
+          f"{tf_ms:.4f} ms (plain {tf_plain:.4f}, SDPA {tf_lib:.4f}, bound "
+          f"{t_bound:.5f}); forward + backward through FlashAttentionFn "
+          f"{tb_ms:.4f} ms (plain autograd {tb_plain:.4f}, SDPA "
+          f"{tb_lib:.4f}, bound {tb_bound:.5f})")
+    del fq, fk, fv, fdo, leaves3, st, sdo
+
+    # the counted run: Trainer.run through its public loop
+    grad_calls, step_walls = [0], []
+    o_grad, o_step = tr._grad_fn, tr.step
+
+    def counted_grad(params, batch):
+        grad_calls[0] += 1
+        return o_grad(params, batch)
+
+    def timed_step(i):
+        t0 = time.perf_counter()
+        out = o_step(i)
+        torch.cuda.synchronize()
+        step_walls.append(time.perf_counter() - t0)
+        return out
+
+    tr._grad_fn, tr.step = counted_grad, timed_step
+    attempts, restore_tuner = tuner_attempts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        res, tcounts, twall, _ = run_path("train", tr.run)
+    finally:
+        restore_tuner()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want_flash = tcfg.n_layers * grad_calls[0]
+    if tcounts["flash_attention"] != want_flash:
+        raise AssertionError(f"train launched flash_attention "
+                             f"{tcounts['flash_attention']} times, expected "
+                             f"{tcfg.n_layers} layers x {grad_calls[0]} "
+                             f"distinct batches = {want_flash}")
+    if not attempts:
+        raise AssertionError("the tuner made no re-plan attempt")
+    losses = res.losses
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not all(np.isfinite(losses)) or not last5 < first5:
+        raise AssertionError(f"the loss did not fall: first 5 {first5}, last "
+                             f"5 {last5}")
+    med_step = statistics.median(step_walls)
+    print(f"[train] losses first {losses[0]:.5f}, last {losses[-1]:.5f}; "
+          f"mean of the last 5 {last5:.5f} < mean of the first 5 "
+          f"{first5:.5f}: the loss falls")
+    finite_sim = float(np.sum([t for t in res.sim_times if np.isfinite(t)]))
+    print(f"[train] simulated time {res.total_sim_time:.4f} s over "
+          f"{len(losses)} steps ({finite_sim:.4f} s over the steps that "
+          f"completed; a step that lost a whole batch takes inf); "
+          f"plan_history {res.plan_history}")
+    print(f"[train] events {res.events}")
+    print(f"[train] tuner attempts (tuner step, wall s, moved B): "
+          f"{attempts}")
+    print(f"[train] wall {twall:.3f} s; median step wall {med_step:.4f} s "
+          f"(min {min(step_walls):.4f}, max {max(step_walls):.4f}); peak "
+          f"memory allocated {peak_gb:.2f} GB ({held_gb:.2f} GB of it held "
+          f"by earlier phases' tensors when the phase began)")
+    print(f"[train] launches: flash_attention {tcounts['flash_attention']} = "
+          f"{tcfg.n_layers} layers x {grad_calls[0]} distinct batches over "
+          f"{len(losses)} steps; sojourn_cells {tcounts['sojourn_cells']} "
+          f"(the tuner's {len(attempts)} re-plan attempt(s) score a plain "
+          f"metric, the mean completion: sweep_simulated's torch ops, no "
+          f"sojourn scan); others "
+          f"{ {k: v for k, v in tcounts.items() if k not in ('flash_attention', 'sojourn_cells')} }")
+    train_report = {
+        "config": {**TRAIN_CONFIG, "steps": TRAIN_STEPS,
+                   "slow_workers": {str(k): v for k, v in
+                                    TRAIN_CONFIG["slow_workers"].items()}},
+        "parameters": n_params, "step0_loss": loss0,
+        "step0_grad_norms": grad_norms, "flash_fn_max_abs_err": fn_errs,
+        "flash_train_shape": train_flash_row,
+        "losses": losses, "sim_times": res.sim_times,
+        "total_sim_time": res.total_sim_time, "finite_sim_time": finite_sim,
+        "plan_history": res.plan_history, "events": res.events,
+        "tuner_attempts": attempts, "wall_s": twall,
+        "step_walls_s": step_walls, "median_step_s": med_step,
+        "peak_memory_gb": peak_gb, "held_before_gb": held_gb,
+        "launches": tcounts,
+        "distinct_batch_grads": grad_calls[0]}
+    tr._grad_fn, tr.step = o_grad, o_step
+
+    # train_pins: the reduced trainer on the card and on the CPU, from the
+    # same weights, through a whole-group fault whose elastic re-plan
+    # restores the last checkpoint: the control plane equal exactly, the
+    # losses within TRAIN_PIN_LOSS_TOL
+    with tempfile.TemporaryDirectory() as tmp:
+        ptc = TrainerConfig(
+            **TRAIN_PIN_CONFIG, faults=(FaultEvent(1, 3, 10**9),
+                                        FaultEvent(5, 3, 10**9)),
+            checkpoint_dir=os.path.join(tmp, "cpu"))
+        pin_host = Trainer(ptc, device="cpu")
+        pin_card = Trainer(dataclasses.replace(
+            ptc, checkpoint_dir=os.path.join(tmp, "cuda")))
+        pin_card.params = params_to(pin_host.params, dev)
+        pin_card.opt_state = params_to(pin_host.opt_state, dev)
+        restores = []
+        o_restore = pin_card.ckpt.restore
+
+        def spy_restore(example, step=None):
+            out = o_restore(example, step)
+            restores.append(out[1]["step"])
+            return out
+
+        pin_card.ckpt.restore = spy_restore
+        t0 = time.perf_counter()
+        rh = pin_host.run()
+        host_wall = time.perf_counter() - t0
+        rc, pcounts, pwall, _ = run_path("train_pins", pin_card.run)
+    loss_err = float(np.max(np.abs(np.array(rc.losses) - np.array(rh.losses))))
+    pins = {"sim_times": rc.sim_times == rh.sim_times,
+            "plan_history": rc.plan_history == rh.plan_history,
+            "events": rc.events == rh.events,
+            "final_plan": (rc.final_plan.n_data, rc.final_plan.n_batches)
+            == (rh.final_plan.n_data, rh.final_plan.n_batches),
+            "generation": pin_card.rescaler.topology.generation
+            == pin_host.rescaler.topology.generation}
+    if not all(pins.values()):
+        raise AssertionError(f"train_pins: the card's control plane differs "
+                             f"from the CPU's: {pins}")
+    if not restores or not any("replan" in e for e in rc.events):
+        raise AssertionError("train_pins: no elastic re-plan restored a "
+                             "checkpoint on the card")
+    if not loss_err <= TRAIN_PIN_LOSS_TOL:
+        raise AssertionError(f"train_pins: card and CPU losses differ by "
+                             f"{loss_err} (tolerance {TRAIN_PIN_LOSS_TOL})")
+    if pcounts["flash_attention"] <= 0:
+        raise AssertionError("train_pins never launched flash_attention")
+    print(f"[train_pins] {ptc.arch} reduced, {ptc.steps} steps, workers 1 "
+          f"and 5 dead from step 3, checkpoints every "
+          f"{ptc.checkpoint_every}: card == CPU for {sorted(pins)}; the "
+          f"card's re-plan restored step {restores}; plan_history "
+          f"{rc.plan_history}; events {rc.events}; max |loss diff| "
+          f"{loss_err:.3e} (tolerance {TRAIN_PIN_LOSS_TOL}); card wall "
+          f"{pwall:.3f} s, CPU wall {host_wall:.3f} s")
+    train_report["train_pins"] = {
+        "equal": pins, "restored_steps": restores, "loss_max_abs_diff": loss_err,
+        "plan_history": rc.plan_history, "events": rc.events,
+        "launches": pcounts, "card_wall_s": pwall, "cpu_wall_s": host_wall,
+        "card_losses": rc.losses, "cpu_losses": rh.losses}
+    del pin_host, pin_card
+    print(f"[train] phase 6b: {time.perf_counter() - t_train:.1f} s")
+    report["phases"]["train"] = train_report
+
+    def train_profile():
+        """Two more steps of the full-width trainer under the profiler: the
+        card's busy time and idle share against two unprofiled steps."""
+        n0 = len(train_report["losses"])
+        prof = print_busy("train 2 steps", *busy_window(
+            lambda: [tr.step(n0 + i) for i in range(2)]), top=10,
+            shares={"flash_attention": "flash_wgmma"})
+        if prof["device_busy_s"] is None:
+            raise AssertionError("the profiler saw no device work in train")
+        unprofiled = 2 * med_step
+        prof["idle_share_of_unprofiled_wall"] = (
+            1.0 - prof["device_busy_s"] / unprofiled)
+        print(f"[train] two steps: device busy {prof['device_busy_s']:.5f} s "
+              f"against two median unprofiled steps {unprofiled:.5f} s: idle "
+              f"share {prof['idle_share_of_unprofiled_wall']:.4f}")
+        train_report["profile"] = prof
+
     def launches(kernel: str, home: str) -> dict:
         """The kernel's launches on the path whose shapes its row times
         (``launches``) and on every path (``launches_by_path``)."""
@@ -2377,6 +2727,7 @@ def main() -> int:
 
     rows = []
     extra_rows = []
+    extra_rows.append(train_flash_row)
 
     # sojourn_cells: plan_policies' one dispatch (every cell and policy),
     # held bit-equal to the plain version on its first SOJOURN_PLAIN_JOBS
@@ -2773,10 +3124,6 @@ def main() -> int:
     # flash_attention and decode_attention at the serve phase's shapes
     import torch.nn.functional as F
 
-    def att_rand(shape, seed, dtype):
-        g = torch.Generator(device="cuda").manual_seed(seed)
-        return torch.randn(shape, generator=g, device=dev).to(dtype)
-
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     bf16 = torch.bfloat16
     q = att_rand((SERVE_BATCH, SERVE_PROMPT, h, hd), 21, bf16)
@@ -3076,6 +3423,9 @@ def main() -> int:
     _phase("tuner profiles")
     for phase_, key_, tag_, fn_ in deferred_profiles:
         report["phases"][phase_][key_] = busy_of(tag_, fn_)
+    _phase("train profile")
+    train_profile()
+    del tr
 
     report["kernels"] = rows
     report["kernel_shapes"] = extra_rows

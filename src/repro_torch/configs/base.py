@@ -3,9 +3,10 @@
 A config is pure data: the models read it.  This is the port's own copy of
 the fields of ``repro.configs.base.ArchConfig`` that the dense and hybrid
 families read (with the Mamba-2 :class:`SSMConfig` and the Zamba
-:class:`HybridConfig`), and of :func:`get_config` and
+:class:`HybridConfig`), of the shape cells (:class:`ShapeCell`,
+:data:`SHAPE_CELLS`), and of :func:`get_config` and
 :func:`reduced_config`.  The MoE sub-config, the xLSTM fields of
-``SSMConfig``, the shape cells and the sharding policy are not ported yet;
+``SSMConfig`` and the sharding policy are not ported yet;
 :func:`get_config` raises for an architecture the port cannot run.
 """
 
@@ -19,6 +20,8 @@ __all__ = [
     "SSMConfig",
     "HybridConfig",
     "ArchConfig",
+    "ShapeCell",
+    "SHAPE_CELLS",
     "ARCH_IDS",
     "PORTED_ARCH_IDS",
     "get_config",
@@ -77,6 +80,22 @@ class ArchConfig:
             raise ValueError(f"{self.name}: n_heads % n_kv_heads != 0")
         if self.d_model % self.n_heads:
             raise ValueError(f"{self.name}: d_model % n_heads != 0")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPE_CELLS: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
+}
 
 
 # every architecture of the reference, and the ones the port can build

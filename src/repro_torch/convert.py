@@ -12,7 +12,9 @@ port's ``device`` keeps its default).  Tuples and lists are converted
 entry by entry; ``None``, plain numbers and frozensets pass through.
 
 :func:`params_from_reference` turns the reference's LM parameter pytree
-(as numpy arrays, dense or hybrid family) into the port's parameter tree.
+(as numpy arrays, dense or hybrid family) into the port's parameter tree,
+and :func:`opt_state_from_reference` the reference's AdamW state into the
+port's, so that both trainers can start from one state.
 
 Nothing here imports the reference: the object's class name picks the
 target and its attributes (plain values and numpy arrays) fill it.  So a
@@ -34,7 +36,8 @@ from .core.simulator import FaultEvent
 from .core.tuner import TunerConfig
 from .device import resolve_device
 
-__all__ = ["from_reference", "empirical_from_fields", "params_from_reference"]
+__all__ = ["from_reference", "empirical_from_fields", "params_from_reference",
+           "opt_state_from_reference"]
 
 
 def empirical_from_fields(atoms, weights=None) -> Empirical:
@@ -172,4 +175,20 @@ def params_from_reference(cfg, tree, device=None):
                 _layer(tree["mamba_trailing"], (j,), dev)
                 for j in range(trailing)]
     out["final_norm"] = _tree(tree["final_norm"], dev)
+    return out
+
+
+def opt_state_from_reference(cfg, state, device=None):
+    """The port's AdamW state from the reference's
+    (``repro.optim.init`` / ``update``'s ``{"step", "m", "v", "master"}``,
+    leaves as numpy arrays): ``step`` becomes an int32 0-dim tensor, and
+    ``m``, ``v`` and ``master`` (the parameters' structure, blocks stacked
+    on a layer axis) go through :func:`params_from_reference`, float32
+    kept.  ``device=None`` means CUDA."""
+    dev = resolve_device(device)
+    out = {"step": torch.tensor(int(np.asarray(state["step"])),
+                                dtype=torch.int32, device=dev)}
+    for name in ("m", "v", "master"):
+        if name in state:
+            out[name] = params_from_reference(cfg, state[name], dev)
     return out

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..tree import tree_leaves, tree_map, tree_unflatten
 from .order_stats import ServiceDistribution, completion_mean, completion_var
 from .policies import divisors
 
@@ -167,30 +168,6 @@ def rdp_data_spec(*trailing) -> tuple:
     return tuple(placements[a] for a in (REPLICA_AXIS, BATCH_AXIS, MODEL_AXIS))
 
 
-def tree_map(fn, tree):
-    """``fn`` applied to every leaf of nested dicts, lists and tuples."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
-def _leaves(tree) -> list:
-    """Leaves of nested dicts, lists and tuples, in ``tree_map`` order."""
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
-
-
-def _unflatten(tree, leaves):
-    """``tree``'s structure holding ``leaves`` (in ``_leaves`` order)."""
-    it = iter(leaves)
-    return tree_map(lambda _: next(it), tree)
-
-
 def _all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     import torch.distributed as dist
 
@@ -229,7 +206,7 @@ def aggregate_gradients(grads, alive=None, mode: AggregationMode = "weighted",
         raise ValueError(f"unknown aggregation mode {mode!r}")
 
     replica, batch = mesh.get_group(REPLICA_AXIS), mesh.get_group(BATCH_AXIS)
-    dev = _leaves(grads)[0].device
+    dev = tree_leaves(grads)[0].device
     alive = torch.as_tensor(1.0 if alive is None else alive,
                             dtype=torch.float32, device=dev)
     # per replica group: how many members contributed
@@ -292,18 +269,18 @@ def aggregate_host(
         if not members:
             continue
         # replicas agree; average anyway for numerical symmetry
-        leaves = [_leaves(grads_per_worker[w]) for w in members]
+        leaves = [tree_leaves(grads_per_worker[w]) for w in members]
         mean_leaves = [
             functools.reduce(lambda a, c: a + c, parts) / len(members)
             for parts in zip(*leaves)
         ]
         batch_grads.append(
-            _unflatten(grads_per_worker[members[0]], mean_leaves))
+            tree_unflatten(grads_per_worker[members[0]], mean_leaves))
     if not batch_grads:
         raise RuntimeError("all batches lost — elastic re-plan required")
-    leaves = [_leaves(g) for g in batch_grads]
+    leaves = [tree_leaves(g) for g in batch_grads]
     mean_leaves = [
         functools.reduce(lambda a, c: a + c, parts) / len(batch_grads)
         for parts in zip(*leaves)
     ]
-    return _unflatten(batch_grads[0], mean_leaves), len(batch_grads)
+    return tree_unflatten(batch_grads[0], mean_leaves), len(batch_grads)

@@ -20,7 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..core.replication import ReplicationPlan, tree_map
+from ..core.replication import ReplicationPlan
+from ..tree import tree_map
 
 __all__ = [
     "replication_aware_pmean",

@@ -10,7 +10,8 @@ and an unchanged one is reused.  All sources are compiled at once, one
 Nothing here runs at import time: the CPU tests import every module, and
 this host may have no ``nvcc``.  The launch counters live here too: each
 wrapper adds one to its kernel's count where it launches the kernel, and
-nowhere else.
+nowhere else.  :func:`refuse_grad` is the guard of every wrapper whose
+kernel has no backward.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ __all__ = [
     "reset_launch_counts",
     "count_launch",
     "check",
+    "refuse_grad",
     "stack_frames",
 ]
 
@@ -189,6 +191,21 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.repro_error_string(code).decode()
         raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when grad mode is on and an input requires grad: ``what`` has
+    no backward, and a kernel's output carries no autograd graph, so
+    training through it would silently drop the inputs' gradients.  The
+    rule holds on every device, so the CPU tests see it too."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward: call it under torch.no_grad() or on "
+            f"inputs that do not require grad (the trainable attention is "
+            f"kernels.flash_attention.FlashAttentionFn)")
 
 
 _FRAME = re.compile(r"Function properties for (\S+)\s+(\d+) bytes stack frame, "

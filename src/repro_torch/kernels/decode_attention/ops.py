@@ -102,7 +102,10 @@ def _check(q, k_cache, v_cache, cache_len):
 
 def decode_attention(q, k_cache, v_cache, cache_len: int) -> torch.Tensor:
     """q: (b, H, d); caches (b, S_max, KV, d); ``cache_len`` (a host int,
-    1 <= cache_len <= S_max) valid positions.  Returns (b, H, d)."""
+    1 <= cache_len <= S_max) valid positions.  Returns (b, H, d).  The
+    kernel has no backward: with grad mode on and an input that requires
+    grad it raises ``RuntimeError``."""
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     cache_len = int(cache_len)
     _check(q, k_cache, v_cache, cache_len)
     dev = q.device

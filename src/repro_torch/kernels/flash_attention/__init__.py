@@ -1,5 +1,8 @@
-"""Flash attention (prefill): the CUDA wrapper and its plain version."""
+"""Flash attention (prefill): the CUDA wrapper, its trainable form and
+its plain version."""
 
-from .ops import flash_attention, flash_attention_plain, repeat_kv
+from .ops import (FlashAttentionFn, flash_attention, flash_attention_grad,
+                  flash_attention_plain, repeat_kv)
 
-__all__ = ["flash_attention", "flash_attention_plain", "repeat_kv"]
+__all__ = ["FlashAttentionFn", "flash_attention", "flash_attention_grad",
+           "flash_attention_plain", "repeat_kv"]

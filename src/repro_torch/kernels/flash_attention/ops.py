@@ -16,6 +16,16 @@ weights to bfloat16 per 64-key tile before P V (the reference's
 ``p.astype(v.dtype)``), so the two differ by the rounding of q * scale,
 the logits and the weights (held to 5e-2); in float32 they differ by
 summation order only (held to 5e-5).
+
+:func:`flash_attention` has no backward: with grad mode on and an input
+that requires grad it raises ``RuntimeError`` (the kernel's output would
+carry no autograd graph).  :class:`FlashAttentionFn` is the trainable
+form: its forward is the same kernel launch (or, on a CPU tensor, the
+plain version), and its backward, :func:`flash_attention_grad`, is the
+gradient of the reference's numerics written as tensor ops.  The
+reference has no backward kernel: its training forward runs an XLA twin
+of the attention, differentiated by XLA, so the backward's products stay
+``torch.matmul`` calls here.
 """
 
 from __future__ import annotations
@@ -26,7 +36,8 @@ import torch
 
 from .. import _build
 
-__all__ = ["flash_attention", "flash_attention_plain", "repeat_kv"]
+__all__ = ["FlashAttentionFn", "flash_attention", "flash_attention_grad",
+           "flash_attention_plain", "repeat_kv"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 112, 128)
@@ -89,9 +100,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """q: (b, sq, H, d); k, v: (b, skv, KV, d) -> (b, sq, H, d).
 
     ``q_offset`` is the absolute position of q[:, 0] (causal masking
-    against keys at positions 0 .. skv-1).
+    against keys at positions 0 .. skv-1).  Raises ``RuntimeError`` when
+    grad mode is on and an input requires grad (see the module's
+    docstring).
     """
-    q_offset = int(q_offset)
+    _build.refuse_grad("flash_attention", q, k, v)
+    return _attend(q, k, v, causal, int(q_offset))
+
+
+def _attend(q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
     _check(q, k, v, q_offset)
     dev = q.device
     if dev.type == "cpu":
@@ -113,3 +131,75 @@ def flash_attention(q, k, v, *, causal: bool = True,
     _build.check(lib, code, "flash_attention launch")
     _build.count_launch("flash_attention")
     return out
+
+
+def flash_attention_grad(q, k, v, dout, *, causal: bool = True,
+                         q_offset: int = 0):
+    """(dq, dk, dv) of :func:`flash_attention_plain` at (q, k, v) for the
+    output cotangent ``dout`` (b, sq, H, d), in q's dtype.
+
+    The gradient of the reference's numerics: the logits recomputed in the
+    input dtype from (q * d^-0.5) and K then taken to float32, the causal
+    mask, the float32 softmax P, the weights cast to the input dtype before
+    P V; then dV = P^T dO, dP = dO V^T (to float32), dS = P o (dP -
+    rowsum(dP o P)) (cast to the input dtype), d(q * scale) = dS K, dq =
+    that times the scale, and dK = dS^T (q * scale).  Query heads are laid
+    out (KV, group) group-major, so each KV head's dK and dV are the sums
+    over its query group, taken in float32.  Peak memory: four float32
+    (b, H, sq, skv) tensors.
+    """
+    _check(q, k, v, int(q_offset))
+    if tuple(dout.shape) != tuple(q.shape) or dout.dtype != q.dtype:
+        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} must match "
+                         f"q {tuple(q.shape)} {q.dtype}")
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    dtype = q.dtype
+    scale = d ** -0.5
+    # (b, KV, group, s, d): query head kv * g + j is group kv, member j
+    qs = q.reshape(b, sq, kvh, g, d).permute(0, 2, 3, 1, 4) * scale
+    do = dout.reshape(b, sq, kvh, g, d).permute(0, 2, 3, 1, 4)
+    kt = k.permute(0, 2, 1, 3)[:, :, None]  # (b, KV, 1, skv, d)
+    vt = v.permute(0, 2, 1, 3)[:, :, None]
+    logits = torch.matmul(qs, kt.transpose(-1, -2)).float()
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + int(q_offset)
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        logits = torch.where(qpos >= kpos, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    del logits
+    dv = torch.matmul(p.to(dtype).transpose(-1, -2), do)  # (b, KV, g, skv, d)
+    dp = torch.matmul(do, vt.transpose(-1, -2)).float()
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(dtype)
+    del p, dp
+    dq = torch.matmul(ds, kt) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qs)
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
+    dk = dk.float().sum(dim=2).to(dtype).permute(0, 2, 1, 3)
+    dv = dv.float().sum(dim=2).to(dtype).permute(0, 2, 1, 3)
+    return dq, dk.contiguous(), dv.contiguous()
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Trainable flash attention: ``FlashAttentionFn.apply(q, k, v, causal,
+    q_offset)``.  The forward is :func:`flash_attention`'s launch (the
+    Hopper kernel on a CUDA tensor, or a raise; the plain version on a CPU
+    one) and saves q, k and v; the backward recomputes the softmax and
+    returns :func:`flash_attention_grad`.  Not a fallback: on the card the
+    forward always launches the kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool = True, q_offset: int = 0):
+        out = _attend(q, k, v, causal, int(q_offset))
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.q_offset = causal, int(q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_grad(q, k, v, dout.contiguous(),
+                                          causal=ctx.causal,
+                                          q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None

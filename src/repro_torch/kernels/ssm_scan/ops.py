@@ -186,7 +186,9 @@ def ssd_scan(x, dt, a_log, b, c, d_skip,
     None.  Returns (y (B, S, H, P) in x's dtype, final_state (B, H, N, P)
     float32).  ``chunk`` is the plain version's chunk (the CPU path); the
     kernel keeps its own 64.  x, b and c may be token-strided views (see
-    the module's docstring)."""
+    the module's docstring).  The kernel has no backward: with grad mode on
+    and an input that requires grad it raises ``RuntimeError``."""
+    _build.refuse_grad("ssd_scan", x, dt, a_log, b, c, d_skip, initial_state)
     _check(x, dt, a_log, b, c, d_skip, initial_state)
     dev = x.device
     if dev.type == "cpu":

@@ -8,6 +8,7 @@ from .lm import (
     init_params,
     params_to,
     prefill,
+    train_loss,
 )
 
 __all__ = [
@@ -17,4 +18,5 @@ __all__ = [
     "init_params",
     "params_to",
     "prefill",
+    "train_loss",
 ]

@@ -40,6 +40,7 @@ __all__ = [
     "init_embedding",
     "embed_tokens",
     "unembed",
+    "softmax_xent",
 ]
 
 DTYPE = torch.bfloat16
@@ -230,3 +231,17 @@ def unembed(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross entropy in float32; labels already shifted.
+    ``mask`` (same shape as ``labels``) weights the positions."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,6 +1,7 @@
 """Model API of the port (the dense and hybrid families).
 
     params          = init_params(generator, cfg, device)
+    loss, metrics   = train_loss(cfg, params, batch)
     logits, state   = prefill(cfg, params, batch, max_len)
     logits, state   = decode_step(cfg, params, state, token, cache_len)
 
@@ -19,6 +20,13 @@ b, H, N, P) float32, ``seg_conv`` (n_seg, seg, b, K-1, conv_dim) bfloat16,
 ``trail_ssm`` / ``trail_conv`` for the trailing blocks.  ``prefill`` and
 ``decode_step`` write it IN PLACE and return it.  Families other than
 ``dense`` and ``hybrid`` raise ``NotImplementedError``.
+
+``train_loss`` is the dense family's training forward (the hybrid
+family's waits for a gradient through the SSD scan): every attention
+layer runs the flash kernel through ``FlashAttentionFn``, so
+``loss.backward()`` reaches every parameter.  The reference's per-layer
+``jax.checkpoint`` only saves memory and changes no number; the port
+keeps every layer's activations.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ __all__ = [
     "params_to",
     "count_params",
     "init_decode_state",
+    "train_loss",
     "prefill",
     "decode_step",
 ]
@@ -84,6 +93,47 @@ def count_params(params) -> int:
     if isinstance(params, list):
         return sum(count_params(v) for v in params)
     return params.numel()
+
+
+TRAINED_FAMILIES = ("dense",)
+
+
+def _trained(cfg: ArchConfig) -> None:
+    if cfg.family not in TRAINED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: training of family {cfg.family!r} is not ported "
+            f"(the port trains {TRAINED_FAMILIES})")
+
+
+def _embed_inputs(cfg: ArchConfig, params, batch):
+    """Returns (x (b, s, d), positions (s,), loss_mask (b, s) or None)."""
+    tokens = torch.as_tensor(batch["tokens"],
+                             device=_device_of(params)).long()
+    x = L.embed_tokens(params["embed"], tokens)
+    return x, torch.arange(x.shape[1], device=x.device), None
+
+
+def _backbone(cfg: ArchConfig, params, x, positions):
+    """Residual-stream pass through the blocks.  Returns (y, aux)."""
+    _trained(cfg)
+    rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    for lp in params["blocks"]:
+        x = T.apply_block(cfg, lp, x, rope)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def train_loss(cfg: ArchConfig, params, batch):
+    """Mean next-token cross entropy.  ``batch``: {"tokens", "labels"},
+    (b, s) integers.  Returns (loss, {"loss", "aux"}), float32 0-dim."""
+    _trained(cfg)
+    x, positions, mask = _embed_inputs(cfg, params, batch)
+    x, aux = _backbone(cfg, params, x, positions)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    logits = L.unembed(cfg, params["embed"], x)
+    labels = torch.as_tensor(batch["labels"], device=x.device)
+    xent = L.softmax_xent(logits, labels, mask)
+    loss = xent + aux
+    return loss, {"loss": xent, "aux": aux}
 
 
 def _device_of(params) -> torch.device:

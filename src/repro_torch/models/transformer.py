@@ -7,6 +7,10 @@ SwiGLU or GELU.  Where the reference calls its XLA attention
 calls the hand-written kernels: :func:`prefill_attend` goes through
 ``flash_attention`` and :func:`decode_attend` through
 ``decode_attention``.  Both read the KV heads natively (no repeat).
+With grad mode on and an input that requires grad (training),
+:func:`prefill_attend` goes through ``FlashAttentionFn``: the same kernel
+forward, and a backward; :func:`apply_block` without ``kv_sink`` is then
+the training block.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.decode_attention.ops import decode_attention
-from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.flash_attention.ops import FlashAttentionFn, flash_attention
 from . import layers as L
 
 __all__ = [
@@ -34,10 +38,14 @@ def _no_softcap(logit_softcap: float) -> None:
 
 def prefill_attend(q, k, v, logit_softcap: float = 0.0) -> torch.Tensor:
     """Causal attention over the prompt.  q: (b, s, H, hd); k, v:
-    (b, s, KV, hd).  The twin of the reference's ``chunked_gqa_attend``."""
+    (b, s, KV, hd).  The twin of the reference's ``chunked_gqa_attend``;
+    differentiable when grad mode is on and an input requires grad."""
     _no_softcap(logit_softcap)
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=True)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, True, 0)
+    return flash_attention(q, k, v, causal=True)
 
 
 def decode_attend(q, k_cache, v_cache, cache_len: int,
@@ -71,10 +79,10 @@ def _finish(cfg: ArchConfig, params, x, h1, attn_y):
 
 
 def apply_block(cfg: ArchConfig, params, x, rope, kv_sink=None):
-    """Prefill block.  x: (b, s, d); ``rope``: :func:`layers.rope_tables`
-    of the positions.  When ``kv_sink`` = (k_cache, v_cache) is given,
-    this layer's K/V are written into positions [0, s) of those caches in
-    place."""
+    """Prefill and training block.  x: (b, s, d); ``rope``:
+    :func:`layers.rope_tables` of the positions.  When ``kv_sink`` =
+    (k_cache, v_cache) is given, this layer's K/V are written into
+    positions [0, s) of those caches in place."""
     h1 = L.apply_norm(cfg, params["ln1"], x)
     q, k, v = L.qkv_project(cfg, params["attn"], h1, rope)
     if kv_sink is not None:

@@ -38,7 +38,15 @@ cluster with its planners on the card serves a stream and re-plans
 through ``sojourn_cells``; its workers run ``matmul`` payloads on the card.
 In a one-rank NCCL group every RDP aggregation mode and collective returns
 its input's mean (one card holds one rank; the semantics across ranks are
-held on CPU gloo in ``tests/test_torch_replication.py``).
+held on CPU gloo in ``tests/test_torch_replication.py``).  The training
+path: ``FlashAttentionFn``'s output and gradients within the attention
+tolerances of autograd through the plain version at head dims 64, 112 and
+128, both dtypes, causal and not; the wrappers without a backward refuse
+inputs that require grad; a reduced ``train_loss`` backward on the card
+reaches every parameter (the attention projections nonzero), one flash
+launch a layer, each leaf within 5e-2 of its largest CPU gradient; a
+``Checkpointer`` round trip of card bf16 tensors; and the trainer on the
+card keeps the CPU's simulated times and plans.
 """
 
 import os
@@ -958,3 +966,113 @@ def test_one_rank_nccl_collectives_return_the_mean(cuda, tmp_path):
         assert float(nb) == 0.0
     finally:
         dist.destroy_process_group()
+
+
+# -- the training path ------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 112, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fn_gradients_match_plain_autograd(cuda, dtype, d, causal):
+    """FlashAttentionFn on the card: the forward is one kernel launch, and
+    its output and dq / dk / dv lie within the attention tolerances of
+    autograd through the plain version."""
+    b, s, h, kv = 2, 200, 6, 2
+    q, k, v = (_randn((b, s, n, d), seed, cuda, dtype)
+               for seed, n in ((11, h), (12, kv), (13, kv)))
+    do = _randn((b, s, h, d), 14, cuda, dtype)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = FA.flash_attention_plain(*plain, causal=causal)
+    want.backward(do)
+    fn = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = launch_counts()["flash_attention"]
+    got = FA.FlashAttentionFn.apply(*fn, causal, 0)
+    got.backward(do)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    torch.testing.assert_close(got.detach().float(), want.detach().float(),
+                               **ATT_TOL[dtype])
+    for a, w in zip(fn, plain):
+        assert a.grad.dtype == dtype and bool(torch.isfinite(a.grad).all())
+        torch.testing.assert_close(a.grad.float(), w.grad.float(),
+                                   **ATT_TOL[dtype])
+
+
+def test_wrappers_without_backward_refuse_grad_on_card(cuda):
+    q = _randn((1, 64, 4, 64), 1, cuda, torch.bfloat16).requires_grad_(True)
+    k = _randn((1, 64, 2, 64), 2, cuda, torch.bfloat16)
+    before = launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        FA.flash_attention(q, k, k)
+    with pytest.raises(RuntimeError, match="no backward"):
+        DA.decode_attention(q[:, 0].detach().requires_grad_(True), k, k, 8)
+    x = torch.ones((1, 64, 2, 16), device=cuda, requires_grad=True)
+    bc = torch.ones((1, 64, 1, 16), device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        SS.ssd_scan(x, torch.ones((1, 64, 2), device=cuda),
+                    torch.zeros(2, device=cuda), bc, bc,
+                    torch.ones(2, device=cuda))
+    assert launch_counts() == before
+
+
+def test_train_loss_backward_reaches_every_parameter_on_card(cuda):
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    cfg = reduced_config(get_config("qwen2-0.5b"))
+    host = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = params_to(host, cuda)
+    toks = torch.randint(0, cfg.vocab_size, (4, 128),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    (lh, _), gh = value_and_grad(cfg, host, batch)
+    before = launch_counts()["flash_attention"]
+    (lc, _), gc = value_and_grad(cfg, card, {k: v.to(cuda)
+                                             for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + cfg.n_layers
+    assert abs(float(lc) - float(lh)) <= 2e-2
+    for a, b in zip(tree_leaves(gh), tree_leaves(gc)):
+        assert b.is_cuda and bool(torch.isfinite(b).all())
+        scale = a.float().abs().max().item()
+        assert (b.float().cpu() - a.float()).abs().max().item() <= 5e-2 * scale
+    for layer in gc["blocks"]:
+        for name in ("wq", "wk", "wv"):
+            assert layer["attn"][name].abs().max().item() > 0, name
+
+
+def test_checkpoint_roundtrip_of_card_bf16(cuda, tmp_path):
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.optim import init
+    from repro_torch.tree import tree_leaves
+
+    cfg = reduced_config(get_config("qwen2-0.5b"))
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         cuda)
+    state = {"params": params, "opt": init(params)}
+    ck = Checkpointer(str(tmp_path))
+    ck.save_async(3, state, {"step": 3})
+    ck.wait()
+    example = {"params": init_params(torch.Generator(device="cuda")
+                                     .manual_seed(1), cfg, cuda)}
+    example["opt"] = init(example["params"])
+    out, meta = ck.restore(example)
+    assert meta == {"step": 3}
+    for a, b in zip(tree_leaves(out), tree_leaves(state)):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_trainer_on_card_keeps_the_cpu_control_plane(cuda):
+    from repro_torch.launch.train import Trainer, TrainerConfig
+
+    tc = TrainerConfig(steps=4, seq_len=64, global_batch=16, lr=1e-3)
+    host = Trainer(tc, device="cpu")
+    card = Trainer(tc)
+    assert card.device.type == "cuda"
+    card.params = params_to(host.params, cuda)
+    card.opt_state = params_to(host.opt_state, cuda)
+    before = launch_counts()["flash_attention"]
+    rh, rc = host.run(), card.run()
+    assert launch_counts()["flash_attention"] - before == 4 * 4 * 4
+    assert rc.sim_times == rh.sim_times and rc.plan_history == rh.plan_history
+    assert np.abs(np.array(rc.losses) - np.array(rh.losses)).max() <= 2e-2

@@ -1,12 +1,15 @@
 """The port stands alone: no JAX, nothing of ``repro``, no silent CPU.
 
-* In a subprocess with ``sys.modules["jax"] = None`` and
-  ``sys.modules["repro"] = None`` (so any import of either fails), every
-  module of ``repro_torch`` imports, and so does ``chip_smoke`` as a
-  module, without running.
-* With no device given, the planner and the serving engine run on CUDA or
-  raise — never on the CPU behind the caller's back.
-* A CPU tensor through each kernel wrapper runs the plain version and
+* In a subprocess with ``sys.modules["jax"] = None``,
+  ``sys.modules["ml_dtypes"] = None`` and ``sys.modules["repro"] = None``
+  (so any import of them fails), every module of ``repro_torch`` imports
+  (the training path's ``data``, ``optim``, ``checkpoint``,
+  ``launch.steps`` and ``launch.train`` included), and so does
+  ``chip_smoke`` as a module, without running.
+* With no device given, the planner, the serving engine and the trainer
+  run on CUDA or raise — never on the CPU behind the caller's back.
+* A CPU tensor through each kernel wrapper (and through the trainable
+  ``FlashAttentionFn``, forward and backward) runs the plain version and
   leaves every launch counter at 0.
 """
 
@@ -53,10 +56,16 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.cluster.payloads", "repro_torch.cluster.worker",
             "repro_torch.cluster.harness", "repro_torch.cluster.chaos",
             "repro_torch.cluster.coordinator",
-            "repro_torch.launch.cluster"} <= set(mods)
+            "repro_torch.launch.cluster",
+            "repro_torch.tree", "repro_torch.data.pipeline",
+            "repro_torch.optim.adamw", "repro_torch.optim.schedules",
+            "repro_torch.optim.compression",
+            "repro_torch.checkpoint.checkpoint",
+            "repro_torch.launch.steps", "repro_torch.launch.train"} <= set(mods)
     code = "\n".join([
         "import importlib, sys",
         "sys.modules['jax'] = None",
+        "sys.modules['ml_dtypes'] = None",
         "sys.modules['repro'] = None",
         f"sys.path[:0] = [{os.path.abspath(SRC)!r}, {os.path.abspath(ROOT)!r}]",
         f"for m in {mods!r}:",
@@ -101,13 +110,18 @@ def test_default_planner_device_raises_without_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         ReplicatedServingEngine(ServeEngineConfig())
+    from repro_torch.launch.train import Trainer, TrainerConfig
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(TrainerConfig(steps=1))
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.coded import combine
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                     flash_attention)
     from repro_torch.kernels.sojourn_sweep import coded_cells, sojourn_cells
     from repro_torch.kernels.ssm_scan import ssd_scan
 
@@ -122,6 +136,9 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     combine(torch.ones((2, 3)), torch.ones((3, 4)))
     q, k = torch.ones((1, 4, 2, 64)), torch.ones((1, 4, 1, 64))
     flash_attention(q, k, k)
+    qg = q.clone().requires_grad_(True)
+    FlashAttentionFn.apply(qg, k, k, True, 0).sum().backward()
+    assert qg.grad is not None
     decode_attention(q[:, 0], k, k, 3)
     ssd_scan(torch.ones((1, 5, 2, 16)), torch.ones((1, 5, 2)), torch.zeros(2),
              torch.ones((1, 5, 1, 16)), torch.ones((1, 5, 1, 16)),

@@ -1,0 +1,260 @@
+"""The port's ``Trainer`` beside the reference's, on the CPU.
+
+Each case builds both trainers from the same ``TrainerConfig`` fields
+(reduced qwen2-0.5b, 8 virtual workers), and the port's starts from the
+reference's parameters and AdamW state (``params_from_reference``,
+``opt_state_from_reference``).  The control plane sees only numpy draws
+and the plan, never the losses, so ``sim_times``, ``plan_history``,
+``events``, ``final_plan`` and the topology generation must be equal
+exactly.  The losses must agree within 2e-3 (measured at most 2.5e-4 over
+8-14 steps at lr 1e-3, on losses of 6.26: both models run in bfloat16 and
+round at different points; the trajectories drift apart with the steps
+taken, so the 40-step run at lr 3e-3 is held to 1e-2, measured 1.8e-3).
+The final float32 master weights must agree within 2 x the sum of the
+learning rates applied (an AdamW update moves an element by about lr
+either way, so a gradient element of the other sign in one implementation
+moves it twice that; measured at most 1.29 x the sum), and the bfloat16
+parameters within that plus one bf16 spacing of their magnitude.
+
+The reference's trainer re-jits its step functions per instance; the
+tests hand every reference trainer the jitted functions of the first one
+(same config, same AdamW), which changes no number and saves a compile a
+case.  The reference's 40-step runs (loss decrease, the tuner at 40 steps)
+are marked ``slow``; tier-1 runs the same paths in 10-14 steps.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import FaultEvent as RefFaultEvent
+from repro.launch.train import Trainer as RefTrainer
+from repro.launch.train import TrainerConfig as RefTrainerConfig
+from repro_torch.checkpoint import latest_step
+from repro_torch.convert import from_reference, opt_state_from_reference
+from repro_torch.convert import params_from_reference
+from repro_torch.launch.train import Trainer, TrainerConfig, main
+from repro_torch.tree import tree_leaves
+
+LOSS_TOL = 2e-3
+BASE = dict(arch="qwen2-0.5b", steps=10, seq_len=64, global_batch=16,
+            n_workers=8, n_batches=4, lr=1e-3, seed=0)
+_REF_FNS: dict = {}
+
+
+def _ref_trainer(**kw) -> RefTrainer:
+    rt = RefTrainer(RefTrainerConfig(**{**BASE, **kw}))
+    if not _REF_FNS:
+        _REF_FNS.update(grad=rt._grad_fn, opt=rt._opt_fn)
+    rt._grad_fn, rt._opt_fn = _REF_FNS["grad"], _REF_FNS["opt"]
+    return rt
+
+
+def _pair(**kw):
+    """(reference trainer, port trainer from the reference's state)."""
+    rt = _ref_trainer(**kw)
+    pkw = {**BASE, **kw}
+    pkw["faults"] = from_reference(tuple(pkw.get("faults", ())))
+    pt = Trainer(TrainerConfig(**pkw), device="cpu")
+    pt.params = params_from_reference(
+        pt.cfg, jax.tree.map(np.asarray, rt.params), device="cpu")
+    pt.opt_state = opt_state_from_reference(
+        pt.cfg, jax.tree.map(np.asarray, rt.opt_state), device="cpu")
+    return rt, pt
+
+
+def _lr_total(tc, steps) -> float:
+    from repro_torch.optim import warmup_cosine
+
+    sched = warmup_cosine(tc.lr, tc.warmup, tc.steps)
+    return float(sum(float(sched(s)) for s in range(steps)))
+
+
+def _check_control_plane(rr, pr, rt, pt):
+    assert pr.sim_times == rr.sim_times
+    assert pr.plan_history == rr.plan_history
+    assert pr.events == rr.events
+    assert (pr.final_plan.n_data, pr.final_plan.n_batches) == (
+        rr.final_plan.n_data, rr.final_plan.n_batches)
+    assert (pt.rescaler.topology.generation
+            == rt.rescaler.topology.generation)
+    assert list(pt.assignment.worker_batch) == list(rt.assignment.worker_batch)
+
+
+def _check_losses(rr, pr, tol=LOSS_TOL):
+    assert len(pr.losses) == len(rr.losses)
+    assert all(np.isfinite(pr.losses))
+    assert np.abs(np.array(pr.losses) - np.array(rr.losses)).max() <= tol
+
+
+def _check_params(rt, pt, lr_total):
+    bound = 2 * lr_total
+    ref_master = params_from_reference(
+        pt.cfg, jax.tree.map(np.asarray, rt.opt_state["master"]), device="cpu")
+    for a, b in zip(tree_leaves(ref_master), tree_leaves(pt.opt_state["master"])):
+        assert (a - b).abs().max().item() <= bound
+    ref_params = params_from_reference(
+        pt.cfg, jax.tree.map(np.asarray, rt.params), device="cpu")
+    for a, b in zip(tree_leaves(ref_params), tree_leaves(pt.params)):
+        a, b = a.float(), b.float()
+        assert bool(((a - b).abs() <= bound + a.abs() * 2.0 ** -8).all())
+    assert int(pt.opt_state["step"]) == int(rt.opt_state["step"])
+
+
+def _run_and_check(loss_tol=LOSS_TOL, **kw):
+    rt, pt = _pair(**kw)
+    rr, pr = rt.run(), pt.run()
+    _check_control_plane(rr, pr, rt, pt)
+    _check_losses(rr, pr, loss_tol)
+    _check_params(rt, pt, _lr_total(pt.tc, pt.tc.steps))
+    return rr, pr, rt, pt
+
+
+def test_plain_run_matches_reference():
+    rr, pr, _, _ = _run_and_check()
+    assert pr.total_sim_time == rr.total_sim_time > 0
+    assert pr.plan_history == [(0, 4)] and pr.events == []
+
+
+def test_straggler_drop_matches_reference():
+    rr, pr, _, _ = _run_and_check(steps=8, slow_workers={0: 50.0})
+    assert any("mask" in e for e in pr.events)
+
+
+def test_fault_masking_matches_reference():
+    faults = (RefFaultEvent(worker=1, start_step=3, end_step=6),)
+    rr, pr, _, _ = _run_and_check(faults=faults)
+    assert any("mask" in e for e in pr.events)
+
+
+def test_whole_group_loss_replans_and_restores(tmp_path):
+    faults = (RefFaultEvent(worker=1, start_step=3, end_step=10**9),
+              RefFaultEvent(worker=5, start_step=3, end_step=10**9))
+    kw = dict(steps=12, faults=faults, checkpoint_every=2)
+    rt = _ref_trainer(**kw, checkpoint_dir=str(tmp_path / "ref"))
+    _, pt = _pair(**kw, checkpoint_dir=str(tmp_path / "port"))
+    pt.params = params_from_reference(
+        pt.cfg, jax.tree.map(np.asarray, rt.params), device="cpu")
+    restores = []
+    orig = pt.ckpt.restore
+
+    def spy(example, step=None):
+        out = orig(example, step)
+        restores.append(out[1]["step"])
+        return out
+
+    pt.ckpt.restore = spy
+    rr, pr = rt.run(), pt.run()
+    _check_control_plane(rr, pr, rt, pt)
+    _check_losses(rr, pr)
+    assert any("replan" in e for e in pr.events)
+    assert pr.final_plan.n_data < 8
+    assert restores and restores[0] < 12  # an elastic re-plan restored
+    assert latest_step(tmp_path / "port") == latest_step(tmp_path / "ref") == 12
+    _check_params(rt, pt, _lr_total(pt.tc, pt.tc.steps))
+
+
+def test_tuner_replans_on_the_analytic_planner():
+    rr, pr, _, _ = _run_and_check(steps=12, n_batches=8, delta=0.01, mu=1.0,
+                                  tuner=True)
+    assert any("tuner" in e for e in pr.events)
+    assert pr.final_plan.n_batches < 8
+
+
+def test_rate_aware_shrink_matches_reference():
+    kw = dict(steps=12, slow_workers={2: 20.0}, planner_mode="simulate",
+              planner_heterogeneous=True)
+    rt, pt = _pair(**kw)
+    for i in range(12):
+        rl, rc, rd = rt.step(i)
+        pl, pc, pd = pt.step(i)
+        assert pc == rc and pd.kind == rd.kind
+        assert abs(pl - rl) <= LOSS_TOL
+    np.testing.assert_array_equal(pt._live_rates(), rt._live_rates())
+    assert np.argmin(pt._live_rates()) == 2
+    rtopo, ptopo = rt.shrink(1), pt.shrink(1)
+    assert ptopo.dropped_workers == rtopo.dropped_workers == (2,)
+    assert (ptopo.plan.n_data, ptopo.plan.n_batches) == (
+        rtopo.plan.n_data, rtopo.plan.n_batches)
+    assert ptopo.generation == rtopo.generation == 1
+    assert list(pt.assignment.worker_batch) == list(rt.assignment.worker_batch)
+    rl, rc, _ = rt.step(12)
+    pl, pc, _ = pt.step(12)
+    assert pc == rc and np.isfinite(pl) and abs(pl - rl) <= LOSS_TOL
+
+
+def test_recovery_with_live_rates_matches_reference():
+    faults = (RefFaultEvent(worker=1, start_step=6, end_step=10**9),
+              RefFaultEvent(worker=5, start_step=6, end_step=10**9))
+    rr, pr, rt, pt = _run_and_check(steps=14, faults=faults,
+                                    planner_mode="simulate",
+                                    planner_heterogeneous=True)
+    assert any("replan" in e for e in pr.events)
+    assert pt.rescaler.topology.generation >= 1
+    assert pt.rescaler.topology.plan.n_data < 8
+
+
+def test_compressed_training_matches_reference():
+    rr, pr, rt, pt = _run_and_check(steps=8, grad_compression=True)
+    assert len(pt.error_state) == 8
+
+
+def test_checkpoint_restart(tmp_path):
+    kw = dict(checkpoint_every=5, checkpoint_dir=str(tmp_path))
+    pt = Trainer(TrainerConfig(**{**BASE, **kw}), device="cpu")
+    pt.run()
+    assert latest_step(tmp_path) == 10
+    t2 = Trainer(TrainerConfig(**{**BASE, **kw}), device="cpu")
+    state, meta = t2.ckpt.restore({"params": t2.params, "opt": t2.opt_state})
+    assert meta == {"plan_batches": 4, "step": 10}
+    for a, b in zip(tree_leaves(state), tree_leaves(
+            {"params": pt.params, "opt": pt.opt_state})):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    t2.params, t2.opt_state = state["params"], state["opt"]
+    loss, completion, decision = t2.step(meta["step"])
+    assert np.isfinite(loss) and int(t2.opt_state["step"]) == 11
+
+
+def test_rdp_equals_plain_dp_at_step_zero():
+    r1 = Trainer(TrainerConfig(**{**BASE, "steps": 3, "n_batches": 8}),
+                 device="cpu").run()
+    r2 = Trainer(TrainerConfig(**{**BASE, "steps": 3, "n_batches": 2}),
+                 device="cpu").run()
+    assert abs(r1.losses[0] - r2.losses[0]) < 1e-4
+    np.testing.assert_allclose(r1.losses, r2.losses, rtol=1e-2)
+
+
+def test_config_fields_match_reference():
+    ref = {f.name: f.default for f in dataclasses.fields(RefTrainerConfig)}
+    port = {f.name: f.default for f in dataclasses.fields(TrainerConfig)}
+    assert port == ref
+
+
+def test_default_device_is_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(TrainerConfig(steps=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--steps", "1"])
+
+
+def test_cli_runs_on_request(capsys):
+    main(["--device", "cpu", "--steps", "2", "--seq-len", "32",
+          "--global-batch", "8"])
+    out = capsys.readouterr().out
+    assert "final loss" in out and "plan history [(0, 4)]" in out
+
+
+@pytest.mark.slow
+def test_loss_decreases_like_reference_over_40_steps():
+    rr, pr, _, _ = _run_and_check(steps=40, lr=3e-3, loss_tol=1e-2)
+    assert np.mean(pr.losses[-5:]) < np.mean(pr.losses[:5]) - 0.05
+
+
+@pytest.mark.slow
+def test_tuner_over_40_steps_matches_reference():
+    _run_and_check(steps=40, n_batches=8, delta=0.01, mu=1.0, tuner=True)
