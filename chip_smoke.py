@@ -143,7 +143,11 @@ non-zero:
                       new tokens each through ``generate`` (prefill on
                       ``flash_attention``, decode on ``decode_attention``),
                       with prefill and decode seconds and each one's idle
-                      share under the profiler.  Then the card against the
+                      share under the profiler; the counted run's first
+                      flash call and longest decode call (here and in every
+                      serve path) held against the plain versions at
+                      ATT_TOL, as phase 4d holds its calls.  Then the card
+                      against the
                       CPU (full width, 2 layers, prompt 256, 4 decode
                       steps, the same weights): logits within 0.125, and
                       the same greedy token wherever the CPU's top-2
@@ -188,6 +192,41 @@ non-zero:
                       the card's elastic re-plan restores one: simulated
                       times, plan history, events, final plan and topology
                       generation equal exactly, losses within 2e-2.
+6a. ``serve_dense``   the head-dim-128 dense configs at full width, random
+                      bf16 weights: ``serve_qwen2_5_14b`` (48 layers, all
+                      of them: 40 heads over 8 KV heads),
+                      ``serve_command_r_plus`` (8 layers of 64: 96 over 8,
+                      parallel blocks, LayerNorm, the tied 256,000-token
+                      embedding) and ``serve_granite_34b`` (44 of 88: 48
+                      heads over one KV head, GELU), one at a time, each
+                      freed before the next: 8 prompts of 1,024 and 32 new
+                      tokens as in ``serve``, flash launches = layers and
+                      decode = layers x 31, the counted run's first flash
+                      call and longest decode call held against the plain
+                      versions, then the card against the CPU at full
+                      width and depth 2 on prompts of 32.
+6c. ``train_hybrid``  zamba2-7b trained at full width and depth 13 (two
+                      segments of six Mamba-2 blocks and the shared block,
+                      one trailing block; 1.45 G parameters) by ``Trainer``
+                      for 24 steps: 4 workers from B 2, global batch 6 of
+                      512 tokens, worker 3 slowed 8x, the simulate tuner.
+                      At step 0 every leaf's gradient is finite, and each
+                      Mamba-2 block's ``a_log``, ``dt_bias``, ``conv_w`` and
+                      ``in_proj`` x / B / C / dt columns (which reach the
+                      loss only through the scan) and the shared block's
+                      wq and wk are nonzero; ``FlashAttentionFn`` at the
+                      shared block's shape (3 x 512 x 32 x 112), output
+                      and dq / dk / dv against autograd through the plain
+                      version; ``SsdScanFn``'s forward at the path's shape
+                      (views of one activation) against the plain version,
+                      and its forward and forward + backward time.  Then
+                      the run: the loss
+                      falls, ``ssd_scan`` launches = Mamba-2 blocks x
+                      distinct batches, flash = 2 x distinct batches, a
+                      tuner attempt, median step and peak memory; two
+                      profiled steps after phase 7.  ``train_hybrid_pins``:
+                      reduced zamba2 at 4 and 5 layers, card against CPU as
+                      ``train_pins``.
 7. ``kernels``        each kernel against its plain PyTorch version on the
                       card, at the shapes phases 2, 4, 5 and 6 gave it,
                       with its time, the plain version's, a library call's
@@ -198,9 +237,13 @@ non-zero:
                       ``flash_attention`` at 5e-2 and ``decode_attention``
                       at a tenth of its plain output's RMS (its outputs,
                       averages over about 1,000 keys, are of order 0.05),
-                      at head dims 64 and 112, with each one's achieved
-                      rate (flash TFLOP/s, decode GB/s) and fraction of
-                      its bound.  ``ssd_scan`` is held
+                      at head dims 64 and 112 and at 128 (qwen2.5-14b's and
+                      granite-34b's prefill and cache), with each one's
+                      achieved rate (flash TFLOP/s, decode GB/s) and
+                      fraction of its bound.  ``ssd_scan`` also at
+                      ``train_hybrid``'s shape, forward and forward +
+                      backward through ``SsdScanFn`` (phase 6c's times).
+                      ``ssd_scan`` is held
                       within 1e-4 (float32) and 5e-2 (bfloat16) times
                       1 + |plain| on mild-decay inputs, its final state
                       within 1e-4 in both, with its achieved TFLOP/s and
@@ -231,7 +274,7 @@ non-zero:
                       the planner's shape (strip kernel) and 1024 x 1024
                       x 2048 (tiled kernel).
 
-Each path of phases 2-6, 4b-4e and 6b runs with the launch counts and the sweeps'
+Each path of phases 2-6, 4b-4e and 6a-6c runs with the launch counts and the sweeps'
 stage seconds (``simulator.STAGE_SECONDS``) set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.  One more
 run of phases 2 and 3 under ``torch.profiler`` gives the card's busy time.
@@ -357,6 +400,36 @@ HCHECK_LAYERS, HCHECK_PROMPT = 7, 256
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # the bf16 scan's tensor-core kernel, as the profiler names it
 SSD_BF16_KERNEL = "ssd_mma_kernel"
+# phase 6a: the head-dim-128 dense configs at full width, random bf16
+# weights, (arch, phase tag, layers on the card): qwen2.5-14b at full depth
+# (48 layers, 29.5 GB); command-r-plus-104b at depth 8 of 64 (31.5 GB, 6.3
+# GB of it the tied 256,000 x 12,288 embedding: the whole model is 208
+# GB); granite-34b at depth 44 of 88 (34 GB: all 88 would be 67 GB)
+DENSE_SERVE = (("qwen2.5-14b", "serve_qwen2_5_14b", 48),
+               ("command-r-plus-104b", "serve_command_r_plus", 8),
+               ("granite-34b", "serve_granite_34b", 44))
+# card against CPU at full width and depth 2 (CHECK_LAYERS), on prompts
+# of 32: the CPU's bf16 layers and unembedding (256,000 x 12,288 for
+# command-r) then take seconds
+DCHECK_PROMPT = 32
+# phase 6c: zamba2-7b trained at full width (d 3584, 112 SSM heads of 64,
+# state 64, 32 attention heads of 112) and depth 13: two segments of six
+# Mamba-2 blocks, each followed by the shared block, then one trailing
+# block.  4 workers from B 2, global batch 6: B can reach 1 or 2 only,
+# which keeps the step's memory (parameters, AdamW state, a float32
+# gradient tree a distinct batch and their aggregation) well inside the
+# card beside the qwen2-0.5b trainer that phase 6b keeps for its profile
+HTRAIN_LAYERS = 13
+HTRAIN_CONFIG = dict(arch="zamba2-7b", reduced=False, seq_len=512,
+                     global_batch=6, n_workers=4, n_batches=2,
+                     slow_workers={3: 8.0}, tuner=True,
+                     planner_mode="simulate", lr=1e-3, warmup=5)
+# 24 steps: the tuner's window (64 observations) fills after 16 steps of 4
+# workers, so it makes its first re-plan attempt there
+HTRAIN_STEPS = 24
+# train_hybrid_pins: reduced zamba2 (4 layers) and a 5-layer variant with a
+# trailing block, card against CPU through train_pins' fault and restore
+HTRAIN_PIN_LAYERS = (4, 5)
 # phase 4d: the serving engine.  engine_multitenant serves
 # benchmarks/bench_multitenant.py's two deployments (16 groups, 4,000
 # requests); engine_fleet the swept one on 1,024 groups (40,000 requests);
@@ -571,7 +644,14 @@ def _card_line() -> str:
 
 
 def _phase(name: str) -> None:
-    print(f"\n=== {name} ===", flush=True)
+    """The phase's banner, with the card's allocated memory once CUDA is
+    up (what earlier phases still hold)."""
+    held = ""
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        held = (f" (allocated on the card: "
+                f"{torch.cuda.memory_allocated() / 1e9:.2f} GB)")
+    print(f"\n=== {name} ==={held}", flush=True)
 
 
 def main() -> int:
@@ -2208,10 +2288,14 @@ def main() -> int:
         launch counts at 0, which must equal ``want``), rates, peak memory
         and each part's idle share under the profiler against its own
         fastest unprofiled run; ``prefill_shares`` as ``print_busy``'s
-        ``shares``, for the prefill."""
+        ``shares``, for the prefill.  The counted run's first flash call
+        and longest decode call, as it made them, are held against the
+        plain versions (``hold_model_calls``)."""
         batch, plen = prompts.shape
         print(f"[{tag}] {cfg.name}: {count_params(params):,} parameters in "
-              f"bf16 on the card; batch {batch}, prompt {plen}, {n_new} new "
+              f"bf16 on the card ({cfg.n_layers} layers, d {cfg.d_model}, "
+              f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV of "
+              f"{cfg.head_dim}); batch {batch}, prompt {plen}, {n_new} new "
               f"tokens, max_len {max_len}")
         # warm-up at a small size: loads the kernels and cuBLAS's handles
         generate(cfg, params, prompts[:, :64], 2, 128)
@@ -2220,7 +2304,16 @@ def main() -> int:
         def serve():
             return generate(cfg, params, prompts, n_new, max_len)
 
-        gen, counts, wall, _ = run_path(tag, serve)
+        seen: dict = {}
+        origs = [(ATTN_MODEL, "flash_attention", record_call(
+                     seen, ATTN_MODEL, "flash_attention")),
+                 (ATTN_MODEL, "decode_attention", record_call(
+                     seen, ATTN_MODEL, "decode_attention", lambda a: a[3]))]
+        try:
+            gen, counts, wall, _ = run_path(tag, serve)
+        finally:
+            for mod, attr, orig in origs:
+                setattr(mod, attr, orig)
         for k, n in want.items():
             if counts[k] != n:
                 raise AssertionError(f"{tag} launched {k} {counts[k]} times, "
@@ -2235,6 +2328,13 @@ def main() -> int:
         if not all(torch.equal(g.tokens, toks) for g in runs):
             raise AssertionError("greedy generation is not deterministic")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # after the peak is read: the plain versions hold full score rows
+        held = hold_model_calls(tag, seen)
+        if {e["name"] for e in held} != {"flash_attention",
+                                         "decode_attention"}:
+            raise AssertionError(f"{tag} held {sorted(seen)}, not both "
+                                 f"attention kernels")
+        del seen
 
         def rates(g):
             return {"prefill_s": g.prefill_s,
@@ -2289,15 +2389,19 @@ def main() -> int:
                 "runs": [[g.prefill_s, g.decode_s] for g in runs],
                 **best_rates, "median_run": rates(median),
                 "peak_memory_gb": peak_gb, "busy_prefill": busy_prefill,
-                "busy_decode": busy_decode}
+                "busy_decode": busy_decode, "plain_checks": held}
 
     def card_vs_cpu(tag, small, batch, plen, steps):
-        """The same weights (drawn on the CPU) on the card and on the CPU:
-        logits within LOGIT_TOL at prefill and each decode step, and the
-        same greedy token wherever the CPU's top-2 margin exceeds that."""
-        host = init_params(torch.Generator().manual_seed(2), small,
-                           device="cpu")
-        on_card = params_to(host, dev)
+        """The same weights (drawn on the card, copied to the host: the
+        host's generator takes most of a minute for command-r's 6.3 G
+        parameters) on the card and on the CPU: logits within LOGIT_TOL at
+        prefill and each decode step, and the same greedy token wherever
+        the CPU's top-2 margin exceeds that."""
+        t0 = time.perf_counter()
+        on_card = init_params(torch.Generator(device="cuda").manual_seed(2),
+                              small, dev)
+        host = params_to(on_card, "cpu")
+        t_init = time.perf_counter() - t0
         ctoks = torch.randint(0, small.vocab_size, (batch, plen),
                               generator=torch.Generator().manual_seed(3))
         max_len = plen + steps
@@ -2329,7 +2433,9 @@ def main() -> int:
               f"{steps} decode steps): max |logit diff| per step "
               f"{[round(e, 5) for e in logit_errs]} (tolerance {LOGIT_TOL}); "
               f"greedy tokens agree at {agreed}/{decided} positions whose "
-              f"CPU top-2 margin exceeds it")
+              f"CPU top-2 margin exceeds it; {time.perf_counter() - t0:.1f} "
+              f"s, {t_init:.1f} of it drawing the weights and copying them "
+              f"to the host")
         return {"card_vs_cpu_logit_err": logit_errs, "tokens_decided": decided,
                 "tokens_agreed": agreed}
 
@@ -2410,6 +2516,33 @@ def main() -> int:
         ("ssd_scan", "flash_attention", "decode_attention", "sojourn_cells")))
     report["phases"]["serve_hybrid"] = hybrid_report
 
+    # -- 6a. the head-dim-128 dense configs at full width -----------------
+    t_dense = time.perf_counter()
+    dense_cfgs = {}  # arch -> the config served (its depth cut)
+    for arch, tag, depth in DENSE_SERVE:
+        _phase(tag)
+        dcfg = dataclasses.replace(get_config(arch), n_layers=depth)
+        dense_cfgs[arch] = dcfg
+        dparams = init_params(torch.Generator(device="cuda").manual_seed(0),
+                              dcfg, dev)
+        dprompts = torch.randint(
+            0, dcfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device=dev,
+            generator=torch.Generator(device="cuda").manual_seed(1))
+        dense_report = serve_cell(
+            tag, dcfg, dparams, dprompts, SERVE_NEW, SERVE_MAX_LEN,
+            {"flash_attention": dcfg.n_layers,
+             "decode_attention": dcfg.n_layers * (SERVE_NEW - 1)})
+        dense_report["layers_served"] = depth
+        dense_report["layers_published"] = get_config(arch).n_layers
+        del dparams, dprompts
+        torch.cuda.empty_cache()
+        dense_report.update(card_vs_cpu(
+            tag, dataclasses.replace(dcfg, n_layers=CHECK_LAYERS),
+            CHECK_BATCH, DCHECK_PROMPT, CHECK_STEPS))
+        report["phases"][tag] = dense_report
+        torch.cuda.empty_cache()
+    print(f"[serve_dense] phase 6a: {time.perf_counter() - t_dense:.1f} s")
+
     # -- 6b. train: the training path at qwen2-0.5b's full width ----------
     _phase("train")
     import tempfile
@@ -2475,37 +2608,44 @@ def main() -> int:
           f"norms {grad_norms}")
     del g0, leaves
 
-    # FlashAttentionFn at the path's own shape, against autograd through
-    # the plain version (not counted: a check, not the path)
-    fb = tc.global_batch // tc.n_batches
-    fshape = ((fb, tc.seq_len, tcfg.n_heads, tcfg.head_dim),
-              (fb, tc.seq_len, tcfg.n_kv_heads, tcfg.head_dim))
-    fq = att_rand(fshape[0], 41, torch.bfloat16)
-    fk = att_rand(fshape[1], 42, torch.bfloat16)
-    fv = att_rand(fshape[1], 43, torch.bfloat16)
-    fdo = att_rand(fshape[0], 44, torch.bfloat16)
-    plain_in = [t.clone().requires_grad_(True) for t in (fq, fk, fv)]
-    fn_in = [t.clone().requires_grad_(True) for t in (fq, fk, fv)]
-    want = FA.flash_attention_plain(*plain_in, causal=True)
-    want.backward(fdo)
-    got = FA.FlashAttentionFn.apply(*fn_in, True, 0)
-    got.backward(fdo)
-    torch.cuda.synchronize()
-    fn_errs = {}
-    for name, a, b in (("out", got.detach(), want.detach()),
-                       ("dq", fn_in[0].grad, plain_in[0].grad),
-                       ("dk", fn_in[1].grad, plain_in[1].grad),
-                       ("dv", fn_in[2].grad, plain_in[2].grad)):
-        err, _, ok = att_err("flash_attention", a, b, "bfloat16")
-        fn_errs[name] = err
-        if not ok:
-            raise AssertionError(f"FlashAttentionFn {name} differs from the "
-                                 f"plain version's autograd by {err}")
-    print(f"[train] FlashAttentionFn at q {list(fshape[0])} k/v "
-          f"{list(fshape[1])} bf16 causal against autograd through the "
-          f"plain version: max |err| {fn_errs} (tolerance "
-          f"{ATT_TOL['bfloat16']} x (1 + |plain|))")
-    del plain_in, fn_in, want, got
+    def hold_flash_fn(tag, cfg_, tc_):
+        """FlashAttentionFn at a training path's own shape (one batch of
+        the trainer's n_batches, causal, bf16): its output and dq, dk, dv
+        against autograd through the plain version (not counted: a check,
+        not the path).  Returns the inputs, dO and the errors."""
+        fb_ = tc_.global_batch // tc_.n_batches
+        shapes = ((fb_, tc_.seq_len, cfg_.n_heads, cfg_.head_dim),
+                  (fb_, tc_.seq_len, cfg_.n_kv_heads, cfg_.head_dim))
+        q_ = att_rand(shapes[0], 41, torch.bfloat16)
+        k_ = att_rand(shapes[1], 42, torch.bfloat16)
+        v_ = att_rand(shapes[1], 43, torch.bfloat16)
+        do_ = att_rand(shapes[0], 44, torch.bfloat16)
+        plain_in = [t.clone().requires_grad_(True) for t in (q_, k_, v_)]
+        fn_in = [t.clone().requires_grad_(True) for t in (q_, k_, v_)]
+        want = FA.flash_attention_plain(*plain_in, causal=True)
+        want.backward(do_)
+        got = FA.FlashAttentionFn.apply(*fn_in, True, 0)
+        got.backward(do_)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, b in (("out", got.detach(), want.detach()),
+                           ("dq", fn_in[0].grad, plain_in[0].grad),
+                           ("dk", fn_in[1].grad, plain_in[1].grad),
+                           ("dv", fn_in[2].grad, plain_in[2].grad)):
+            err, _, ok = att_err("flash_attention", a, b, "bfloat16")
+            errs[name] = err
+            if not ok:
+                raise AssertionError(f"{tag}: FlashAttentionFn {name} differs "
+                                     f"from the plain version's autograd by "
+                                     f"{err}")
+        print(f"[{tag}] FlashAttentionFn at q {list(shapes[0])} k/v "
+              f"{list(shapes[1])} bf16 causal against autograd through the "
+              f"plain version: max |err| {errs} (tolerance "
+              f"{ATT_TOL['bfloat16']} x (1 + |plain|))")
+        return shapes, (q_, k_, v_, do_), errs
+
+    fshape, (fq, fk, fv, fdo), fn_errs = hold_flash_fn("train", tcfg, tc)
+    fb = fshape[0][0]
 
     # the kernel's time at the path's shape, forward and forward + backward
     # through FlashAttentionFn, beside the plain version's autograd and SDPA
@@ -2640,80 +2780,373 @@ def main() -> int:
     # same weights, through a whole-group fault whose elastic re-plan
     # restores the last checkpoint: the control plane equal exactly, the
     # losses within TRAIN_PIN_LOSS_TOL
-    with tempfile.TemporaryDirectory() as tmp:
-        ptc = TrainerConfig(
-            **TRAIN_PIN_CONFIG, faults=(FaultEvent(1, 3, 10**9),
-                                        FaultEvent(5, 3, 10**9)),
-            checkpoint_dir=os.path.join(tmp, "cpu"))
-        pin_host = Trainer(ptc, device="cpu")
-        pin_card = Trainer(dataclasses.replace(
-            ptc, checkpoint_dir=os.path.join(tmp, "cuda")))
-        pin_card.params = params_to(pin_host.params, dev)
-        pin_card.opt_state = params_to(pin_host.opt_state, dev)
-        restores = []
-        o_restore = pin_card.ckpt.restore
+    def trainer_at_depth(tc_, n_layers=None, device=None):
+        """``Trainer(tc_, device)``, its model cut to ``n_layers`` where
+        given: the trainer takes its config from the registry
+        (``get_config``, or ``reduced_config`` when ``tc_.reduced``), whose
+        depth its config has no field for, so the lookup is narrowed while
+        the trainer is built."""
+        import repro_torch.launch.train as TRAIN
 
-        def spy_restore(example, step=None):
-            out = o_restore(example, step)
-            restores.append(out[1]["step"])
-            return out
+        if n_layers is None:
+            return Trainer(tc_, device=device)
+        name = "reduced_config" if tc_.reduced else "get_config"
+        orig = getattr(TRAIN, name)
+        setattr(TRAIN, name, lambda c: dataclasses.replace(orig(c),
+                                                           n_layers=n_layers))
+        try:
+            return Trainer(tc_, device=device)
+        finally:
+            setattr(TRAIN, name, orig)
 
-        pin_card.ckpt.restore = spy_restore
-        t0 = time.perf_counter()
-        rh = pin_host.run()
-        host_wall = time.perf_counter() - t0
-        rc, pcounts, pwall, _ = run_path("train_pins", pin_card.run)
-    loss_err = float(np.max(np.abs(np.array(rc.losses) - np.array(rh.losses))))
-    pins = {"sim_times": rc.sim_times == rh.sim_times,
-            "plan_history": rc.plan_history == rh.plan_history,
-            "events": rc.events == rh.events,
-            "final_plan": (rc.final_plan.n_data, rc.final_plan.n_batches)
-            == (rh.final_plan.n_data, rh.final_plan.n_batches),
-            "generation": pin_card.rescaler.topology.generation
-            == pin_host.rescaler.topology.generation}
-    if not all(pins.values()):
-        raise AssertionError(f"train_pins: the card's control plane differs "
-                             f"from the CPU's: {pins}")
-    if not restores or not any("replan" in e for e in rc.events):
-        raise AssertionError("train_pins: no elastic re-plan restored a "
-                             "checkpoint on the card")
-    if not loss_err <= TRAIN_PIN_LOSS_TOL:
-        raise AssertionError(f"train_pins: card and CPU losses differ by "
-                             f"{loss_err} (tolerance {TRAIN_PIN_LOSS_TOL})")
-    if pcounts["flash_attention"] <= 0:
-        raise AssertionError("train_pins never launched flash_attention")
-    print(f"[train_pins] {ptc.arch} reduced, {ptc.steps} steps, workers 1 "
-          f"and 5 dead from step 3, checkpoints every "
-          f"{ptc.checkpoint_every}: card == CPU for {sorted(pins)}; the "
-          f"card's re-plan restored step {restores}; plan_history "
-          f"{rc.plan_history}; events {rc.events}; max |loss diff| "
-          f"{loss_err:.3e} (tolerance {TRAIN_PIN_LOSS_TOL}); card wall "
-          f"{pwall:.3f} s, CPU wall {host_wall:.3f} s")
-    train_report["train_pins"] = {
-        "equal": pins, "restored_steps": restores, "loss_max_abs_diff": loss_err,
-        "plan_history": rc.plan_history, "events": rc.events,
-        "launches": pcounts, "card_wall_s": pwall, "cpu_wall_s": host_wall,
-        "card_losses": rc.losses, "cpu_losses": rh.losses}
-    del pin_host, pin_card
+    def train_pins(tag, pin_config, n_layers=None):
+        """The reduced trainer on the card and on the CPU from the same
+        weights, workers 1 and 5 dead from step 3, checkpoints every 2
+        steps: the control plane equal, losses within TRAIN_PIN_LOSS_TOL,
+        and the card's elastic re-plan restoring a checkpoint."""
+        with tempfile.TemporaryDirectory() as tmp:
+            ptc = TrainerConfig(
+                **pin_config, faults=(FaultEvent(1, 3, 10**9),
+                                      FaultEvent(5, 3, 10**9)),
+                checkpoint_dir=os.path.join(tmp, "cpu"))
+            pin_host = trainer_at_depth(ptc, n_layers, device="cpu")
+            pin_card = trainer_at_depth(dataclasses.replace(
+                ptc, checkpoint_dir=os.path.join(tmp, "cuda")), n_layers)
+            pin_card.params = params_to(pin_host.params, dev)
+            pin_card.opt_state = params_to(pin_host.opt_state, dev)
+            restores = []
+            o_restore = pin_card.ckpt.restore
+
+            def spy_restore(example, step=None):
+                out = o_restore(example, step)
+                restores.append(out[1]["step"])
+                return out
+
+            pin_card.ckpt.restore = spy_restore
+            t0 = time.perf_counter()
+            rh = pin_host.run()
+            host_wall = time.perf_counter() - t0
+            rc, pcounts, pwall, _ = run_path(tag, pin_card.run)
+        loss_err = float(np.max(np.abs(np.array(rc.losses)
+                                       - np.array(rh.losses))))
+        pins = {"sim_times": rc.sim_times == rh.sim_times,
+                "plan_history": rc.plan_history == rh.plan_history,
+                "events": rc.events == rh.events,
+                "final_plan": (rc.final_plan.n_data, rc.final_plan.n_batches)
+                == (rh.final_plan.n_data, rh.final_plan.n_batches),
+                "generation": pin_card.rescaler.topology.generation
+                == pin_host.rescaler.topology.generation}
+        if not all(pins.values()):
+            raise AssertionError(f"{tag}: the card's control plane differs "
+                                 f"from the CPU's: {pins}")
+        if not restores or not any("replan" in e for e in rc.events):
+            raise AssertionError(f"{tag}: no elastic re-plan restored a "
+                                 "checkpoint on the card")
+        if not loss_err <= TRAIN_PIN_LOSS_TOL:
+            raise AssertionError(f"{tag}: card and CPU losses differ by "
+                                 f"{loss_err} (tolerance {TRAIN_PIN_LOSS_TOL})")
+        kernels = (("flash_attention", "ssd_scan")
+                   if pin_card.cfg.family == "hybrid" else ("flash_attention",))
+        for k in kernels:
+            if pcounts[k] <= 0:
+                raise AssertionError(f"{tag} never launched {k}")
+        print(f"[{tag}] {ptc.arch} reduced ({pin_card.cfg.n_layers} layers), "
+              f"{ptc.steps} steps, workers 1 and 5 dead from step 3, "
+              f"checkpoints every {ptc.checkpoint_every}: card == CPU for "
+              f"{sorted(pins)}; the card's re-plan restored step {restores}; "
+              f"plan_history {rc.plan_history}; events {rc.events}; max "
+              f"|loss diff| {loss_err:.3e} (tolerance {TRAIN_PIN_LOSS_TOL}); "
+              f"launches {pcounts}; card wall {pwall:.3f} s, CPU wall "
+              f"{host_wall:.3f} s")
+        return {"layers": pin_card.cfg.n_layers, "equal": pins,
+                "restored_steps": restores, "loss_max_abs_diff": loss_err,
+                "plan_history": rc.plan_history, "events": rc.events,
+                "launches": pcounts, "card_wall_s": pwall,
+                "cpu_wall_s": host_wall, "card_losses": rc.losses,
+                "cpu_losses": rh.losses}
+
+    train_report["train_pins"] = train_pins("train_pins", TRAIN_PIN_CONFIG)
     print(f"[train] phase 6b: {time.perf_counter() - t_train:.1f} s")
     report["phases"]["train"] = train_report
 
-    def train_profile():
-        """Two more steps of the full-width trainer under the profiler: the
+    def train_profile(tag, trainer, rep, med, shares):
+        """Two more steps of a full-width trainer under the profiler: the
         card's busy time and idle share against two unprofiled steps."""
-        n0 = len(train_report["losses"])
-        prof = print_busy("train 2 steps", *busy_window(
-            lambda: [tr.step(n0 + i) for i in range(2)]), top=10,
-            shares={"flash_attention": "flash_wgmma"})
+        n0 = len(rep["losses"])
+        prof = print_busy(f"{tag} 2 steps", *busy_window(
+            lambda: [trainer.step(n0 + i) for i in range(2)]), top=10,
+            shares=shares)
         if prof["device_busy_s"] is None:
-            raise AssertionError("the profiler saw no device work in train")
-        unprofiled = 2 * med_step
+            raise AssertionError(f"the profiler saw no device work in {tag}")
+        unprofiled = 2 * med
         prof["idle_share_of_unprofiled_wall"] = (
             1.0 - prof["device_busy_s"] / unprofiled)
-        print(f"[train] two steps: device busy {prof['device_busy_s']:.5f} s "
+        print(f"[{tag}] two steps: device busy {prof['device_busy_s']:.5f} s "
               f"against two median unprofiled steps {unprofiled:.5f} s: idle "
               f"share {prof['idle_share_of_unprofiled_wall']:.4f}")
-        train_report["profile"] = prof
+        rep["profile"] = prof
+
+    # -- 6c. train_hybrid: zamba2-7b at full width, depth 13 --------------
+    _phase("train_hybrid")
+    t_htrain = time.perf_counter()
+    held_h = torch.cuda.memory_allocated() / 1e9
+    htc = TrainerConfig(steps=HTRAIN_STEPS, **HTRAIN_CONFIG)
+    tr_h = trainer_at_depth(htc, HTRAIN_LAYERS)
+    hc = tr_h.cfg
+    n_seg_h, seg_h, trail_h = segment_layout(hc)
+    n_mamba = n_seg_h * seg_h + trail_h
+    hn = count_params(tr_h.params)
+    max_b = max(tr_h.cluster_spec.feasible_batches())
+    # 2 bytes (bf16) + 12 (float32 master, m, v) a parameter, and a float32
+    # gradient tree (4 bytes a parameter) a distinct batch until
+    # aggregate_host; the aggregation copies each batch's tree once more,
+    # and AdamW makes four float32 trees (scaled gradient, m, v, master)
+    # beside the old ones
+    reckon = {"state_gb": 14 * hn / 1e9, "grad_tree_gb": 4 * hn / 1e9,
+              "largest_b": max_b,
+              "state_and_trees_gb": (14 + 4 * max_b) * hn / 1e9,
+              "aggregation_gb": (14 + 4 * (2 * max_b + 1)) * hn / 1e9,
+              "adamw_gb": (2 + 12 + 4 + 16 + 2) * hn / 1e9,
+              "held_before_gb": held_h}
+    print(f"[train_hybrid] {hc.name} at full width, depth {hc.n_layers} of "
+          f"{get_config(htc.arch).n_layers}: {n_seg_h} segments of {seg_h} "
+          f"Mamba-2 blocks and the shared block, {trail_h} trailing; d "
+          f"{hc.d_model}, {hc.ssm.expansion * hc.d_model // hc.ssm.head_dim} "
+          f"SSM heads of {hc.ssm.head_dim} (state {hc.ssm.state_dim}), "
+          f"{hc.n_heads} attention heads of {hc.head_dim}: {hn:,} parameters; "
+          f"{HTRAIN_STEPS} steps of {HTRAIN_CONFIG}; memory reckoned "
+          f"{reckon} (GB)")
+
+    # every leaf's step-0 gradient finite; the leaves that reach the loss
+    # only through the scan (a_log, dt_bias, conv_w, in_proj's x, B, C and
+    # dt columns) and the shared block's wq, wk nonzero: a detached kernel
+    # output would leave them at exactly 0 (not counted)
+    hb0 = tr_h._device_batch(tr_h.pipeline.batch_for(0, 0, htc.n_batches))
+    hloss0, hg0 = tr_h._grad_fn(tr_h.params, hb0)
+    torch.cuda.synchronize()
+    hleaves = tree_leaves(hg0)
+    if len(hleaves) != len(tree_leaves(tr_h.params)) or not all(
+            bool(torch.isfinite(g).all()) for g in hleaves):
+        raise AssertionError("train_hybrid: a parameter leaf got no finite "
+                             "gradient")
+    d_inner = hc.ssm.expansion * hc.d_model
+    hblocks = [lp for seg in hg0["mamba_segments"] for lp in seg]
+    hblocks += hg0.get("mamba_trailing", [])
+    zero = []
+    for j, lp in enumerate(hblocks):
+        zero += [(j, n) for n in ("a_log", "dt_bias", "conv_w")
+                 if not lp[n].abs().max().item() > 0]
+        cols = lp["in_proj"][:, d_inner:]  # x, B, C and dt
+        n_zero = int((cols.abs().amax(dim=0) == 0).sum())
+        if n_zero:
+            zero.append((j, f"{n_zero} in_proj x/B/C/dt columns"))
+    zero += [("shared_attn", n) for n in ("wq", "wk")
+             if not hg0["shared_attn"]["attn"][n].abs().max().item() > 0]
+    if zero or len(hblocks) != n_mamba:
+        raise AssertionError(f"train_hybrid: zero gradients at {zero[:8]}")
+    hnorms = {"a_log_block0": hblocks[0]["a_log"].norm().item(),
+              "conv_w_block0": hblocks[0]["conv_w"].norm().item(),
+              "in_proj_block0": hblocks[0]["in_proj"].norm().item(),
+              "shared_wq": hg0["shared_attn"]["attn"]["wq"].norm().item(),
+              "shared_wk": hg0["shared_attn"]["attn"]["wk"].norm().item()}
+    print(f"[train_hybrid] step-0 gradients: {len(hleaves)} leaves, all "
+          f"finite; every Mamba-2 block's a_log, dt_bias, conv_w and "
+          f"in_proj x/B/C/dt columns and the shared wq / wk nonzero; loss "
+          f"{hloss0:.4f}; norms {hnorms}")
+    del hg0, hleaves, hblocks
+
+    # FlashAttentionFn at the shared block's shape, as phase 6b holds it
+    hfshape, _, hflash_errs = hold_flash_fn("train_hybrid", hc, htc)
+
+    # SsdScanFn's forward at the path's shape (x, B, C as views of one
+    # activation, mild-decay dt) against the plain version, then its time,
+    # forward and forward + backward (not counted).  Its backward is
+    # autograd through the plain scan itself, held by the step-0 leaves
+    # above and by the CPU and card tests
+    hrows = htc.global_batch // htc.n_batches
+    sh_h = hc.ssm
+    n_hh, gn = d_inner // sh_h.head_dim, sh_h.n_groups * sh_h.state_dim
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    act = torch.randn((hrows, htc.seq_len, d_inner + 2 * gn), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    act[..., d_inner:] *= 0.3
+    hdt = 0.01 + 0.09 * torch.rand((hrows, htc.seq_len, n_hh), generator=gen,
+                                   device=dev)
+    halog = 0.5 * torch.randn((n_hh,), generator=gen, device=dev)
+    hds = 1.0 + 0.2 * torch.randn((n_hh,), generator=gen, device=dev)
+    hdy = torch.randn((hrows, htc.seq_len, n_hh, sh_h.head_dim),
+                      generator=gen, device=dev).to(torch.bfloat16)
+
+    def scan_views(a):
+        xs, b_, c_ = a.split([d_inner, gn, gn], dim=-1)
+        lead = a.shape[:2]
+        return (xs.reshape(*lead, n_hh, sh_h.head_dim),
+                b_.reshape(*lead, sh_h.n_groups, sh_h.state_dim),
+                c_.reshape(*lead, sh_h.n_groups, sh_h.state_dim))
+
+    def scan_leaves():
+        return [t.detach().clone().requires_grad_(True)
+                for t in (act, hdt, halog, hds)]
+
+    def scan_fwd(fn, leaves):
+        a, dt_, al, ds = leaves
+        xs, b_, c_ = scan_views(a)
+        return fn(xs, dt_, al, b_, c_, ds)
+
+    def fn_scan(xs, dt_, al, b_, c_, ds):
+        return SSD.SsdScanFn.apply(xs, dt_, al, b_, c_, ds, None, sh_h.chunk)
+
+    def plain_scan(xs, dt_, al, b_, c_, ds):
+        return SSD.ssd_scan_plain(xs, dt_, al, b_, c_, ds, chunk=sh_h.chunk)
+
+    with torch.no_grad():
+        yw, sw = scan_fwd(plain_scan, scan_leaves())
+    yg, sg = scan_fwd(fn_scan, scan_leaves())
+    torch.cuda.synchronize()
+    ssd_fn_errs = {"y": None, "state": None}
+    ssd_fn_errs["y"], ssd_fn_errs["state"], ok = ssd_err(
+        yg.detach(), sg.detach(), yw, sw, "bfloat16")
+    if not ok:
+        raise AssertionError(f"SsdScanFn's forward differs from the plain "
+                             f"version: {ssd_fn_errs}")
+    xs_shape = [hrows, htc.seq_len, n_hh, sh_h.head_dim]
+    bc_shape = [hrows, htc.seq_len, sh_h.n_groups, sh_h.state_dim]
+    print(f"[train_hybrid] SsdScanFn at x {xs_shape} b/c {bc_shape} bf16 "
+          f"(views of one activation) against the plain version: max |err| "
+          f"{ssd_fn_errs} (tolerance {SSD_TOL['bfloat16']} x (1 + |plain|); "
+          f"the state {SSD_TOL['float32']})")
+    del yw, sw, yg, sg
+    base = [t.detach() for t in (act, hdt, halog, hds)]
+    fb_leaves = scan_leaves()
+
+    def fwd_bwd_scan(fn):
+        y_, _ = scan_fwd(fn, fb_leaves)
+        return torch.autograd.grad(y_, fb_leaves, hdy)
+
+    with torch.no_grad():
+        hs_ms = cuda_ms(lambda: scan_fwd(SSD.ssd_scan, base), 20)
+        hs_plain = cuda_ms(lambda: scan_fwd(plain_scan, base), 5)
+    hsb_ms = cuda_ms(lambda: fwd_bwd_scan(fn_scan), 5)
+    hsb_plain = cuda_ms(lambda: fwd_bwd_scan(plain_scan), 5)
+    cl_h = SSD.effective_chunk(htc.seq_len, SSD.CHUNK)
+    hs_flops = (2.0 * hrows * n_hh * (htc.seq_len // cl_h)
+                * (cl_h * cl_h * (sh_h.state_dim + sh_h.head_dim)
+                   + 2 * cl_h * sh_h.state_dim * sh_h.head_dim))
+    xv, bv, cv = scan_views(act)
+    in_bytes = (xv.numel() + bv.numel() + cv.numel()) * 2 + nbytes(
+        hdt, halog, hds)
+    out_bytes = (xv.numel() * 2
+                 + hrows * n_hh * sh_h.state_dim * sh_h.head_dim * 4)
+    hs_bound = max(hs_flops / BF16_FLOP_PER_S,
+                   (in_bytes + out_bytes) / HBM_BYTES_PER_S) * 1e3
+    # the backward: two products for each of the forward's, reading the
+    # inputs and dy, writing a gradient for each input
+    hsb_flops = 3 * hs_flops
+    hsb_bytes = 2 * in_bytes + out_bytes + xv.numel() * 2
+    hsb_bound = max(hsb_flops / BF16_FLOP_PER_S,
+                    hsb_bytes / HBM_BYTES_PER_S) * 1e3
+    htrain_ssd_row = {
+        "name": "ssd_scan", "case": "train_hybrid (forward; SsdScanFn)",
+        "shape": [xs_shape, bc_shape], "ms": hs_ms, "plain_ms": hs_plain,
+        "library_ms": None, "bound_ms": hs_bound,
+        "bound_by": ("operations" if hs_flops / BF16_FLOP_PER_S
+                     > (in_bytes + out_bytes) / HBM_BYTES_PER_S else "bytes"),
+        "fwd_bwd_ms": hsb_ms, "fwd_bwd_plain_ms": hsb_plain,
+        "fwd_bwd_library_ms": None, "fwd_bwd_bound_ms": hsb_bound,
+        "fwd_bwd_bound_by": ("operations" if hsb_flops / BF16_FLOP_PER_S
+                             > hsb_bytes / HBM_BYTES_PER_S else "bytes"),
+        "max_abs_err": ssd_fn_errs}
+    print(f"[train_hybrid] ssd_scan at the path's shape: forward "
+          f"{hs_ms:.4f} ms (plain {hs_plain:.4f}, bound {hs_bound:.5f}); "
+          f"forward + backward through SsdScanFn {hsb_ms:.4f} ms (plain "
+          f"autograd {hsb_plain:.4f}, bound {hsb_bound:.5f}); no library "
+          f"call computes the scan")
+    del act, hdt, halog, hds, hdy, base, fb_leaves, xv, bv, cv
+
+    # the counted run: Trainer.run through its public loop
+    hgrad_calls, hstep_walls = [0], []
+    o_hgrad, o_hstep = tr_h._grad_fn, tr_h.step
+
+    def hcounted_grad(params, batch):
+        hgrad_calls[0] += 1
+        return o_hgrad(params, batch)
+
+    def htimed_step(i):
+        t0 = time.perf_counter()
+        out = o_hstep(i)
+        torch.cuda.synchronize()
+        hstep_walls.append(time.perf_counter() - t0)
+        return out
+
+    tr_h._grad_fn, tr_h.step = hcounted_grad, htimed_step
+    hattempts, hrestore_tuner = tuner_attempts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        hres, hcounts, hwall, _ = run_path("train_hybrid", tr_h.run)
+    finally:
+        hrestore_tuner()
+        tr_h._grad_fn, tr_h.step = o_hgrad, o_hstep
+    hpeak = torch.cuda.max_memory_allocated() / 1e9
+    hwant = {"ssd_scan": n_mamba * hgrad_calls[0],
+             "flash_attention": n_seg_h * hgrad_calls[0]}
+    for k, n in hwant.items():
+        if hcounts[k] != n:
+            raise AssertionError(f"train_hybrid launched {k} {hcounts[k]} "
+                                 f"times, expected {n}")
+    if not hattempts:
+        raise AssertionError("train_hybrid: the tuner made no re-plan "
+                             "attempt")
+    hlosses = hres.losses
+    hfirst5, hlast5 = (float(np.mean(hlosses[:5])),
+                       float(np.mean(hlosses[-5:])))
+    if not all(np.isfinite(hlosses)) or not hlast5 < hfirst5:
+        raise AssertionError(f"train_hybrid: the loss did not fall: first 5 "
+                             f"{hfirst5}, last 5 {hlast5}")
+    if not hpeak < 80:
+        raise AssertionError(f"train_hybrid peaked at {hpeak} GB")
+    hmed = statistics.median(hstep_walls)
+    print(f"[train_hybrid] losses first {hlosses[0]:.5f}, last "
+          f"{hlosses[-1]:.5f}; mean of the last 5 {hlast5:.5f} < mean of the "
+          f"first 5 {hfirst5:.5f}: the loss falls")
+    print(f"[train_hybrid] simulated time {hres.total_sim_time:.4f} s; "
+          f"plan_history {hres.plan_history}; events {hres.events}; tuner "
+          f"attempts (tuner step, wall s, moved B) {hattempts}")
+    print(f"[train_hybrid] wall {hwall:.3f} s; median step wall {hmed:.4f} s "
+          f"(min {min(hstep_walls):.4f}, max {max(hstep_walls):.4f}); peak "
+          f"memory allocated {hpeak:.2f} GB ({held_h:.2f} GB of it held by "
+          f"earlier phases' tensors when the phase began)")
+    print(f"[train_hybrid] launches: ssd_scan {hcounts['ssd_scan']} = "
+          f"{n_mamba} Mamba-2 blocks x {hgrad_calls[0]} distinct batches, "
+          f"flash_attention {hcounts['flash_attention']} = {n_seg_h} shared "
+          f"applications x {hgrad_calls[0]}; others "
+          f"{ {k: v for k, v in hcounts.items() if k not in hwant} }")
+    htrain_report = {
+        "config": {**HTRAIN_CONFIG, "steps": HTRAIN_STEPS,
+                   "layers": HTRAIN_LAYERS,
+                   "slow_workers": {str(k): v for k, v in
+                                    HTRAIN_CONFIG["slow_workers"].items()}},
+        "parameters": hn, "memory_reckoning_gb": reckon,
+        "step0_loss": hloss0, "step0_grad_norms": hnorms,
+        "flash_fn_shape": [list(x) for x in hfshape],
+        "flash_fn_max_abs_err": hflash_errs,
+        "ssd_fn_max_abs_err": ssd_fn_errs, "ssd_train_shape": htrain_ssd_row,
+        "losses": hlosses, "sim_times": hres.sim_times,
+        "total_sim_time": hres.total_sim_time,
+        "plan_history": hres.plan_history, "events": hres.events,
+        "tuner_attempts": hattempts, "wall_s": hwall,
+        "step_walls_s": hstep_walls, "median_step_s": hmed,
+        "peak_memory_gb": hpeak, "held_before_gb": held_h,
+        "launches": hcounts, "distinct_batch_grads": hgrad_calls[0]}
+
+    # train_hybrid_pins: reduced zamba2 at 4 layers and at 5 (a trailing
+    # block), card against CPU through train_pins' fault and restore
+    hpin = {**TRAIN_PIN_CONFIG, "arch": "zamba2-7b"}
+    htrain_report["train_hybrid_pins"] = {
+        n: train_pins(f"train_hybrid_pins_{n}l", hpin,
+                      None if n == 4 else n)
+        for n in HTRAIN_PIN_LAYERS}
+    print(f"[train_hybrid] phase 6c: {time.perf_counter() - t_htrain:.1f} s")
+    report["phases"]["train_hybrid"] = htrain_report
 
     def launches(kernel: str, home: str) -> dict:
         """The kernel's launches on the path whose shapes its row times
@@ -3248,13 +3681,14 @@ def main() -> int:
                  "call_ms": d_call, "library_call_ms": d_lib_call, **d_rate})
 
 
-    # flash_attention and decode_attention at zamba2's head dim 112 (the
-    # shared block of serve_hybrid), next to SDPA
-    def attention_d112():
-        hh, hkv, hdd = hcfg.n_heads, hcfg.n_kv_heads, hcfg.head_dim
-        q = att_rand((HYBRID_BATCH, HYBRID_PROMPT, hh, hdd), 31, bf16)
-        k = att_rand((HYBRID_BATCH, HYBRID_PROMPT, hkv, hdd), 32, bf16)
-        v = att_rand((HYBRID_BATCH, HYBRID_PROMPT, hkv, hdd), 33, bf16)
+    # flash_attention and decode_attention at other paths' shapes, next to
+    # SDPA: zamba2's head dim 112 (the shared block of serve_hybrid), and
+    # head dim 128 at qwen2.5-14b's (40 heads over 8 KV heads) and
+    # granite-34b's (48 over 1) prefill and cache
+    def attention_at(path, b, plen, n_new, max_len, hh, hkv, hdd, seed):
+        q = att_rand((b, plen, hh, hdd), seed, bf16)
+        k = att_rand((b, plen, hkv, hdd), seed + 1, bf16)
+        v = att_rand((b, plen, hkv, hdd), seed + 2, bf16)
         errs, rms = {}, {}
         for dtype in (torch.float32, bf16):
             args = [t.to(dtype) for t in (q, k, v)]
@@ -3263,18 +3697,20 @@ def main() -> int:
                 "flash_attention", FA.flash_attention(*args, causal=True),
                 FA.flash_attention_plain(*args, causal=True), name)
             if not ok:
-                raise AssertionError(f"flash_attention d=112 differs from its "
-                                     f"plain version in {name}: {errs[name]}")
+                raise AssertionError(f"flash_attention d={hdd} ({path}) "
+                                     f"differs from its plain version in "
+                                     f"{name}: {errs[name]}")
             del args
         fn = lambda: FA.flash_attention(q, k, v, causal=True)  # noqa: E731
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True)
-        pairs = HYBRID_PROMPT * (HYBRID_PROMPT + 1) // 2
-        flops = 4.0 * HYBRID_BATCH * hh * hdd * pairs
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        pairs = plen * (plen + 1) // 2
+        flops = 4.0 * b * hh * hdd * pairs
         fbytes = nbytes(q, k, v) + q.numel() * q.element_size()
-        flash = {"name": "flash_attention", "head_dim": hdd,
+        flash = {"name": "flash_attention", "case": path, "head_dim": hdd,
                  "shape": [list(q.shape), list(k.shape)],
+                 **launches("flash_attention", path),
                  "ms": cuda_ms(fn, 10), "device_ms": device_ms(fn, 10),
                  "call_ms": call_ms(fn, 10), "library_call_ms": call_ms(lib, 10),
                  "plain_ms": cuda_ms(lambda: FA.flash_attention_plain(
@@ -3290,10 +3726,10 @@ def main() -> int:
         flash.update(kernel_rates(flops, fbytes, flash["bound_ms"],
                                   flash["device_ms"]))
         del q, k, v, qt, kt, vt
-        cl = HYBRID_PROMPT + HYBRID_NEW - 1  # the last decode step's length
-        qd = att_rand((HYBRID_BATCH, hh, hdd), 34, bf16)
-        kc = att_rand((HYBRID_BATCH, HYBRID_MAX_LEN, hkv, hdd), 35, bf16)
-        vc = att_rand((HYBRID_BATCH, HYBRID_MAX_LEN, hkv, hdd), 36, bf16)
+        cl = plen + n_new - 1  # the last decode step's length
+        qd = att_rand((b, hh, hdd), seed + 3, bf16)
+        kc = att_rand((b, max_len, hkv, hdd), seed + 4, bf16)
+        vc = att_rand((b, max_len, hkv, hdd), seed + 5, bf16)
         errs, rms = {}, {}
         for dtype in (torch.float32, bf16):
             args = [t.to(dtype) for t in (qd, kc, vc)]
@@ -3302,19 +3738,21 @@ def main() -> int:
                 "decode_attention", DA.decode_attention(*args, cl),
                 DA.decode_attention_plain(*args, cl), name)
             if not ok:
-                raise AssertionError(f"decode_attention d=112 differs from "
-                                     f"its plain version in {name}: "
-                                     f"{errs[name]}")
+                raise AssertionError(f"decode_attention d={hdd} ({path}) "
+                                     f"differs from its plain version in "
+                                     f"{name}: {errs[name]}")
             del args
         fn = lambda: DA.decode_attention(qd, kc, vc, cl)  # noqa: E731
         q4 = qd[:, :, None].contiguous()
         k4, v4 = (t[:, :cl].transpose(1, 2).contiguous() for t in (kc, vc))
-        lib = lambda: F.scaled_dot_product_attention(q4, k4, v4)  # noqa: E731
-        dflops = 4.0 * HYBRID_BATCH * hh * hdd * cl
-        dbytes = 2 * nbytes(qd) + 2 * (HYBRID_BATCH * cl * hkv * hdd
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q4, k4, v4, enable_gqa=True)
+        dflops = 4.0 * b * hh * hdd * cl
+        dbytes = 2 * nbytes(qd) + 2 * (b * cl * hkv * hdd
                                        * kc.element_size())
-        decode = {"name": "decode_attention", "head_dim": hdd,
+        decode = {"name": "decode_attention", "case": path, "head_dim": hdd,
                   "shape": [list(qd.shape), list(kc.shape), cl],
+                  **launches("decode_attention", path),
                   "ms": cuda_ms(fn, 100), "device_ms": device_ms(fn, 50),
                   "call_ms": call_ms(fn, 50), "library_call_ms": call_ms(lib, 50),
                   "plain_ms": cuda_ms(lambda: DA.decode_attention_plain(
@@ -3330,23 +3768,36 @@ def main() -> int:
         decode.update(kernel_rates(dflops, dbytes, decode["bound_ms"],
                                    decode["device_ms"]))
         for e in (flash, decode):
-            print(f"[kernels] {e['name']} d=112 {e['shape']} bf16: "
-                  f"{e['ms']:.4f} ms (device {e['device_ms']:.4f} ms, per "
-                  f"call {e['call_ms']:.4f} ms; {e['tflops']:.1f} TFLOP/s, "
-                  f"{e['gbps']:.0f} GB/s, {e['bound_fraction']:.3f} of the "
-                  f"bound), plain {e['plain_ms']:.4f} "
+            print(f"[kernels] {e['name']} d={hdd} ({path}) {e['shape']} "
+                  f"bf16: {e['ms']:.4f} ms (device {e['device_ms']:.4f} ms, "
+                  f"per call {e['call_ms']:.4f} ms; {e['tflops']:.1f} "
+                  f"TFLOP/s, {e['gbps']:.0f} GB/s, {e['bound_fraction']:.3f} "
+                  f"of the bound), plain {e['plain_ms']:.4f} "
                   f"ms, SDPA {e['library_ms']:.4f} ms (device "
                   f"{e['library_device_ms']:.4f} ms, per call "
                   f"{e['library_call_ms']:.4f} ms), bound "
                   f"{e['bound_ms']:.5f} ms ({e['bound_by']}); max err f32 "
                   f"{e['max_abs_err_f32']:.3e}, bf16 {e['max_abs_err']:.3e} "
-                  f"(plain RMS {e['plain_rms']})")
+                  f"(plain RMS {e['plain_rms']}); launches "
+                  f"{e['launches']} on {path}")
         return flash, decode
 
-    flash112, decode112 = attention_d112()
+    flash112, decode112 = attention_at(
+        "serve_hybrid", HYBRID_BATCH, HYBRID_PROMPT, HYBRID_NEW,
+        HYBRID_MAX_LEN, hcfg.n_heads, hcfg.n_kv_heads, hcfg.head_dim, 31)
     rows[-2]["d112"] = flash112
     rows[-1]["d112"] = decode112
     extra_rows.extend([flash112, decode112])
+    for i, (arch, tag, _) in enumerate(DENSE_SERVE):
+        if arch == "command-r-plus-104b":
+            continue  # its calls are held on the path (hold_model_calls)
+        dc = dense_cfgs[arch]
+        f128, d128 = attention_at(
+            tag, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN,
+            dc.n_heads, dc.n_kv_heads, dc.head_dim, 61 + 10 * i)
+        rows[-2][f"d128_{arch}"] = f128
+        rows[-1][f"d128_{arch}"] = d128
+        extra_rows.extend([f128, d128])
 
     # ssd_scan at serve_hybrid's shape, on mild-decay inputs (dt in
     # [0.01, 0.1]: the random model's dt = softplus(N(0, 1)) decays so fast
@@ -3418,14 +3869,30 @@ def main() -> int:
                  "tflops": s_rates["tflops"], "gbps": s_rates["gbps"],
                  "max_abs_err_state_bf16": ssd_errs["bfloat16_state"]})
     del sx, sdt, sb, sc_, y_out, st_out
+    # ssd_scan at train_hybrid's shape (measured in phase 6c): its forward,
+    # and forward + backward through SsdScanFn
+    rows[-1]["train"] = {**htrain_ssd_row,
+                         **launches("ssd_scan", "train_hybrid")}
+    extra_rows.append(rows[-1]["train"])
+    print(f"[kernels] ssd_scan at train_hybrid's shape "
+          f"{htrain_ssd_row['shape']}: forward {htrain_ssd_row['ms']:.4f} ms "
+          f"(bound {htrain_ssd_row['bound_ms']:.5f}), forward + backward "
+          f"{htrain_ssd_row['fwd_bwd_ms']:.4f} ms (bound "
+          f"{htrain_ssd_row['fwd_bwd_bound_ms']:.5f}); launches "
+          f"{rows[-1]['train']['launches']} on train_hybrid")
 
     # -- 4c's profiled re-plans -----------------------------------------
     _phase("tuner profiles")
     for phase_, key_, tag_, fn_ in deferred_profiles:
         report["phases"][phase_][key_] = busy_of(tag_, fn_)
     _phase("train profile")
-    train_profile()
+    train_profile("train", tr, train_report, med_step,
+                  {"flash_attention": "flash_wgmma"})
     del tr
+    train_profile("train_hybrid", tr_h, htrain_report, hmed,
+                  {"ssd_scan": SSD_BF16_KERNEL,
+                   "flash_attention": "flash_wgmma"})
+    del tr_h
 
     report["kernels"] = rows
     report["kernel_shapes"] = extra_rows

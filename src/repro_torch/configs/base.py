@@ -1,4 +1,5 @@
-"""Architecture configs of the port (the dense and hybrid families so far).
+"""Architecture configs of the port (the dense and hybrid families so far:
+qwen2-0.5b, qwen2.5-14b, command-r-plus-104b, granite-34b and zamba2-7b).
 
 A config is pure data: the models read it.  This is the port's own copy of
 the fields of ``repro.configs.base.ArchConfig`` that the dense and hybrid
@@ -111,7 +112,8 @@ ARCH_IDS = (
     "zamba2-7b",
     "whisper-medium",
 )
-PORTED_ARCH_IDS = ("qwen2-0.5b", "zamba2-7b")
+PORTED_ARCH_IDS = ("qwen2-0.5b", "qwen2.5-14b", "command-r-plus-104b",
+                   "granite-34b", "zamba2-7b")
 
 
 def get_config(arch_id: str) -> ArchConfig:

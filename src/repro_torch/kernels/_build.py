@@ -204,8 +204,9 @@ def refuse_grad(what: str, *tensors) -> None:
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{what} has no backward: call it under torch.no_grad() or on "
-            f"inputs that do not require grad (the trainable attention is "
-            f"kernels.flash_attention.FlashAttentionFn)")
+            f"inputs that do not require grad (the trainable forms are "
+            f"kernels.flash_attention.FlashAttentionFn and "
+            f"kernels.ssm_scan.SsdScanFn)")
 
 
 _FRAME = re.compile(r"Function properties for (\S+)\s+(\d+) bytes stack frame, "

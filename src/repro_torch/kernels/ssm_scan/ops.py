@@ -24,6 +24,14 @@ float32 and 5e-2 * (1 + |plain|) in bfloat16 (the output's rounding), its
 final state within 1e-4 * (1 + |plain|) in both, on inputs whose
 per-chunk decay stays mild.
 
+:func:`ssd_scan` has no backward: with grad mode on and an input that
+requires grad it raises ``RuntimeError``.  :class:`SsdScanFn` is the
+trainable form: its forward is the same launch (or, on a CPU tensor, the
+plain version), and its backward is the gradient of the reference's
+``ssd_chunked`` at the reference model's chunk rule, taken by autograd
+through a recompute of :func:`ssd_scan_plain` (tensor ops).  The reference
+has no backward kernel: its training forward differentiates the XLA twin.
+
 :func:`ssd_sequential` is the reference's step-by-step oracle.
 """
 
@@ -36,8 +44,8 @@ import torch
 
 from .. import _build
 
-__all__ = ["CHUNK", "effective_chunk", "expand_groups", "ssd_scan",
-           "ssd_scan_plain", "ssd_sequential"]
+__all__ = ["CHUNK", "SsdScanFn", "effective_chunk", "expand_groups",
+           "ssd_scan", "ssd_scan_grad", "ssd_scan_plain", "ssd_sequential"]
 
 CHUNK = 128  # the reference's default chunk (zamba2's SSMConfig.chunk)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -187,8 +195,14 @@ def ssd_scan(x, dt, a_log, b, c, d_skip,
     float32).  ``chunk`` is the plain version's chunk (the CPU path); the
     kernel keeps its own 64.  x, b and c may be token-strided views (see
     the module's docstring).  The kernel has no backward: with grad mode on
-    and an input that requires grad it raises ``RuntimeError``."""
+    and an input that requires grad it raises ``RuntimeError`` (the
+    trainable form is :class:`SsdScanFn`)."""
     _build.refuse_grad("ssd_scan", x, dt, a_log, b, c, d_skip, initial_state)
+    return _scan(x, dt, a_log, b, c, d_skip, initial_state, chunk)
+
+
+def _scan(x, dt, a_log, b, c, d_skip, initial_state, chunk: int):
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
     _check(x, dt, a_log, b, c, d_skip, initial_state)
     dev = x.device
     if dev.type == "cpu":
@@ -213,3 +227,72 @@ def ssd_scan(x, dt, a_log, b, c, d_skip,
     _build.check(lib, code, "ssd_scan launch")
     _build.count_launch("ssd_scan")
     return y, state
+
+
+def ssd_scan_grad(x, dt, a_log, b, c, d_skip, initial_state, dy, dstate,
+                  chunk: int = CHUNK, needs=(True,) * 7):
+    """The gradients of :func:`ssd_scan_plain` at these inputs for the
+    cotangents ``dy`` (of y, in x's dtype) and ``dstate`` (of the final
+    state, float32), either None where its output is not used: (dx, ddt,
+    da_log, db, dc, dd_skip, dinitial_state), each None where ``needs``
+    says so (or, for the initial state, where none was given).
+
+    This is the gradient of the reference's ``ssd_chunked`` at
+    :func:`effective_chunk` (S, ``chunk``), its float32 numerics (x, b and
+    c cast to float32, the group-major expansion of B and C summed back
+    over each group's heads, y cast back to x's dtype), taken by autograd
+    through a recompute of the plain version under grad mode: tensor ops,
+    with the intra-chunk (B, nc, H, cl, cl) float32 tensors kept for the
+    backward of the recompute only.  Each gradient has its input's shape
+    and dtype, whatever the input's strides."""
+    inputs = (x, dt, a_log, b, c, d_skip, initial_state)
+    leaves = [None if t is None else t.detach().requires_grad_(bool(n))
+              for t, n in zip(inputs, needs)]
+    wanted = [t for t in leaves if t is not None and t.requires_grad]
+    if not wanted:
+        return (None,) * len(inputs)
+    with torch.enable_grad():
+        outs = ssd_scan_plain(*leaves, chunk=chunk)
+        used = [(o, c) for o, c in zip(outs, (dy, dstate)) if c is not None]
+        grads = iter(torch.autograd.grad([o for o, _ in used],
+                                         wanted, [c for _, c in used],
+                                         allow_unused=True))
+    out = []
+    for t in leaves:
+        if t is None or not t.requires_grad:
+            out.append(None)
+            continue
+        g = next(grads)
+        out.append(torch.zeros_like(t) if g is None else g)
+    return tuple(out)
+
+
+class SsdScanFn(torch.autograd.Function):
+    """Trainable SSD scan: ``SsdScanFn.apply(x, dt, a_log, b, c, d_skip,
+    initial_state, chunk)`` returns (y, final_state) as :func:`ssd_scan`.
+
+    The forward is :func:`ssd_scan`'s launch: ``csrc/ssd_scan.cu`` on a
+    CUDA tensor (``ssd_mma_kernel`` in bfloat16, 64-position chunks), or
+    a raise; the plain version on a CPU tensor.  x, b and c reach the
+    kernel as the views they are, without a copy.  The forward saves its
+    inputs; the backward returns :func:`ssd_scan_grad`: the gradient of
+    the reference's float32 chunked numerics at its chunk rule, so on the
+    card the forward and the backward follow different roundings (the
+    kernel's bf16 tensor-core products against float32 tensor ops).  Not a
+    fallback: on the card the forward always launches the kernel."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b, c, d_skip, initial_state=None,
+                chunk: int = CHUNK):
+        y, state = _scan(x, dt, a_log, b, c, d_skip, initial_state,
+                         int(chunk))
+        ctx.save_for_backward(x, dt, a_log, b, c, d_skip, initial_state)
+        ctx.chunk = int(chunk)
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        grads = ssd_scan_grad(*ctx.saved_tensors, dy, dstate, ctx.chunk,
+                              ctx.needs_input_grad[:7])
+        return (*grads, None)

@@ -16,13 +16,18 @@ used by the completion rule, the data feed, fault coverage, and gradient
 aggregation.
 
 On the card every attention layer's forward is the Hopper flash kernel
-(``FlashAttentionFn``, with its backward); the rest of the model is
+(``FlashAttentionFn``) and every Mamba-2 block's scan the SSD scan kernel
+(``SsdScanFn``), each with a tensor-op backward; the rest of the model is
 PyTorch.  ``Trainer(tc, device=None)`` runs on CUDA and raises without a
 card; ``device="cpu"`` runs on the host (the kernels' plain versions, the
-planners' plain sweeps).  The dense family trains (qwen2-0.5b).
+planners' plain sweeps).  The dense and hybrid families train
+(qwen2-0.5b, qwen2.5-14b, command-r-plus-104b, granite-34b, zamba2-7b).
+A step drops its per-batch gradient trees once they are aggregated, so
+the AdamW update holds one float32 gradient tree, not one a batch.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
           --steps 100 --workers 8 --batches 4 [--device cpu]
+      PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b
 """
 
 from __future__ import annotations
@@ -231,9 +236,9 @@ class Trainer:
             b = assignment.worker_batch[w]
             if b not in batch_grads:
                 data = self.pipeline.batch_for(step_idx, b, plan.n_batches)
-                loss, g = self._grad_fn(self.params, self._device_batch(data))
+                loss, batch_grads[b] = self._grad_fn(
+                    self.params, self._device_batch(data))
                 losses.append(float(loss))
-                batch_grads[b] = g
             grads_per_worker[w] = batch_grads[b]
 
         alive_used = np.array([g is not None for g in grads_per_worker])
@@ -256,6 +261,7 @@ class Trainer:
                 grads_per_worker, alive_used, plan,
                 worker_batch=assignment.worker_batch,
             )
+        del grads_per_worker, batch_grads  # only ``grad`` reaches AdamW
 
         lr = self.schedule(step_idx)
         self.params, self.opt_state, om = self._opt_fn(

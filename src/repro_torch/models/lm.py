@@ -21,12 +21,12 @@ b, H, N, P) float32, ``seg_conv`` (n_seg, seg, b, K-1, conv_dim) bfloat16,
 ``decode_step`` write it IN PLACE and return it.  Families other than
 ``dense`` and ``hybrid`` raise ``NotImplementedError``.
 
-``train_loss`` is the dense family's training forward (the hybrid
-family's waits for a gradient through the SSD scan): every attention
-layer runs the flash kernel through ``FlashAttentionFn``, so
+``train_loss`` is the training forward of both families: every
+attention layer runs the flash kernel through ``FlashAttentionFn`` and,
+hybrid, every Mamba-2 block the SSD scan kernel through ``SsdScanFn``, so
 ``loss.backward()`` reaches every parameter.  The reference's per-layer
-``jax.checkpoint`` only saves memory and changes no number; the port
-keeps every layer's activations.
+and per-segment ``jax.checkpoint`` only saves memory and changes no
+number; the port keeps every layer's activations.
 """
 
 from __future__ import annotations
@@ -95,7 +95,7 @@ def count_params(params) -> int:
     return params.numel()
 
 
-TRAINED_FAMILIES = ("dense",)
+TRAINED_FAMILIES = ("dense", "hybrid")
 
 
 def _trained(cfg: ArchConfig) -> None:
@@ -117,8 +117,11 @@ def _backbone(cfg: ArchConfig, params, x, positions):
     """Residual-stream pass through the blocks.  Returns (y, aux)."""
     _trained(cfg)
     rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    for lp in params["blocks"]:
-        x = T.apply_block(cfg, lp, x, rope)
+    if cfg.family == "hybrid":
+        x = Z.apply_zamba(cfg, params, x, rope)
+    else:
+        for lp in params["blocks"]:
+            x = T.apply_block(cfg, lp, x, rope)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -8,9 +8,12 @@ Follows ``repro.models.ssm``.  Per head h, with scalar decay:
 
 Prefill runs the chunked form through the hand-written ``ssd_scan`` kernel
 where the reference calls its XLA twin ``ssd_chunked`` (on a CPU tensor the
-kernel's plain version, which is ``ssd_chunked``).  Decode keeps S as the
-cache and takes one recurrent step (:func:`ssd_decode_step`, plain
-PyTorch, as the reference's, which has no Pallas kernel).
+kernel's plain version, which is ``ssd_chunked``).  With grad mode on and
+an input that requires grad (training), :func:`apply_mamba2_block` goes
+through ``SsdScanFn`` instead: the same kernel forward, and a backward.
+Decode keeps S as the cache and takes one recurrent step
+(:func:`ssd_decode_step`, plain PyTorch, as the reference's, which has no
+Pallas kernel).
 
 Parameters and activations are bfloat16 (``layers.DTYPE``) except
 ``a_log``, ``d_skip`` and ``dt_bias``, which stay float32; dt, the state and
@@ -26,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from ..kernels.ssm_scan.ops import expand_groups, ssd_scan
+from ..kernels.ssm_scan.ops import SsdScanFn, expand_groups, ssd_scan
 from . import layers as L
 
 __all__ = [
@@ -151,18 +154,30 @@ def _ssm_inputs(cfg: ArchConfig, params, xbc, dt_pre, x_dtype):
     return xs, b, c, dt
 
 
+def _scan(xs, dt, a_log, b, c, d_skip, initial_state, chunk: int):
+    """The chunked scan: ``SsdScanFn`` when grad mode is on and an input
+    requires grad (training), else ``ssd_scan``."""
+    ins = (xs, dt, a_log, b, c, d_skip, initial_state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in ins):
+        return SsdScanFn.apply(*ins, chunk)
+    return ssd_scan(*ins, chunk=chunk)
+
+
 def apply_mamba2_block(cfg: ArchConfig, params, x,
                        initial_state: Optional[torch.Tensor] = None):
     """x: (b, s, d) -> (y, {"ssm": final state (b, H, N, P) float32,
-    "conv": the last K-1 raw conv inputs (b, K-1, conv_dim)})."""
+    "conv": the last K-1 raw conv inputs (b, K-1, conv_dim)}).  The
+    prefill and the training block: differentiable when grad mode is on
+    and an input requires grad."""
     ssm = cfg.ssm
     d_inner, _ = _dims(cfg)
     h = L.apply_norm(cfg, params["ln"], x)
     z, xbc_raw, dt_pre = _split_proj(cfg, h @ params["in_proj"])
     xbc = _causal_depthwise_conv(xbc_raw, params["conv_w"], params["conv_b"])
     xs, b, c, dt = _ssm_inputs(cfg, params, xbc, dt_pre, x.dtype)
-    y, ssm_state = ssd_scan(xs, dt.contiguous(), params["a_log"], b, c,
-                            params["d_skip"], initial_state, chunk=ssm.chunk)
+    y, ssm_state = _scan(xs, dt.contiguous(), params["a_log"], b, c,
+                         params["d_skip"], initial_state, ssm.chunk)
     # conv left context for the decode continuation
     bs, s, _ = x.shape
     kconv = ssm.conv_kernel - 1

@@ -13,8 +13,18 @@ The shared block is the dense family's block (``transformer.apply_block``
 with ``kv_sink`` in prefill, ``apply_block_decode`` in decode), so prefill
 runs ``flash_attention`` and decode ``decode_attention`` once per
 application, and each Mamba-2 block of prefill runs ``ssd_scan`` once.
-Prefill and decode write the decode state IN PLACE.  The training forward
-(``apply_zamba``) waits for the training slice.
+Prefill and decode write the decode state IN PLACE.
+
+:func:`apply_zamba` is the training forward: under grad mode each Mamba-2
+block's scan goes through ``SsdScanFn`` and each shared application's
+attention through ``FlashAttentionFn``, so ``backward`` reaches every
+parameter.  The shared block's weights enter the graph once per
+application, so autograd sums their gradient over the applications.  The
+reference wraps each block and each segment in ``jax.checkpoint`` (save
+nothing, recompute in the backward), which only saves memory: the port
+keeps every block's activations in the autograd graph until the
+backward, and recomputes only the scan (``ssd_scan_grad`` runs the plain
+scan again under grad mode).
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from . import transformer as T
 __all__ = [
     "segment_layout",
     "init_zamba",
+    "apply_zamba",
     "apply_zamba_prefill",
     "zamba_decode_state_shape",
     "init_zamba_decode_state",
@@ -84,6 +95,22 @@ def init_zamba_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     float32, conv tails and KV caches in bfloat16."""
     return {k: torch.zeros(v, dtype=STATE_DTYPES[k], device=device)
             for k, v in zamba_decode_state_shape(cfg, batch, max_len).items()}
+
+
+def apply_zamba(cfg: ArchConfig, params, x, rope):
+    """Training forward.  x: (b, s, d); ``rope``: the rotary tables of
+    positions [0, s).  Every segment's Mamba-2 blocks, each followed by the
+    shared block, then the trailing blocks; the final states are
+    discarded.  Returns y."""
+    n_seg, _, trailing = segment_layout(cfg)
+    shared = params["shared_attn"]
+    for i in range(n_seg):
+        for lp in params["mamba_segments"][i]:
+            x, _ = ssm.apply_mamba2_block(cfg, lp, x)
+        x = T.apply_block(cfg, shared, x, rope)
+    for lp in params["mamba_trailing"] if trailing else ():
+        x, _ = ssm.apply_mamba2_block(cfg, lp, x)
+    return x
 
 
 def _mamba_prefill(cfg, blocks, x, ssm_sink, conv_sink):

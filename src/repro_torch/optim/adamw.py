@@ -15,7 +15,10 @@ port's sharding.
 The arithmetic is the reference's, in float32: the bias corrections are
 ``1 - b ** step`` with the power taken in float32 (a Python ``b ** step``
 would be float64 and round differently), and the clip scale, the moments
-and the update follow the reference's expression order.
+and the update follow the reference's expression order.  ``update`` runs
+them leaf by leaf, so besides the old and new state it holds one leaf's
+temporaries at a time, not a float32 tree of each (the scaled gradient,
+the moments' terms).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import dataclasses
 
 import torch
 
-from ..tree import tree_leaves, tree_map
+from ..tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["AdamWConfig", "init", "update", "global_norm"]
 
@@ -65,24 +68,28 @@ def update(grads, state, params, lr, cfg: AdamWConfig = AdamWConfig()):
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
-    grads = tree_map(lambda g: g.to(F32) * scale, grads)
 
     b1, b2 = cfg.b1, cfg.b2
-    m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
-    v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state["v"], grads)
     stepf = step.to(F32)
     bc1 = 1 - torch.pow(torch.tensor(b1, dtype=F32, device=stepf.device), stepf)
     bc2 = 1 - torch.pow(torch.tensor(b2, dtype=F32, device=stepf.device), stepf)
 
     ref = state["master"] if cfg.master_fp32 else params
 
-    def upd(p32, m_, v_):
+    def leaf(g, m_, v_, p32, p):
+        g = g.to(F32) * scale
+        m_ = b1 * m_ + (1 - b1) * g
+        v_ = b2 * v_ + (1 - b2) * g * g
         u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + cfg.eps)
         p32 = p32.to(F32)
-        return p32 - lr * (u + cfg.weight_decay * p32)
+        p32 = p32 - lr * (u + cfg.weight_decay * p32)
+        return m_, v_, p32, p32.to(p.dtype)
 
-    new_master = tree_map(upd, ref, m, v)
-    new_params = tree_map(lambda nm, p: nm.to(p.dtype), new_master, params)
+    outs = [leaf(*args) for args in zip(
+        tree_leaves(grads), tree_leaves(state["m"]), tree_leaves(state["v"]),
+        tree_leaves(ref), tree_leaves(params))]
+    m, v, new_master, new_params = (tree_unflatten(params, list(col))
+                                    for col in zip(*outs))
     new_state = {"step": step, "m": m, "v": v}
     if cfg.master_fp32:
         new_state["master"] = new_master

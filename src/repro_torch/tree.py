@@ -35,24 +35,25 @@ def tree_leaves(tree) -> list:
 
 def tree_unflatten(like, leaves):
     """A tree of ``like``'s structure holding ``leaves`` (in
-    :func:`tree_leaves` order)."""
+    :func:`tree_leaves` order).  It keeps no reference to ``leaves``: a
+    recursive closure here would be a reference cycle holding the list
+    (and every tensor in it) until the cyclic garbage collector ran."""
     leaves = list(leaves)
     n = len(tree_leaves(like))
     if len(leaves) != n:
         raise ValueError(f"{len(leaves)} leaves for a tree of {n}")
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            out = dict.fromkeys(t)  # the caller's key order, filled sorted
-            for k in sorted(t):
-                out[k] = build(t[k])
-            return out
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
 
-    return build(like)
+def _build(t, it):
+    if isinstance(t, dict):
+        out = dict.fromkeys(t)  # the caller's key order, filled sorted
+        for k in sorted(t):
+            out[k] = _build(t[k], it)
+        return out
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(v, it) for v in t)
+    return next(it)
 
 
 def tree_structure(tree) -> str:

@@ -46,7 +46,13 @@ inputs that require grad; a reduced ``train_loss`` backward on the card
 reaches every parameter (the attention projections nonzero), one flash
 launch a layer, each leaf within 5e-2 of its largest CPU gradient; a
 ``Checkpointer`` round trip of card bf16 tensors; and the trainer on the
-card keeps the CPU's simulated times and plans.
+card keeps the CPU's simulated times and plans.  The hybrid training path:
+``SsdScanFn`` on views of one activation, one launch, its output and
+gradients within the scan's tolerances of autograd through the plain
+version; reduced zamba2's backward reaches every parameter (one
+``ssd_scan`` launch a Mamba-2 block), and its trainer keeps the CPU's
+control plane.  The head-dim-128 dense configs: flash and decode at groups
+of 5, 12 and 48, and the reduced models' logits against the CPU's.
 """
 
 import os
@@ -1074,5 +1080,169 @@ def test_trainer_on_card_keeps_the_cpu_control_plane(cuda):
     before = launch_counts()["flash_attention"]
     rh, rc = host.run(), card.run()
     assert launch_counts()["flash_attention"] - before == 4 * 4 * 4
+    assert rc.sim_times == rh.sim_times and rc.plan_history == rh.plan_history
+    assert np.abs(np.array(rc.losses) - np.array(rh.losses)).max() <= 2e-2
+
+
+# -- the hybrid training path and the head-dim-128 dense configs -----------
+
+SCALAR_LEAVES = ("a_log", "dt_bias", "d_skip")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,h,p,g,n", [(200, 4, 64, 1, 64),
+                                       (130, 6, 32, 2, 16)])
+def test_ssd_fn_gradients_match_plain_autograd(cuda, dtype, s, h, p, g, n):
+    """SsdScanFn on the card, on x, b and c as views of one activation:
+    the forward is one kernel launch, its y and final state within the
+    scan's tolerances of the plain version, and the gradients (the plain
+    numerics' autograd, recomputed) within SSD_TOL of autograd through the
+    plain version."""
+    b = 2
+    gen = torch.Generator(device="cpu").manual_seed(s + h)
+    act = torch.randn((b, s, h * p + 2 * g * n), generator=gen)
+    act[..., h * p:] *= 0.3
+    dt = 0.01 + 0.09 * torch.rand((b, s, h), generator=gen)
+    a_log, d_skip = 0.5 * torch.randn(h, generator=gen), 1 + 0.1 * torch.randn(
+        h, generator=gen)
+    dy = torch.randn((b, s, h, p), generator=gen).to(cuda, dtype)
+
+    def run(fn):
+        leaves = [t.to(cuda).requires_grad_(True)
+                  for t in (act.to(dtype), dt, a_log, d_skip)]
+        xs, bb, cc = leaves[0].split([h * p, g * n, g * n], dim=-1)
+        y, st = fn(xs.reshape(b, s, h, p), leaves[1], leaves[2],
+                   bb.reshape(b, s, g, n), cc.reshape(b, s, g, n), leaves[3])
+        y.backward(dy)
+        return y.detach(), st.detach(), [t.grad for t in leaves]
+
+    before = launch_counts()["ssd_scan"]
+    y, st, grads = run(lambda *a: SS.SsdScanFn.apply(*a, None, 16))
+    torch.cuda.synchronize()
+    assert launch_counts()["ssd_scan"] == before + 1
+    yp, sp, want = run(lambda *a: SS.ssd_scan_plain(*a, chunk=16))
+    _ssd_close(y, yp, SSD_TOL[dtype])
+    _ssd_close(st, sp, 1e-4)
+    for gr, w in zip(grads, want):
+        assert gr.dtype == w.dtype and bool(torch.isfinite(gr).all())
+        _ssd_close(gr, w, SSD_TOL[dtype])
+
+
+@pytest.mark.parametrize("h,kv", [(40, 8), (96, 8), (48, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_at_the_dense_configs_heads(cuda, h, kv, dtype):
+    """Head dim 128 at qwen2.5-14b's, command-r-plus-104b's and
+    granite-34b's groups (5, 12 and 48 query heads a KV head): flash over a
+    ragged 200-position prompt, decode over a 1,055-position cache.  In
+    bfloat16 decode is held within a tenth of the plain output's RMS plus
+    2^-6 of each element (four bf16 spacings: over 20,480 outputs a few
+    lie far above the RMS, where the kernel's and the plain version's
+    bf16 roundings of P and of the output differ by a spacing there)."""
+    q = _randn((2, 200, h, 128), 21, cuda, dtype)
+    k = _randn((2, 200, kv, 128), 22, cuda, dtype)
+    v = _randn((2, 200, kv, 128), 23, cuda, dtype)
+    out = FA.flash_attention(q, k, v, causal=True)
+    ref = FA.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), ref.float(), **ATT_TOL[dtype])
+    qd = _randn((4, h, 128), 24, cuda, dtype)
+    kc = _randn((4, 2048, kv, 128), 25, cuda, dtype)
+    vc = _randn((4, 2048, kv, 128), 26, cuda, dtype)
+    before = launch_counts()["decode_attention"]
+    out = DA.decode_attention(qd, kc, vc, 1055)
+    assert launch_counts()["decode_attention"] == before + 1
+    ref = DA.decode_attention_plain(qd, kc, vc, 1055)
+    if dtype == torch.bfloat16:
+        rms = ref.float().square().mean().sqrt().item()
+        tol = dict(atol=DECODE_BF16_RMS_FRAC * rms, rtol=2.0 ** -6)
+    else:
+        tol = ATT_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "command-r-plus-104b",
+                                  "granite-34b"])
+def test_dense_configs_on_card_match_cpu(cuda, arch):
+    """The reduced models of the three head-dim-128 configs: prefill and
+    two decode steps on the card meet the CPU's logits within 4e-2 (the
+    untied qwen2.5-14b's logits, of unit scale and more, within 1e-1)."""
+    cfg = reduced_config(get_config(arch))
+    host = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = params_to(host, cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 70),
+                         generator=torch.Generator().manual_seed(1))
+    (lh, sh), (lc, sc) = (prefill(cfg, p, {"tokens": toks}, 80)
+                          for p in (host, card))
+    atol = 4e-2 if cfg.tie_embeddings else 1e-1
+    for i in range(3):
+        torch.testing.assert_close(lc.float().cpu(), lh.float(), atol=atol,
+                                   rtol=0)
+        tok = lh[:, -1].argmax(-1, keepdim=True)
+        lh, sh = decode_step(cfg, host, sh, tok, 70 + i)
+        lc, sc = decode_step(cfg, card, sc, tok.to(cuda), 70 + i)
+
+
+def test_hybrid_train_loss_backward_reaches_every_parameter_on_card(cuda):
+    """Reduced zamba2's ``train_loss`` backward on the card: one
+    ``ssd_scan`` launch a Mamba-2 block and one flash launch a shared
+    application, every leaf finite, the scan-only leaves nonzero, the loss
+    within 2e-2 of the CPU's and each leaf within 5e-2 of its largest CPU
+    gradient (the per-head float32 leaves within 0.25, as against the
+    reference on the CPU)."""
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.zamba import segment_layout
+    from repro_torch.tree import tree_leaves
+
+    cfg = reduced_config(get_config("zamba2-7b"))
+    host = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = params_to(host, cuda)
+    toks = torch.randint(0, cfg.vocab_size, (4, 128),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    (lh, _), gh = value_and_grad(cfg, host, batch)
+    before = launch_counts()
+    (lc, _), gc = value_and_grad(cfg, card, {k: v.to(cuda)
+                                             for k, v in batch.items()})
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after["ssd_scan"] - before["ssd_scan"] == cfg.n_layers
+    assert (after["flash_attention"] - before["flash_attention"]
+            == segment_layout(cfg)[0])
+    assert abs(float(lc) - float(lh)) <= 2e-2
+    names = [n for n, _ in _named_leaves(gh)]
+    for name, a, b in zip(names, tree_leaves(gh), tree_leaves(gc)):
+        assert b.is_cuda and bool(torch.isfinite(b).all())
+        scale = a.float().abs().max().item()
+        tol = 0.25 if name in SCALAR_LEAVES else 5e-2
+        assert (b.float().cpu() - a.float()).abs().max().item() <= tol * scale
+    for seg in gc["mamba_segments"]:
+        for lp in seg:
+            for name in ("a_log", "dt_bias", "conv_w"):
+                assert lp[name].abs().max().item() > 0, name
+
+
+def _named_leaves(tree, name=None):
+    """(last key, leaf) in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], k)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _named_leaves(v, name)
+    else:
+        yield name, tree
+
+
+def test_hybrid_trainer_on_card_keeps_the_cpu_control_plane(cuda):
+    from repro_torch.launch.train import Trainer, TrainerConfig
+
+    tc = TrainerConfig(arch="zamba2-7b", steps=4, seq_len=64,
+                       global_batch=16, lr=1e-3)
+    host = Trainer(tc, device="cpu")
+    card = Trainer(tc)
+    card.params = params_to(host.params, cuda)
+    card.opt_state = params_to(host.opt_state, cuda)
+    before = launch_counts()["ssd_scan"]
+    rh, rc = host.run(), card.run()
+    assert launch_counts()["ssd_scan"] - before == 4 * 4 * card.cfg.n_layers
     assert rc.sim_times == rh.sim_times and rc.plan_history == rh.plan_history
     assert np.abs(np.array(rc.losses) - np.array(rh.losses)).max() <= 2e-2

@@ -1,15 +1,18 @@
 """The port's ``Trainer`` beside the reference's, on the CPU.
 
 Each case builds both trainers from the same ``TrainerConfig`` fields
-(reduced qwen2-0.5b, 8 virtual workers), and the port's starts from the
-reference's parameters and AdamW state (``params_from_reference``,
+(reduced qwen2-0.5b, 8 virtual workers; the plain run and the whole-group
+fault with its checkpoint restore also on reduced zamba2-7b, whose
+parameter tree nests lists of Mamba-2 blocks), and the port's starts from
+the reference's parameters and AdamW state (``params_from_reference``,
 ``opt_state_from_reference``).  The control plane sees only numpy draws
 and the plan, never the losses, so ``sim_times``, ``plan_history``,
 ``events``, ``final_plan`` and the topology generation must be equal
 exactly.  The losses must agree within 2e-3 (measured at most 2.5e-4 over
 8-14 steps at lr 1e-3, on losses of 6.26: both models run in bfloat16 and
 round at different points; the trajectories drift apart with the steps
-taken, so the 40-step run at lr 3e-3 is held to 1e-2, measured 1.8e-3).
+taken, so the 40-step run at lr 3e-3 is held to 1e-2, measured 1.8e-3;
+zamba2 over 10-12 steps: measured at most 9.7e-4).
 The final float32 master weights must agree within 2 x the sum of the
 learning rates applied (an AdamW update moves an element by about lr
 either way, so a gradient element of the other sign in one implementation
@@ -18,8 +21,8 @@ parameters within that plus one bf16 spacing of their magnitude.
 
 The reference's trainer re-jits its step functions per instance; the
 tests hand every reference trainer the jitted functions of the first one
-(same config, same AdamW), which changes no number and saves a compile a
-case.  The reference's 40-step runs (loss decrease, the tuner at 40 steps)
+of its architecture (same config, same AdamW), which changes no number
+and saves a compile a case.  The reference's 40-step runs (loss decrease, the tuner at 40 steps)
 are marked ``slow``; tier-1 runs the same paths in 10-14 steps.
 """
 
@@ -46,10 +49,10 @@ _REF_FNS: dict = {}
 
 
 def _ref_trainer(**kw) -> RefTrainer:
-    rt = RefTrainer(RefTrainerConfig(**{**BASE, **kw}))
-    if not _REF_FNS:
-        _REF_FNS.update(grad=rt._grad_fn, opt=rt._opt_fn)
-    rt._grad_fn, rt._opt_fn = _REF_FNS["grad"], _REF_FNS["opt"]
+    tc = RefTrainerConfig(**{**BASE, **kw})
+    rt = RefTrainer(tc)
+    fns = _REF_FNS.setdefault(tc.arch, (rt._grad_fn, rt._opt_fn))
+    rt._grad_fn, rt._opt_fn = fns
     return rt
 
 
@@ -113,8 +116,12 @@ def _run_and_check(loss_tol=LOSS_TOL, **kw):
     return rr, pr, rt, pt
 
 
-def test_plain_run_matches_reference():
-    rr, pr, _, _ = _run_and_check()
+ARCHS = ["qwen2-0.5b", "zamba2-7b"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_plain_run_matches_reference(arch):
+    rr, pr, _, _ = _run_and_check(arch=arch)
     assert pr.total_sim_time == rr.total_sim_time > 0
     assert pr.plan_history == [(0, 4)] and pr.events == []
 
@@ -130,10 +137,11 @@ def test_fault_masking_matches_reference():
     assert any("mask" in e for e in pr.events)
 
 
-def test_whole_group_loss_replans_and_restores(tmp_path):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_whole_group_loss_replans_and_restores(tmp_path, arch):
     faults = (RefFaultEvent(worker=1, start_step=3, end_step=10**9),
               RefFaultEvent(worker=5, start_step=3, end_step=10**9))
-    kw = dict(steps=12, faults=faults, checkpoint_every=2)
+    kw = dict(arch=arch, steps=12, faults=faults, checkpoint_every=2)
     rt = _ref_trainer(**kw, checkpoint_dir=str(tmp_path / "ref"))
     _, pt = _pair(**kw, checkpoint_dir=str(tmp_path / "port"))
     pt.params = params_from_reference(
