@@ -205,6 +205,32 @@ non-zero:
                       call and longest decode call held against the plain
                       versions, then the card against the CPU at full
                       width and depth 2 on prompts of 32.
+6d. ``serve_families`` the last four families at full width, random bf16
+                      weights, one model at a time, each freed before the
+                      next, 8 prompts of 1,024 and 32 new tokens as in
+                      ``serve`` (prefill and two decode steps profiled):
+                      ``serve_olmoe`` (16 layers, 64 experts top-8) and
+                      ``serve_deepseek_moe`` (28, dense layer 0, 64 routed
+                      top-6 + 2 shared) through the MoE dispatch,
+                      ``serve_internvl2`` (16 of 80 layers, 64 heads over
+                      8) behind 256 projected patch slots, flash launches =
+                      layers and decode = layers x 31; ``serve_xlstm``
+                      (24 blocks, 21 mLSTM + 3 sLSTM), which runs no hand
+                      kernel (every pin 0); ``serve_whisper`` (24 + 24
+                      layers): ``encode`` of 1,500 frames, the cross cache
+                      from ``_cross_kv``, 32 ``decode_step``s with
+                      cross_len 1,500, then ``decode_train`` on those
+                      tokens, held within 0.125 of the step logits (flash
+                      72, decode 1,536).  The counted runs' first flash
+                      and longest decode calls are held against the plain
+                      versions; card against CPU at full width and small
+                      depth (MoE 2, internvl2 2, whisper 2 + 2 on 128
+                      frames, xLSTM 8 on prompts of 128, in float32: its
+                      random-weight logits move by tenths at one bf16
+                      rounding), logits within 0.125 (MoE: the card routed to the CPU's experts
+                      call by call; the (token, layer) top-k sets the card
+                      would have chosen otherwise, each a near-tie, and
+                      the assignments dropped past capacity, printed).
 6c. ``train_hybrid``  zamba2-7b trained at full width and depth 13 (two
                       segments of six Mamba-2 blocks and the shared block,
                       one trailing block; 1.45 G parameters) by ``Trainer``
@@ -238,7 +264,10 @@ non-zero:
                       at a tenth of its plain output's RMS (its outputs,
                       averages over about 1,000 keys, are of order 0.05),
                       at head dims 64 and 112 and at 128 (qwen2.5-14b's and
-                      granite-34b's prefill and cache), with each one's
+                      granite-34b's prefill and cache; olmoe's MHA and
+                      internvl2's 64 over 8; whisper's non-causal encoder,
+                      its cross attention and its 1,500-frame cross
+                      cache at d 64), with each one's
                       achieved rate (flash TFLOP/s, decode GB/s) and
                       fraction of its bound.  ``ssd_scan`` also at
                       ``train_hybrid``'s shape, forward and forward +
@@ -274,7 +303,7 @@ non-zero:
                       the planner's shape (strip kernel) and 1024 x 1024
                       x 2048 (tiled kernel).
 
-Each path of phases 2-6, 4b-4e and 6a-6c runs with the launch counts and the sweeps'
+Each path of phases 2-6, 4b-4e and 6a-6d runs with the launch counts and the sweeps'
 stage seconds (``simulator.STAGE_SECONDS``) set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.  One more
 run of phases 2 and 3 under ``torch.profiler`` gives the card's busy time.
@@ -412,6 +441,36 @@ DENSE_SERVE = (("qwen2.5-14b", "serve_qwen2_5_14b", 48),
 # of 32: the CPU's bf16 layers and unembedding (256,000 x 12,288 for
 # command-r) then take seconds
 DCHECK_PROMPT = 32
+# phase 6d: the last four families at full width, random bf16 weights,
+# (arch, phase tag, layers on the card or None for all): olmoe-1b-7b (16
+# layers, 13.8 GB), deepseek-moe-16b (28, layer 0 dense, 32.8 GB),
+# internvl2-76b at depth 16 of 80 (31.6 GB: 1.71 GB a layer and 4.2 GB of
+# untied embeddings; all 80 would be 141 GB), xlstm-350m (24 blocks, 21
+# mLSTM + 3 sLSTM); whisper-medium (24 + 24) is served by its own path
+FAMILY_SERVE = (("olmoe-1b-7b", "serve_olmoe", None),
+                ("deepseek-moe-16b", "serve_deepseek_moe", None),
+                ("internvl2-76b", "serve_internvl2", 16),
+                ("xlstm-350m", "serve_xlstm", None))
+# card against CPU at full width and small depth, on these prompts: MoE
+# at depth 2 (deepseek's dense layer 0 and one MoE layer) on prompts of 32
+# (64 tokens, top-8 or top-6 of 64 experts at capacity factor 1.25: some
+# experts overflow), internvl2 at depth 2 behind its 256 patch slots,
+# xLSTM at depth 8 (one segment ending in its sLSTM) on prompts of 128, in
+# float32 (xlstm_check says why)
+FCHECK_LAYERS = {"serve_olmoe": 2, "serve_deepseek_moe": 2,
+                 "serve_internvl2": 2, "serve_xlstm": 8}
+FCHECK_PROMPT = {"serve_olmoe": 32, "serve_deepseek_moe": 32,
+                 "serve_internvl2": 32, "serve_xlstm": 128}
+# MoE card against CPU: the card routes to the CPU's experts call by call;
+# a token whose own top-k set on the card differs (a routing flip) must be
+# a near-tie, the CPU's k-th and (k+1)-th gate probabilities closer than
+# this (1/64 is the mean gate probability over olmoe's 64 experts)
+MOE_FLIP_MARGIN = 1e-2
+# whisper: the stubbed frontend's 30 s window (1,500 frames of 128); the
+# cross cache shares max_len with the self cache; decoding starts from
+# whisper's start-of-transcript token; the check runs 128 frames
+WHISPER_FRAMES, WHISPER_MAX_LEN, WHISPER_START = 1500, 1536, 50258
+WCHECK_FRAMES = 128
 # phase 6c: zamba2-7b trained at full width (d 3584, 112 SSM heads of 64,
 # state 64, 32 attention heads of 112) and depth 13: two segments of six
 # Mamba-2 blocks, each followed by the shared block, then one trailing
@@ -587,6 +646,38 @@ def engine_summary(out: dict) -> dict:
                         math.fsum(sojourns[k]) / v["served"],
                         v["p99_sojourn"])
                     for k, v in (out["class_stats"] or {}).items()}}
+
+
+def routed_to_cpu(orig_route):
+    """A stand-in for ``repro_torch.models.moe.route`` for checking the card
+    against the CPU where each MoE call on the CPU comes before the card's
+    call of the same layer and step: a card call is routed to the experts
+    the CPU chose in its matching call, weighted by the card's own gate
+    probabilities, since a bf16 near-tie that the two roundings order
+    differently (a routing flip) would send the two models apart by
+    design.  Returns (route, state): ``state["pending"]`` holds the CPU
+    calls not yet matched, ``state["flips"]`` the CPU's margin between its
+    k-th and (k+1)-th gate probability at each token whose own top-k set
+    on the card differs, ``state["sets"]`` the (token, layer) sets
+    compared."""
+    state = {"pending": [], "flips": [], "sets": 0}
+
+    def route(moe, router, xt):
+        probs, gate_w, gate_e = orig_route(moe, router, xt)
+        if xt.device.type == "cpu":
+            top = probs.topk(moe.top_k + 1, dim=-1).values
+            state["pending"].append((gate_e, top[:, -2] - top[:, -1]))
+            return probs, gate_w, gate_e
+        cpu_e, margin = state["pending"].pop(0)
+        state["sets"] += cpu_e.shape[0]
+        flip = (gate_e.sort(-1).values.cpu()
+                != cpu_e.sort(-1).values).any(-1)
+        state["flips"].extend(margin[flip].tolist())
+        forced = cpu_e.to(xt.device)
+        w = probs.gather(-1, forced)
+        return probs, w / w.sum(-1, keepdim=True).clamp_min(1e-9), forced
+
+    return route, state
 
 
 def replan_log(eng) -> list:
@@ -2279,30 +2370,41 @@ def main() -> int:
     # -- 5. serve and 6. serve_hybrid -------------------------------------
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import ServeConfig, generate, run_serving
-    from repro_torch.models import (count_params, decode_step, init_params,
+    from repro_torch.models import (count_params, decode_step,
+                                    init_decode_state, init_params,
                                     params_to, prefill)
 
     def serve_cell(tag, cfg, params, prompts, n_new, max_len, want,
-                   prefill_shares=None):
+                   prefill_shares=None, patch_embeds=None,
+                   held=("flash_attention", "decode_attention"),
+                   profile_steps=None):
         """Greedy generation at full width: three runs (the first with the
         launch counts at 0, which must equal ``want``), rates, peak memory
         and each part's idle share under the profiler against its own
-        fastest unprofiled run; ``prefill_shares`` as ``print_busy``'s
+        fastest unprofiled run (``profile_steps`` decode steps profiled, all
+        of them by default); ``prefill_shares`` as ``print_busy``'s
         ``shares``, for the prefill.  The counted run's first flash call
         and longest decode call, as it made them, are held against the
-        plain versions (``hold_model_calls``)."""
+        plain versions (``hold_model_calls``; ``held`` names the kernels
+        the path runs).  vlm: ``patch_embeds`` sit ahead of the prompt."""
         batch, plen = prompts.shape
+        offset = cfg.n_patches if patch_embeds is not None else 0
+        pbatch = {"tokens": prompts}
+        if patch_embeds is not None:
+            pbatch["patch_embeds"] = patch_embeds
         print(f"[{tag}] {cfg.name}: {count_params(params):,} parameters in "
               f"bf16 on the card ({cfg.n_layers} layers, d {cfg.d_model}, "
               f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV of "
-              f"{cfg.head_dim}); batch {batch}, prompt {plen}, {n_new} new "
-              f"tokens, max_len {max_len}")
+              f"{cfg.head_dim}); batch {batch}, prompt {plen}"
+              + (f" behind {offset} patch slots" if offset else "")
+              + f", {n_new} new tokens, max_len {max_len}")
         # warm-up at a small size: loads the kernels and cuBLAS's handles
-        generate(cfg, params, prompts[:, :64], 2, 128)
+        generate(cfg, params, prompts[:, :64], 2, offset + 128, patch_embeds)
         torch.cuda.reset_peak_memory_stats()
 
         def serve():
-            return generate(cfg, params, prompts, n_new, max_len)
+            return generate(cfg, params, prompts, n_new, max_len,
+                            patch_embeds)
 
         seen: dict = {}
         origs = [(ATTN_MODEL, "flash_attention", record_call(
@@ -2329,11 +2431,10 @@ def main() -> int:
             raise AssertionError("greedy generation is not deterministic")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         # after the peak is read: the plain versions hold full score rows
-        held = hold_model_calls(tag, seen)
-        if {e["name"] for e in held} != {"flash_attention",
-                                         "decode_attention"}:
-            raise AssertionError(f"{tag} held {sorted(seen)}, not both "
-                                 f"attention kernels")
+        held_calls = hold_model_calls(tag, seen)
+        if {e["name"] for e in held_calls} != set(held):
+            raise AssertionError(f"{tag} held {sorted(seen)}, not "
+                                 f"{sorted(held)}")
         del seen
 
         def rates(g):
@@ -2358,23 +2459,27 @@ def main() -> int:
 
         # idle share of prefill and of the decode loop, each under the
         # profiler
+        n_prof = n_new - 1 if profile_steps is None else profile_steps
+
         def decode_loop():
             logits, state = prefill_state
             tok = logits[:, -1].argmax(-1, keepdim=True)
-            for i in range(n_new - 1):
-                logits, state = decode_step(cfg, params, state, tok, plen + i)
+            for i in range(n_prof):
+                logits, state = decode_step(cfg, params, state, tok,
+                                            offset + plen + i)
                 tok = logits[:, -1].argmax(-1, keepdim=True)
 
         busy_prefill = print_busy(f"{tag} prefill", *busy_window(
-            lambda: prefill(cfg, params, {"tokens": prompts}, max_len)),
+            lambda: prefill(cfg, params, pbatch, max_len)),
             top=10, shares=prefill_shares)
-        prefill_state = prefill(cfg, params, {"tokens": prompts}, max_len)
-        busy_decode = print_busy(f"{tag} decode", *busy_window(decode_loop),
-                                 top=10)
+        prefill_state = prefill(cfg, params, pbatch, max_len)
+        busy_decode = print_busy(f"{tag} decode ({n_prof} steps)",
+                                 *busy_window(decode_loop), top=10)
         del prefill_state
         for part, busy, unprofiled in (
                 ("prefill", busy_prefill, min(g.prefill_s for g in runs)),
-                ("decode", busy_decode, min(g.decode_s for g in runs))):
+                ("decode", busy_decode, min(g.decode_s for g in runs)
+                 * n_prof / (n_new - 1))):
             if busy["device_busy_s"] is None:
                 raise AssertionError(f"the profiler saw no device work in "
                                      f"{tag} {part}")
@@ -2389,24 +2494,42 @@ def main() -> int:
                 "runs": [[g.prefill_s, g.decode_s] for g in runs],
                 **best_rates, "median_run": rates(median),
                 "peak_memory_gb": peak_gb, "busy_prefill": busy_prefill,
-                "busy_decode": busy_decode, "plain_checks": held}
+                "busy_decode": busy_decode, "plain_checks": held_calls}
 
-    def card_vs_cpu(tag, small, batch, plen, steps):
+    def as_float32(tree):
+        if isinstance(tree, dict):
+            return {k: as_float32(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [as_float32(v) for v in tree]
+        return tree.float()
+
+    def card_vs_cpu(tag, small, batch, plen, steps, float32=False):
         """The same weights (drawn on the card, copied to the host: the
         host's generator takes most of a minute for command-r's 6.3 G
         parameters) on the card and on the CPU: logits within LOGIT_TOL at
         prefill and each decode step, and the same greedy token wherever
-        the CPU's top-2 margin exceeds that."""
+        the CPU's top-2 margin exceeds that.  vlm: behind seeded patch
+        embeddings.  ``float32``: the weights, and so the activations, in
+        float32 on both."""
         t0 = time.perf_counter()
         on_card = init_params(torch.Generator(device="cuda").manual_seed(2),
                               small, dev)
+        if float32:
+            on_card = as_float32(on_card)
         host = params_to(on_card, "cpu")
         t_init = time.perf_counter() - t0
+        cgen = torch.Generator().manual_seed(3)
         ctoks = torch.randint(0, small.vocab_size, (batch, plen),
-                              generator=torch.Generator().manual_seed(3))
-        max_len = plen + steps
-        lh, sh = prefill(small, host, {"tokens": ctoks}, max_len)
-        lc, sc = prefill(small, on_card, {"tokens": ctoks}, max_len)
+                              generator=cgen)
+        cbatch = {"tokens": ctoks}
+        offset = 0
+        if small.family == "vlm":
+            cbatch["patch_embeds"] = torch.randn(
+                (batch, small.n_patches, small.frontend_dim), generator=cgen)
+            offset = small.n_patches
+        max_len = offset + plen + steps
+        lh, sh = prefill(small, host, cbatch, max_len)
+        lc, sc = prefill(small, on_card, cbatch, max_len)
         logit_errs, decided, agreed = [], 0, 0
         for i in range(steps + 1):
             err = (lc.float().cpu() - lh.float()).abs().max().item()
@@ -2426,9 +2549,10 @@ def main() -> int:
                                      f"{LOGIT_TOL}")
             if i < steps:  # both fed the CPU's greedy token
                 lh, sh = decode_step(small, host, sh, tok_h[:, None],
-                                     plen + i)
+                                     offset + plen + i)
                 lc, sc = decode_step(small, on_card, sc,
-                                     tok_h[:, None].to(dev), plen + i)
+                                     tok_h[:, None].to(dev),
+                                     offset + plen + i)
         print(f"[{tag}] card vs CPU ({small.n_layers} layers, prompt {plen}, "
               f"{steps} decode steps): max |logit diff| per step "
               f"{[round(e, 5) for e in logit_errs]} (tolerance {LOGIT_TOL}); "
@@ -2542,6 +2666,321 @@ def main() -> int:
         report["phases"][tag] = dense_report
         torch.cuda.empty_cache()
     print(f"[serve_dense] phase 6a: {time.perf_counter() - t_dense:.1f} s")
+
+    # -- 6d. the MoE, VLM, audio and xLSTM families at full width ---------
+    t_fam = time.perf_counter()
+    from repro_torch.models import moe as MOE_MODEL
+    from repro_torch.models import whisper as WHISPER
+
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"[serve_families] phase 6d starts with {held_gb:.2f} GB "
+          f"allocated on the card")
+    report["phases"]["serve_families_start_gb"] = held_gb
+    family_cfgs = {}  # tag -> the config served (its depth cut)
+
+    def moe_routing(fn):
+        """Run ``fn`` with the card routed to the CPU's experts
+        (``routed_to_cpu``), counting the assignments each side dropped
+        past capacity.  Returns (fn's result, the CPU's margin at each
+        routing flip, the (token, layer) sets compared, {device type:
+        assignments dropped})."""
+        dropped = {"cpu": 0, "cuda": 0}
+        o_route, o_dispatch = MOE_MODEL.route, MOE_MODEL.dispatch
+        route, state = routed_to_cpu(o_route)
+
+        def dispatch(moe, gate_e, cap):
+            out = o_dispatch(moe, gate_e, cap)
+            dropped[gate_e.device.type] += int((~out[4]).sum())
+            return out
+
+        MOE_MODEL.route, MOE_MODEL.dispatch = route, dispatch
+        try:
+            res = fn()
+        finally:
+            MOE_MODEL.route, MOE_MODEL.dispatch = o_route, o_dispatch
+        if state["pending"] or not state["sets"]:
+            raise AssertionError(f"{len(state['pending'])} CPU MoE calls "
+                                 f"without a card call ({state['sets']} "
+                                 f"sets compared)")
+        return res, state["flips"], state["sets"], dropped
+
+    def xlstm_check(tag, small, plen):
+        """xLSTM card against CPU in float32 (``card_vs_cpu``), and the bf16
+        prefill's spread printed beside the CPU's own bf16-against-float32
+        gap: with random weights the mLSTM's normaliser max(|q.n|,
+        exp(-m)) divides by near-cancelling sums, so at full width one bf16
+        rounding anywhere moves the logits by tenths (a one-ulp nudge of
+        one block's w_up moves them by 0.85 on the CPU), and a bf16 check
+        at LOGIT_TOL would test the rounding, not the port."""
+        out = card_vs_cpu(tag, small, CHECK_BATCH, plen, CHECK_STEPS,
+                          float32=True)
+        on_card = init_params(torch.Generator(device="cuda").manual_seed(2),
+                              small, dev)
+        host = params_to(on_card, "cpu")
+        toks = torch.randint(0, small.vocab_size, (CHECK_BATCH, plen),
+                             generator=torch.Generator().manual_seed(3))
+        lc = prefill(small, on_card, {"tokens": toks}, plen)[0].float().cpu()
+        lh = prefill(small, host, {"tokens": toks}, plen)[0].float()
+        l32 = prefill(small, as_float32(host), {"tokens": toks}, plen)[0]
+        spread = {"bf16_card_vs_cpu": (lc - lh).abs().max().item(),
+                  "cpu_bf16_vs_float32": (lh - l32).abs().max().item(),
+                  "logit_scale": lh.abs().max().item()}
+        print(f"[{tag}] bf16 prefill logits (not held; the check above ran "
+              f"in float32): card vs CPU {spread['bf16_card_vs_cpu']:.5f}, "
+              f"the CPU's bf16 vs its float32 "
+              f"{spread['cpu_bf16_vs_float32']:.5f}, |logits| up to "
+              f"{spread['logit_scale']:.3f}")
+        out["bf16_spread"] = spread
+        return out
+
+    def family_check(tag, small, plen):
+        """``card_vs_cpu`` at full width and small depth; MoE: the card
+        routed to the CPU's experts call by call (``moe_routing``), the
+        (token, layer) top-k sets the card would have chosen otherwise
+        (routing flips, each a near-tie: the CPU's margin below
+        MOE_FLIP_MARGIN) and the assignments dropped past capacity,
+        printed; the check's prompts must overflow some expert."""
+        if small.family == "ssm":
+            return xlstm_check(tag, small, plen)
+        if small.family != "moe":
+            return card_vs_cpu(tag, small, CHECK_BATCH, plen, CHECK_STEPS)
+        out, flips, n_sets, dropped = moe_routing(lambda: card_vs_cpu(
+            tag, small, CHECK_BATCH, plen, CHECK_STEPS))
+        print(f"[{tag}] routing: {len(flips)} of {n_sets} (token, layer) "
+              f"top-{small.moe.top_k} sets the card chose otherwise than "
+              f"the CPU (routed to the CPU's for the check), at CPU margins "
+              f"{[round(m, 6) for m in flips]} (limit {MOE_FLIP_MARGIN}); "
+              f"assignments dropped past capacity: CPU {dropped['cpu']}, "
+              f"card {dropped['cuda']}")
+        if dropped["cpu"] == 0 or dropped["cpu"] != dropped["cuda"]:
+            raise AssertionError(f"{tag}: dropped assignments CPU "
+                                 f"{dropped['cpu']}, card {dropped['cuda']} "
+                                 f"(the check's prompts must overflow)")
+        if any(m >= MOE_FLIP_MARGIN for m in flips):
+            raise AssertionError(f"{tag}: a routing flip at a CPU margin "
+                                 f"of {max(flips)}: not a near-tie")
+        out.update({"routing_flips": len(flips), "routing_sets": n_sets,
+                    "routing_flip_margins": flips,
+                    "dropped_cpu": dropped["cpu"],
+                    "dropped_card": dropped["cuda"]})
+        return out
+
+    for arch, tag, depth in FAMILY_SERVE:
+        _phase(tag)
+        fcfg = get_config(arch)
+        if depth is not None:
+            fcfg = dataclasses.replace(fcfg, n_layers=depth)
+        family_cfgs[tag] = fcfg
+        fparams = init_params(torch.Generator(device="cuda").manual_seed(0),
+                              fcfg, dev)
+        fgen = torch.Generator(device="cuda").manual_seed(1)
+        fprompts = torch.randint(0, fcfg.vocab_size,
+                                 (SERVE_BATCH, SERVE_PROMPT), device=dev,
+                                 generator=fgen)
+        patches = None
+        if fcfg.family == "vlm":
+            patches = torch.randn(
+                (SERVE_BATCH, fcfg.n_patches, fcfg.frontend_dim), device=dev,
+                generator=fgen)
+        layers = fcfg.n_layers
+        if fcfg.family == "ssm":
+            want, held = {k: 0 for k in _build.SOURCES}, ()
+            print(f"[{tag}] xLSTM runs no hand kernel: its mLSTM and sLSTM "
+                  f"are tensor ops in the reference too (no pallas_call "
+                  f"computes them), so every kernel's pin is 0")
+        else:
+            want = {"flash_attention": layers,
+                    "decode_attention": layers * (SERVE_NEW - 1)}
+            held = ("flash_attention", "decode_attention")
+        fam_report = serve_cell(tag, fcfg, fparams, fprompts, SERVE_NEW,
+                                SERVE_MAX_LEN, want, patch_embeds=patches,
+                                held=held, profile_steps=2)
+        fam_report["layers_served"] = layers
+        fam_report["layers_published"] = get_config(arch).n_layers
+        fam_report["parameters"] = count_params(fparams)
+        del fparams, fprompts, patches
+        torch.cuda.empty_cache()
+        small = dataclasses.replace(fcfg, n_layers=FCHECK_LAYERS[tag])
+        if fcfg.family == "ssm":  # one segment ending in its sLSTM
+            small = dataclasses.replace(small, ssm=dataclasses.replace(
+                small.ssm, slstm_layers=(FCHECK_LAYERS[tag] - 1,)))
+        fam_report.update(family_check(tag, small, FCHECK_PROMPT[tag]))
+        report["phases"][tag] = fam_report
+        torch.cuda.empty_cache()
+
+    # serve_whisper: encode 1,500 frames, fill the cross cache, decode 32
+    # tokens with cross_len 1,500, then decode_train on those tokens
+    _phase("serve_whisper")
+    wcfg = get_config("whisper-medium")
+    family_cfgs["serve_whisper"] = wcfg
+    wparams = init_params(torch.Generator(device="cuda").manual_seed(0), wcfg,
+                          dev)
+    frames = torch.randn((SERVE_BATCH, WHISPER_FRAMES, wcfg.frontend_dim),
+                         device=dev,
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    print(f"[serve_whisper] {wcfg.name}: {count_params(wparams):,} "
+          f"parameters in bf16 on the card ({wcfg.n_layers} + "
+          f"{wcfg.n_layers} layers, d {wcfg.d_model}, {wcfg.n_heads} heads "
+          f"of {wcfg.head_dim}); batch {SERVE_BATCH}, {WHISPER_FRAMES} "
+          f"frames, {SERVE_NEW} tokens, max_len {WHISPER_MAX_LEN}")
+
+    def whisper_serve(frames_, n_tok, max_len):
+        """(tokens (b, n_tok), step logits, decode_train logits, seconds
+        of encode + cross fill, of the decode steps, of decode_train)."""
+        b, t = frames_.shape[:2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = WHISPER.encode(wcfg, wparams, frames_)
+        cache = init_decode_state(wcfg, b, max_len, dev)
+        for i, lp in enumerate(wparams["dec_blocks"]):
+            k, v = WHISPER._cross_kv(wcfg, lp, enc)
+            cache["cross_k"][i][:, :t] = k
+            cache["cross_v"][i][:, :t] = v
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok = torch.full((b, 1), WHISPER_START, dtype=torch.long, device=dev)
+        toks, step_logits = [tok], []
+        for i in range(n_tok):
+            logits, cache = WHISPER.decode_step(wcfg, wparams, cache, tok, i,
+                                                t)
+            step_logits.append(logits)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        inputs = torch.cat(toks[:-1], dim=1)
+        full = WHISPER.decode_train(wcfg, wparams, inputs, enc)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        return (inputs, torch.cat(step_logits, dim=1), full, t1 - t0,
+                t2 - t1, t3 - t2)
+
+    whisper_serve(frames[:, :128], 2, 256)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    wseen: dict = {}
+    worigs = [(ATTN_MODEL, "flash_attention", record_call(
+                  wseen, ATTN_MODEL, "flash_attention")),
+              (ATTN_MODEL, "decode_attention", record_call(
+                  wseen, ATTN_MODEL, "decode_attention", lambda a: a[3]))]
+    try:
+        wout, wcounts, wwall, _ = run_path("serve_whisper", lambda: whisper_serve(
+            frames, SERVE_NEW, WHISPER_MAX_LEN))
+    finally:
+        for mod, attr, orig in worigs:
+            setattr(mod, attr, orig)
+    wtoks, wsteps, wfull = wout[:3]
+    wpins = {"flash_attention": 3 * wcfg.n_layers,
+             "decode_attention": 2 * wcfg.n_layers * SERVE_NEW}
+    for k, n in wpins.items():
+        if wcounts[k] != n:
+            raise AssertionError(f"serve_whisper launched {k} {wcounts[k]} "
+                                 f"times, expected {n}")
+    w_err = (wsteps.float() - wfull.float()).abs().max().item()
+    if not (torch.isfinite(wfull).all() and w_err <= LOGIT_TOL):
+        raise AssertionError(f"whisper decode_train differs from its decode "
+                             f"steps by {w_err} (tolerance {LOGIT_TOL})")
+    wpeak = torch.cuda.max_memory_allocated() / 1e9
+    wheld = hold_model_calls("serve_whisper", wseen)
+    if {e["name"] for e in wheld} != set(wpins):
+        raise AssertionError(f"serve_whisper held {sorted(wseen)}")
+    del wseen
+    wruns = [wout[3:]] + [whisper_serve(frames, SERVE_NEW,
+                                        WHISPER_MAX_LEN)[3:]
+                          for _ in range(2)]
+    w_enc, w_dec, w_train = (min(r[i] for r in wruns) for i in range(3))
+    print(f"[serve_whisper] runs (encode + cross s, decode s, decode_train "
+          f"s): {wruns}; best: encode {w_enc:.5f} s, decode "
+          f"{w_dec / SERVE_NEW * 1e3:.3f} ms per step, "
+          f"{SERVE_BATCH * SERVE_NEW / w_dec:.1f} decode tokens/s, "
+          f"decode_train {w_train:.5f} s; decode_train vs the step logits "
+          f"{w_err:.3e} (tolerance {LOGIT_TOL}); peak {wpeak:.2f} GB; "
+          f"launches " + ", ".join(f"{k} {wcounts[k]}" for k in wpins))
+
+    def whisper_steps(n):
+        enc = WHISPER.encode(wcfg, wparams, frames)
+        cache = init_decode_state(wcfg, SERVE_BATCH, WHISPER_MAX_LEN, dev)
+        for i, lp in enumerate(wparams["dec_blocks"]):
+            k, v = WHISPER._cross_kv(wcfg, lp, enc)
+            cache["cross_k"][i][:, :WHISPER_FRAMES] = k
+            cache["cross_v"][i][:, :WHISPER_FRAMES] = v
+        tok = torch.full((SERVE_BATCH, 1), WHISPER_START, dtype=torch.long,
+                         device=dev)
+        return lambda: [WHISPER.decode_step(wcfg, wparams, cache, tok, i,
+                                            WHISPER_FRAMES)
+                        for i in range(n)]
+
+    wbusy_enc = print_busy("serve_whisper encode", *busy_window(
+        lambda: WHISPER.encode(wcfg, wparams, frames)), top=10)
+    wbusy_dec = print_busy("serve_whisper decode (2 steps)",
+                           *busy_window(whisper_steps(2)), top=10)
+    for part, busy, unprofiled in (("encode", wbusy_enc, w_enc),
+                                   ("decode", wbusy_dec,
+                                    w_dec * 2 / SERVE_NEW)):
+        if busy["device_busy_s"] is None:
+            raise AssertionError(f"the profiler saw no device work in "
+                                 f"serve_whisper {part}")
+        busy["idle_share_of_unprofiled_wall"] = (
+            1.0 - busy["device_busy_s"] / unprofiled)
+        print(f"[serve_whisper {part}] device busy "
+              f"{busy['device_busy_s']:.5f} s against the fastest "
+              f"unprofiled {unprofiled:.5f} s: idle share "
+              f"{busy['idle_share_of_unprofiled_wall']:.4f}")
+    whisper_report = {
+        "wall_s": wwall, "launches": wcounts, "runs": wruns,
+        "encode_s": w_enc, "decode_s_per_token": w_dec / SERVE_NEW,
+        "decode_tokens_per_s": SERVE_BATCH * SERVE_NEW / w_dec,
+        "decode_train_s": w_train, "decode_train_vs_steps": w_err,
+        "peak_memory_gb": wpeak, "busy_encode": wbusy_enc,
+        "busy_decode": wbusy_dec, "plain_checks": wheld,
+        "parameters": count_params(wparams)}
+    del wparams, frames, wout, wtoks, wsteps, wfull
+    torch.cuda.empty_cache()
+
+    # card against CPU: 2 + 2 layers at full width on WCHECK_FRAMES frames
+    t0 = time.perf_counter()
+    wsmall = dataclasses.replace(wcfg, n_layers=2)
+    on_card = init_params(torch.Generator(device="cuda").manual_seed(2),
+                          wsmall, dev)
+    host = params_to(on_card, "cpu")
+    cframes = torch.randn((CHECK_BATCH, WCHECK_FRAMES, wcfg.frontend_dim),
+                          generator=torch.Generator().manual_seed(3))
+    outs, cpu_toks = {}, []
+    for where, p_ in (("cpu", host), ("cuda", on_card)):
+        enc = WHISPER.encode(wsmall, p_, cframes.to(where))
+        cache = init_decode_state(wsmall, CHECK_BATCH, WCHECK_FRAMES, where)
+        for i, lp in enumerate(p_["dec_blocks"]):
+            k, v = WHISPER._cross_kv(wsmall, lp, enc)
+            cache["cross_k"][i][:, :WCHECK_FRAMES] = k
+            cache["cross_v"][i][:, :WCHECK_FRAMES] = v
+        tok = torch.full((CHECK_BATCH, 1), WHISPER_START, dtype=torch.long)
+        logits = []
+        for i in range(CHECK_STEPS + 1):
+            lg, cache = WHISPER.decode_step(wsmall, p_, cache, tok.to(where),
+                                            i, WCHECK_FRAMES)
+            logits.append(lg.float().cpu())
+            if where == "cpu":
+                cpu_toks.append(lg[:, -1].argmax(-1, keepdim=True))
+            tok = cpu_toks[i]  # both fed the CPU's greedy tokens
+        outs[where] = (enc.float().cpu(), logits)
+    enc_err = (outs["cuda"][0] - outs["cpu"][0]).abs().max().item()
+    w_logit_errs = [(a - b).abs().max().item()
+                    for a, b in zip(outs["cuda"][1], outs["cpu"][1])]
+    if not (enc_err <= LOGIT_TOL and max(w_logit_errs) <= LOGIT_TOL):
+        raise AssertionError(f"whisper card vs CPU: encoder {enc_err}, "
+                             f"logits {w_logit_errs} (tolerance {LOGIT_TOL})")
+    print(f"[serve_whisper] card vs CPU (2 + 2 layers, {WCHECK_FRAMES} "
+          f"frames, {CHECK_STEPS + 1} decode steps): encoder output "
+          f"{enc_err:.5f}, max |logit diff| per step "
+          f"{[round(e, 5) for e in w_logit_errs]} (tolerance {LOGIT_TOL}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    whisper_report.update({"card_vs_cpu_encoder_err": enc_err,
+                           "card_vs_cpu_logit_err": w_logit_errs})
+    report["phases"]["serve_whisper"] = whisper_report
+    del on_card, host, outs
+    torch.cuda.empty_cache()
+    fam_wall = time.perf_counter() - t_fam
+    report["phases"]["serve_families_wall_s"] = fam_wall
+    print(f"[serve_families] phase 6d: {fam_wall:.1f} s")
 
     # -- 6b. train: the training path at qwen2-0.5b's full width ----------
     _phase("train")
@@ -3682,39 +4121,55 @@ def main() -> int:
 
 
     # flash_attention and decode_attention at other paths' shapes, next to
-    # SDPA: zamba2's head dim 112 (the shared block of serve_hybrid), and
-    # head dim 128 at qwen2.5-14b's (40 heads over 8 KV heads) and
-    # granite-34b's (48 over 1) prefill and cache
-    def attention_at(path, b, plen, n_new, max_len, hh, hkv, hdd, seed):
-        q = att_rand((b, plen, hh, hdd), seed, bf16)
-        k = att_rand((b, plen, hkv, hdd), seed + 1, bf16)
-        v = att_rand((b, plen, hkv, hdd), seed + 2, bf16)
+    # SDPA: zamba2's head dim 112 (the shared block of serve_hybrid), head
+    # dim 128 at qwen2.5-14b's (40 heads over 8 KV heads) and granite-34b's
+    # (48 over 1) prefill and cache, and phase 6d's: olmoe's MHA, internvl2's
+    # 64 over 8 behind its patch slots, whisper's non-causal encoder and
+    # cross attention (d 64) and its 1,500-frame cross cache
+    def print_entry(e, what):
+        print(f"[kernels] {e['name']} {what} ({e['case']}) {e['shape']} "
+              f"bf16: {e['ms']:.4f} ms (device {e['device_ms']:.4f} ms, "
+              f"per call {e['call_ms']:.4f} ms; {e['tflops']:.1f} "
+              f"TFLOP/s, {e['gbps']:.0f} GB/s, {e['bound_fraction']:.3f} "
+              f"of the bound), plain {e['plain_ms']:.4f} "
+              f"ms, SDPA {e['library_ms']:.4f} ms (device "
+              f"{e['library_device_ms']:.4f} ms, per call "
+              f"{e['library_call_ms']:.4f} ms), bound "
+              f"{e['bound_ms']:.5f} ms ({e['bound_by']}); max err f32 "
+              f"{e['max_abs_err_f32']:.3e}, bf16 {e['max_abs_err']:.3e} "
+              f"(plain RMS {e['plain_rms']}); launches "
+              f"{e['launches']} on {e['case']}")
+
+    def flash_at(path, b, sq, skv, hh, hkv, hdd, causal, seed):
+        q = att_rand((b, sq, hh, hdd), seed, bf16)
+        k = att_rand((b, skv, hkv, hdd), seed + 1, bf16)
+        v = att_rand((b, skv, hkv, hdd), seed + 2, bf16)
         errs, rms = {}, {}
         for dtype in (torch.float32, bf16):
             args = [t.to(dtype) for t in (q, k, v)]
             name = str(dtype).split(".")[1]
             errs[name], rms[name], ok = att_err(
-                "flash_attention", FA.flash_attention(*args, causal=True),
-                FA.flash_attention_plain(*args, causal=True), name)
+                "flash_attention", FA.flash_attention(*args, causal=causal),
+                FA.flash_attention_plain(*args, causal=causal), name)
             if not ok:
                 raise AssertionError(f"flash_attention d={hdd} ({path}) "
                                      f"differs from its plain version in "
                                      f"{name}: {errs[name]}")
             del args
-        fn = lambda: FA.flash_attention(q, k, v, causal=True)  # noqa: E731
+        fn = lambda: FA.flash_attention(q, k, v, causal=causal)  # noqa: E731
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-        pairs = plen * (plen + 1) // 2
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+        pairs = sq * (sq + 1) // 2 if causal else sq * skv
         flops = 4.0 * b * hh * hdd * pairs
         fbytes = nbytes(q, k, v) + q.numel() * q.element_size()
         flash = {"name": "flash_attention", "case": path, "head_dim": hdd,
-                 "shape": [list(q.shape), list(k.shape)],
+                 "causal": causal, "shape": [list(q.shape), list(k.shape)],
                  **launches("flash_attention", path),
                  "ms": cuda_ms(fn, 10), "device_ms": device_ms(fn, 10),
                  "call_ms": call_ms(fn, 10), "library_call_ms": call_ms(lib, 10),
                  "plain_ms": cuda_ms(lambda: FA.flash_attention_plain(
-                     q, k, v, causal=True), 2),
+                     q, k, v, causal=causal), 2),
                  "library_ms": cuda_ms(lib, 10),
                  "library_device_ms": device_ms(lib, 10),
                  "bound_ms": max(flops / BF16_FLOP_PER_S,
@@ -3725,8 +4180,10 @@ def main() -> int:
                  "max_abs_err_f32": errs["float32"], "plain_rms": rms}
         flash.update(kernel_rates(flops, fbytes, flash["bound_ms"],
                                   flash["device_ms"]))
-        del q, k, v, qt, kt, vt
-        cl = plen + n_new - 1  # the last decode step's length
+        print_entry(flash, f"d={hdd}" + ("" if causal else " non-causal"))
+        return flash
+
+    def decode_at(path, b, max_len, cl, hh, hkv, hdd, seed):
         qd = att_rand((b, hh, hdd), seed + 3, bf16)
         kc = att_rand((b, max_len, hkv, hdd), seed + 4, bf16)
         vc = att_rand((b, max_len, hkv, hdd), seed + 5, bf16)
@@ -3767,20 +4224,15 @@ def main() -> int:
                   "max_abs_err_f32": errs["float32"], "plain_rms": rms}
         decode.update(kernel_rates(dflops, dbytes, decode["bound_ms"],
                                    decode["device_ms"]))
-        for e in (flash, decode):
-            print(f"[kernels] {e['name']} d={hdd} ({path}) {e['shape']} "
-                  f"bf16: {e['ms']:.4f} ms (device {e['device_ms']:.4f} ms, "
-                  f"per call {e['call_ms']:.4f} ms; {e['tflops']:.1f} "
-                  f"TFLOP/s, {e['gbps']:.0f} GB/s, {e['bound_fraction']:.3f} "
-                  f"of the bound), plain {e['plain_ms']:.4f} "
-                  f"ms, SDPA {e['library_ms']:.4f} ms (device "
-                  f"{e['library_device_ms']:.4f} ms, per call "
-                  f"{e['library_call_ms']:.4f} ms), bound "
-                  f"{e['bound_ms']:.5f} ms ({e['bound_by']}); max err f32 "
-                  f"{e['max_abs_err_f32']:.3e}, bf16 {e['max_abs_err']:.3e} "
-                  f"(plain RMS {e['plain_rms']}); launches "
-                  f"{e['launches']} on {path}")
-        return flash, decode
+        print_entry(decode, f"d={hdd}")
+        return decode
+
+    def attention_at(path, b, plen, n_new, max_len, hh, hkv, hdd, seed):
+        """Causal flash over the prompt and decode at the last step's
+        length (prompt + n_new - 1)."""
+        return (flash_at(path, b, plen, plen, hh, hkv, hdd, True, seed),
+                decode_at(path, b, max_len, plen + n_new - 1, hh, hkv, hdd,
+                          seed))
 
     flash112, decode112 = attention_at(
         "serve_hybrid", HYBRID_BATCH, HYBRID_PROMPT, HYBRID_NEW,
@@ -3798,6 +4250,33 @@ def main() -> int:
         rows[-2][f"d128_{arch}"] = f128
         rows[-1][f"d128_{arch}"] = d128
         extra_rows.extend([f128, d128])
+    # phase 6d's shapes
+    oc, ic = family_cfgs["serve_olmoe"], family_cfgs["serve_internvl2"]
+    fam_rows = {
+        "olmoe": attention_at("serve_olmoe", SERVE_BATCH, SERVE_PROMPT,
+                              SERVE_NEW, SERVE_MAX_LEN, oc.n_heads,
+                              oc.n_kv_heads, oc.head_dim, 91),
+        "internvl2": attention_at("serve_internvl2", SERVE_BATCH,
+                                  ic.n_patches + SERVE_PROMPT, SERVE_NEW,
+                                  SERVE_MAX_LEN, ic.n_heads, ic.n_kv_heads,
+                                  ic.head_dim, 101),
+        "whisper": (
+            flash_at("serve_whisper", SERVE_BATCH, WHISPER_FRAMES,
+                     WHISPER_FRAMES, wcfg.n_heads, wcfg.n_kv_heads,
+                     wcfg.head_dim, False, 111),
+            decode_at("serve_whisper", SERVE_BATCH, WHISPER_MAX_LEN,
+                      WHISPER_FRAMES, wcfg.n_heads, wcfg.n_kv_heads,
+                      wcfg.head_dim, 111)),
+        "whisper_cross": (
+            flash_at("serve_whisper", SERVE_BATCH, SERVE_NEW, WHISPER_FRAMES,
+                     wcfg.n_heads, wcfg.n_kv_heads, wcfg.head_dim, False,
+                     121), None)}
+    for key, (f_e, d_e) in fam_rows.items():
+        rows[-2][key] = f_e
+        extra_rows.append(f_e)
+        if d_e is not None:
+            rows[-1][key] = d_e
+            extra_rows.append(d_e)
 
     # ssd_scan at serve_hybrid's shape, on mild-decay inputs (dt in
     # [0.01, 0.1]: the random model's dt = softplus(N(0, 1)) decays so fast

@@ -1,9 +1,9 @@
 from .base import (
     ARCH_IDS,
-    PORTED_ARCH_IDS,
     SHAPE_CELLS,
     ArchConfig,
     HybridConfig,
+    MoEConfig,
     ShapeCell,
     SSMConfig,
     get_config,
@@ -12,10 +12,10 @@ from .base import (
 
 __all__ = [
     "ARCH_IDS",
-    "PORTED_ARCH_IDS",
     "SHAPE_CELLS",
     "ArchConfig",
     "HybridConfig",
+    "MoEConfig",
     "SSMConfig",
     "ShapeCell",
     "get_config",

@@ -28,4 +28,5 @@ CONFIG = ArchConfig(
         chunk=128,
     ),
     hybrid=HybridConfig(attn_every=6),
+    subquadratic=True,
 )

@@ -12,7 +12,7 @@ port's ``device`` keeps its default).  Tuples and lists are converted
 entry by entry; ``None``, plain numbers and frozensets pass through.
 
 :func:`params_from_reference` turns the reference's LM parameter pytree
-(as numpy arrays, dense or hybrid family) into the port's parameter tree,
+(as numpy arrays, any family) into the port's parameter tree,
 and :func:`opt_state_from_reference` the reference's AdamW state into the
 port's, so that both trainers can start from one state.
 
@@ -35,6 +35,7 @@ from .core.replication import ReplicationPlan
 from .core.simulator import FaultEvent
 from .core.tuner import TunerConfig
 from .device import resolve_device
+from .models import lm
 
 __all__ = ["from_reference", "empirical_from_fields", "params_from_reference",
            "opt_state_from_reference"]
@@ -140,41 +141,67 @@ def _check_stack(sub, lead: tuple, what: str) -> None:
         raise ValueError(f"{what} leaf {shape} lacks the leading axes {lead}")
 
 
+def _stack(tree, name, lead, dev):
+    """The stacked subtree ``tree[name]`` as nested lists of per-block
+    dicts, one level a leading axis in ``lead``."""
+    sub = tree[name]
+    _check_stack(sub, lead, name)
+
+    def nest(prefix):
+        if len(prefix) == len(lead):
+            return _layer(sub, prefix, dev)
+        return [nest(prefix + (i,)) for i in range(lead[len(prefix)])]
+    return nest(())
+
+
 def params_from_reference(cfg, tree, device=None):
     """The port's parameters from the reference's LM parameter pytree.
 
     ``tree`` is ``repro.models.lm.init_params(key, cfg)`` with its leaves
     as numpy arrays (``jax.tree.map(np.asarray, params)``).  Stacked leaves
-    become lists, one dict per layer: the dense family's ``"blocks"``
-    (leading axis L) go to ``blocks[i]``; the hybrid family's
-    ``"mamba_segments"`` (leading axes n_seg, seg) to
-    ``mamba_segments[i][j]`` and ``"mamba_trailing"`` (leading axis
-    trailing) to ``mamba_trailing[j]``; its ``"shared_attn"`` is one
-    unstacked block.  Dense and hybrid families only.  ``device=None``
-    means CUDA.
+    become lists, one dict per block, a list level per leading axis: the
+    dense, vlm and moe families' ``"blocks"`` (leading axis L, or L - 1
+    beside moe's unstacked ``"dense_block"``); the hybrid family's
+    ``"mamba_segments"`` (n_seg, seg) and ``"mamba_trailing"`` (trailing),
+    its ``"shared_attn"`` one unstacked block; xLSTM's
+    ``"mlstm_segments"`` (n_seg, m_per), ``"slstm_blocks"`` (n_seg) and
+    ``"mlstm_trailing"`` (trailing); whisper's ``"enc_blocks"`` and
+    ``"dec_blocks"`` (L each).  Unstacked entries (vlm's ``"projector"``,
+    whisper's ``"frontend"``, ``"enc_norm"``, ``"dec_norm"``) carry over
+    as they are.  ``device=None`` means CUDA.
     """
-    if cfg.family not in ("dense", "hybrid"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported")
     dev = resolve_device(device)
-    out = {"embed": _tree(tree["embed"], dev)}
-    if cfg.family == "dense":
-        _check_stack(tree["blocks"], (cfg.n_layers,), "blocks")
-        out["blocks"] = [_layer(tree["blocks"], (i,), dev)
-                         for i in range(cfg.n_layers)]
-    else:
+    if cfg.family == "hybrid":
         k = cfg.hybrid.attn_every
         n_seg, trailing = cfg.n_layers // k, cfg.n_layers % k
-        segs = tree["mamba_segments"]
-        _check_stack(segs, (n_seg, k), "mamba_segments")
-        out["mamba_segments"] = [[_layer(segs, (i, j), dev) for j in range(k)]
-                                 for i in range(n_seg)]
-        out["shared_attn"] = _tree(tree["shared_attn"], dev)
-        if trailing:
-            _check_stack(tree["mamba_trailing"], (trailing,), "mamba_trailing")
-            out["mamba_trailing"] = [
-                _layer(tree["mamba_trailing"], (j,), dev)
-                for j in range(trailing)]
-    out["final_norm"] = _tree(tree["final_norm"], dev)
+        stacks = {"mamba_segments": (n_seg, k), "mamba_trailing": (trailing,)}
+    elif cfg.family == "ssm":
+        n_seg, m_per, trailing = lm._xlstm_layout(cfg)
+        stacks = {"mlstm_segments": (n_seg, m_per), "slstm_blocks": (n_seg,),
+                  "mlstm_trailing": (trailing,)}
+    elif cfg.family == "audio":
+        stacks = {"enc_blocks": (cfg.n_layers,),
+                  "dec_blocks": (cfg.n_layers,)}
+    elif cfg.family == "moe":
+        dense = 1 if cfg.moe.first_layer_dense else 0
+        stacks = {"blocks": (cfg.n_layers - dense,)}
+    elif cfg.family in ("dense", "vlm"):
+        stacks = {"blocks": (cfg.n_layers,)}
+    else:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    # the port's own top-level order (init_params's, on the meta device)
+    names = list(lm._build(None, cfg, torch.device("meta")))
+    if sorted(names) != sorted(tree):
+        raise ValueError(f"{cfg.name}: the tree has {sorted(tree)}, the port "
+                         f"builds {sorted(names)}")
+    out = {}
+    for name in names:
+        if name in stacks:
+            out[name] = _stack(tree, name, stacks[name], dev)
+        elif isinstance(tree[name], dict):
+            out[name] = _tree(tree[name], dev)
+        else:
+            out[name] = _tensor(tree[name], dev)
     return out
 
 

@@ -3,7 +3,8 @@
 As ``repro.launch.serve``: (a) run prefill + greedy decode on a model to
 produce tokens (:func:`generate`, which goes through the
 ``flash_attention`` and ``decode_attention`` kernels on the card, and for
-the hybrid family, ``--arch zamba2-7b``, through ``ssd_scan`` too), and
+the hybrid family, ``--arch zamba2-7b``, through ``ssd_scan`` too; every
+arch but whisper's, whose ``prefill`` the reference refuses too), and
 (b) score a fleet of N server groups under the shifted-exponential
 straggler model, as batch-completion latency across B
 (``sweep_simulated``) and as per-request sojourn under Poisson arrivals
@@ -82,21 +83,26 @@ def _sync(dev: torch.device) -> None:
 
 
 def generate(cfg: ArchConfig, params, prompts, gen_tokens: int,
-             max_len: int) -> Generation:
+             max_len: int, patch_embeds=None) -> Generation:
     """Greedy generation: prefill the prompts (b, s), then
     ``gen_tokens - 1`` decode steps, each token the first argmax of the
-    bfloat16 logits.  Runs on the device the parameters live on."""
+    bfloat16 logits.  Runs on the device the parameters live on.  The vlm
+    family takes ``patch_embeds`` (b, n_patches, frontend_dim), which sit
+    ahead of the prompt: decode continues at position n_patches + s."""
     if gen_tokens < 1:
         raise ValueError("gen_tokens must be >= 1")
     dev = params["embed"]["tokens"].device
     prompts = torch.as_tensor(prompts, device=dev).long()
-    s = prompts.shape[1]
+    batch = {"tokens": prompts}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = patch_embeds
+    s = prompts.shape[1] + (cfg.n_patches if cfg.family == "vlm" else 0)
     if s + gen_tokens - 1 > max_len:
-        raise ValueError(f"{s} + {gen_tokens} - 1 tokens exceed max_len "
+        raise ValueError(f"{s} + {gen_tokens} - 1 positions exceed max_len "
                          f"{max_len}")
     _sync(dev)
     t0 = time.perf_counter()
-    logits, state = prefill(cfg, params, {"tokens": prompts}, max_len)
+    logits, state = prefill(cfg, params, batch, max_len)
     tok = logits[:, -1].argmax(dim=-1, keepdim=True)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
@@ -113,15 +119,24 @@ def generate(cfg: ArchConfig, params, prompts, gen_tokens: int,
 
 def run_serving(sc: ServeConfig, device=None):
     """Serve ``sc.batch`` prompts on the reduced config of ``sc.arch`` and
-    score the fleet; ``device=None`` means CUDA."""
+    score the fleet; ``device=None`` means CUDA.  The vlm family's patch
+    embeddings are drawn after the prompts from the prompts' generator (the
+    reference draws them from the prompts' key); the audio family raises
+    ``NotImplementedError``, as the reference's does (``prefill``)."""
     dev = resolve_device(device)
     cfg = reduced_config(get_config(sc.arch))
     params = init_params(torch.Generator(device=dev).manual_seed(sc.seed),
                          cfg, dev)
-    prompts = torch.randint(
-        0, cfg.vocab_size, (sc.batch, sc.prompt_len), device=dev,
-        generator=torch.Generator(device=dev).manual_seed(sc.seed + 1))
-    gen = generate(cfg, params, prompts, sc.gen_tokens, sc.max_len)
+    gen_p = torch.Generator(device=dev).manual_seed(sc.seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (sc.batch, sc.prompt_len),
+                            device=dev, generator=gen_p)
+    patch_embeds = None
+    if cfg.family == "vlm":
+        patch_embeds = torch.randn(
+            (sc.batch, cfg.n_patches, cfg.frontend_dim), device=dev,
+            generator=gen_p)
+    gen = generate(cfg, params, prompts, sc.gen_tokens, sc.max_len,
+                   patch_embeds)
 
     # latency across the diversity-parallelism spectrum: ONE batched CRN
     # sweep, then the queueing twin through the load-aware planner

@@ -1,7 +1,9 @@
-"""Models of the port: the dense LM family on the attention kernels, and
-the hybrid family (zamba2) on them and the SSD scan."""
+"""Models of the port, all ten architectures: the dense, vlm and moe
+families on the attention kernels, the hybrid family (zamba2) on them and
+the SSD scan, whisper on them, and xLSTM on tensor ops."""
 
 from .lm import (
+    active_params,
     count_params,
     decode_step,
     init_decode_state,
@@ -12,6 +14,7 @@ from .lm import (
 )
 
 __all__ = [
+    "active_params",
     "count_params",
     "decode_step",
     "init_decode_state",

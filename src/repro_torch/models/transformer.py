@@ -4,9 +4,10 @@ Follows ``repro.models.transformer``: GQA attention with optional QKV
 bias, an optional parallel attention + FFN block, RMSNorm or LayerNorm,
 SwiGLU or GELU.  Where the reference calls its XLA attention
 (``chunked_gqa_attend`` in prefill, ``decode_attend`` in decode), the port
-calls the hand-written kernels: :func:`prefill_attend` goes through
+calls the hand-written kernels: :func:`prefill_attend` (causal) and
+:func:`full_attend` (bidirectional or cross, whisper) go through
 ``flash_attention`` and :func:`decode_attend` through
-``decode_attention``.  Both read the KV heads natively (no repeat).
+``decode_attention``.  All read the KV heads natively (no repeat).
 With grad mode on and an input that requires grad (training),
 :func:`prefill_attend` goes through ``FlashAttentionFn``: the same kernel
 forward, and a backward; :func:`apply_block` without ``kv_sink`` is then
@@ -27,6 +28,7 @@ __all__ = [
     "apply_block",
     "apply_block_decode",
     "prefill_attend",
+    "full_attend",
     "decode_attend",
 ]
 
@@ -46,6 +48,15 @@ def prefill_attend(q, k, v, logit_softcap: float = 0.0) -> torch.Tensor:
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, True, 0)
     return flash_attention(q, k, v, causal=True)
+
+
+def full_attend(q, k, v) -> torch.Tensor:
+    """Attention without a mask: every query sees every key.  q: (b, sq,
+    H, hd); k, v: (b, skv, KV, hd), skv free (the whisper encoder's
+    self-attention, and cross attention into its output).  The twin of
+    the reference's ``chunked_gqa_attend(..., causal=False)``."""
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=False)
 
 
 def decode_attend(q, k_cache, v_cache, cache_len: int,

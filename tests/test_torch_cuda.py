@@ -6,7 +6,8 @@ the ``cuda`` fixture).  On a machine with a card, and without JAX, run
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 (``--noconftest`` because ``tests/conftest.py`` imports JAX).  This file
-imports only ``repro_torch`` and ``chip_smoke.replan_log``.  Each kernel must equal its plain version
+imports only ``repro_torch`` and ``chip_smoke``'s ``replan_log`` and
+``routed_to_cpu``.  Each kernel must equal its plain version
 bit for bit (``sojourn_cells``, ``coded_cells``) or within
 ``1e-5 * (|coeffs| @ |blocks|)`` (``combine``), and the sweeps and the
 planner must give on the card exactly what they give on the CPU.
@@ -52,9 +53,17 @@ gradients within the scan's tolerances of autograd through the plain
 version; reduced zamba2's backward reaches every parameter (one
 ``ssd_scan`` launch a Mamba-2 block), and its trainer keeps the CPU's
 control plane.  The head-dim-128 dense configs: flash and decode at groups
-of 5, 12 and 48, and the reduced models' logits against the CPU's.
+of 5, 12 and 48, and the reduced models' logits against the CPU's.  The
+MoE, VLM, audio and xLSTM families: flash non-causal at whisper's encoder
+and cross shapes, decode at group 1 / d 128, internvl2's group 8 and
+whisper's 1,500-frame cross cache; ``apply_moe`` at full width on the card
+against the CPU (the same experts, outputs within 2e-2, no host sync in
+the dispatch); ``mlstm_chunked`` on the card within 1e-4 of float32 on the
+CPU; the reduced models (whisper through ``encode`` and its cross cache)
+against the CPU's logits.
 """
 
+import dataclasses
 import os
 import sys
 
@@ -81,13 +90,14 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels.coded import COMBINE_RTOL, combine, combine_plain
 from repro_torch.kernels.decode_attention import ops as DA
 from repro_torch.kernels.flash_attention import ops as FA
-from repro_torch.models import decode_step, init_params, params_to, prefill
+from repro_torch.models import (decode_step, init_decode_state, init_params,
+                                params_to, prefill)
 from repro_torch.kernels.sojourn_sweep import kernel as K
 from repro_torch.kernels.sojourn_sweep import ops as O
 from repro_torch.kernels.ssm_scan import ops as SS
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from chip_smoke import replan_log  # noqa: E402  (main() is not run)
+from chip_smoke import replan_log, routed_to_cpu  # noqa: E402  (main() is not run)
 
 pytestmark = pytest.mark.cuda
 
@@ -1246,3 +1256,161 @@ def test_hybrid_trainer_on_card_keeps_the_cpu_control_plane(cuda):
     assert launch_counts()["ssd_scan"] - before == 4 * 4 * card.cfg.n_layers
     assert rc.sim_times == rh.sim_times and rc.plan_history == rh.plan_history
     assert np.abs(np.array(rc.losses) - np.array(rh.losses)).max() <= 2e-2
+
+
+# -- the MoE, VLM, audio and xLSTM families --------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,skv", [(1500, 1500), (32, 1500), (1, 1500)])
+def test_flash_non_causal_at_whisper_shapes(cuda, dtype, sq, skv):
+    """Whisper's encoder (1,500 x 1,500) and cross attention (decoder
+    queries over 1,500 frames, sq != skv, skv not a multiple of the tile),
+    d 64, non-causal."""
+    q = _randn((8, sq, 16, 64), 31, cuda, dtype)
+    k = _randn((8, skv, 16, 64), 32, cuda, dtype)
+    v = _randn((8, skv, 16, 64), 33, cuda, dtype)
+    out = FA.flash_attention(q, k, v, causal=False)
+    ref = FA.flash_attention_plain(q, k, v, causal=False)
+    torch.testing.assert_close(out.float(), ref.float(), **ATT_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv,d,smax,cache_len", [
+    (16, 16, 128, 2048, 1055),  # olmoe / deepseek-moe: MHA, group 1
+    (16, 16, 64, 1536, 1500),  # whisper's cross cache, 1,500 frames
+    (64, 8, 128, 2048, 1311)])  # internvl2: patches + prompt + 31 steps
+def test_decode_at_the_family_caches(cuda, dtype, h, kv, d, smax, cache_len):
+    qd = _randn((8, h, d), 34, cuda, dtype)
+    kc = _randn((8, smax, kv, d), 35, cuda, dtype)
+    vc = _randn((8, smax, kv, d), 36, cuda, dtype)
+    before = launch_counts()["decode_attention"]
+    out = DA.decode_attention(qd, kc, vc, cache_len)
+    assert launch_counts()["decode_attention"] == before + 1
+    ref = DA.decode_attention_plain(qd, kc, vc, cache_len)
+    if dtype == torch.bfloat16:
+        rms = ref.float().square().mean().sqrt().item()
+        tol = dict(atol=DECODE_BF16_RMS_FRAC * rms, rtol=2.0 ** -6)
+    else:
+        tol = ATT_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("capacity_factor", [1.25, 8.0])
+def test_apply_moe_on_card_matches_cpu(cuda, arch, capacity_factor):
+    """One MoE layer at full width (d 2048, 64 experts) on 2 x 64 tokens,
+    the same weights on the card and the CPU: the same experts chosen, the
+    same assignments dropped, outputs within 2e-2 (bf16) of the CPU's and
+    the aux loss within 1e-6.  The dispatch makes no host sync."""
+    from repro_torch.models import moe as M
+
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=capacity_factor))
+    host = M.init_moe(torch.Generator().manual_seed(0), cfg, "cpu")
+    card = params_to(host, cuda)
+    x = _randn((2, 64, cfg.d_model), 37, "cpu", torch.bfloat16)
+    yh, auxh = M.apply_moe(cfg, host, x)
+    xc = x.to(cuda)
+    _, _, eh = M.route(cfg.moe, host["router"], x.reshape(-1, cfg.d_model))
+    _, _, ec = M.route(cfg.moe, card["router"], xc.reshape(-1, cfg.d_model))
+    assert torch.equal(eh.sort(-1).values, ec.sort(-1).values.cpu())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yc, auxc = M.apply_moe(cfg, card, xc)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.testing.assert_close(yc.float().cpu(), yh.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert abs(float(auxc) - float(auxh)) <= 1e-6
+
+
+def test_mlstm_chunked_on_card_matches_cpu(cuda):
+    """xlstm-350m's mLSTM shape (4 heads, dk 256, dv 512), 2 rows of 256
+    positions in chunks of 128, float32: within 1e-4 x (1 + |CPU|)."""
+    from repro_torch.models import xlstm as X
+
+    g = torch.Generator().manual_seed(38)
+    q, k = (torch.randn((2, 256, 4, 256), generator=g) for _ in range(2))
+    v = torch.randn((2, 256, 4, 512), generator=g)
+    i_pre = torch.randn((2, 256, 4), generator=g)
+    f_pre = 2.0 + torch.randn((2, 256, 4), generator=g)
+    hh, (ch, nh, mh) = X.mlstm_chunked(q, k, v, i_pre, f_pre, 128)
+    hc, st = X.mlstm_chunked(*(t.to(cuda) for t in (q, k, v, i_pre, f_pre)),
+                             128)
+    for got, want in zip((hc,) + st, (hh, ch, nh, mh)):
+        got = got.cpu()
+        assert bool(((got - want).abs()
+                     <= 1e-4 * (1 + want.abs())).all()), (
+            (got - want).abs().max())
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-moe-16b",
+                                  "internvl2-76b", "xlstm-350m"])
+def test_family_models_on_card_match_cpu(cuda, arch, monkeypatch):
+    """The reduced models: prefill (vlm: behind its patch slots) and two
+    decode steps on the card meet the CPU's logits within 4e-2 (untied,
+    logits of unit scale and more: within 1e-1).  MoE: the card is routed
+    to the CPU's experts call by call, and each token whose own top-k set
+    would differ (a bf16 near-tie ordered the other way) must be a
+    near-tie, the CPU's margin below 1e-2."""
+    from repro_torch.models import moe as M
+
+    cfg = reduced_config(get_config(arch))
+    route, routing = routed_to_cpu(M.route)
+    monkeypatch.setattr(M, "route", route)
+    host = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = params_to(host, cuda)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=g)
+    batch, off = {"tokens": toks}, 0
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(
+            (2, cfg.n_patches, cfg.frontend_dim), generator=g)
+        off = cfg.n_patches
+    lh, sh = prefill(cfg, host, batch, off + 80)
+    lc, sc = prefill(cfg, card, batch, off + 80)
+    atol = 4e-2 if cfg.tie_embeddings else 1e-1
+    for i in range(3):
+        torch.testing.assert_close(lc.float().cpu(), lh.float(), atol=atol,
+                                   rtol=0)
+        tok = lh[:, -1].argmax(-1, keepdim=True)
+        lh, sh = decode_step(cfg, host, sh, tok, off + 64 + i)
+        lc, sc = decode_step(cfg, card, sc, tok.to(cuda), off + 64 + i)
+    assert not routing["pending"]
+    assert all(m < 1e-2 for m in routing["flips"]), routing["flips"]
+
+
+def test_whisper_on_card_matches_cpu(cuda):
+    """Reduced whisper: encode 100 frames, the cross cache, three decode
+    steps over all of them, on the card and the CPU: logits within 4e-2;
+    decode_train on the card within 4e-2 of its own steps."""
+    from repro_torch.models import whisper as W
+
+    cfg = reduced_config(get_config("whisper-medium"))
+    host = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = params_to(host, cuda)
+    frames = torch.randn((2, 100, cfg.frontend_dim),
+                         generator=torch.Generator().manual_seed(1))
+    toks = torch.randint(0, cfg.vocab_size, (2, 3),
+                         generator=torch.Generator().manual_seed(2))
+    steps = {}
+    for where, p in (("cpu", host), (cuda, card)):
+        enc = W.encode(cfg, p, frames.to(where))
+        cache = init_decode_state(cfg, 2, 128, where)
+        for i, lp in enumerate(p["dec_blocks"]):
+            k, v = W._cross_kv(cfg, lp, enc)
+            cache["cross_k"][i][:, :100] = k
+            cache["cross_v"][i][:, :100] = v
+        out = []
+        for i in range(3):
+            lg, cache = W.decode_step(cfg, p, cache, toks[:, i:i + 1].to(where),
+                                      i, 100)
+            out.append(lg)
+        steps[str(where)] = (torch.cat(out, 1).float().cpu(), enc)
+    torch.testing.assert_close(steps["cuda"][0], steps["cpu"][0], atol=4e-2,
+                               rtol=0)
+    full = W.decode_train(cfg, card, toks.to(cuda), steps["cuda"][1])
+    torch.testing.assert_close(full.float().cpu(), steps["cuda"][0],
+                               atol=4e-2, rtol=0)

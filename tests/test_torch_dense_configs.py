@@ -45,7 +45,7 @@ from repro.models import decode_step as ref_decode_step
 from repro.models import init_params as ref_init_params
 from repro.models import prefill as ref_prefill
 from repro.models import train_loss as ref_train_loss
-from repro_torch.configs import PORTED_ARCH_IDS, get_config, reduced_config
+from repro_torch.configs import ARCH_IDS, get_config, reduced_config
 from repro_torch.convert import params_from_reference
 from repro_torch.launch.steps import value_and_grad
 from repro_torch.models import decode_step, prefill
@@ -76,7 +76,7 @@ def _build(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_config_matches_reference(arch):
-    assert arch in PORTED_ARCH_IDS
+    assert arch in ARCH_IDS
     rcfg, cfg = ref_get_config(arch), get_config(arch)
     for mine, theirs in ((cfg, rcfg), (reduced_config(cfg),
                                        ref_reduced_config(rcfg))):

@@ -93,8 +93,7 @@ def test_config_matches_reference():
             assert getattr(cfg, name) == getattr(rcfg, name), name
             assert (getattr(reduced_config(cfg), name)
                     == getattr(ref_reduced_config(rcfg), name)), name
-    with pytest.raises(NotImplementedError):
-        get_config("xlstm-350m")
+    assert get_config("xlstm-350m").family == "ssm"  # every arch is ported
     with pytest.raises(KeyError):
         get_config("gpt-5")
 
@@ -218,8 +217,9 @@ def test_other_families_and_bad_positions_raise(models):
     import dataclasses
 
     _, cfg, _, tparams, _ = models
-    with pytest.raises(NotImplementedError):
-        lm.init_decode_state(dataclasses.replace(cfg, family="moe"), 1, 8, "cpu")
+    with pytest.raises(NotImplementedError, match="audio"):  # as the reference
+        prefill(dataclasses.replace(cfg, family="audio"), tparams,
+                {"tokens": torch.zeros((1, 4), dtype=torch.long)}, 8)
     state = lm.init_decode_state(cfg, 1, 8, "cpu")
     with pytest.raises(ValueError, match="cache_len"):
         decode_step(cfg, tparams, state, torch.zeros((1, 1), dtype=torch.long), 8)

@@ -280,8 +280,12 @@ def test_engine_without_the_model_is_the_references(case, monkeypatch):
 # -- the device rule --------------------------------------------------------
 
 def test_unported_arch_raises():
-    with pytest.raises(NotImplementedError):
-        TEngine(TConfig(arch="olmoe-1b-7b", device="cpu"))
+    """Every arch builds now, but the engine's prefill + decode cannot
+    serve whisper's batches: ``prefill`` refuses the audio family, as the
+    reference's does."""
+    eng = TEngine(TConfig(arch="whisper-medium", device="cpu"))
+    with pytest.raises(NotImplementedError, match="audio"):
+        eng._generate(torch.zeros((1, 4), dtype=torch.long))
 
 
 def test_default_device_is_cuda():
