@@ -253,6 +253,42 @@ non-zero:
                       profiled steps after phase 7.  ``train_hybrid_pins``:
                       reduced zamba2 at 4 and 5 layers, card against CPU as
                       ``train_pins``.
+6e. ``train_families`` (runs last, after phase 7 and the profiled 6b / 6c
+                      steps, with their trainers freed) the MoE, VLM,
+                      audio and xLSTM families trained at full width by
+                      ``Trainer(device=None)``, random bf16 weights, one
+                      model at a time, each freed before the next:
+                      ``train_olmoe`` (depth 4 of 16, 1.89 G parameters)
+                      and ``train_deepseek_moe`` (depth 3: the dense layer
+                      0 and two MoE layers, 1.68 G), seq 512, global batch
+                      8, 4 workers from B 2, worker 3 slowed 8x, the
+                      simulate tuner, 24 steps; ``train_internvl2`` (depth
+                      1 of 80, 2.97 G: it must start with under 1 GB on
+                      the card) 256 patch slots + 256 tokens, global batch
+                      2, 2 workers at B 1, 10 steps; ``train_whisper``
+                      (24 + 24 layers) 1,500 frames and 187 decoder tokens
+                      with ``train_olmoe``'s traffic; ``train_xlstm`` (24
+                      blocks) seq 512, global batch 8, 4 workers from B 2,
+                      12 steps, no hand kernel.  Each prints its memory
+                      reckoning (14 B a parameter, 4 B a distinct batch's
+                      gradient tree, 4 B their aggregate) and fails with
+                      under 5 GB of the card spare; at step 0 every leaf's
+                      gradient is finite and the family's own leaves
+                      (router and experts, projector, cross attention and
+                      the encoder's, sLSTM ``r``) nonzero; MoE: two
+                      backward passes from one state bit-equal, the
+                      assignments dropped past capacity printed;
+                      ``FlashAttentionFn`` at the path's shapes (the
+                      layers at d 128; whisper's non-causal 1,500 x 1,500
+                      encoder and 187 x 1,500 cross attention at d 64)
+                      against autograd through the plain version; then the
+                      run: the loss falls, flash launches = attention
+                      layers (4, 3, 1, 72, 0) x distinct batches, tuner
+                      attempts, median step wall, peak memory beside the
+                      reckoning, two profiled steps.  Then
+                      ``train_family_pins_<family>``: the reduced model,
+                      card against CPU as ``train_pins``, beside the CPU's
+                      own bf16-against-float32 step-0 loss gap.
 7. ``kernels``        each kernel against its plain PyTorch version on the
                       card, at the shapes phases 2, 4, 5 and 6 gave it,
                       with its time, the plain version's, a library call's
@@ -271,7 +307,10 @@ non-zero:
                       achieved rate (flash TFLOP/s, decode GB/s) and
                       fraction of its bound.  ``ssd_scan`` also at
                       ``train_hybrid``'s shape, forward and forward +
-                      backward through ``SsdScanFn`` (phase 6c's times).
+                      backward through ``SsdScanFn`` (phase 6c's times);
+                      ``FlashAttentionFn`` forward and forward + backward
+                      at phase 6e's whisper encoder and cross attention
+                      and internvl2 layer, beside SDPA's and the bounds.
                       ``ssd_scan`` is held
                       within 1e-4 (float32) and 5e-2 (bfloat16) times
                       1 + |plain| on mild-decay inputs, its final state
@@ -303,7 +342,7 @@ non-zero:
                       the planner's shape (strip kernel) and 1024 x 1024
                       x 2048 (tiled kernel).
 
-Each path of phases 2-6, 4b-4e and 6a-6d runs with the launch counts and the sweeps'
+Each path of phases 2-6, 4b-4e and 6a-6e runs with the launch counts and the sweeps'
 stage seconds (``simulator.STAGE_SECONDS``) set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.  One more
 run of phases 2 and 3 under ``torch.profiler`` gives the card's busy time.
@@ -489,6 +528,44 @@ HTRAIN_STEPS = 24
 # train_hybrid_pins: reduced zamba2 (4 layers) and a 5-layer variant with a
 # trailing block, card against CPU through train_pins' fault and restore
 HTRAIN_PIN_LAYERS = (4, 5)
+# phase 6e: training of the MoE, VLM, audio and xLSTM families at full
+# width, random bf16 weights, through Trainer(device=None), one model at a
+# time, each freed before the next: (arch, phase tag, depth on the card or
+# None for all, trainer config, steps).  Depth is cut where the parameters,
+# the float32 AdamW state (14 bytes a parameter with the bf16 weights), a
+# float32 gradient tree a distinct batch and their aggregate (4 bytes a
+# parameter each) would not fit: olmoe 4 of 16 layers (1.89 G parameters),
+# deepseek-moe 3 of 28 (the dense layer 0 and two MoE layers, 1.68 G),
+# internvl2 1 of 80 (its two 128,256 x 8,192 embeddings alone hold 2.1 G;
+# 2.97 G in all, 65 GB at one distinct batch).  The MoE and whisper paths
+# keep HTRAIN_CONFIG's traffic (4 workers from B 2, worker 3 slowed 8x,
+# the simulate tuner, whose window fills at step 16); whisper takes the 30
+# s window of 1,500 frames and 187 decoder tokens; internvl2 256 patch
+# slots and 256 text tokens, 2 workers at B 1, the tuner off; xlstm 6
+# steps of about 8 s each (its sLSTM steps are host-paced).  Each
+# path's learning rate is one at which its loss falls within its steps
+# (whisper's token embeddings, of scale 0.02, sit under sinusoids of scale
+# 1, so its loss moves slowly)
+FTRAIN_TRAFFIC = dict(reduced=False, seq_len=512, global_batch=8,
+                      n_workers=4, n_batches=2, slow_workers={3: 8.0},
+                      tuner=True, planner_mode="simulate", lr=1e-3, warmup=5)
+FAMILY_TRAIN = (
+    ("olmoe-1b-7b", "train_olmoe", 4, FTRAIN_TRAFFIC, 24),
+    ("deepseek-moe-16b", "train_deepseek_moe", 3, FTRAIN_TRAFFIC, 24),
+    ("internvl2-76b", "train_internvl2", 1,
+     dict(reduced=False, seq_len=512, global_batch=2, n_workers=2,
+          n_batches=1, lr=3e-4, warmup=2), 10),
+    ("whisper-medium", "train_whisper", None,
+     dict(FTRAIN_TRAFFIC, seq_len=WHISPER_FRAMES, lr=1e-4), 24),
+    ("xlstm-350m", "train_xlstm", None,
+     dict(reduced=False, seq_len=512, global_batch=8, n_workers=4,
+          n_batches=2, lr=1e-3, warmup=5), 6),
+)
+# internvl2 trains only with nothing of the earlier phases on the card
+FTRAIN_START_LIMIT_GB = 1.0
+# the step's reckoned memory must leave this much of the card spare, or
+# the path's global batch is to be lowered (never its width)
+FTRAIN_SPARE_GB = 5.0
 # phase 4d: the serving engine.  engine_multitenant serves
 # benchmarks/bench_multitenant.py's two deployments (16 groups, 4,000
 # requests); engine_fleet the swept one on 1,024 groups (40,000 requests);
@@ -946,6 +1023,8 @@ def main() -> int:
             out = device_busy(fn)
             if out[2]:
                 return out
+            report["profiler_empty_windows"] = (
+                report.get("profiler_empty_windows", 0) + 1)
             print(f"    (profiler: window {i + 1} of 3 recorded no device "
                   "event)")
         return out
@@ -1298,7 +1377,8 @@ def main() -> int:
     fleet_dispatches = check_serving_launches("serving_fleet", fscounts,
                                               fleet_serving_calls)
     # keep the widest dispatch's inputs for phase 7, drop the rest
-    serving_widest = max(fleet_serving_calls, key=lambda c: c[0][1].numel())
+    serving_widest = [max(fleet_serving_calls,
+                          key=lambda c: c[0][1].numel())]
     del fleet_serving_calls
     fpts = spectrum_points(fsplan)
     if (fsplan.n_batches not in SERVING_FLEET_B or fsplan.backend != "cuda"
@@ -1371,7 +1451,8 @@ def main() -> int:
                 or spectrum_points(card_plan) != spectrum_points(cpu_plan)):
             raise AssertionError(
                 f"{tag} differs between the card and the CPU: "
-                f"{plan_decision(card_plan)} against {plan_decision(cpu_plan)}")
+                f"{plan_decision(card_plan)} against "
+                f"{plan_decision(cpu_plan)}")
         print(f"[{tag}] card plan == CPU plan: {plan_decision(card_plan)}")
 
     # the new paths' profiled re-plans run after phase 7, so that phase 7's
@@ -2986,6 +3067,8 @@ def main() -> int:
     _phase("train")
     import tempfile
 
+    import torch.nn.functional as F
+
     from repro_torch.core import FaultEvent, StragglerTuner
     from repro_torch.launch.train import Trainer, TrainerConfig
     from repro_torch.tree import tree_leaves
@@ -3011,209 +3094,187 @@ def main() -> int:
         StragglerTuner.maybe_replan = wrapped
         return log, lambda: setattr(StragglerTuner, "maybe_replan", orig)
 
-    t_train = time.perf_counter()
-    held_gb = torch.cuda.memory_allocated() / 1e9  # earlier phases' tensors
-    tc = TrainerConfig(steps=TRAIN_STEPS, **TRAIN_CONFIG)
-    tr = Trainer(tc)
-    tcfg = tr.cfg
-    n_params = count_params(tr.params)
-    print(f"[train] {tcfg.name} at full width: {tcfg.n_layers} layers, d "
-          f"{tcfg.d_model}, {tcfg.n_heads} heads / {tcfg.n_kv_heads} KV of "
-          f"{tcfg.head_dim}, vocab {tcfg.vocab_size}: {n_params:,} parameters "
-          f"(bf16), float32 AdamW moments and master; {TRAIN_STEPS} steps of "
-          f"{TRAIN_CONFIG}")
+    def fn_err(got, want):
+        """(max |got - want|, the largest |got - want| / (min(1, RMS(want))
+        + |want|)): an error and its reading against ATT_TOL's bf16 limit
+        scaled to the tensor's own size.  Over 1,500 keys a non-causal
+        output's RMS is about 0.04, so a limit of 5e-2 x (1 + |want|)
+        would pass a kernel that skipped a key."""
+        want = want.float()
+        diff = (got.float() - want).abs()
+        floor = min(1.0, want.square().mean().sqrt().item())
+        return diff.max().item(), (diff / (floor + want.abs())).max().item()
 
-    # every parameter leaf gets a finite gradient at step 0, and the
-    # attention projections a nonzero one: wq and wk reach the loss only
-    # through the attention weights, so a kernel output detached from the
-    # graph would leave them at exactly 0 (not counted: before the path)
-    b0 = tr._device_batch(tr.pipeline.batch_for(0, 0, tc.n_batches))
-    loss0, g0 = tr._grad_fn(tr.params, b0)
-    torch.cuda.synchronize()
-    leaves = tree_leaves(g0)
-    if len(leaves) != len(tree_leaves(tr.params)) or not all(
-            bool(torch.isfinite(g).all()) for g in leaves):
-        raise AssertionError("a parameter leaf got no finite gradient")
-    zero_attn = [(i, n) for i, lp in enumerate(g0["blocks"])
-                 for n in ("wq", "wk", "wv", "bq", "bk", "bv")
-                 if not lp["attn"][n].abs().max().item() > 0]
-    if zero_attn:
-        raise AssertionError(f"zero attention gradients at {zero_attn[:6]}")
-    grad_norms = {"wq_layer0": g0["blocks"][0]["attn"]["wq"].norm().item(),
-                  "wk_layer0": g0["blocks"][0]["attn"]["wk"].norm().item(),
-                  "embed": g0["embed"]["tokens"].norm().item()}
-    print(f"[train] step-0 gradients: {len(leaves)} leaves, all finite; "
-          f"every layer's wq/wk/wv/bq/bk/bv nonzero; loss {loss0:.4f}; "
-          f"norms {grad_norms}")
-    del g0, leaves
-
-    def hold_flash_fn(tag, cfg_, tc_):
+    def hold_flash_fn(tag, cfg_, tc_, sq=None, skv=None, causal=True):
         """FlashAttentionFn at a training path's own shape (one batch of
-        the trainer's n_batches, causal, bf16): its output and dq, dk, dv
-        against autograd through the plain version (not counted: a check,
-        not the path).  Returns the inputs, dO and the errors."""
+        the trainer's n_batches, ``sq`` queries over ``skv`` keys, both
+        the sequence length by default; bf16), not counted (a check, not
+        the path).  Its output against the plain version within 5e-2 x
+        (1 + |plain|), and within 5e-2 x (min(1, RMS) + |plain|) of the
+        plain version in float32 on the same inputs (``fn_err``; the bf16
+        plain version rounds its logits, the kernel does not, which can
+        leave the two near that limit); dq, dk, dv within 5e-2 x (min(1,
+        RMS) + |plain|) of autograd through the plain version (the
+        backward follows its numerics).
+        Non-causal, the plain output without the last key must read past
+        that limit: the check would fail a kernel that skipped it.
+        Returns the shapes, the inputs and dO, the max |err|s against the
+        bf16 plain version and the readings."""
         fb_ = tc_.global_batch // tc_.n_batches
-        shapes = ((fb_, tc_.seq_len, cfg_.n_heads, cfg_.head_dim),
-                  (fb_, tc_.seq_len, cfg_.n_kv_heads, cfg_.head_dim))
+        sq, skv = sq or tc_.seq_len, skv or tc_.seq_len
+        shapes = ((fb_, sq, cfg_.n_heads, cfg_.head_dim),
+                  (fb_, skv, cfg_.n_kv_heads, cfg_.head_dim))
         q_ = att_rand(shapes[0], 41, torch.bfloat16)
         k_ = att_rand(shapes[1], 42, torch.bfloat16)
         v_ = att_rand(shapes[1], 43, torch.bfloat16)
         do_ = att_rand(shapes[0], 44, torch.bfloat16)
         plain_in = [t.clone().requires_grad_(True) for t in (q_, k_, v_)]
         fn_in = [t.clone().requires_grad_(True) for t in (q_, k_, v_)]
-        want = FA.flash_attention_plain(*plain_in, causal=True)
+        want = FA.flash_attention_plain(*plain_in, causal=causal)
         want.backward(do_)
-        got = FA.FlashAttentionFn.apply(*fn_in, True, 0)
+        got = FA.FlashAttentionFn.apply(*fn_in, causal, 0)
         got.backward(do_)
+        with torch.no_grad():
+            want32 = FA.flash_attention_plain(q_.float(), k_.float(),
+                                              v_.float(), causal=causal)
         torch.cuda.synchronize()
-        errs = {}
-        for name, a, b in (("out", got.detach(), want.detach()),
-                           ("dq", fn_in[0].grad, plain_in[0].grad),
+        tol = ATT_TOL["bfloat16"]
+        errs, reading = {}, {}
+        errs["out"], _, ok = att_err("flash_attention", got.detach(),
+                                     want.detach(), "bfloat16")
+        reading["out"] = fn_err(got.detach(), want32)[1]
+        if not ok or not reading["out"] <= tol:
+            raise AssertionError(
+                f"{tag}: FlashAttentionFn's output differs from the plain "
+                f"version's by {errs['out']}, from its float32 by "
+                f"{reading['out']} of min(1, RMS) + |plain| (tolerance "
+                f"{tol})")
+        for name, a, b in (("dq", fn_in[0].grad, plain_in[0].grad),
                            ("dk", fn_in[1].grad, plain_in[1].grad),
                            ("dv", fn_in[2].grad, plain_in[2].grad)):
-            err, _, ok = att_err("flash_attention", a, b, "bfloat16")
-            errs[name] = err
-            if not ok:
-                raise AssertionError(f"{tag}: FlashAttentionFn {name} differs "
-                                     f"from the plain version's autograd by "
-                                     f"{err}")
+            errs[name], reading[name] = fn_err(a, b)
+            if not reading[name] <= tol:
+                raise AssertionError(
+                    f"{tag}: FlashAttentionFn {name} differs from the plain "
+                    f"version's autograd by {errs[name]}, {reading[name]} of "
+                    f"min(1, RMS) + |plain| (tolerance {tol})")
+        planted = ""
+        if not causal:
+            with torch.no_grad():
+                cut = FA.flash_attention_plain(q_, k_[:, :-1], v_[:, :-1],
+                                               causal=False)
+            reading["out_without_last_key"] = fn_err(cut, want32)[1]
+            if not reading["out_without_last_key"] > tol:
+                raise AssertionError(
+                    f"{tag}: the limit passes an output without the last of "
+                    f"{skv} keys ({reading['out_without_last_key']})")
+            planted = (f"; the plain output without the last of the {skv} "
+                       f"keys reads {reading['out_without_last_key']:.4f}, "
+                       f"past the limit")
         print(f"[{tag}] FlashAttentionFn at q {list(shapes[0])} k/v "
-              f"{list(shapes[1])} bf16 causal against autograd through the "
-              f"plain version: max |err| {errs} (tolerance "
-              f"{ATT_TOL['bfloat16']} x (1 + |plain|))")
-        return shapes, (q_, k_, v_, do_), errs
+              f"{list(shapes[1])} bf16 {'causal' if causal else 'non-causal'}"
+              f": max |err| against the plain version's autograd {errs} "
+              f"(out within {tol} x (1 + |plain|)); largest |err| / "
+              f"(min(1, RMS) + |plain|), the output against the plain "
+              f"version in float32 "
+              f"{ {k: round(v, 5) for k, v in reading.items()} } (tolerance "
+              f"{tol}){planted}")
+        return shapes, (q_, k_, v_, do_), errs, reading
 
-    fshape, (fq, fk, fv, fdo), fn_errs = hold_flash_fn("train", tcfg, tc)
-    fb = fshape[0][0]
+    def flash_fn_row(tag, case, fq, fk, fv, fdo, causal, fn_errs, reading):
+        """FlashAttentionFn's forward and forward + backward times at one
+        shape (bf16), beside the plain version's autograd, SDPA's and the
+        bound of each; ``fn_errs`` and ``reading`` are hold_flash_fn's."""
+        leaves3 = [t.detach().requires_grad_(True) for t in (fq, fk, fv)]
+        st = [t.detach().transpose(1, 2).contiguous().requires_grad_(True)
+              for t in (fq, fk, fv)]
+        sdo = fdo.transpose(1, 2).contiguous()
 
-    # the kernel's time at the path's shape, forward and forward + backward
-    # through FlashAttentionFn, beside the plain version's autograd and SDPA
-    import torch.nn.functional as F
+        def fwd_bwd(fn, ins, dout):
+            return torch.autograd.grad(fn(*ins), ins, dout)
 
-    leaves3 = [t.detach().requires_grad_(True) for t in (fq, fk, fv)]
-    st = [t.detach().transpose(1, 2).contiguous().requires_grad_(True)
-          for t in (fq, fk, fv)]
-    sdo = fdo.transpose(1, 2).contiguous()
+        def sdpa_t(a, b_, c):
+            return F.scaled_dot_product_attention(a, b_, c, is_causal=causal,
+                                                  enable_gqa=True)
 
-    def fwd_bwd(fn, ins, dout):
-        return torch.autograd.grad(fn(*ins), ins, dout)
+        with torch.no_grad():
+            tf_ms = cuda_ms(lambda: FA.flash_attention(fq, fk, fv,
+                                                       causal=causal), 20)
+            tf_plain = cuda_ms(lambda: FA.flash_attention_plain(
+                fq, fk, fv, causal=causal), 5)
+            tf_lib = cuda_ms(lambda: sdpa_t(*st), 20)
+        tb_ms = cuda_ms(lambda: fwd_bwd(
+            lambda a, b_, c: FA.FlashAttentionFn.apply(a, b_, c, causal, 0),
+            leaves3, fdo), 10)
+        tb_plain = cuda_ms(lambda: fwd_bwd(
+            lambda a, b_, c: FA.flash_attention_plain(a, b_, c,
+                                                      causal=causal),
+            leaves3, fdo), 5)
+        tb_lib = cuda_ms(lambda: fwd_bwd(sdpa_t, st, sdo), 10)
+        b_, sq_, hh_, hd_ = fq.shape
+        skv_ = fk.shape[1]
+        pairs = sq_ * (sq_ + 1) // 2 if causal else sq_ * skv_
+        t_flops = 4.0 * b_ * hh_ * hd_ * pairs
+        t_bytes = nbytes(fq, fk, fv) + fq.numel() * fq.element_size()
+        t_bound = max(t_flops / BF16_FLOP_PER_S,
+                      t_bytes / HBM_BYTES_PER_S) * 1e3
+        # backward: 5 products (QK^T again, dV, dP, dQ, dK) to the
+        # forward's 2; reads q, k, v, dO, writes dq, dk, dv
+        tb_flops = 3.5 * t_flops
+        tb_bytes = 2 * t_bytes + nbytes(fk, fv)
+        tb_bound = max(tb_flops / BF16_FLOP_PER_S,
+                       tb_bytes / HBM_BYTES_PER_S) * 1e3
+        row = {
+            "name": "flash_attention", "case": case, "causal": causal,
+            "shape": [list(fq.shape), list(fk.shape)], "ms": tf_ms,
+            "plain_ms": tf_plain, "library_ms": tf_lib, "bound_ms": t_bound,
+            "bound_by": ("operations" if t_flops / BF16_FLOP_PER_S
+                         > t_bytes / HBM_BYTES_PER_S else "bytes"),
+            "fwd_bwd_ms": tb_ms, "fwd_bwd_plain_ms": tb_plain,
+            "fwd_bwd_library_ms": tb_lib, "fwd_bwd_bound_ms": tb_bound,
+            "fwd_bwd_bound_by": ("operations" if tb_flops / BF16_FLOP_PER_S
+                                 > tb_bytes / HBM_BYTES_PER_S else "bytes"),
+            "max_abs_err": fn_errs, "err_reading": reading,
+            "tolerance": (f"out {ATT_TOL['bfloat16']} x (1 + |plain|), and x "
+                          f"(min(1, RMS) + |plain|) of the float32 plain "
+                          f"version; dq, dk, dv x (min(1, RMS) + |plain|)")}
+        print(f"[{tag}] flash_attention at {row['shape']} "
+              f"{'causal' if causal else 'non-causal'}: forward {tf_ms:.4f} "
+              f"ms (plain {tf_plain:.4f}, SDPA {tf_lib:.4f}, bound "
+              f"{t_bound:.5f}); forward + backward through FlashAttentionFn "
+              f"{tb_ms:.4f} ms (plain autograd {tb_plain:.4f}, SDPA "
+              f"{tb_lib:.4f}, bound {tb_bound:.5f})")
+        return row
 
-    def sdpa_t(a, b_, c):
-        return F.scaled_dot_product_attention(a, b_, c, is_causal=True,
-                                              enable_gqa=True)
+    def counted_run(tag, trainer):
+        """``trainer.run()`` through its public loop, counting the distinct
+        batches' backward passes and timing each step (synchronised).
+        Returns (result, launches, wall s, backward passes, step walls,
+        tuner attempts, peak GB allocated)."""
+        grad_calls, step_walls = [0], []
+        o_grad, o_step = trainer._grad_fn, trainer.step
 
-    with torch.no_grad():
-        tf_ms = cuda_ms(lambda: FA.flash_attention(fq, fk, fv), 20)
-        tf_plain = cuda_ms(lambda: FA.flash_attention_plain(fq, fk, fv), 5)
-        tf_lib = cuda_ms(lambda: sdpa_t(*st), 20)
-    tb_ms = cuda_ms(lambda: fwd_bwd(
-        lambda a, b_, c: FA.FlashAttentionFn.apply(a, b_, c, True, 0),
-        leaves3, fdo), 10)
-    tb_plain = cuda_ms(lambda: fwd_bwd(
-        lambda a, b_, c: FA.flash_attention_plain(a, b_, c, causal=True),
-        leaves3, fdo), 5)
-    tb_lib = cuda_ms(lambda: fwd_bwd(sdpa_t, st, sdo), 10)
-    pairs = tc.seq_len * (tc.seq_len + 1) // 2
-    t_flops = 4.0 * fb * tcfg.n_heads * tcfg.head_dim * pairs
-    t_bytes = nbytes(fq, fk, fv) + fq.numel() * fq.element_size()
-    t_bound = max(t_flops / BF16_FLOP_PER_S, t_bytes / HBM_BYTES_PER_S) * 1e3
-    # backward: 5 products (QK^T again, dV, dP, dQ, dK) to the forward's 2;
-    # reads q, k, v, dO, writes dq, dk, dv
-    tb_flops = 3.5 * t_flops
-    tb_bytes = 2 * t_bytes + nbytes(fk, fv)
-    tb_bound = max(tb_flops / BF16_FLOP_PER_S,
-                   tb_bytes / HBM_BYTES_PER_S) * 1e3
-    train_flash_row = {
-        "name": "flash_attention", "case": "train (forward)",
-        "shape": [list(fshape[0]), list(fshape[1])], "ms": tf_ms,
-        "plain_ms": tf_plain, "library_ms": tf_lib, "bound_ms": t_bound,
-        "bound_by": ("operations" if t_flops / BF16_FLOP_PER_S
-                     > t_bytes / HBM_BYTES_PER_S else "bytes"),
-        "fwd_bwd_ms": tb_ms, "fwd_bwd_plain_ms": tb_plain,
-        "fwd_bwd_library_ms": tb_lib, "fwd_bwd_bound_ms": tb_bound,
-        "max_abs_err": fn_errs}
-    print(f"[train] flash_attention at the path's shape: forward "
-          f"{tf_ms:.4f} ms (plain {tf_plain:.4f}, SDPA {tf_lib:.4f}, bound "
-          f"{t_bound:.5f}); forward + backward through FlashAttentionFn "
-          f"{tb_ms:.4f} ms (plain autograd {tb_plain:.4f}, SDPA "
-          f"{tb_lib:.4f}, bound {tb_bound:.5f})")
-    del fq, fk, fv, fdo, leaves3, st, sdo
+        def counted_grad(params, batch):
+            grad_calls[0] += 1
+            return o_grad(params, batch)
 
-    # the counted run: Trainer.run through its public loop
-    grad_calls, step_walls = [0], []
-    o_grad, o_step = tr._grad_fn, tr.step
+        def timed_step(i):
+            t0 = time.perf_counter()
+            out = o_step(i)
+            torch.cuda.synchronize()
+            step_walls.append(time.perf_counter() - t0)
+            return out
 
-    def counted_grad(params, batch):
-        grad_calls[0] += 1
-        return o_grad(params, batch)
-
-    def timed_step(i):
-        t0 = time.perf_counter()
-        out = o_step(i)
-        torch.cuda.synchronize()
-        step_walls.append(time.perf_counter() - t0)
-        return out
-
-    tr._grad_fn, tr.step = counted_grad, timed_step
-    attempts, restore_tuner = tuner_attempts()
-    torch.cuda.reset_peak_memory_stats()
-    try:
-        res, tcounts, twall, _ = run_path("train", tr.run)
-    finally:
-        restore_tuner()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want_flash = tcfg.n_layers * grad_calls[0]
-    if tcounts["flash_attention"] != want_flash:
-        raise AssertionError(f"train launched flash_attention "
-                             f"{tcounts['flash_attention']} times, expected "
-                             f"{tcfg.n_layers} layers x {grad_calls[0]} "
-                             f"distinct batches = {want_flash}")
-    if not attempts:
-        raise AssertionError("the tuner made no re-plan attempt")
-    losses = res.losses
-    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    if not all(np.isfinite(losses)) or not last5 < first5:
-        raise AssertionError(f"the loss did not fall: first 5 {first5}, last "
-                             f"5 {last5}")
-    med_step = statistics.median(step_walls)
-    print(f"[train] losses first {losses[0]:.5f}, last {losses[-1]:.5f}; "
-          f"mean of the last 5 {last5:.5f} < mean of the first 5 "
-          f"{first5:.5f}: the loss falls")
-    finite_sim = float(np.sum([t for t in res.sim_times if np.isfinite(t)]))
-    print(f"[train] simulated time {res.total_sim_time:.4f} s over "
-          f"{len(losses)} steps ({finite_sim:.4f} s over the steps that "
-          f"completed; a step that lost a whole batch takes inf); "
-          f"plan_history {res.plan_history}")
-    print(f"[train] events {res.events}")
-    print(f"[train] tuner attempts (tuner step, wall s, moved B): "
-          f"{attempts}")
-    print(f"[train] wall {twall:.3f} s; median step wall {med_step:.4f} s "
-          f"(min {min(step_walls):.4f}, max {max(step_walls):.4f}); peak "
-          f"memory allocated {peak_gb:.2f} GB ({held_gb:.2f} GB of it held "
-          f"by earlier phases' tensors when the phase began)")
-    print(f"[train] launches: flash_attention {tcounts['flash_attention']} = "
-          f"{tcfg.n_layers} layers x {grad_calls[0]} distinct batches over "
-          f"{len(losses)} steps; sojourn_cells {tcounts['sojourn_cells']} "
-          f"(the tuner's {len(attempts)} re-plan attempt(s) score a plain "
-          f"metric, the mean completion: sweep_simulated's torch ops, no "
-          f"sojourn scan); others "
-          f"{ {k: v for k, v in tcounts.items() if k not in ('flash_attention', 'sojourn_cells')} }")
-    train_report = {
-        "config": {**TRAIN_CONFIG, "steps": TRAIN_STEPS,
-                   "slow_workers": {str(k): v for k, v in
-                                    TRAIN_CONFIG["slow_workers"].items()}},
-        "parameters": n_params, "step0_loss": loss0,
-        "step0_grad_norms": grad_norms, "flash_fn_max_abs_err": fn_errs,
-        "flash_train_shape": train_flash_row,
-        "losses": losses, "sim_times": res.sim_times,
-        "total_sim_time": res.total_sim_time, "finite_sim_time": finite_sim,
-        "plan_history": res.plan_history, "events": res.events,
-        "tuner_attempts": attempts, "wall_s": twall,
-        "step_walls_s": step_walls, "median_step_s": med_step,
-        "peak_memory_gb": peak_gb, "held_before_gb": held_gb,
-        "launches": tcounts,
-        "distinct_batch_grads": grad_calls[0]}
-    tr._grad_fn, tr.step = o_grad, o_step
+        trainer._grad_fn, trainer.step = counted_grad, timed_step
+        attempts, restore_tuner = tuner_attempts()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            res, counts, wall, _ = run_path(tag, trainer.run)
+        finally:
+            restore_tuner()
+            del trainer._grad_fn, trainer.step  # the class's methods again
+        return (res, counts, wall, grad_calls[0], step_walls, attempts,
+                torch.cuda.max_memory_allocated() / 1e9)
 
     # train_pins: the reduced trainer on the card and on the CPU, from the
     # same weights, through a whole-group fault whose elastic re-plan
@@ -3283,9 +3344,10 @@ def main() -> int:
                                  "checkpoint on the card")
         if not loss_err <= TRAIN_PIN_LOSS_TOL:
             raise AssertionError(f"{tag}: card and CPU losses differ by "
-                                 f"{loss_err} (tolerance {TRAIN_PIN_LOSS_TOL})")
-        kernels = (("flash_attention", "ssd_scan")
-                   if pin_card.cfg.family == "hybrid" else ("flash_attention",))
+                                 f"{loss_err} (tolerance "
+                                 f"{TRAIN_PIN_LOSS_TOL})")
+        kernels = {"hybrid": ("flash_attention", "ssd_scan"),
+                   "ssm": ()}.get(pin_card.cfg.family, ("flash_attention",))
         for k in kernels:
             if pcounts[k] <= 0:
                 raise AssertionError(f"{tag} never launched {k}")
@@ -3304,288 +3366,408 @@ def main() -> int:
                 "cpu_wall_s": host_wall, "card_losses": rc.losses,
                 "cpu_losses": rh.losses}
 
-    train_report["train_pins"] = train_pins("train_pins", TRAIN_PIN_CONFIG)
-    print(f"[train] phase 6b: {time.perf_counter() - t_train:.1f} s")
-    report["phases"]["train"] = train_report
-
-    def train_profile(tag, trainer, rep, med, shares):
-        """Two more steps of a full-width trainer under the profiler: the
-        card's busy time and idle share against two unprofiled steps."""
+    def train_profile(tag, trainer, rep, med, shares, n_steps=2):
+        """``n_steps`` more steps of a full-width trainer under the
+        profiler: the card's busy time and idle share against as many
+        median unprofiled steps."""
         n0 = len(rep["losses"])
-        prof = print_busy(f"{tag} 2 steps", *busy_window(
-            lambda: [trainer.step(n0 + i) for i in range(2)]), top=10,
+        prof = print_busy(f"{tag} {n_steps} steps", *busy_window(
+            lambda: [trainer.step(n0 + i) for i in range(n_steps)]), top=10,
             shares=shares)
         if prof["device_busy_s"] is None:
             raise AssertionError(f"the profiler saw no device work in {tag}")
-        unprofiled = 2 * med
+        unprofiled = n_steps * med
+        prof["steps"] = n_steps
         prof["idle_share_of_unprofiled_wall"] = (
             1.0 - prof["device_busy_s"] / unprofiled)
-        print(f"[{tag}] two steps: device busy {prof['device_busy_s']:.5f} s "
-              f"against two median unprofiled steps {unprofiled:.5f} s: idle "
-              f"share {prof['idle_share_of_unprofiled_wall']:.4f}")
+        print(f"[{tag}] {n_steps} steps: device busy "
+              f"{prof['device_busy_s']:.5f} s against {n_steps} median "
+              f"unprofiled steps {unprofiled:.5f} s: idle share "
+              f"{prof['idle_share_of_unprofiled_wall']:.4f}")
         rep["profile"] = prof
+
+    trainer_profiles: list = []  # profiled steps, run after phase 7
+
+    def train_phase():
+        """Phase 6b: qwen2-0.5b at full width through ``Trainer.run``.
+        Returns FlashAttentionFn's row at its shape; queues its profiled
+        steps."""
+        t_train = time.perf_counter()
+        held_gb = torch.cuda.memory_allocated() / 1e9  # earlier phases' hold
+        tc = TrainerConfig(steps=TRAIN_STEPS, **TRAIN_CONFIG)
+        tr = Trainer(tc)
+        tcfg = tr.cfg
+        n_params = count_params(tr.params)
+        print(f"[train] {tcfg.name} at full width: {tcfg.n_layers} layers, "
+              f"d {tcfg.d_model}, {tcfg.n_heads} heads / {tcfg.n_kv_heads} "
+              f"KV of {tcfg.head_dim}, vocab {tcfg.vocab_size}: "
+              f"{n_params:,} parameters (bf16), float32 AdamW moments and "
+              f"master; {TRAIN_STEPS} steps of {TRAIN_CONFIG}")
+
+        # every parameter leaf gets a finite gradient at step 0, and the
+        # attention projections a nonzero one: wq and wk reach the loss
+        # only through the attention weights, so a kernel output detached
+        # from the graph would leave them at exactly 0 (not counted:
+        # before the path)
+        b0 = tr._device_batch(tr.pipeline.batch_for(0, 0, tc.n_batches))
+        loss0, g0 = tr._grad_fn(tr.params, b0)
+        torch.cuda.synchronize()
+        leaves = tree_leaves(g0)
+        if len(leaves) != len(tree_leaves(tr.params)) or not all(
+                bool(torch.isfinite(g).all()) for g in leaves):
+            raise AssertionError("a parameter leaf got no finite gradient")
+        zero_attn = [(i, n) for i, lp in enumerate(g0["blocks"])
+                     for n in ("wq", "wk", "wv", "bq", "bk", "bv")
+                     if not lp["attn"][n].abs().max().item() > 0]
+        if zero_attn:
+            raise AssertionError(f"zero attention gradients at "
+                                 f"{zero_attn[:6]}")
+        grad_norms = {
+            "wq_layer0": g0["blocks"][0]["attn"]["wq"].norm().item(),
+            "wk_layer0": g0["blocks"][0]["attn"]["wk"].norm().item(),
+            "embed": g0["embed"]["tokens"].norm().item()}
+        print(f"[train] step-0 gradients: {len(leaves)} leaves, all finite; "
+              f"every layer's wq/wk/wv/bq/bk/bv nonzero; loss {loss0:.4f}; "
+              f"norms {grad_norms}")
+        del g0, leaves
+
+        # FlashAttentionFn at the path's shape, held against the plain
+        # version's autograd, then timed forward and forward + backward
+        # beside the plain version's autograd and SDPA
+        _, (fq, fk, fv, fdo), fn_errs, fn_reading = hold_flash_fn(
+            "train", tcfg, tc)
+        train_flash_row = flash_fn_row("train", "train (forward)", fq, fk,
+                                       fv, fdo, True, fn_errs, fn_reading)
+        del fq, fk, fv, fdo
+
+        res, tcounts, twall, n_grads, step_walls, attempts, peak_gb = (
+            counted_run("train", tr))
+        want_flash = tcfg.n_layers * n_grads
+        if tcounts["flash_attention"] != want_flash:
+            raise AssertionError(f"train launched flash_attention "
+                                 f"{tcounts['flash_attention']} times, "
+                                 f"expected {tcfg.n_layers} layers x "
+                                 f"{n_grads} distinct batches = "
+                                 f"{want_flash}")
+        if not attempts:
+            raise AssertionError("the tuner made no re-plan attempt")
+        losses = res.losses
+        first5, last5 = (float(np.mean(losses[:5])),
+                         float(np.mean(losses[-5:])))
+        if not all(np.isfinite(losses)) or not last5 < first5:
+            raise AssertionError(f"the loss did not fall: first 5 {first5}, "
+                                 f"last 5 {last5}")
+        med_step = statistics.median(step_walls)
+        print(f"[train] losses first {losses[0]:.5f}, last {losses[-1]:.5f}; "
+              f"mean of the last 5 {last5:.5f} < mean of the first 5 "
+              f"{first5:.5f}: the loss falls")
+        finite_sim = float(np.sum([t for t in res.sim_times
+                                   if np.isfinite(t)]))
+        print(f"[train] simulated time {res.total_sim_time:.4f} s over "
+              f"{len(losses)} steps ({finite_sim:.4f} s over the steps that "
+              f"completed; a step that lost a whole batch takes inf); "
+              f"plan_history {res.plan_history}")
+        print(f"[train] events {res.events}")
+        print(f"[train] tuner attempts (tuner step, wall s, moved B): "
+              f"{attempts}")
+        print(f"[train] wall {twall:.3f} s; median step wall {med_step:.4f} "
+              f"s (min {min(step_walls):.4f}, max {max(step_walls):.4f}); "
+              f"peak memory allocated {peak_gb:.2f} GB ({held_gb:.2f} GB of "
+              f"it held by earlier phases' tensors when the phase began)")
+        others = {k: v for k, v in tcounts.items()
+                  if k not in ("flash_attention", "sojourn_cells")}
+        print(f"[train] launches: flash_attention "
+              f"{tcounts['flash_attention']} = {tcfg.n_layers} layers x "
+              f"{n_grads} distinct batches over {len(losses)} steps; "
+              f"sojourn_cells {tcounts['sojourn_cells']} (the tuner's "
+              f"{len(attempts)} re-plan attempt(s) score a plain metric, the "
+              f"mean completion: sweep_simulated's torch ops, no sojourn "
+              f"scan); others {others}")
+        train_report = {
+            "config": {**TRAIN_CONFIG, "steps": TRAIN_STEPS,
+                       "slow_workers": {str(k): v for k, v in
+                                        TRAIN_CONFIG["slow_workers"].items()}},
+            "parameters": n_params, "step0_loss": loss0,
+            "step0_grad_norms": grad_norms, "flash_fn_max_abs_err": fn_errs,
+            "flash_fn_err_reading": fn_reading,
+            "flash_train_shape": train_flash_row,
+            "losses": losses, "sim_times": res.sim_times,
+            "total_sim_time": res.total_sim_time,
+            "finite_sim_time": finite_sim,
+            "plan_history": res.plan_history, "events": res.events,
+            "tuner_attempts": attempts, "wall_s": twall,
+            "step_walls_s": step_walls, "median_step_s": med_step,
+            "peak_memory_gb": peak_gb, "held_before_gb": held_gb,
+            "launches": tcounts, "distinct_batch_grads": n_grads}
+        train_report["train_pins"] = train_pins("train_pins",
+                                                TRAIN_PIN_CONFIG)
+        print(f"[train] phase 6b: {time.perf_counter() - t_train:.1f} s")
+        report["phases"]["train"] = train_report
+        trainer_profiles.append(lambda: train_profile(
+            "train", tr, train_report, med_step,
+            {"flash_attention": "flash_wgmma"}))
+        return train_flash_row
+
+    train_flash_row = train_phase()
 
     # -- 6c. train_hybrid: zamba2-7b at full width, depth 13 --------------
     _phase("train_hybrid")
-    t_htrain = time.perf_counter()
-    held_h = torch.cuda.memory_allocated() / 1e9
-    htc = TrainerConfig(steps=HTRAIN_STEPS, **HTRAIN_CONFIG)
-    tr_h = trainer_at_depth(htc, HTRAIN_LAYERS)
-    hc = tr_h.cfg
-    n_seg_h, seg_h, trail_h = segment_layout(hc)
-    n_mamba = n_seg_h * seg_h + trail_h
-    hn = count_params(tr_h.params)
-    max_b = max(tr_h.cluster_spec.feasible_batches())
-    # 2 bytes (bf16) + 12 (float32 master, m, v) a parameter, and a float32
-    # gradient tree (4 bytes a parameter) a distinct batch until
-    # aggregate_host; the aggregation copies each batch's tree once more,
-    # and AdamW makes four float32 trees (scaled gradient, m, v, master)
-    # beside the old ones
-    reckon = {"state_gb": 14 * hn / 1e9, "grad_tree_gb": 4 * hn / 1e9,
-              "largest_b": max_b,
-              "state_and_trees_gb": (14 + 4 * max_b) * hn / 1e9,
-              "aggregation_gb": (14 + 4 * (2 * max_b + 1)) * hn / 1e9,
-              "adamw_gb": (2 + 12 + 4 + 16 + 2) * hn / 1e9,
-              "held_before_gb": held_h}
-    print(f"[train_hybrid] {hc.name} at full width, depth {hc.n_layers} of "
-          f"{get_config(htc.arch).n_layers}: {n_seg_h} segments of {seg_h} "
-          f"Mamba-2 blocks and the shared block, {trail_h} trailing; d "
-          f"{hc.d_model}, {hc.ssm.expansion * hc.d_model // hc.ssm.head_dim} "
-          f"SSM heads of {hc.ssm.head_dim} (state {hc.ssm.state_dim}), "
-          f"{hc.n_heads} attention heads of {hc.head_dim}: {hn:,} parameters; "
-          f"{HTRAIN_STEPS} steps of {HTRAIN_CONFIG}; memory reckoned "
-          f"{reckon} (GB)")
 
-    # every leaf's step-0 gradient finite; the leaves that reach the loss
-    # only through the scan (a_log, dt_bias, conv_w, in_proj's x, B, C and
-    # dt columns) and the shared block's wq, wk nonzero: a detached kernel
-    # output would leave them at exactly 0 (not counted)
-    hb0 = tr_h._device_batch(tr_h.pipeline.batch_for(0, 0, htc.n_batches))
-    hloss0, hg0 = tr_h._grad_fn(tr_h.params, hb0)
-    torch.cuda.synchronize()
-    hleaves = tree_leaves(hg0)
-    if len(hleaves) != len(tree_leaves(tr_h.params)) or not all(
-            bool(torch.isfinite(g).all()) for g in hleaves):
-        raise AssertionError("train_hybrid: a parameter leaf got no finite "
-                             "gradient")
-    d_inner = hc.ssm.expansion * hc.d_model
-    hblocks = [lp for seg in hg0["mamba_segments"] for lp in seg]
-    hblocks += hg0.get("mamba_trailing", [])
-    zero = []
-    for j, lp in enumerate(hblocks):
-        zero += [(j, n) for n in ("a_log", "dt_bias", "conv_w")
-                 if not lp[n].abs().max().item() > 0]
-        cols = lp["in_proj"][:, d_inner:]  # x, B, C and dt
-        n_zero = int((cols.abs().amax(dim=0) == 0).sum())
-        if n_zero:
-            zero.append((j, f"{n_zero} in_proj x/B/C/dt columns"))
-    zero += [("shared_attn", n) for n in ("wq", "wk")
-             if not hg0["shared_attn"]["attn"][n].abs().max().item() > 0]
-    if zero or len(hblocks) != n_mamba:
-        raise AssertionError(f"train_hybrid: zero gradients at {zero[:8]}")
-    hnorms = {"a_log_block0": hblocks[0]["a_log"].norm().item(),
-              "conv_w_block0": hblocks[0]["conv_w"].norm().item(),
-              "in_proj_block0": hblocks[0]["in_proj"].norm().item(),
-              "shared_wq": hg0["shared_attn"]["attn"]["wq"].norm().item(),
-              "shared_wk": hg0["shared_attn"]["attn"]["wk"].norm().item()}
-    print(f"[train_hybrid] step-0 gradients: {len(hleaves)} leaves, all "
-          f"finite; every Mamba-2 block's a_log, dt_bias, conv_w and "
-          f"in_proj x/B/C/dt columns and the shared wq / wk nonzero; loss "
-          f"{hloss0:.4f}; norms {hnorms}")
-    del hg0, hleaves, hblocks
+    def train_hybrid_phase():
+        """Phase 6c: zamba2-7b at full width and depth 13 through
+        ``Trainer.run``.  Returns SsdScanFn's row at its shape, and
+        queues its profiled steps."""
+        t_htrain = time.perf_counter()
+        held_h = torch.cuda.memory_allocated() / 1e9
+        htc = TrainerConfig(steps=HTRAIN_STEPS, **HTRAIN_CONFIG)
+        tr_h = trainer_at_depth(htc, HTRAIN_LAYERS)
+        hc = tr_h.cfg
+        n_seg_h, seg_h, trail_h = segment_layout(hc)
+        n_mamba = n_seg_h * seg_h + trail_h
+        hn = count_params(tr_h.params)
+        max_b = max(tr_h.cluster_spec.feasible_batches())
+        # 2 bytes (bf16) + 12 (float32 master, m, v) a parameter, a float32
+        # gradient tree (4 bytes a parameter) a distinct batch until
+        # aggregate_host, and their float32 mean; AdamW then updates the state
+        # and the parameters in place, one leaf's temporaries at a time
+        reckon = {"state_gb": 14 * hn / 1e9, "grad_tree_gb": 4 * hn / 1e9,
+                  "largest_b": max_b,
+                  "state_and_trees_gb": (14 + 4 * max_b) * hn / 1e9,
+                  "aggregation_gb": (14 + 4 * (max_b + 1)) * hn / 1e9,
+                  "held_before_gb": held_h}
+        print(f"[train_hybrid] {hc.name} at full width, depth {hc.n_layers} "
+              f"of {get_config(htc.arch).n_layers}: {n_seg_h} segments of "
+              f"{seg_h} Mamba-2 blocks and the shared block, {trail_h} "
+              f"trailing; d {hc.d_model}, "
+              f"{hc.ssm.expansion * hc.d_model // hc.ssm.head_dim} SSM heads "
+              f"of {hc.ssm.head_dim} (state {hc.ssm.state_dim}), {hc.n_heads} "
+              f"attention heads of {hc.head_dim}: {hn:,} parameters; "
+              f"{HTRAIN_STEPS} steps of {HTRAIN_CONFIG}; memory reckoned "
+              f"{reckon} (GB)")
 
-    # FlashAttentionFn at the shared block's shape, as phase 6b holds it
-    hfshape, _, hflash_errs = hold_flash_fn("train_hybrid", hc, htc)
-
-    # SsdScanFn's forward at the path's shape (x, B, C as views of one
-    # activation, mild-decay dt) against the plain version, then its time,
-    # forward and forward + backward (not counted).  Its backward is
-    # autograd through the plain scan itself, held by the step-0 leaves
-    # above and by the CPU and card tests
-    hrows = htc.global_batch // htc.n_batches
-    sh_h = hc.ssm
-    n_hh, gn = d_inner // sh_h.head_dim, sh_h.n_groups * sh_h.state_dim
-    gen = torch.Generator(device="cuda").manual_seed(51)
-    act = torch.randn((hrows, htc.seq_len, d_inner + 2 * gn), generator=gen,
-                      device=dev).to(torch.bfloat16)
-    act[..., d_inner:] *= 0.3
-    hdt = 0.01 + 0.09 * torch.rand((hrows, htc.seq_len, n_hh), generator=gen,
-                                   device=dev)
-    halog = 0.5 * torch.randn((n_hh,), generator=gen, device=dev)
-    hds = 1.0 + 0.2 * torch.randn((n_hh,), generator=gen, device=dev)
-    hdy = torch.randn((hrows, htc.seq_len, n_hh, sh_h.head_dim),
-                      generator=gen, device=dev).to(torch.bfloat16)
-
-    def scan_views(a):
-        xs, b_, c_ = a.split([d_inner, gn, gn], dim=-1)
-        lead = a.shape[:2]
-        return (xs.reshape(*lead, n_hh, sh_h.head_dim),
-                b_.reshape(*lead, sh_h.n_groups, sh_h.state_dim),
-                c_.reshape(*lead, sh_h.n_groups, sh_h.state_dim))
-
-    def scan_leaves():
-        return [t.detach().clone().requires_grad_(True)
-                for t in (act, hdt, halog, hds)]
-
-    def scan_fwd(fn, leaves):
-        a, dt_, al, ds = leaves
-        xs, b_, c_ = scan_views(a)
-        return fn(xs, dt_, al, b_, c_, ds)
-
-    def fn_scan(xs, dt_, al, b_, c_, ds):
-        return SSD.SsdScanFn.apply(xs, dt_, al, b_, c_, ds, None, sh_h.chunk)
-
-    def plain_scan(xs, dt_, al, b_, c_, ds):
-        return SSD.ssd_scan_plain(xs, dt_, al, b_, c_, ds, chunk=sh_h.chunk)
-
-    with torch.no_grad():
-        yw, sw = scan_fwd(plain_scan, scan_leaves())
-    yg, sg = scan_fwd(fn_scan, scan_leaves())
-    torch.cuda.synchronize()
-    ssd_fn_errs = {"y": None, "state": None}
-    ssd_fn_errs["y"], ssd_fn_errs["state"], ok = ssd_err(
-        yg.detach(), sg.detach(), yw, sw, "bfloat16")
-    if not ok:
-        raise AssertionError(f"SsdScanFn's forward differs from the plain "
-                             f"version: {ssd_fn_errs}")
-    xs_shape = [hrows, htc.seq_len, n_hh, sh_h.head_dim]
-    bc_shape = [hrows, htc.seq_len, sh_h.n_groups, sh_h.state_dim]
-    print(f"[train_hybrid] SsdScanFn at x {xs_shape} b/c {bc_shape} bf16 "
-          f"(views of one activation) against the plain version: max |err| "
-          f"{ssd_fn_errs} (tolerance {SSD_TOL['bfloat16']} x (1 + |plain|); "
-          f"the state {SSD_TOL['float32']})")
-    del yw, sw, yg, sg
-    base = [t.detach() for t in (act, hdt, halog, hds)]
-    fb_leaves = scan_leaves()
-
-    def fwd_bwd_scan(fn):
-        y_, _ = scan_fwd(fn, fb_leaves)
-        return torch.autograd.grad(y_, fb_leaves, hdy)
-
-    with torch.no_grad():
-        hs_ms = cuda_ms(lambda: scan_fwd(SSD.ssd_scan, base), 20)
-        hs_plain = cuda_ms(lambda: scan_fwd(plain_scan, base), 5)
-    hsb_ms = cuda_ms(lambda: fwd_bwd_scan(fn_scan), 5)
-    hsb_plain = cuda_ms(lambda: fwd_bwd_scan(plain_scan), 5)
-    cl_h = SSD.effective_chunk(htc.seq_len, SSD.CHUNK)
-    hs_flops = (2.0 * hrows * n_hh * (htc.seq_len // cl_h)
-                * (cl_h * cl_h * (sh_h.state_dim + sh_h.head_dim)
-                   + 2 * cl_h * sh_h.state_dim * sh_h.head_dim))
-    xv, bv, cv = scan_views(act)
-    in_bytes = (xv.numel() + bv.numel() + cv.numel()) * 2 + nbytes(
-        hdt, halog, hds)
-    out_bytes = (xv.numel() * 2
-                 + hrows * n_hh * sh_h.state_dim * sh_h.head_dim * 4)
-    hs_bound = max(hs_flops / BF16_FLOP_PER_S,
-                   (in_bytes + out_bytes) / HBM_BYTES_PER_S) * 1e3
-    # the backward: two products for each of the forward's, reading the
-    # inputs and dy, writing a gradient for each input
-    hsb_flops = 3 * hs_flops
-    hsb_bytes = 2 * in_bytes + out_bytes + xv.numel() * 2
-    hsb_bound = max(hsb_flops / BF16_FLOP_PER_S,
-                    hsb_bytes / HBM_BYTES_PER_S) * 1e3
-    htrain_ssd_row = {
-        "name": "ssd_scan", "case": "train_hybrid (forward; SsdScanFn)",
-        "shape": [xs_shape, bc_shape], "ms": hs_ms, "plain_ms": hs_plain,
-        "library_ms": None, "bound_ms": hs_bound,
-        "bound_by": ("operations" if hs_flops / BF16_FLOP_PER_S
-                     > (in_bytes + out_bytes) / HBM_BYTES_PER_S else "bytes"),
-        "fwd_bwd_ms": hsb_ms, "fwd_bwd_plain_ms": hsb_plain,
-        "fwd_bwd_library_ms": None, "fwd_bwd_bound_ms": hsb_bound,
-        "fwd_bwd_bound_by": ("operations" if hsb_flops / BF16_FLOP_PER_S
-                             > hsb_bytes / HBM_BYTES_PER_S else "bytes"),
-        "max_abs_err": ssd_fn_errs}
-    print(f"[train_hybrid] ssd_scan at the path's shape: forward "
-          f"{hs_ms:.4f} ms (plain {hs_plain:.4f}, bound {hs_bound:.5f}); "
-          f"forward + backward through SsdScanFn {hsb_ms:.4f} ms (plain "
-          f"autograd {hsb_plain:.4f}, bound {hsb_bound:.5f}); no library "
-          f"call computes the scan")
-    del act, hdt, halog, hds, hdy, base, fb_leaves, xv, bv, cv
-
-    # the counted run: Trainer.run through its public loop
-    hgrad_calls, hstep_walls = [0], []
-    o_hgrad, o_hstep = tr_h._grad_fn, tr_h.step
-
-    def hcounted_grad(params, batch):
-        hgrad_calls[0] += 1
-        return o_hgrad(params, batch)
-
-    def htimed_step(i):
-        t0 = time.perf_counter()
-        out = o_hstep(i)
+        # every leaf's step-0 gradient finite; the leaves that reach the loss
+        # only through the scan (a_log, dt_bias, conv_w, in_proj's x, B, C and
+        # dt columns) and the shared block's wq, wk nonzero: a detached kernel
+        # output would leave them at exactly 0 (not counted)
+        hb0 = tr_h._device_batch(tr_h.pipeline.batch_for(0, 0, htc.n_batches))
+        hloss0, hg0 = tr_h._grad_fn(tr_h.params, hb0)
         torch.cuda.synchronize()
-        hstep_walls.append(time.perf_counter() - t0)
-        return out
+        hleaves = tree_leaves(hg0)
+        if len(hleaves) != len(tree_leaves(tr_h.params)) or not all(
+                bool(torch.isfinite(g).all()) for g in hleaves):
+            raise AssertionError("train_hybrid: a parameter leaf got no "
+                                 "finite gradient")
+        d_inner = hc.ssm.expansion * hc.d_model
+        hblocks = [lp for seg in hg0["mamba_segments"] for lp in seg]
+        hblocks += hg0.get("mamba_trailing", [])
+        zero = []
+        for j, lp in enumerate(hblocks):
+            zero += [(j, n) for n in ("a_log", "dt_bias", "conv_w")
+                     if not lp[n].abs().max().item() > 0]
+            cols = lp["in_proj"][:, d_inner:]  # x, B, C and dt
+            n_zero = int((cols.abs().amax(dim=0) == 0).sum())
+            if n_zero:
+                zero.append((j, f"{n_zero} in_proj x/B/C/dt columns"))
+        zero += [("shared_attn", n) for n in ("wq", "wk")
+                 if not hg0["shared_attn"]["attn"][n].abs().max().item() > 0]
+        if zero or len(hblocks) != n_mamba:
+            raise AssertionError(f"train_hybrid: zero gradients at {zero[:8]}")
+        hnorms = {"a_log_block0": hblocks[0]["a_log"].norm().item(),
+                  "conv_w_block0": hblocks[0]["conv_w"].norm().item(),
+                  "in_proj_block0": hblocks[0]["in_proj"].norm().item(),
+                  "shared_wq": hg0["shared_attn"]["attn"]["wq"].norm().item(),
+                  "shared_wk": hg0["shared_attn"]["attn"]["wk"].norm().item()}
+        print(f"[train_hybrid] step-0 gradients: {len(hleaves)} leaves, all "
+              f"finite; every Mamba-2 block's a_log, dt_bias, conv_w and "
+              f"in_proj x/B/C/dt columns and the shared wq / wk nonzero; loss "
+              f"{hloss0:.4f}; norms {hnorms}")
+        del hg0, hleaves, hblocks
 
-    tr_h._grad_fn, tr_h.step = hcounted_grad, htimed_step
-    hattempts, hrestore_tuner = tuner_attempts()
-    torch.cuda.reset_peak_memory_stats()
-    try:
-        hres, hcounts, hwall, _ = run_path("train_hybrid", tr_h.run)
-    finally:
-        hrestore_tuner()
-        tr_h._grad_fn, tr_h.step = o_hgrad, o_hstep
-    hpeak = torch.cuda.max_memory_allocated() / 1e9
-    hwant = {"ssd_scan": n_mamba * hgrad_calls[0],
-             "flash_attention": n_seg_h * hgrad_calls[0]}
-    for k, n in hwant.items():
-        if hcounts[k] != n:
-            raise AssertionError(f"train_hybrid launched {k} {hcounts[k]} "
-                                 f"times, expected {n}")
-    if not hattempts:
-        raise AssertionError("train_hybrid: the tuner made no re-plan "
-                             "attempt")
-    hlosses = hres.losses
-    hfirst5, hlast5 = (float(np.mean(hlosses[:5])),
-                       float(np.mean(hlosses[-5:])))
-    if not all(np.isfinite(hlosses)) or not hlast5 < hfirst5:
-        raise AssertionError(f"train_hybrid: the loss did not fall: first 5 "
-                             f"{hfirst5}, last 5 {hlast5}")
-    if not hpeak < 80:
-        raise AssertionError(f"train_hybrid peaked at {hpeak} GB")
-    hmed = statistics.median(hstep_walls)
-    print(f"[train_hybrid] losses first {hlosses[0]:.5f}, last "
-          f"{hlosses[-1]:.5f}; mean of the last 5 {hlast5:.5f} < mean of the "
-          f"first 5 {hfirst5:.5f}: the loss falls")
-    print(f"[train_hybrid] simulated time {hres.total_sim_time:.4f} s; "
-          f"plan_history {hres.plan_history}; events {hres.events}; tuner "
-          f"attempts (tuner step, wall s, moved B) {hattempts}")
-    print(f"[train_hybrid] wall {hwall:.3f} s; median step wall {hmed:.4f} s "
-          f"(min {min(hstep_walls):.4f}, max {max(hstep_walls):.4f}); peak "
-          f"memory allocated {hpeak:.2f} GB ({held_h:.2f} GB of it held by "
-          f"earlier phases' tensors when the phase began)")
-    print(f"[train_hybrid] launches: ssd_scan {hcounts['ssd_scan']} = "
-          f"{n_mamba} Mamba-2 blocks x {hgrad_calls[0]} distinct batches, "
-          f"flash_attention {hcounts['flash_attention']} = {n_seg_h} shared "
-          f"applications x {hgrad_calls[0]}; others "
-          f"{ {k: v for k, v in hcounts.items() if k not in hwant} }")
-    htrain_report = {
-        "config": {**HTRAIN_CONFIG, "steps": HTRAIN_STEPS,
-                   "layers": HTRAIN_LAYERS,
-                   "slow_workers": {str(k): v for k, v in
-                                    HTRAIN_CONFIG["slow_workers"].items()}},
-        "parameters": hn, "memory_reckoning_gb": reckon,
-        "step0_loss": hloss0, "step0_grad_norms": hnorms,
-        "flash_fn_shape": [list(x) for x in hfshape],
-        "flash_fn_max_abs_err": hflash_errs,
-        "ssd_fn_max_abs_err": ssd_fn_errs, "ssd_train_shape": htrain_ssd_row,
-        "losses": hlosses, "sim_times": hres.sim_times,
-        "total_sim_time": hres.total_sim_time,
-        "plan_history": hres.plan_history, "events": hres.events,
-        "tuner_attempts": hattempts, "wall_s": hwall,
-        "step_walls_s": hstep_walls, "median_step_s": hmed,
-        "peak_memory_gb": hpeak, "held_before_gb": held_h,
-        "launches": hcounts, "distinct_batch_grads": hgrad_calls[0]}
+        # FlashAttentionFn at the shared block's shape, as phase 6b holds it
+        hfshape, _, hflash_errs, hflash_reading = hold_flash_fn(
+            "train_hybrid", hc, htc)
 
-    # train_hybrid_pins: reduced zamba2 at 4 layers and at 5 (a trailing
-    # block), card against CPU through train_pins' fault and restore
-    hpin = {**TRAIN_PIN_CONFIG, "arch": "zamba2-7b"}
-    htrain_report["train_hybrid_pins"] = {
-        n: train_pins(f"train_hybrid_pins_{n}l", hpin,
-                      None if n == 4 else n)
-        for n in HTRAIN_PIN_LAYERS}
-    print(f"[train_hybrid] phase 6c: {time.perf_counter() - t_htrain:.1f} s")
-    report["phases"]["train_hybrid"] = htrain_report
+        # SsdScanFn's forward at the path's shape (x, B, C as views of one
+        # activation, mild-decay dt) against the plain version, then its time,
+        # forward and forward + backward (not counted).  Its backward is
+        # autograd through the plain scan itself, held by the step-0 leaves
+        # above and by the CPU and card tests
+        hrows = htc.global_batch // htc.n_batches
+        sh_h = hc.ssm
+        n_hh, gn = d_inner // sh_h.head_dim, sh_h.n_groups * sh_h.state_dim
+        gen = torch.Generator(device="cuda").manual_seed(51)
+        act = torch.randn((hrows, htc.seq_len, d_inner + 2 * gn),
+                          generator=gen,
+                          device=dev).to(torch.bfloat16)
+        act[..., d_inner:] *= 0.3
+        hdt = 0.01 + 0.09 * torch.rand((hrows, htc.seq_len, n_hh),
+                                       generator=gen,
+                                       device=dev)
+        halog = 0.5 * torch.randn((n_hh,), generator=gen, device=dev)
+        hds = 1.0 + 0.2 * torch.randn((n_hh,), generator=gen, device=dev)
+        hdy = torch.randn((hrows, htc.seq_len, n_hh, sh_h.head_dim),
+                          generator=gen, device=dev).to(torch.bfloat16)
+
+        def scan_views(a):
+            xs, b_, c_ = a.split([d_inner, gn, gn], dim=-1)
+            lead = a.shape[:2]
+            return (xs.reshape(*lead, n_hh, sh_h.head_dim),
+                    b_.reshape(*lead, sh_h.n_groups, sh_h.state_dim),
+                    c_.reshape(*lead, sh_h.n_groups, sh_h.state_dim))
+
+        def scan_leaves():
+            return [t.detach().clone().requires_grad_(True)
+                    for t in (act, hdt, halog, hds)]
+
+        def scan_fwd(fn, leaves):
+            a, dt_, al, ds = leaves
+            xs, b_, c_ = scan_views(a)
+            return fn(xs, dt_, al, b_, c_, ds)
+
+        def fn_scan(xs, dt_, al, b_, c_, ds):
+            return SSD.SsdScanFn.apply(xs, dt_, al, b_, c_, ds, None,
+                                       sh_h.chunk)
+
+        def plain_scan(xs, dt_, al, b_, c_, ds):
+            return SSD.ssd_scan_plain(xs, dt_, al, b_, c_, ds,
+                                      chunk=sh_h.chunk)
+
+        with torch.no_grad():
+            yw, sw = scan_fwd(plain_scan, scan_leaves())
+        yg, sg = scan_fwd(fn_scan, scan_leaves())
+        torch.cuda.synchronize()
+        ssd_fn_errs = {"y": None, "state": None}
+        ssd_fn_errs["y"], ssd_fn_errs["state"], ok = ssd_err(
+            yg.detach(), sg.detach(), yw, sw, "bfloat16")
+        if not ok:
+            raise AssertionError(f"SsdScanFn's forward differs from the plain "
+                                 f"version: {ssd_fn_errs}")
+        xs_shape = [hrows, htc.seq_len, n_hh, sh_h.head_dim]
+        bc_shape = [hrows, htc.seq_len, sh_h.n_groups, sh_h.state_dim]
+        print(f"[train_hybrid] SsdScanFn at x {xs_shape} b/c {bc_shape} bf16 "
+              f"(views of one activation) against the plain version: max "
+              f"|err| {ssd_fn_errs} (tolerance {SSD_TOL['bfloat16']} x (1 + "
+              f"|plain|); the state {SSD_TOL['float32']})")
+        del yw, sw, yg, sg
+        base = [t.detach() for t in (act, hdt, halog, hds)]
+        fb_leaves = scan_leaves()
+
+        def fwd_bwd_scan(fn):
+            y_, _ = scan_fwd(fn, fb_leaves)
+            return torch.autograd.grad(y_, fb_leaves, hdy)
+
+        with torch.no_grad():
+            hs_ms = cuda_ms(lambda: scan_fwd(SSD.ssd_scan, base), 20)
+            hs_plain = cuda_ms(lambda: scan_fwd(plain_scan, base), 5)
+        hsb_ms = cuda_ms(lambda: fwd_bwd_scan(fn_scan), 5)
+        hsb_plain = cuda_ms(lambda: fwd_bwd_scan(plain_scan), 5)
+        cl_h = SSD.effective_chunk(htc.seq_len, SSD.CHUNK)
+        hs_flops = (2.0 * hrows * n_hh * (htc.seq_len // cl_h)
+                    * (cl_h * cl_h * (sh_h.state_dim + sh_h.head_dim)
+                       + 2 * cl_h * sh_h.state_dim * sh_h.head_dim))
+        xv, bv, cv = scan_views(act)
+        in_bytes = (xv.numel() + bv.numel() + cv.numel()) * 2 + nbytes(
+            hdt, halog, hds)
+        out_bytes = (xv.numel() * 2
+                     + hrows * n_hh * sh_h.state_dim * sh_h.head_dim * 4)
+        hs_bound = max(hs_flops / BF16_FLOP_PER_S,
+                       (in_bytes + out_bytes) / HBM_BYTES_PER_S) * 1e3
+        # the backward: two products for each of the forward's, reading the
+        # inputs and dy, writing a gradient for each input
+        hsb_flops = 3 * hs_flops
+        hsb_bytes = 2 * in_bytes + out_bytes + xv.numel() * 2
+        hsb_bound = max(hsb_flops / BF16_FLOP_PER_S,
+                        hsb_bytes / HBM_BYTES_PER_S) * 1e3
+        htrain_ssd_row = {
+            "name": "ssd_scan", "case": "train_hybrid (forward; SsdScanFn)",
+            "shape": [xs_shape, bc_shape], "ms": hs_ms, "plain_ms": hs_plain,
+            "library_ms": None, "bound_ms": hs_bound,
+            "bound_by": ("operations" if hs_flops / BF16_FLOP_PER_S
+                         > (in_bytes + out_bytes) / HBM_BYTES_PER_S else "bytes"),
+            "fwd_bwd_ms": hsb_ms, "fwd_bwd_plain_ms": hsb_plain,
+            "fwd_bwd_library_ms": None, "fwd_bwd_bound_ms": hsb_bound,
+            "fwd_bwd_bound_by": ("operations" if hsb_flops / BF16_FLOP_PER_S
+                                 > hsb_bytes / HBM_BYTES_PER_S else "bytes"),
+            "max_abs_err": ssd_fn_errs}
+        print(f"[train_hybrid] ssd_scan at the path's shape: forward "
+              f"{hs_ms:.4f} ms (plain {hs_plain:.4f}, bound {hs_bound:.5f}); "
+              f"forward + backward through SsdScanFn {hsb_ms:.4f} ms (plain "
+              f"autograd {hsb_plain:.4f}, bound {hsb_bound:.5f}); no library "
+              f"call computes the scan")
+        del act, hdt, halog, hds, hdy, base, fb_leaves, xv, bv, cv
+
+        hres, hcounts, hwall, n_hgrads, hstep_walls, hattempts, hpeak = (
+            counted_run("train_hybrid", tr_h))
+        hwant = {"ssd_scan": n_mamba * n_hgrads,
+                 "flash_attention": n_seg_h * n_hgrads}
+        for k, n in hwant.items():
+            if hcounts[k] != n:
+                raise AssertionError(f"train_hybrid launched {k} "
+                                     f"{hcounts[k]} times, expected {n}")
+        if not hattempts:
+            raise AssertionError("train_hybrid: the tuner made no re-plan "
+                                 "attempt")
+        hlosses = hres.losses
+        hfirst5, hlast5 = (float(np.mean(hlosses[:5])),
+                           float(np.mean(hlosses[-5:])))
+        if not all(np.isfinite(hlosses)) or not hlast5 < hfirst5:
+            raise AssertionError(f"train_hybrid: the loss did not fall: first "
+                                 f"5 {hfirst5}, last 5 {hlast5}")
+        if not hpeak < 80:
+            raise AssertionError(f"train_hybrid peaked at {hpeak} GB")
+        hmed = statistics.median(hstep_walls)
+        print(f"[train_hybrid] losses first {hlosses[0]:.5f}, last "
+              f"{hlosses[-1]:.5f}; mean of the last 5 {hlast5:.5f} < mean of "
+              f"the first 5 {hfirst5:.5f}: the loss falls")
+        print(f"[train_hybrid] simulated time {hres.total_sim_time:.4f} s; "
+              f"plan_history {hres.plan_history}; events {hres.events}; tuner "
+              f"attempts (tuner step, wall s, moved B) {hattempts}")
+        print(f"[train_hybrid] wall {hwall:.3f} s; median step wall "
+              f"{hmed:.4f} s (min {min(hstep_walls):.4f}, max "
+              f"{max(hstep_walls):.4f}); peak memory allocated {hpeak:.2f} GB "
+              f"({held_h:.2f} GB of it held by earlier phases' tensors when "
+              "the phase began)")
+        print(f"[train_hybrid] launches: ssd_scan {hcounts['ssd_scan']} = "
+              f"{n_mamba} Mamba-2 blocks x {n_hgrads} distinct batches, "
+              f"flash_attention {hcounts['flash_attention']} = {n_seg_h} "
+              f"shared applications x {n_hgrads}; others "
+              f"{ {k: v for k, v in hcounts.items() if k not in hwant} }")
+        htrain_report = {
+            "config": {**HTRAIN_CONFIG, "steps": HTRAIN_STEPS,
+                       "layers": HTRAIN_LAYERS,
+                       "slow_workers": {str(k): v for k, v in
+                                        HTRAIN_CONFIG["slow_workers"].items()}},
+            "parameters": hn, "memory_reckoning_gb": reckon,
+            "step0_loss": hloss0, "step0_grad_norms": hnorms,
+            "flash_fn_shape": [list(x) for x in hfshape],
+            "flash_fn_max_abs_err": hflash_errs,
+            "flash_fn_err_reading": hflash_reading,
+            "ssd_fn_max_abs_err": ssd_fn_errs,
+            "ssd_train_shape": htrain_ssd_row,
+            "losses": hlosses, "sim_times": hres.sim_times,
+            "total_sim_time": hres.total_sim_time,
+            "plan_history": hres.plan_history, "events": hres.events,
+            "tuner_attempts": hattempts, "wall_s": hwall,
+            "step_walls_s": hstep_walls, "median_step_s": hmed,
+            "peak_memory_gb": hpeak, "held_before_gb": held_h,
+            "launches": hcounts, "distinct_batch_grads": n_hgrads}
+
+        # train_hybrid_pins: reduced zamba2 at 4 layers and at 5 (a trailing
+        # block), card against CPU through train_pins' fault and restore
+        hpin = {**TRAIN_PIN_CONFIG, "arch": "zamba2-7b"}
+        htrain_report["train_hybrid_pins"] = {
+            n: train_pins(f"train_hybrid_pins_{n}l", hpin,
+                          None if n == 4 else n)
+            for n in HTRAIN_PIN_LAYERS}
+        print(f"[train_hybrid] phase 6c: "
+              f"{time.perf_counter() - t_htrain:.1f} s")
+        report["phases"]["train_hybrid"] = htrain_report
+        trainer_profiles.append(lambda: train_profile(
+            "train_hybrid", tr_h, htrain_report, hmed,
+            {"ssd_scan": SSD_BF16_KERNEL, "flash_attention": "flash_wgmma"}))
+        return htrain_ssd_row
+
+    htrain_ssd_row = train_hybrid_phase()
 
     def launches(kernel: str, home: str) -> dict:
         """The kernel's launches on the path whose shapes its row times
@@ -3597,781 +3779,1122 @@ def main() -> int:
     # -- 7. kernels -------------------------------------------------------
     _phase("kernels")
 
-    rows = []
-    extra_rows = []
-    extra_rows.append(train_flash_row)
+    def kernels_phase():
+        """Phase 7: every kernel against its plain version at the
+        paths' shapes, with its times, bound and library call.  Returns
+        (kernel rows, every shape's row, phase 6e's FlashAttentionFn
+        rows by key)."""
 
-    # sojourn_cells: plan_policies' one dispatch (every cell and policy),
-    # held bit-equal to the plain version on its first SOJOURN_PLAIN_JOBS
-    # jobs (the plain version loops over jobs in Python); then the G=2000
-    # cell alone under its two trigger policies and its two trigger-free
-    # ones, the shapes of the earlier per-family dispatches
-    (args, kw), = soj_calls
-    arr, svc, alt, kinds, thr, hm, ng = args
+        rows = []
+        extra_rows = []
+        extra_rows.append(train_flash_row)
 
-    def soj_entry(tag, a_, kw, reps):
-        out_k, x_k = SK.sojourn_cells(*a_, **kw)
-        torch.cuda.synchronize()
-        if not torch.isfinite(out_k).all():
-            raise AssertionError("sojourn_cells produced non-finite sojourns")
-        svc_ = a_[1]
-        fn = lambda: SK.sojourn_cells(*a_, **kw)  # noqa: E731
-        ms = cuda_ms(fn, reps)
-        one_ms = call_ms(fn, reps)  # median event pair around one call
-        # the profiler's time of the kernel, where one of three windows
-        # records it
-        for _ in range(3):
-            _, _, n_ev, by_name, count = device_busy(fn, reps)
-            names = [k for k in by_name if "sojourn_cells_kernel" in k]
-            if names:
-                break
-        dev_ms = (sum(by_name[k] / count[k] for k in names) * 1e3
-                  if names else None)
-        if not names:
-            print(f"    (profiler: no sojourn_cells_kernel event among "
-                  f"{n_ev} device events of {reps} calls: {sorted(by_name)})")
-        chain = chain_bound_ms(a_, kw, x_k)
-        nbytes_ = nbytes(*a_, out_k, x_k) / HBM_BYTES_PER_S * 1e3
-        return {
-            "name": "sojourn_cells", "case": tag,
-            "shape": [int(v) for v in svc_.shape] + [int(a_[3].shape[0])],
-            "resolve": bool(kw.get("resolve", True)), "ms": ms,
-            "call_ms": one_ms, "device_ms": dev_ms,
-            "bound_ms": max(chain, nbytes_),
-            "bound_by": "operations" if chain >= nbytes_ else "bytes",
-            "chain_bound_ms": chain, "bytes_bound_ms": nbytes_,
-            "fired": int(x_k[resolving_programs(a_, kw)].sum().item()),
-            "library_ms": None}
+        # sojourn_cells: plan_policies' one dispatch (every cell and policy),
+        # held bit-equal to the plain version on its first SOJOURN_PLAIN_JOBS
+        # jobs (the plain version loops over jobs in Python); then the G=2000
+        # cell alone under its two trigger policies and its two trigger-free
+        # ones, the shapes of the earlier per-family dispatches
+        (args, kw), = soj_calls
+        arr, svc, alt, kinds, thr, hm, ng = args
 
-    head = soj_entry("plan_policies dispatch", args, kw, 3)
-    head.update(soj_prefix_check("plan_policies", args, kw))
-    j = head["plain_jobs"]
-    soj_entries = [head]
-    # serving_fleet's widest dispatch (trigger-free), the same way
-    sargs, skw = serving_widest
-    serving_e = soj_entry("serving_fleet widest dispatch", sargs, skw, 3)
-    serving_e.update(soj_prefix_check("serving_fleet", sargs, skw))
-    sj = serving_e["plain_jobs"]
-    # the same shape's launches in serving_fleet's profiled plan
-    plan_ms = [d_["device_ms"] for d_ in fleet_dispatches
-               if "device_ms" in d_ and [d_["cells"], d_["jobs"],
-                                         d_["groups"], d_["policies"]]
-               == serving_e["shape"]]
-    serving_e["plan_device_ms"] = plan_ms
-    print(f"[kernels] sojourn_cells first {sj} jobs of serving_fleet's "
-          f"widest dispatch: kernel {serving_e['ms_at_plain_jobs']:.3f} ms, "
-          f"plain {serving_e['plain_ms']:.1f} ms, bit-equal; the shape's "
-          f"device ms in the profiled plan {plan_ms}")
-    soj_entries.append(serving_e)
-    widest = int(torch.argmax(ng).item())
-    kind_list = kinds.tolist()
-    for tag, fam in (("triggers", (1, 2)), ("trigger-free", (0, 3))):
-        pidx = [i for i, kd in enumerate(kind_list) if kd in fam]
-        if not pidx:
-            continue
-        sel = torch.tensor(pidx, device=dev)
-        sub = (arr, svc[widest:widest + 1].contiguous(),
-               alt[widest:widest + 1].contiguous(), kinds[sel].contiguous(),
-               thr[widest:widest + 1][:, sel].contiguous(),
-               hm[sel].contiguous(), ng[widest:widest + 1].contiguous())
-        skw = {"resolve": SOPS.needs_resolve(sub[3], sub[4])}
-        e = soj_entry(tag, sub, skw, 3)
-        subcut = (arr[:j].contiguous(), sub[1][:, :j].contiguous(),
-                  sub[2][:, :j].contiguous(), sub[3], sub[4],
-                  sub[5][:, :j].contiguous(), sub[6])
-        if not all(torch.equal(u, v) for u, v in zip(
-                SK.sojourn_cells(*subcut, **skw),
-                SK.sojourn_cells_plain(*subcut, **skw))):
-            raise AssertionError(f"sojourn_cells ({tag}) differs from its "
-                                 f"plain version")
-        soj_entries.append(e)
-    for e in soj_entries:
-        print(f"[kernels] sojourn_cells {e['case']} C,J,G,P={e['shape']}: "
-              f"{e['ms']:.3f} ms (per call {e['call_ms']:.3f} ms, profiler "
-              f"{e['device_ms']}), chain bound {e['chain_bound_ms']:.4f} ms "
-              f"(bytes bound {e['bytes_bound_ms']:.4f} ms; {e['fired']} "
-              f"triggers fired), bit-equal to plain")
-    print(f"[kernels] sojourn_cells first {j} jobs of the plan_policies "
-          f"dispatch: kernel {head['ms_at_plain_jobs']:.3f} ms, plain "
-          f"{head['plain_ms']:.1f} ms; chain bound model: J x (L + 2R), "
-          f"J x (L + 3R) + fired x (L + 2R) where triggers resolve, with L "
-          f"{chain_cycles['sts_syncwarp_lds128']:.2f} and R "
-          f"{chain_cycles['redux']:.2f} cycles at {sm_clock_mhz:.0f} MHz")
-    rows.append({"name": "sojourn_cells", "route": "cuda",
-                 "source": "src/repro_torch/csrc/sojourn_cells.cu",
-                 "replaces": "src/repro/kernels/sojourn_sweep/kernel.py:222",
-                 **launches("sojourn_cells", "plan_policies"),
-                 "max_abs_err": 0.0, "ms": head["ms"],
-                 "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-                 "bound_by": head["bound_by"], "library_ms": None,
-                 "shape": head["shape"], "plain_jobs": head["plain_jobs"],
-                 "ms_at_plain_jobs": head["ms_at_plain_jobs"],
-                 "call_ms": head["call_ms"], "device_ms": head["device_ms"],
-                 "chain_bound_ms": head["chain_bound_ms"],
-                 "bytes_bound_ms": head["bytes_bound_ms"],
-                 "bound_model": "latency chain of the longest program: J x "
-                                "(L + 2R), or J x (L + 3R) + fired x "
-                                "(L + 2R) where triggers resolve; L, R "
-                                "measured SM cycles",
-                 "chain_cycles": chain_cycles, "sm_clock_mhz": sm_clock_mhz,
-                 "serving_fleet": serving_e})
-    extra_rows.extend(soj_entries)
-    extra_rows.extend(plain_checks)  # 4c's and 4d's dispatches, checked there
-
-    # coded_cells: the planner's shape, the fleet's cells, then long rows
-    # with duplicates; beside them the launch floor, the radix passes'
-    # candidates, the host's split of a call and the build's stack frames
-    coded_lib = _build.load("coded_cells")
-
-    def pass_summary(counts):
-        """For each radix pass: the rows that ran it, and the mean and the
-        largest count of candidates it left."""
-        c = counts.reshape(-1, counts.shape[-1]).double()
-        out = []
-        for p_ in range(c.shape[1]):
-            ran = c[:, p_] > 0
-            n_ran = int(ran.sum().item())
-            out.append({"rows": n_ran, "max": int(c[:, p_].max().item()),
-                        "mean": c[ran, p_].mean().item() if n_ran else 0.0})
-        return out
-
-    def coded_row(times, ks, reps):
-        ks_dev = ks.to(dev)
-        out_k = SK.coded_cells(times, ks)
-        out_p = SK.coded_cells_plain(times, ks_dev)
-        if not torch.equal(out_k, out_p):
-            raise AssertionError(
-                f"coded_cells differs from its plain version at "
-                f"{tuple(times.shape)}")
-        fn = lambda: SK.coded_cells(times, ks)  # noqa: E731
-        ms = cuda_ms(fn, reps)
-        one_ms = call_ms(fn, reps)
-        dev_ms = device_ms(fn, reps)
-        plain_ms = cuda_ms(lambda: SK.coded_cells_plain(times, ks_dev), reps)
-        ks_host = ks.tolist()
-        lib_ms = cuda_ms(lambda: [torch.kthvalue(times[c], ks_host[c], dim=1)
-                                  for c in range(times.shape[0])], reps)
-        bound_ms = nbytes(times, ks, out_k) / HBM_BYTES_PER_S * 1e3
-        # the radix select's passes, recorded by the kernel, against the
-        # plain version's
-        r_out, counts = SK.coded_radix_counts(times, ks)
-        if not (torch.equal(r_out, out_p) and torch.equal(
-                counts, SK.coded_radix_counts_plain(times, ks_dev))):
-            raise AssertionError(f"coded_cells radix passes differ from the "
-                                 f"plain version at {tuple(times.shape)}")
-        entry = {"name": "coded_cells", "shape": list(times.shape),
-                 "ks": ks_host, "ks_on": str(ks.device), "ms": ms,
-                 "call_ms": one_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                 "library_ms": lib_ms, "bound_ms": bound_ms,
-                 "bound_fraction": bound_ms / dev_ms, "max_abs_err": 0.0,
-                 "radix_passes": pass_summary(counts)}
-        if times.shape[2] <= 64:
-            # the same rows through the long-row radix path
-            if not torch.equal(SK.coded_cells(times, ks, force_radix=True),
-                               out_p):
-                raise AssertionError("coded_cells radix path differs")
-            rfn = lambda: SK.coded_cells(times, ks, force_radix=True)  # noqa
-            entry["radix_ms"] = cuda_ms(rfn, reps)
-            entry["radix_device_ms"] = device_ms(rfn, reps)
-        return entry
-
-    def coded_floor(times, ks, reps):
-        """Device time and per-call events of an empty kernel launched as
-        the short-row kernel is (its parameters and grid)."""
-        out = torch.empty(tuple(times.shape[:2]), device=dev)
-        on_host = not ks.is_cuda
-        args = (times.data_ptr(), None if on_host else ks.data_ptr(),
-                ks.data_ptr() if on_host else None, out.data_ptr(), None,
-                *times.shape, 0,
-                torch._C._cuda_getCurrentRawStream(times.get_device()))
-
-        def fn():
-            _build.check(coded_lib, coded_lib.coded_cells_floor_launch(*args),
-                         "coded_cells floor launch")
-
-        return device_ms(fn, reps), call_ms(fn, reps)
-
-    def coded_host_split(times, ks, reps=2000):
-        """Host microseconds a call of each step of the wrapper and the
-        seam, each timed alone over ``reps`` calls (a launch enqueues only;
-        the card keeps up), beside the costlier ways to take the same steps
-        ("alt": full checks, a stream object, pointer objects, ``ks``
-        copied to the card), and the whole calls."""
-        n_c, n_t, n_w = times.shape
-        tdev = times.device
-        ks_np = np.asarray(ks.tolist(), dtype=np.int64)
-        ks_dev = ks.to(tdev)
-        out = torch.empty((n_c, n_t), device=dev)
-        stream = torch._C._cuda_getCurrentRawStream(times.get_device())
-        f32, i32 = torch.float32, torch.int32
-
-        def host_us(fn):
-            fn()
+        def soj_entry(tag, a_, kw, reps):
+            out_k, x_k = SK.sojourn_cells(*a_, **kw)
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(reps):
+            if not torch.isfinite(out_k).all():
+                raise AssertionError("sojourn_cells produced non-finite "
+                                     "sojourns")
+            svc_ = a_[1]
+            fn = lambda: SK.sojourn_cells(*a_, **kw)  # noqa: E731
+            ms = cuda_ms(fn, reps)
+            one_ms = call_ms(fn, reps)  # median event pair around one call
+            # the profiler's time of the kernel, where one of three windows
+            # records it
+            for _ in range(3):
+                _, _, n_ev, by_name, count = device_busy(fn, reps)
+                names = [k for k in by_name if "sojourn_cells_kernel" in k]
+                if names:
+                    break
+            dev_ms = (sum(by_name[k] / count[k] for k in names) * 1e3
+                      if names else None)
+            if not names:
+                print(f"    (profiler: no sojourn_cells_kernel event among "
+                      f"{n_ev} device events of {reps} calls: "
+                      f"{sorted(by_name)})")
+            chain = chain_bound_ms(a_, kw, x_k)
+            nbytes_ = nbytes(*a_, out_k, x_k) / HBM_BYTES_PER_S * 1e3
+            return {
+                "name": "sojourn_cells", "case": tag,
+                "shape": [int(v) for v in svc_.shape] + [int(a_[3].shape[0])],
+                "resolve": bool(kw.get("resolve", True)), "ms": ms,
+                "call_ms": one_ms, "device_ms": dev_ms,
+                "bound_ms": max(chain, nbytes_),
+                "bound_by": "operations" if chain >= nbytes_ else "bytes",
+                "chain_bound_ms": chain, "bytes_bound_ms": nbytes_,
+                "fired": int(x_k[resolving_programs(a_, kw)].sum().item()),
+                "library_ms": None}
+
+        head = soj_entry("plan_policies dispatch", args, kw, 3)
+        head.update(soj_prefix_check("plan_policies", args, kw))
+        j = head["plain_jobs"]
+        soj_entries = [head]
+        # serving_fleet's widest dispatch (trigger-free), the same way
+        (sargs, skw), = serving_widest
+        serving_e = soj_entry("serving_fleet widest dispatch", sargs, skw, 3)
+        serving_e.update(soj_prefix_check("serving_fleet", sargs, skw))
+        sj = serving_e["plain_jobs"]
+        # the same shape's launches in serving_fleet's profiled plan
+        plan_ms = [d_["device_ms"] for d_ in fleet_dispatches
+                   if "device_ms" in d_ and [d_["cells"], d_["jobs"],
+                                             d_["groups"], d_["policies"]]
+                   == serving_e["shape"]]
+        serving_e["plan_device_ms"] = plan_ms
+        print(f"[kernels] sojourn_cells first {sj} jobs of serving_fleet's "
+              f"widest dispatch: kernel {serving_e['ms_at_plain_jobs']:.3f} "
+              f"ms, plain {serving_e['plain_ms']:.1f} ms, bit-equal; the "
+              f"shape's device ms in the profiled plan {plan_ms}")
+        soj_entries.append(serving_e)
+        widest = int(torch.argmax(ng).item())
+        kind_list = kinds.tolist()
+        for tag, fam in (("triggers", (1, 2)), ("trigger-free", (0, 3))):
+            pidx = [i for i, kd in enumerate(kind_list) if kd in fam]
+            if not pidx:
+                continue
+            sel = torch.tensor(pidx, device=dev)
+            sub = (arr, svc[widest:widest + 1].contiguous(),
+                   alt[widest:widest + 1].contiguous(),
+                   kinds[sel].contiguous(),
+                   thr[widest:widest + 1][:, sel].contiguous(),
+                   hm[sel].contiguous(), ng[widest:widest + 1].contiguous())
+            skw = {"resolve": SOPS.needs_resolve(sub[3], sub[4])}
+            e = soj_entry(tag, sub, skw, 3)
+            subcut = (arr[:j].contiguous(), sub[1][:, :j].contiguous(),
+                      sub[2][:, :j].contiguous(), sub[3], sub[4],
+                      sub[5][:, :j].contiguous(), sub[6])
+            if not all(torch.equal(u, v) for u, v in zip(
+                    SK.sojourn_cells(*subcut, **skw),
+                    SK.sojourn_cells_plain(*subcut, **skw))):
+                raise AssertionError(f"sojourn_cells ({tag}) differs from its "
+                                     f"plain version")
+            soj_entries.append(e)
+        for e in soj_entries:
+            print(f"[kernels] sojourn_cells {e['case']} C,J,G,P={e['shape']}: "
+                  f"{e['ms']:.3f} ms (per call {e['call_ms']:.3f} ms, "
+                  f"profiler {e['device_ms']}), chain bound "
+                  f"{e['chain_bound_ms']:.4f} ms (bytes bound "
+                  f"{e['bytes_bound_ms']:.4f} ms; {e['fired']} triggers "
+                  "fired), bit-equal to plain")
+        print(f"[kernels] sojourn_cells first {j} jobs of the plan_policies "
+              f"dispatch: kernel {head['ms_at_plain_jobs']:.3f} ms, plain "
+              f"{head['plain_ms']:.1f} ms; chain bound model: J x (L + 2R), "
+              f"J x (L + 3R) + fired x (L + 2R) where triggers resolve, with "
+              f"L {chain_cycles['sts_syncwarp_lds128']:.2f} and R "
+              f"{chain_cycles['redux']:.2f} cycles at {sm_clock_mhz:.0f} MHz")
+        rows.append({"name": "sojourn_cells", "route": "cuda",
+                     "source": "src/repro_torch/csrc/sojourn_cells.cu",
+                     "replaces": "src/repro/kernels/sojourn_sweep/kernel.py:222",
+                     **launches("sojourn_cells", "plan_policies"),
+                     "max_abs_err": 0.0, "ms": head["ms"],
+                     "plain_ms": head["plain_ms"],
+                     "bound_ms": head["bound_ms"],
+                     "bound_by": head["bound_by"], "library_ms": None,
+                     "shape": head["shape"], "plain_jobs": head["plain_jobs"],
+                     "ms_at_plain_jobs": head["ms_at_plain_jobs"],
+                     "call_ms": head["call_ms"],
+                     "device_ms": head["device_ms"],
+                     "chain_bound_ms": head["chain_bound_ms"],
+                     "bytes_bound_ms": head["bytes_bound_ms"],
+                     "bound_model": "latency chain of the longest program: J "
+                                    "x (L + 2R), or J x (L + 3R) + fired x "
+                                    "(L + 2R) where triggers resolve; L, R "
+                                    "measured SM cycles",
+                     "chain_cycles": chain_cycles,
+                     "sm_clock_mhz": sm_clock_mhz,
+                     "serving_fleet": serving_e})
+        extra_rows.extend(soj_entries)
+        # 4c's and 4d's dispatches, checked there
+        extra_rows.extend(plain_checks)
+
+        # coded_cells: the planner's shape, the fleet's cells, then long rows
+        # with duplicates; beside them the launch floor, the radix passes'
+        # candidates, the host's split of a call and the build's stack frames
+        coded_lib = _build.load("coded_cells")
+
+        def pass_summary(counts):
+            """For each radix pass: the rows that ran it, and the mean and the
+            largest count of candidates it left."""
+            c = counts.reshape(-1, counts.shape[-1]).double()
+            out = []
+            for p_ in range(c.shape[1]):
+                ran = c[:, p_] > 0
+                n_ran = int(ran.sum().item())
+                out.append({"rows": n_ran, "max": int(c[:, p_].max().item()),
+                            "mean": c[ran, p_].mean().item() if n_ran else 0.0})
+            return out
+
+        def coded_row(times, ks, reps):
+            ks_dev = ks.to(dev)
+            out_k = SK.coded_cells(times, ks)
+            out_p = SK.coded_cells_plain(times, ks_dev)
+            if not torch.equal(out_k, out_p):
+                raise AssertionError(
+                    f"coded_cells differs from its plain version at "
+                    f"{tuple(times.shape)}")
+            fn = lambda: SK.coded_cells(times, ks)  # noqa: E731
+            ms = cuda_ms(fn, reps)
+            one_ms = call_ms(fn, reps)
+            dev_ms = device_ms(fn, reps)
+            plain_ms = cuda_ms(lambda: SK.coded_cells_plain(times, ks_dev),
+                               reps)
+            ks_host = ks.tolist()
+            lib_ms = cuda_ms(lambda: [
+                torch.kthvalue(times[c], ks_host[c], dim=1)
+                for c in range(times.shape[0])], reps)
+            bound_ms = nbytes(times, ks, out_k) / HBM_BYTES_PER_S * 1e3
+            # the radix select's passes, recorded by the kernel, against the
+            # plain version's
+            r_out, counts = SK.coded_radix_counts(times, ks)
+            if not (torch.equal(r_out, out_p) and torch.equal(
+                    counts, SK.coded_radix_counts_plain(times, ks_dev))):
+                raise AssertionError(f"coded_cells radix passes differ from "
+                                     "the plain version at "
+                                     f"{tuple(times.shape)}")
+            entry = {"name": "coded_cells", "shape": list(times.shape),
+                     "ks": ks_host, "ks_on": str(ks.device), "ms": ms,
+                     "call_ms": one_ms, "device_ms": dev_ms,
+                     "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": bound_ms,
+                     "bound_fraction": bound_ms / dev_ms, "max_abs_err": 0.0,
+                     "radix_passes": pass_summary(counts)}
+            if times.shape[2] <= 64:
+                # the same rows through the long-row radix path
+                if not torch.equal(SK.coded_cells(times, ks, force_radix=True),
+                                   out_p):
+                    raise AssertionError("coded_cells radix path differs")
+                rfn = lambda: SK.coded_cells(times, ks, force_radix=True)  # noqa
+                entry["radix_ms"] = cuda_ms(rfn, reps)
+                entry["radix_device_ms"] = device_ms(rfn, reps)
+            return entry
+
+        def coded_floor(times, ks, reps):
+            """Device time and per-call events of an empty kernel launched as
+            the short-row kernel is (its parameters and grid)."""
+            out = torch.empty(tuple(times.shape[:2]), device=dev)
+            on_host = not ks.is_cuda
+            args = (times.data_ptr(), None if on_host else ks.data_ptr(),
+                    ks.data_ptr() if on_host else None, out.data_ptr(), None,
+                    *times.shape, 0,
+                    torch._C._cuda_getCurrentRawStream(times.get_device()))
+
+            def fn():
+                _build.check(coded_lib,
+                             coded_lib.coded_cells_floor_launch(*args),
+                             "coded_cells floor launch")
+
+            return device_ms(fn, reps), call_ms(fn, reps)
+
+        def coded_host_split(times, ks, reps=2000):
+            """Host microseconds a call of each step of the wrapper and the
+            seam, each timed alone over ``reps`` calls (a launch enqueues only;
+            the card keeps up), beside the costlier ways to take the same steps
+            ("alt": full checks, a stream object, pointer objects, ``ks``
+            copied to the card), and the whole calls."""
+            n_c, n_t, n_w = times.shape
+            tdev = times.device
+            ks_np = np.asarray(ks.tolist(), dtype=np.int64)
+            ks_dev = ks.to(tdev)
+            out = torch.empty((n_c, n_t), device=dev)
+            stream = torch._C._cuda_getCurrentRawStream(times.get_device())
+            f32, i32 = torch.float32, torch.int32
+
+            def host_us(fn):
                 fn()
-            us = (time.perf_counter() - t0) / reps * 1e6
-            torch.cuda.synchronize()
-            return us
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                us = (time.perf_counter() - t0) / reps * 1e6
+                torch.cuda.synchronize()
+                return us
 
-        steps = {
-            "check (_coded_check)": lambda: SK._coded_check(times, ks),
-            "output (new_empty)": lambda: times.new_empty((n_c, n_t)),
-            "stream (raw accessor)": lambda:
-                torch._C._cuda_getCurrentRawStream(times.get_device()),
-            "launch (ctypes, ks by value)": lambda:
-                coded_lib.coded_cells_launch(
-                    times.data_ptr(), None, ks.data_ptr(), out.data_ptr(),
-                    None, n_c, n_t, n_w, 0, stream),
-            "seam: ks as a host tensor": lambda:
-                torch.from_numpy(ks_np.astype(np.int32)),
-            "alt: _require x2": lambda: (
-                SK._require(times, "times", f32, (n_c, n_t, n_w), tdev),
-                SK._require(ks_dev, "ks", i32, (n_c,), tdev)),
-            "alt: torch.empty": lambda: torch.empty((n_c, n_t), dtype=f32,
-                                                       device=tdev),
-            "alt: _stream() (a torch.cuda.Stream)": SK._stream,
-            "alt: _ptr x3 (ctypes.c_void_p)": lambda: (
-                SK._ptr(times), SK._ptr(ks_dev), SK._ptr(out)),
-            "alt: launch, ks on the card, via _ptr and _stream()": lambda:
-                coded_lib.coded_cells_launch(
-                    SK._ptr(times), SK._ptr(ks_dev), None, SK._ptr(out), None,
-                    n_c, n_t, n_w, 0, SK._stream()),
-            "alt: the seam's ks copied to the card (pageable)": lambda:
-                SOPS._on(ks_np, tdev, i32),
-            "call: coded_cells, ks on the host": lambda:
-                SK.coded_cells(times, ks),
-            "call: coded_cells, ks on the card": lambda:
-                SK.coded_cells(times, ks_dev),
-            "call: the seam coded_completion_cells": lambda:
-                SOPS.coded_completion_cells(times, ks_np),
-        }
-        return {k: host_us(fn) for k, fn in steps.items()}
+            steps = {
+                "check (_coded_check)": lambda: SK._coded_check(times, ks),
+                "output (new_empty)": lambda: times.new_empty((n_c, n_t)),
+                "stream (raw accessor)": lambda:
+                    torch._C._cuda_getCurrentRawStream(times.get_device()),
+                "launch (ctypes, ks by value)": lambda:
+                    coded_lib.coded_cells_launch(
+                        times.data_ptr(), None, ks.data_ptr(), out.data_ptr(),
+                        None, n_c, n_t, n_w, 0, stream),
+                "seam: ks as a host tensor": lambda:
+                    torch.from_numpy(ks_np.astype(np.int32)),
+                "alt: _require x2": lambda: (
+                    SK._require(times, "times", f32, (n_c, n_t, n_w), tdev),
+                    SK._require(ks_dev, "ks", i32, (n_c,), tdev)),
+                "alt: torch.empty": lambda: torch.empty((n_c, n_t), dtype=f32,
+                                                           device=tdev),
+                "alt: _stream() (a torch.cuda.Stream)": SK._stream,
+                "alt: _ptr x3 (ctypes.c_void_p)": lambda: (
+                    SK._ptr(times), SK._ptr(ks_dev), SK._ptr(out)),
+                "alt: launch, ks on the card, via _ptr and _stream()": lambda:
+                    coded_lib.coded_cells_launch(
+                        SK._ptr(times), SK._ptr(ks_dev), None,
+                        SK._ptr(out), None, n_c, n_t, n_w, 0, SK._stream()),
+                "alt: the seam's ks copied to the card (pageable)": lambda:
+                    SOPS._on(ks_np, tdev, i32),
+                "call: coded_cells, ks on the host": lambda:
+                    SK.coded_cells(times, ks),
+                "call: coded_cells, ks on the card": lambda:
+                    SK.coded_cells(times, ks_dev),
+                "call: the seam coded_completion_cells": lambda:
+                    SOPS.coded_completion_cells(times, ks_np),
+            }
+            return {k: host_us(fn) for k, fn in steps.items()}
 
-    def stack_frames():
-        """(stack frame, spill store, spill load) bytes of each coded_cells
-        kernel, from ptxas -v in the build log."""
-        log = _build._lib_path("coded_cells").with_suffix(".log").read_text()
-        named = {}
-        for fn_, v in _build.stack_frames(log).items():
-            m = re.search(r"(coded_[a-z_]+?kernel)(I(?:L[bi]\d+E)+E)?", fn_)
-            targs = re.findall(r"L[bi](\d+)E", m.group(2) or "")
-            named[m.group(1) + (f"<{','.join(targs)}>" if targs else "")] = v
-        return named
+        def stack_frames():
+            """(stack frame, spill store, spill load) bytes of each coded_cells
+            kernel, from ptxas -v in the build log."""
+            log = _build._lib_path("coded_cells").with_suffix(
+                ".log").read_text()
+            named = {}
+            for fn_, v in _build.stack_frames(log).items():
+                m = re.search(r"(coded_[a-z_]+?kernel)(I(?:L[bi]\d+E)+E)?",
+                              fn_)
+                targs = re.findall(r"L[bi](\d+)E", m.group(2) or "")
+                named[m.group(1) + (f"<{','.join(targs)}>" if targs else "")] = v
+            return named
 
-    planner_times, planner_ks = max(coded_calls,
-                                    key=lambda c: c[0][0].numel())[0]
-    e_plan = coded_row(planner_times, planner_ks, reps=50)
-    e_plan["floor_device_ms"], e_plan["floor_call_ms"] = coded_floor(
-        planner_times, planner_ks, 50)
-    e_plan["host_split_us"] = coded_host_split(planner_times, planner_ks)
-    (fleet_times, fleet_ks), = [c[0] for c in fleet_coded_calls]
-    e_fleet = coded_row(fleet_times, fleet_ks, reps=10)
-    e_fleet["path"] = "coded_fleet"
-    e_fleet["path_wall_s"] = fwall
-    g = torch.Generator(device="cpu").manual_seed(7)
-    big = torch.empty((2, 2000, 10_000)).exponential_(generator=g)
-    big[:, :, ::7] = big[:, :, 1::7][:, :, : big[:, :, ::7].shape[2]]  # dups
-    big = big.to(dev).contiguous()
-    e_big = coded_row(big, torch.tensor([9000, 9988], dtype=torch.int32,
-                                        device=dev), reps=10)
-    frames = stack_frames()
-    if any(v != (0, 0, 0) for k, v in frames.items()
-           if k.startswith("coded_warp_kernel")):
-        raise AssertionError(f"a short-row kernel uses local memory: {frames}")
-    for e in (e_plan, e_fleet, e_big):
-        radix = (f"; radix path on the same rows {e['radix_ms']:.4f} ms, "
-                 f"device {e['radix_device_ms']:.5f} ms"
-                 if "radix_ms" in e else "")
-        print(f"[kernels] coded_cells {e['shape']} ks {e['ks']} (on "
-              f"{e['ks_on']}): events {e['ms']:.4f} ms, per call "
-              f"{e['call_ms']:.4f} ms, device {e['device_ms']:.5f} ms{radix}; "
-              f"plain {e['plain_ms']:.4f} ms, kthvalue {e['library_ms']:.4f} "
-              f"ms; bound {e['bound_ms']:.5f} ms (bytes), "
-              f"{e['bound_fraction']:.3f} of it at the device time; "
-              f"bit-equal")
-        print(f"    radix passes (rows that ran each, mean and largest "
-              f"candidates left): {e['radix_passes']}")
-    fl = e_plan["floor_device_ms"]
-    print(f"[kernels] coded_cells launch floor (an empty kernel, the "
-          f"short-row kernel's parameters and grid at {e_plan['shape']}): "
-          f"device {fl:.5f} ms, per call {e_plan['floor_call_ms']:.4f} ms; "
-          f"the kernel's device time is {e_plan['device_ms'] / fl:.2f}x it; "
-          f"bound + floor {e_plan['bound_ms'] + fl:.5f} ms, "
-          f"{(e_plan['bound_ms'] + fl) / e_plan['device_ms']:.3f} of the "
-          f"device time")
-    print(f"[kernels] coded_cells fleet path (sweep_coded, N="
-          f"{CODED_FLEET_N}): wall {fwall:.3f} s, kernel device "
-          f"{e_fleet['device_ms']:.4f} ms, {e_fleet['bound_fraction']:.3f} "
-          f"of its bound")
-    print("[kernels] coded_cells host split at the planner's shape "
-          "(us a call): " + ", ".join(
-              f"{k} {v:.2f}" for k, v in e_plan["host_split_us"].items()))
-    print(f"[kernels] coded_cells build (ptxas: stack frame, spill stores, "
-          f"spill loads bytes): {frames}")
-    rows.append({"name": "coded_cells", "route": "cuda",
-                 "source": "src/repro_torch/csrc/coded_cells.cu",
-                 "replaces": "src/repro/kernels/sojourn_sweep/kernel.py:183",
-                 **launches("coded_cells", "plan_coded"), "max_abs_err": 0.0,
-                 "ms": e_plan["ms"], "plain_ms": e_plan["plain_ms"],
-                 "bound_ms": e_plan["bound_ms"], "bound_by": "bytes",
-                 "library_ms": e_plan["library_ms"], "shape": e_plan["shape"],
-                 "radix_ms": e_plan["radix_ms"],
-                 "device_ms": e_plan["device_ms"],
-                 "call_ms": e_plan["call_ms"],
-                 "floor_device_ms": e_plan["floor_device_ms"],
-                 "fleet_device_ms": e_fleet["device_ms"],
-                 "fleet_bound_ms": e_fleet["bound_ms"],
-                 "stack_frames": frames})
-    extra_rows.extend([e_plan, e_fleet, e_big])
+        planner_times, planner_ks = max(coded_calls,
+                                        key=lambda c: c[0][0].numel())[0]
+        e_plan = coded_row(planner_times, planner_ks, reps=50)
+        e_plan["floor_device_ms"], e_plan["floor_call_ms"] = coded_floor(
+            planner_times, planner_ks, 50)
+        e_plan["host_split_us"] = coded_host_split(planner_times, planner_ks)
+        (fleet_times, fleet_ks), = [c[0] for c in fleet_coded_calls]
+        e_fleet = coded_row(fleet_times, fleet_ks, reps=10)
+        e_fleet["path"] = "coded_fleet"
+        e_fleet["path_wall_s"] = fwall
+        g = torch.Generator(device="cpu").manual_seed(7)
+        big = torch.empty((2, 2000, 10_000)).exponential_(generator=g)
+        # every 7th value a copy
+        big[:, :, ::7] = big[:, :, 1::7][:, :, : big[:, :, ::7].shape[2]]
+        big = big.to(dev).contiguous()
+        e_big = coded_row(big, torch.tensor([9000, 9988], dtype=torch.int32,
+                                            device=dev), reps=10)
+        frames = stack_frames()
+        if any(v != (0, 0, 0) for k, v in frames.items()
+               if k.startswith("coded_warp_kernel")):
+            raise AssertionError(f"a short-row kernel uses local memory: "
+                                 f"{frames}")
+        for e in (e_plan, e_fleet, e_big):
+            radix = (f"; radix path on the same rows {e['radix_ms']:.4f} ms, "
+                     f"device {e['radix_device_ms']:.5f} ms"
+                     if "radix_ms" in e else "")
+            print(f"[kernels] coded_cells {e['shape']} ks {e['ks']} (on "
+                  f"{e['ks_on']}): events {e['ms']:.4f} ms, per call "
+                  f"{e['call_ms']:.4f} ms, device {e['device_ms']:.5f} "
+                  f"ms{radix}; plain {e['plain_ms']:.4f} ms, kthvalue "
+                  f"{e['library_ms']:.4f} ms; bound {e['bound_ms']:.5f} ms "
+                  f"(bytes), {e['bound_fraction']:.3f} of it at the device "
+                  f"time; bit-equal")
+            print(f"    radix passes (rows that ran each, mean and largest "
+                  f"candidates left): {e['radix_passes']}")
+        fl = e_plan["floor_device_ms"]
+        print(f"[kernels] coded_cells launch floor (an empty kernel, the "
+              f"short-row kernel's parameters and grid at {e_plan['shape']}): "
+              f"device {fl:.5f} ms, per call {e_plan['floor_call_ms']:.4f} "
+              f"ms; the kernel's device time is "
+              f"{e_plan['device_ms'] / fl:.2f}x it; bound + floor "
+              f"{e_plan['bound_ms'] + fl:.5f} ms, "
+              f"{(e_plan['bound_ms'] + fl) / e_plan['device_ms']:.3f} of the "
+              "device time")
+        print(f"[kernels] coded_cells fleet path (sweep_coded, N="
+              f"{CODED_FLEET_N}): wall {fwall:.3f} s, kernel device "
+              f"{e_fleet['device_ms']:.4f} ms, "
+              f"{e_fleet['bound_fraction']:.3f} of its bound")
+        print("[kernels] coded_cells host split at the planner's shape "
+              "(us a call): " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in e_plan["host_split_us"].items()))
+        print(f"[kernels] coded_cells build (ptxas: stack frame, spill "
+              f"stores, spill loads bytes): {frames}")
+        rows.append({"name": "coded_cells", "route": "cuda",
+                     "source": "src/repro_torch/csrc/coded_cells.cu",
+                     "replaces": "src/repro/kernels/sojourn_sweep/kernel.py:183",
+                     **launches("coded_cells", "plan_coded"),
+                     "max_abs_err": 0.0,
+                     "ms": e_plan["ms"], "plain_ms": e_plan["plain_ms"],
+                     "bound_ms": e_plan["bound_ms"], "bound_by": "bytes",
+                     "library_ms": e_plan["library_ms"],
+                     "shape": e_plan["shape"],
+                     "radix_ms": e_plan["radix_ms"],
+                     "device_ms": e_plan["device_ms"],
+                     "call_ms": e_plan["call_ms"],
+                     "floor_device_ms": e_plan["floor_device_ms"],
+                     "fleet_device_ms": e_fleet["device_ms"],
+                     "fleet_bound_ms": e_fleet["bound_ms"],
+                     "stack_frames": frames})
+        extra_rows.extend([e_plan, e_fleet, e_big])
 
-    # combine: the planner's largest encode, then a square-ish GEMM
-    def combine_row(a, b, reps):
-        out_k = CK.combine(a, b)
-        out_p = CK.combine_plain(a, b)
-        bound = CK.COMBINE_RTOL * (a.double().abs() @ b.double().abs())
-        err = (out_k.double() - out_p.double()).abs()
-        if not bool((err <= bound).all()):
-            raise AssertionError(
-                f"combine outside its bound at {tuple(a.shape)}x"
-                f"{tuple(b.shape)}: max err {err.max().item()}")
-        ms = cuda_ms(lambda: CK.combine(a, b), reps)
-        plain_ms = cuda_ms(lambda: CK.combine_plain(a, b), max(1, reps // 10))
-        lib_ms = cuda_ms(lambda: torch.matmul(a, b), reps)
-        # the same two calls' device time and per-call event time, to split
-        # the events time into device and host
-        split = {"device_ms": device_ms(lambda: CK.combine(a, b), reps),
-                 "call_ms": call_ms(lambda: CK.combine(a, b), reps),
-                 "library_device_ms": device_ms(lambda: torch.matmul(a, b),
+        # combine: the planner's largest encode, then a square-ish GEMM
+        def combine_row(a, b, reps):
+            out_k = CK.combine(a, b)
+            out_p = CK.combine_plain(a, b)
+            bound = CK.COMBINE_RTOL * (a.double().abs() @ b.double().abs())
+            err = (out_k.double() - out_p.double()).abs()
+            if not bool((err <= bound).all()):
+                raise AssertionError(
+                    f"combine outside its bound at {tuple(a.shape)}x"
+                    f"{tuple(b.shape)}: max err {err.max().item()}")
+            ms = cuda_ms(lambda: CK.combine(a, b), reps)
+            plain_ms = cuda_ms(lambda: CK.combine_plain(a, b),
+                               max(1, reps // 10))
+            lib_ms = cuda_ms(lambda: torch.matmul(a, b), reps)
+            # the same two calls' device time and per-call event time, to split
+            # the events time into device and host
+            split = {"device_ms": device_ms(lambda: CK.combine(a, b), reps),
+                     "call_ms": call_ms(lambda: CK.combine(a, b), reps),
+                     "library_device_ms": device_ms(lambda: torch.matmul(a, b),
+                                                    reps),
+                     "library_call_ms": call_ms(lambda: torch.matmul(a, b),
                                                 reps),
-                 "library_call_ms": call_ms(lambda: torch.matmul(a, b), reps),
-                 "path": "small-R" if _build.load("combine").combine_path(
-                     *a.shape) == 0 else "tiled"}
-        # again, after the matmul, so that clock drift shows
-        ms2 = cuda_ms(lambda: CK.combine(a, b), reps)
-        lib_ms2 = cuda_ms(lambda: torch.matmul(a, b), reps)
-        r, k = a.shape
-        d = b.shape[1]
-        bound_ms = max(2.0 * r * k * d / FP32_FLOP_PER_S,
-                       4.0 * (r * k + k * d + r * d) / HBM_BYTES_PER_S) * 1e3
-        by = ("operations" if 2.0 * r * k * d / FP32_FLOP_PER_S
-              > 4.0 * (r * k + k * d + r * d) / HBM_BYTES_PER_S else "bytes")
-        return {"name": "combine", "shape": [r, k, d], "ms": ms,
-                "plain_ms": plain_ms, "library_ms": lib_ms,
-                "bound_ms": bound_ms, "bound_by": by,
-                "max_abs_err": err.max().item(), **split,
-                "ms_again": ms2, "library_ms_again": lib_ms2,
-                "tflops": 2.0 * r * k * d / split["device_ms"] / 1e9}
+                     "path": "small-R" if _build.load("combine").combine_path(
+                         *a.shape) == 0 else "tiled"}
+            # again, after the matmul, so that clock drift shows
+            ms2 = cuda_ms(lambda: CK.combine(a, b), reps)
+            lib_ms2 = cuda_ms(lambda: torch.matmul(a, b), reps)
+            r, k = a.shape
+            d = b.shape[1]
+            bound_ms = max(2.0 * r * k * d / FP32_FLOP_PER_S,
+                           4.0 * (r * k + k * d + r * d) / HBM_BYTES_PER_S) * 1e3
+            by = ("operations" if 2.0 * r * k * d / FP32_FLOP_PER_S
+                  > 4.0 * (r * k + k * d + r * d) / HBM_BYTES_PER_S else "bytes")
+            return {"name": "combine", "shape": [r, k, d], "ms": ms,
+                    "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": bound_ms, "bound_by": by,
+                    "max_abs_err": err.max().item(), **split,
+                    "ms_again": ms2, "library_ms_again": lib_ms2,
+                    "tflops": 2.0 * r * k * d / split["device_ms"] / 1e9}
 
-    planner_ab = max(combine_calls,
-                     key=lambda c: c[0][0].numel() * c[0][1].shape[1])[0]
-    c_plan = combine_row(*planner_ab, reps=100)
-    gen = torch.Generator(device="cpu").manual_seed(11)
-    a = torch.randn((1024, 1024), generator=gen).to(dev)
-    b = torch.randn((1024, 2048), generator=gen).to(dev)
-    c_big = combine_row(a, b, reps=10)
-    for e in (c_plan, c_big):
-        print(f"[kernels] combine {e['shape']} ({e['path']}): events "
-              f"{e['ms']:.4f} / {e['ms_again']:.4f} ms, device "
-              f"{e['device_ms']:.4f} ms ({e['tflops']:.1f} TFLOP/s), per call "
-              f"{e['call_ms']:.4f} ms; matmul events {e['library_ms']:.4f} / "
-              f"{e['library_ms_again']:.4f} ms, device "
-              f"{e['library_device_ms']:.4f} ms, per call "
-              f"{e['library_call_ms']:.4f} ms; plain {e['plain_ms']:.4f} ms, "
-              f"bound {e['bound_ms']:.5f} ms ({e['bound_by']}), max err "
-              f"{e['max_abs_err']:.3e}")
-    rows.append({"name": "combine", "route": "cuda",
-                 "source": "src/repro_torch/csrc/combine.cu",
-                 "replaces": "src/repro/kernels/coded/kernel.py:41",
-                 **launches("combine", "plan_coded"),
-                 "max_abs_err": c_plan["max_abs_err"], "ms": c_plan["ms"],
-                 "plain_ms": c_plan["plain_ms"], "bound_ms": c_plan["bound_ms"],
-                 "bound_by": c_plan["bound_by"],
-                 "library_ms": c_plan["library_ms"], "shape": c_plan["shape"],
-                 "device_ms": c_plan["device_ms"],
-                 "call_ms": c_plan["call_ms"]})
-    extra_rows.extend([c_plan, c_big])
+        planner_ab = max(combine_calls,
+                         key=lambda c: c[0][0].numel() * c[0][1].shape[1])[0]
+        c_plan = combine_row(*planner_ab, reps=100)
+        gen = torch.Generator(device="cpu").manual_seed(11)
+        a = torch.randn((1024, 1024), generator=gen).to(dev)
+        b = torch.randn((1024, 2048), generator=gen).to(dev)
+        c_big = combine_row(a, b, reps=10)
+        for e in (c_plan, c_big):
+            print(f"[kernels] combine {e['shape']} ({e['path']}): events "
+                  f"{e['ms']:.4f} / {e['ms_again']:.4f} ms, device "
+                  f"{e['device_ms']:.4f} ms ({e['tflops']:.1f} TFLOP/s), per "
+                  f"call {e['call_ms']:.4f} ms; matmul events "
+                  f"{e['library_ms']:.4f} / {e['library_ms_again']:.4f} ms, "
+                  f"device {e['library_device_ms']:.4f} ms, per call "
+                  f"{e['library_call_ms']:.4f} ms; plain {e['plain_ms']:.4f} "
+                  f"ms, bound {e['bound_ms']:.5f} ms ({e['bound_by']}), max "
+                  f"err {e['max_abs_err']:.3e}")
+        rows.append({"name": "combine", "route": "cuda",
+                     "source": "src/repro_torch/csrc/combine.cu",
+                     "replaces": "src/repro/kernels/coded/kernel.py:41",
+                     **launches("combine", "plan_coded"),
+                     "max_abs_err": c_plan["max_abs_err"], "ms": c_plan["ms"],
+                     "plain_ms": c_plan["plain_ms"], "bound_ms": c_plan["bound_ms"],
+                     "bound_by": c_plan["bound_by"],
+                     "library_ms": c_plan["library_ms"],
+                     "shape": c_plan["shape"],
+                     "device_ms": c_plan["device_ms"],
+                     "call_ms": c_plan["call_ms"]})
+        extra_rows.extend([c_plan, c_big])
 
-    # flash_attention and decode_attention at the serve phase's shapes
-    import torch.nn.functional as F
+        # flash_attention and decode_attention at the serve phase's shapes
+        import torch.nn.functional as F
 
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    bf16 = torch.bfloat16
-    q = att_rand((SERVE_BATCH, SERVE_PROMPT, h, hd), 21, bf16)
-    k = att_rand((SERVE_BATCH, SERVE_PROMPT, kvh, hd), 22, bf16)
-    v = att_rand((SERVE_BATCH, SERVE_PROMPT, kvh, hd), 23, bf16)
-    flash_errs, flash_rms = {}, {}
-    for dtype in (torch.float32, bf16):
-        args = [t.to(dtype) for t in (q, k, v)]
-        out = FA.flash_attention(*args, causal=True)
-        ref = FA.flash_attention_plain(*args, causal=True)
-        torch.cuda.synchronize()
-        name = str(dtype).split(".")[1]
-        flash_errs[name], flash_rms[name], ok = att_err(
-            "flash_attention", out, ref, name)
-        if not ok:
-            raise AssertionError(f"flash_attention differs from its plain "
-                                 f"version in {name}: {flash_errs[name]}")
-        del out, ref, args
-    ms = cuda_ms(lambda: FA.flash_attention(q, k, v, causal=True), 20)
-    dev_ms = device_ms(lambda: FA.flash_attention(q, k, v, causal=True), 20)
-    plain_ms = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, causal=True),
-                       3)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
-
-    lib_ms, lib_dev = cuda_ms(sdpa, 20), device_ms(sdpa, 20)
-    f_call = call_ms(lambda: FA.flash_attention(q, k, v, causal=True), 20)
-    lib_call = call_ms(sdpa, 20)
-    pairs = SERVE_PROMPT * (SERVE_PROMPT + 1) // 2  # causal (q, k) pairs
-    flops = 4.0 * SERVE_BATCH * h * hd * pairs
-    f_bytes = nbytes(q, k, v) + q.numel() * q.element_size()  # + output
-    f_bound = max(flops / BF16_FLOP_PER_S, f_bytes / HBM_BYTES_PER_S) * 1e3
-    f_by = ("operations" if flops / BF16_FLOP_PER_S
-            > f_bytes / HBM_BYTES_PER_S else "bytes")
-    f_rate = kernel_rates(flops, f_bytes, f_bound, dev_ms)
-    print(f"[kernels] flash_attention q {list(q.shape)} k/v {list(k.shape)} "
-          f"causal bf16: {ms:.4f} ms (device {dev_ms:.4f} ms, per call "
-          f"{f_call:.4f} ms; {f_rate['tflops']:.1f} TFLOP/s, "
-          f"{f_rate['bound_fraction']:.3f} of the bound), plain "
-          f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
-          f"(device {lib_dev:.4f} ms, per call {lib_call:.4f} ms), bound "
-          f"{f_bound:.5f} ms ({f_by}: {flops:.4g} FLOP, "
-          f"{f_bytes} B); max err f32 {flash_errs['float32']:.3e}, bf16 "
-          f"{flash_errs['bfloat16']:.3e} (tol {ATT_TOL}; plain output RMS "
-          f"{flash_rms})")
-    rows.append({"name": "flash_attention", "route": "cuda",
-                 "source": "src/repro_torch/csrc/flash_attention.cu",
-                 "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
-                 **launches("flash_attention", "serve"),
-                 "max_abs_err": flash_errs["bfloat16"], "ms": ms,
-                 "plain_ms": plain_ms, "bound_ms": f_bound, "bound_by": f_by,
-                 "library_ms": lib_ms, "shape": [list(q.shape), list(k.shape)],
-                 "max_abs_err_f32": flash_errs["float32"],
-                 "plain_rms": flash_rms["bfloat16"],
-                 "tolerance": ATT_TOL,
-                 "device_ms": dev_ms, "library_device_ms": lib_dev,
-                 "call_ms": f_call, "library_call_ms": lib_call, **f_rate})
-    del q, k, v, qt, kt, vt
-
-    cache_len = SERVE_PROMPT + SERVE_NEW - 1  # the last decode step's length
-    qd = att_rand((SERVE_BATCH, h, hd), 24, bf16)
-    kc = att_rand((SERVE_BATCH, SERVE_MAX_LEN, kvh, hd), 25, bf16)
-    vc = att_rand((SERVE_BATCH, SERVE_MAX_LEN, kvh, hd), 26, bf16)
-    dec_errs, dec_rms = {}, {}
-    for dtype in (torch.float32, bf16):
-        args = [t.to(dtype) for t in (qd, kc, vc)]
-        out = DA.decode_attention(*args, cache_len)
-        ref = DA.decode_attention_plain(*args, cache_len)
-        torch.cuda.synchronize()
-        name = str(dtype).split(".")[1]
-        dec_errs[name], dec_rms[name], ok = att_err(
-            "decode_attention", out, ref, name)
-        if not ok:
-            raise AssertionError(f"decode_attention differs from its plain "
-                                 f"version in {name}: {dec_errs[name]}")
-        del out, ref, args
-    d_ms = cuda_ms(lambda: DA.decode_attention(qd, kc, vc, cache_len), 200)
-    d_dev = device_ms(lambda: DA.decode_attention(qd, kc, vc, cache_len), 50)
-    d_plain = cuda_ms(lambda: DA.decode_attention_plain(qd, kc, vc,
-                                                        cache_len), 20)
-    q4 = qd[:, :, None].contiguous()
-    k4, v4 = (t[:, :cache_len].transpose(1, 2).contiguous() for t in (kc, vc))
-    def sdpa_decode():
-        return F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=True)
-
-    d_lib, d_lib_dev = cuda_ms(sdpa_decode, 200), device_ms(sdpa_decode, 50)
-    d_call = call_ms(lambda: DA.decode_attention(qd, kc, vc, cache_len), 50)
-    d_lib_call = call_ms(sdpa_decode, 50)
-    d_flops = 4.0 * SERVE_BATCH * h * hd * cache_len
-    d_bytes = 2 * nbytes(qd) + 2 * (SERVE_BATCH * cache_len * kvh * hd
-                                    * kc.element_size())
-    d_bound = max(d_flops / BF16_FLOP_PER_S, d_bytes / HBM_BYTES_PER_S) * 1e3
-    d_by = ("operations" if d_flops / BF16_FLOP_PER_S
-            > d_bytes / HBM_BYTES_PER_S else "bytes")
-    d_rate = kernel_rates(d_flops, d_bytes, d_bound, d_dev)
-    print(f"[kernels] decode_attention q {list(qd.shape)} cache "
-          f"{list(kc.shape)} at length {cache_len} bf16: {d_ms:.4f} ms "
-          f"(one launch; device {d_dev:.4f} ms, per call {d_call:.4f} "
-          f"ms; {d_rate['gbps']:.0f} GB/s, {d_rate['bound_fraction']:.3f} "
-          f"of the bound), plain {d_plain:.4f} ms, SDPA {d_lib:.4f} ms "
-          f"(device "
-          f"{d_lib_dev:.4f} ms, per call {d_lib_call:.4f} ms), bound "
-          f"{d_bound:.5f} ms ({d_by}: {d_bytes} B); max err f32 "
-          f"{dec_errs['float32']:.3e} (tol {ATT_TOL['float32']}), bf16 "
-          f"{dec_errs['bfloat16']:.3e} (tol {DECODE_BF16_RMS_FRAC} x plain "
-          f"output RMS; RMS {dec_rms})")
-    rows.append({"name": "decode_attention", "route": "cuda",
-                 "source": "src/repro_torch/csrc/decode_attention.cu",
-                 "replaces": "src/repro/kernels/decode_attention/kernel.py:75",
-                 **launches("decode_attention", "serve"),
-                 "max_abs_err": dec_errs["bfloat16"], "ms": d_ms,
-                 "plain_ms": d_plain, "bound_ms": d_bound, "bound_by": d_by,
-                 "library_ms": d_lib,
-                 "shape": [list(qd.shape), list(kc.shape), cache_len],
-                 "max_abs_err_f32": dec_errs["float32"],
-                 "plain_rms": dec_rms["bfloat16"],
-                 "tolerance": {"float32": ATT_TOL["float32"],
-                               "bfloat16_rms_frac": DECODE_BF16_RMS_FRAC},
-                 "device_ms": d_dev, "library_device_ms": d_lib_dev,
-                 "call_ms": d_call, "library_call_ms": d_lib_call, **d_rate})
-
-
-    # flash_attention and decode_attention at other paths' shapes, next to
-    # SDPA: zamba2's head dim 112 (the shared block of serve_hybrid), head
-    # dim 128 at qwen2.5-14b's (40 heads over 8 KV heads) and granite-34b's
-    # (48 over 1) prefill and cache, and phase 6d's: olmoe's MHA, internvl2's
-    # 64 over 8 behind its patch slots, whisper's non-causal encoder and
-    # cross attention (d 64) and its 1,500-frame cross cache
-    def print_entry(e, what):
-        print(f"[kernels] {e['name']} {what} ({e['case']}) {e['shape']} "
-              f"bf16: {e['ms']:.4f} ms (device {e['device_ms']:.4f} ms, "
-              f"per call {e['call_ms']:.4f} ms; {e['tflops']:.1f} "
-              f"TFLOP/s, {e['gbps']:.0f} GB/s, {e['bound_fraction']:.3f} "
-              f"of the bound), plain {e['plain_ms']:.4f} "
-              f"ms, SDPA {e['library_ms']:.4f} ms (device "
-              f"{e['library_device_ms']:.4f} ms, per call "
-              f"{e['library_call_ms']:.4f} ms), bound "
-              f"{e['bound_ms']:.5f} ms ({e['bound_by']}); max err f32 "
-              f"{e['max_abs_err_f32']:.3e}, bf16 {e['max_abs_err']:.3e} "
-              f"(plain RMS {e['plain_rms']}); launches "
-              f"{e['launches']} on {e['case']}")
-
-    def flash_at(path, b, sq, skv, hh, hkv, hdd, causal, seed):
-        q = att_rand((b, sq, hh, hdd), seed, bf16)
-        k = att_rand((b, skv, hkv, hdd), seed + 1, bf16)
-        v = att_rand((b, skv, hkv, hdd), seed + 2, bf16)
-        errs, rms = {}, {}
+        h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        bf16 = torch.bfloat16
+        q = att_rand((SERVE_BATCH, SERVE_PROMPT, h, hd), 21, bf16)
+        k = att_rand((SERVE_BATCH, SERVE_PROMPT, kvh, hd), 22, bf16)
+        v = att_rand((SERVE_BATCH, SERVE_PROMPT, kvh, hd), 23, bf16)
+        flash_errs, flash_rms = {}, {}
         for dtype in (torch.float32, bf16):
             args = [t.to(dtype) for t in (q, k, v)]
+            out = FA.flash_attention(*args, causal=True)
+            ref = FA.flash_attention_plain(*args, causal=True)
+            torch.cuda.synchronize()
             name = str(dtype).split(".")[1]
-            errs[name], rms[name], ok = att_err(
-                "flash_attention", FA.flash_attention(*args, causal=causal),
-                FA.flash_attention_plain(*args, causal=causal), name)
+            flash_errs[name], flash_rms[name], ok = att_err(
+                "flash_attention", out, ref, name)
             if not ok:
-                raise AssertionError(f"flash_attention d={hdd} ({path}) "
-                                     f"differs from its plain version in "
-                                     f"{name}: {errs[name]}")
-            del args
-        fn = lambda: FA.flash_attention(q, k, v, causal=causal)  # noqa: E731
+                raise AssertionError(f"flash_attention differs from its plain "
+                                     f"version in {name}: {flash_errs[name]}")
+            del out, ref, args
+        ms = cuda_ms(lambda: FA.flash_attention(q, k, v, causal=True), 20)
+        dev_ms = device_ms(lambda: FA.flash_attention(q, k, v, causal=True),
+                           20)
+        plain_ms = cuda_ms(lambda: FA.flash_attention_plain(q, k, v,
+                                                            causal=True),
+                           3)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=causal, enable_gqa=True)
-        pairs = sq * (sq + 1) // 2 if causal else sq * skv
-        flops = 4.0 * b * hh * hdd * pairs
-        fbytes = nbytes(q, k, v) + q.numel() * q.element_size()
-        flash = {"name": "flash_attention", "case": path, "head_dim": hdd,
-                 "causal": causal, "shape": [list(q.shape), list(k.shape)],
-                 **launches("flash_attention", path),
-                 "ms": cuda_ms(fn, 10), "device_ms": device_ms(fn, 10),
-                 "call_ms": call_ms(fn, 10), "library_call_ms": call_ms(lib, 10),
-                 "plain_ms": cuda_ms(lambda: FA.flash_attention_plain(
-                     q, k, v, causal=causal), 2),
-                 "library_ms": cuda_ms(lib, 10),
-                 "library_device_ms": device_ms(lib, 10),
-                 "bound_ms": max(flops / BF16_FLOP_PER_S,
-                                 fbytes / HBM_BYTES_PER_S) * 1e3,
-                 "bound_by": ("operations" if flops / BF16_FLOP_PER_S
-                              > fbytes / HBM_BYTES_PER_S else "bytes"),
-                 "max_abs_err": errs["bfloat16"],
-                 "max_abs_err_f32": errs["float32"], "plain_rms": rms}
-        flash.update(kernel_rates(flops, fbytes, flash["bound_ms"],
-                                  flash["device_ms"]))
-        print_entry(flash, f"d={hdd}" + ("" if causal else " non-causal"))
-        return flash
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
 
-    def decode_at(path, b, max_len, cl, hh, hkv, hdd, seed):
-        qd = att_rand((b, hh, hdd), seed + 3, bf16)
-        kc = att_rand((b, max_len, hkv, hdd), seed + 4, bf16)
-        vc = att_rand((b, max_len, hkv, hdd), seed + 5, bf16)
-        errs, rms = {}, {}
+        lib_ms, lib_dev = cuda_ms(sdpa, 20), device_ms(sdpa, 20)
+        f_call = call_ms(lambda: FA.flash_attention(q, k, v, causal=True), 20)
+        lib_call = call_ms(sdpa, 20)
+        pairs = SERVE_PROMPT * (SERVE_PROMPT + 1) // 2  # causal (q, k) pairs
+        flops = 4.0 * SERVE_BATCH * h * hd * pairs
+        f_bytes = nbytes(q, k, v) + q.numel() * q.element_size()  # + output
+        f_bound = max(flops / BF16_FLOP_PER_S, f_bytes / HBM_BYTES_PER_S) * 1e3
+        f_by = ("operations" if flops / BF16_FLOP_PER_S
+                > f_bytes / HBM_BYTES_PER_S else "bytes")
+        f_rate = kernel_rates(flops, f_bytes, f_bound, dev_ms)
+        print(f"[kernels] flash_attention q {list(q.shape)} k/v "
+              f"{list(k.shape)} causal bf16: {ms:.4f} ms (device {dev_ms:.4f} "
+              f"ms, per call {f_call:.4f} ms; {f_rate['tflops']:.1f} TFLOP/s, "
+              f"{f_rate['bound_fraction']:.3f} of the bound), plain "
+              f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
+              f"(device {lib_dev:.4f} ms, per call {lib_call:.4f} ms), bound "
+              f"{f_bound:.5f} ms ({f_by}: {flops:.4g} FLOP, "
+              f"{f_bytes} B); max err f32 {flash_errs['float32']:.3e}, bf16 "
+              f"{flash_errs['bfloat16']:.3e} (tol {ATT_TOL}; plain output RMS "
+              f"{flash_rms})")
+        rows.append({"name": "flash_attention", "route": "cuda",
+                     "source": "src/repro_torch/csrc/flash_attention.cu",
+                     "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
+                     **launches("flash_attention", "serve"),
+                     "max_abs_err": flash_errs["bfloat16"], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": f_bound,
+                     "bound_by": f_by,
+                     "library_ms": lib_ms,
+                     "shape": [list(q.shape), list(k.shape)],
+                     "max_abs_err_f32": flash_errs["float32"],
+                     "plain_rms": flash_rms["bfloat16"],
+                     "tolerance": ATT_TOL,
+                     "device_ms": dev_ms, "library_device_ms": lib_dev,
+                     "call_ms": f_call, "library_call_ms": lib_call, **f_rate})
+        del q, k, v, qt, kt, vt
+
+        # the last decode step's length
+        cache_len = SERVE_PROMPT + SERVE_NEW - 1
+        qd = att_rand((SERVE_BATCH, h, hd), 24, bf16)
+        kc = att_rand((SERVE_BATCH, SERVE_MAX_LEN, kvh, hd), 25, bf16)
+        vc = att_rand((SERVE_BATCH, SERVE_MAX_LEN, kvh, hd), 26, bf16)
+        dec_errs, dec_rms = {}, {}
         for dtype in (torch.float32, bf16):
             args = [t.to(dtype) for t in (qd, kc, vc)]
+            out = DA.decode_attention(*args, cache_len)
+            ref = DA.decode_attention_plain(*args, cache_len)
+            torch.cuda.synchronize()
             name = str(dtype).split(".")[1]
-            errs[name], rms[name], ok = att_err(
-                "decode_attention", DA.decode_attention(*args, cl),
-                DA.decode_attention_plain(*args, cl), name)
+            dec_errs[name], dec_rms[name], ok = att_err(
+                "decode_attention", out, ref, name)
             if not ok:
-                raise AssertionError(f"decode_attention d={hdd} ({path}) "
-                                     f"differs from its plain version in "
-                                     f"{name}: {errs[name]}")
-            del args
-        fn = lambda: DA.decode_attention(qd, kc, vc, cl)  # noqa: E731
+                raise AssertionError(f"decode_attention differs from its "
+                                     f"plain version in {name}: "
+                                     f"{dec_errs[name]}")
+            del out, ref, args
+        d_ms = cuda_ms(lambda: DA.decode_attention(qd, kc, vc, cache_len), 200)
+        d_dev = device_ms(lambda: DA.decode_attention(qd, kc, vc, cache_len),
+                          50)
+        d_plain = cuda_ms(lambda: DA.decode_attention_plain(qd, kc, vc,
+                                                            cache_len), 20)
         q4 = qd[:, :, None].contiguous()
-        k4, v4 = (t[:, :cl].transpose(1, 2).contiguous() for t in (kc, vc))
-        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q4, k4, v4, enable_gqa=True)
-        dflops = 4.0 * b * hh * hdd * cl
-        dbytes = 2 * nbytes(qd) + 2 * (b * cl * hkv * hdd
-                                       * kc.element_size())
-        decode = {"name": "decode_attention", "case": path, "head_dim": hdd,
-                  "shape": [list(qd.shape), list(kc.shape), cl],
-                  **launches("decode_attention", path),
-                  "ms": cuda_ms(fn, 100), "device_ms": device_ms(fn, 50),
-                  "call_ms": call_ms(fn, 50), "library_call_ms": call_ms(lib, 50),
-                  "plain_ms": cuda_ms(lambda: DA.decode_attention_plain(
-                      qd, kc, vc, cl), 10),
-                  "library_ms": cuda_ms(lib, 100),
-                  "library_device_ms": device_ms(lib, 50),
-                  "bound_ms": max(dflops / BF16_FLOP_PER_S,
-                                  dbytes / HBM_BYTES_PER_S) * 1e3,
-                  "bound_by": ("operations" if dflops / BF16_FLOP_PER_S
-                               > dbytes / HBM_BYTES_PER_S else "bytes"),
-                  "max_abs_err": errs["bfloat16"],
-                  "max_abs_err_f32": errs["float32"], "plain_rms": rms}
-        decode.update(kernel_rates(dflops, dbytes, decode["bound_ms"],
-                                   decode["device_ms"]))
-        print_entry(decode, f"d={hdd}")
-        return decode
+        k4, v4 = (t[:, :cache_len].transpose(1, 2).contiguous()
+                  for t in (kc, vc))
+        def sdpa_decode():
+            return F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=True)
 
-    def attention_at(path, b, plen, n_new, max_len, hh, hkv, hdd, seed):
-        """Causal flash over the prompt and decode at the last step's
-        length (prompt + n_new - 1)."""
-        return (flash_at(path, b, plen, plen, hh, hkv, hdd, True, seed),
-                decode_at(path, b, max_len, plen + n_new - 1, hh, hkv, hdd,
-                          seed))
+        d_lib = cuda_ms(sdpa_decode, 200)
+        d_lib_dev = device_ms(sdpa_decode, 50)
+        d_call = call_ms(lambda: DA.decode_attention(qd, kc, vc, cache_len),
+                         50)
+        d_lib_call = call_ms(sdpa_decode, 50)
+        d_flops = 4.0 * SERVE_BATCH * h * hd * cache_len
+        d_bytes = 2 * nbytes(qd) + 2 * (SERVE_BATCH * cache_len * kvh * hd
+                                        * kc.element_size())
+        d_bound = max(d_flops / BF16_FLOP_PER_S,
+                      d_bytes / HBM_BYTES_PER_S) * 1e3
+        d_by = ("operations" if d_flops / BF16_FLOP_PER_S
+                > d_bytes / HBM_BYTES_PER_S else "bytes")
+        d_rate = kernel_rates(d_flops, d_bytes, d_bound, d_dev)
+        print(f"[kernels] decode_attention q {list(qd.shape)} cache "
+              f"{list(kc.shape)} at length {cache_len} bf16: {d_ms:.4f} ms "
+              f"(one launch; device {d_dev:.4f} ms, per call {d_call:.4f} "
+              f"ms; {d_rate['gbps']:.0f} GB/s, {d_rate['bound_fraction']:.3f} "
+              f"of the bound), plain {d_plain:.4f} ms, SDPA {d_lib:.4f} ms "
+              f"(device "
+              f"{d_lib_dev:.4f} ms, per call {d_lib_call:.4f} ms), bound "
+              f"{d_bound:.5f} ms ({d_by}: {d_bytes} B); max err f32 "
+              f"{dec_errs['float32']:.3e} (tol {ATT_TOL['float32']}), bf16 "
+              f"{dec_errs['bfloat16']:.3e} (tol {DECODE_BF16_RMS_FRAC} x "
+              f"plain output RMS; RMS {dec_rms})")
+        rows.append({"name": "decode_attention", "route": "cuda",
+                     "source": "src/repro_torch/csrc/decode_attention.cu",
+                     "replaces": "src/repro/kernels/decode_attention/kernel.py:75",
+                     **launches("decode_attention", "serve"),
+                     "max_abs_err": dec_errs["bfloat16"], "ms": d_ms,
+                     "plain_ms": d_plain, "bound_ms": d_bound,
+                     "bound_by": d_by,
+                     "library_ms": d_lib,
+                     "shape": [list(qd.shape), list(kc.shape), cache_len],
+                     "max_abs_err_f32": dec_errs["float32"],
+                     "plain_rms": dec_rms["bfloat16"],
+                     "tolerance": {"float32": ATT_TOL["float32"],
+                                   "bfloat16_rms_frac": DECODE_BF16_RMS_FRAC},
+                     "device_ms": d_dev, "library_device_ms": d_lib_dev,
+                     "call_ms": d_call, "library_call_ms": d_lib_call,
+                     **d_rate})
 
-    flash112, decode112 = attention_at(
-        "serve_hybrid", HYBRID_BATCH, HYBRID_PROMPT, HYBRID_NEW,
-        HYBRID_MAX_LEN, hcfg.n_heads, hcfg.n_kv_heads, hcfg.head_dim, 31)
-    rows[-2]["d112"] = flash112
-    rows[-1]["d112"] = decode112
-    extra_rows.extend([flash112, decode112])
-    for i, (arch, tag, _) in enumerate(DENSE_SERVE):
-        if arch == "command-r-plus-104b":
-            continue  # its calls are held on the path (hold_model_calls)
-        dc = dense_cfgs[arch]
-        f128, d128 = attention_at(
-            tag, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN,
-            dc.n_heads, dc.n_kv_heads, dc.head_dim, 61 + 10 * i)
-        rows[-2][f"d128_{arch}"] = f128
-        rows[-1][f"d128_{arch}"] = d128
-        extra_rows.extend([f128, d128])
-    # phase 6d's shapes
-    oc, ic = family_cfgs["serve_olmoe"], family_cfgs["serve_internvl2"]
-    fam_rows = {
-        "olmoe": attention_at("serve_olmoe", SERVE_BATCH, SERVE_PROMPT,
-                              SERVE_NEW, SERVE_MAX_LEN, oc.n_heads,
-                              oc.n_kv_heads, oc.head_dim, 91),
-        "internvl2": attention_at("serve_internvl2", SERVE_BATCH,
-                                  ic.n_patches + SERVE_PROMPT, SERVE_NEW,
-                                  SERVE_MAX_LEN, ic.n_heads, ic.n_kv_heads,
-                                  ic.head_dim, 101),
-        "whisper": (
-            flash_at("serve_whisper", SERVE_BATCH, WHISPER_FRAMES,
-                     WHISPER_FRAMES, wcfg.n_heads, wcfg.n_kv_heads,
-                     wcfg.head_dim, False, 111),
-            decode_at("serve_whisper", SERVE_BATCH, WHISPER_MAX_LEN,
-                      WHISPER_FRAMES, wcfg.n_heads, wcfg.n_kv_heads,
-                      wcfg.head_dim, 111)),
-        "whisper_cross": (
-            flash_at("serve_whisper", SERVE_BATCH, SERVE_NEW, WHISPER_FRAMES,
-                     wcfg.n_heads, wcfg.n_kv_heads, wcfg.head_dim, False,
-                     121), None)}
-    for key, (f_e, d_e) in fam_rows.items():
-        rows[-2][key] = f_e
-        extra_rows.append(f_e)
-        if d_e is not None:
-            rows[-1][key] = d_e
-            extra_rows.append(d_e)
 
-    # ssd_scan at serve_hybrid's shape, on mild-decay inputs (dt in
-    # [0.01, 0.1]: the random model's dt = softplus(N(0, 1)) decays so fast
-    # that the state carried across chunks would not be tested)
-    xs_shape, bc_shape = max(ssd_shapes, key=lambda sh: sh[0][1])
-    bsz, s_len, n_h, p_dim = xs_shape
-    n_g, n_dim = bc_shape[2], bc_shape[3]
-    gen = torch.Generator(device="cuda").manual_seed(41)
-    sx = torch.randn(xs_shape, generator=gen, device=dev).to(bf16)
-    sdt = 0.01 + 0.09 * torch.rand((bsz, s_len, n_h), generator=gen,
-                                    device=dev)
-    salog = 0.5 * torch.randn((n_h,), generator=gen, device=dev)
-    sb = (0.3 * torch.randn(bc_shape, generator=gen, device=dev)).to(bf16)
-    sc_ = (0.3 * torch.randn(bc_shape, generator=gen, device=dev)).to(bf16)
-    sd = 1.0 + 0.2 * torch.randn((n_h,), generator=gen, device=dev)
-    ssd_errs = {}
-    for dtype in (torch.float32, bf16):
-        args = (sx.to(dtype), sdt, salog, sb.to(dtype), sc_.to(dtype), sd)
-        y_k, st_k = SSD.ssd_scan(*args)
-        y_p, st_p = SSD.ssd_scan_plain(*args)
-        torch.cuda.synchronize()
-        name = str(dtype).split(".")[1]
-        err, serr, ok = ssd_err(y_k, st_k, y_p, st_p, name)
-        if not ok:
-            raise AssertionError(f"ssd_scan differs from its plain version "
-                                 f"in {name}: y {err}, state {serr}")
-        ssd_errs[name], ssd_errs[name + "_state"] = err, serr
-        del args, y_k, st_k, y_p, st_p
-    fn = lambda: SSD.ssd_scan(sx, sdt, salog, sb, sc_, sd)  # noqa: E731
-    s_ms = cuda_ms(fn, 20)
-    s_dev = device_ms(fn, 20)
-    s_call = call_ms(fn, 20)
-    s_plain = cuda_ms(lambda: SSD.ssd_scan_plain(sx, sdt, salog, sb, sc_, sd),
-                      3)
-    y_out, st_out = fn()
-    # work at the reference's chunk (128): per (batch row, head, chunk)
-    # C B^T and the weighted x (2 cl^2 N + 2 cl^2 P), the chunk state and
-    # the inter-chunk product (4 cl N P)
-    cl = SSD.effective_chunk(s_len, SSD.CHUNK)
-    s_flops = (2.0 * bsz * n_h * (s_len // cl)
-               * (cl * cl * (n_dim + p_dim) + 2 * cl * n_dim * p_dim))
-    s_bytes = nbytes(sx, sdt, salog, sb, sc_, sd, y_out, st_out)
-    s_bound = max(s_flops / BF16_FLOP_PER_S, s_bytes / HBM_BYTES_PER_S) * 1e3
-    s_by = ("operations" if s_flops / BF16_FLOP_PER_S
-            > s_bytes / HBM_BYTES_PER_S else "bytes")
-    s_rates = kernel_rates(s_flops, s_bytes, s_bound, s_dev)
-    print(f"[kernels] ssd_scan x {list(xs_shape)} b/c {list(bc_shape)} bf16: "
-          f"{s_ms:.4f} ms (device {s_dev:.4f} ms, per call {s_call:.4f} "
-          f"ms), plain {s_plain:.4f} ms, "
-          f"no library call, bound {s_bound:.5f} ms ({s_by}: {s_flops:.4g} "
-          f"FLOP, {s_bytes} B), {s_rates['bound_fraction']:.3f} of it at "
-          f"the device time, {s_rates['tflops']:.1f} TFLOP/s, "
-          f"{s_rates['gbps']:.0f} GB/s; max err f32 {ssd_errs['float32']:.3e} "
-          f"(state {ssd_errs['float32_state']:.3e}), bf16 "
-          f"{ssd_errs['bfloat16']:.3e} (tol {SSD_TOL} x (1 + |plain|))")
-    rows.append({"name": "ssd_scan", "route": "cuda",
-                 "source": "src/repro_torch/csrc/ssd_scan.cu",
-                 "replaces": "src/repro/kernels/ssm_scan/kernel.py:76",
-                 **launches("ssd_scan", "serve_hybrid"),
-                 "max_abs_err": ssd_errs["bfloat16"], "ms": s_ms,
-                 "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
-                 "library_ms": None,
-                 "shape": [list(xs_shape), list(bc_shape)],
-                 "max_abs_err_f32": ssd_errs["float32"],
-                 "max_abs_err_state_f32": ssd_errs["float32_state"],
-                 "tolerance": SSD_TOL, "device_ms": s_dev, "call_ms": s_call,
-                 "flops": s_flops, "bytes": s_bytes,
-                 "bound_fraction": s_rates["bound_fraction"],
-                 "tflops": s_rates["tflops"], "gbps": s_rates["gbps"],
-                 "max_abs_err_state_bf16": ssd_errs["bfloat16_state"]})
-    del sx, sdt, sb, sc_, y_out, st_out
-    # ssd_scan at train_hybrid's shape (measured in phase 6c): its forward,
-    # and forward + backward through SsdScanFn
-    rows[-1]["train"] = {**htrain_ssd_row,
-                         **launches("ssd_scan", "train_hybrid")}
-    extra_rows.append(rows[-1]["train"])
-    print(f"[kernels] ssd_scan at train_hybrid's shape "
-          f"{htrain_ssd_row['shape']}: forward {htrain_ssd_row['ms']:.4f} ms "
-          f"(bound {htrain_ssd_row['bound_ms']:.5f}), forward + backward "
-          f"{htrain_ssd_row['fwd_bwd_ms']:.4f} ms (bound "
-          f"{htrain_ssd_row['fwd_bwd_bound_ms']:.5f}); launches "
-          f"{rows[-1]['train']['launches']} on train_hybrid")
+        # flash_attention and decode_attention at other paths' shapes, next
+        # to SDPA: zamba2's head dim 112 (the shared block of serve_hybrid),
+        # head dim 128 at qwen2.5-14b's (40 heads over 8 KV heads) and
+        # granite-34b's (48 over 1) prefill and cache, and phase 6d's:
+        # olmoe's MHA, internvl2's 64 over 8 behind its patch slots,
+        # whisper's non-causal encoder and cross attention (d 64) and its
+        # 1,500-frame cross cache
+        def print_entry(e, what):
+            print(f"[kernels] {e['name']} {what} ({e['case']}) {e['shape']} "
+                  f"bf16: {e['ms']:.4f} ms (device {e['device_ms']:.4f} ms, "
+                  f"per call {e['call_ms']:.4f} ms; {e['tflops']:.1f} "
+                  f"TFLOP/s, {e['gbps']:.0f} GB/s, {e['bound_fraction']:.3f} "
+                  f"of the bound), plain {e['plain_ms']:.4f} "
+                  f"ms, SDPA {e['library_ms']:.4f} ms (device "
+                  f"{e['library_device_ms']:.4f} ms, per call "
+                  f"{e['library_call_ms']:.4f} ms), bound "
+                  f"{e['bound_ms']:.5f} ms ({e['bound_by']}); max err f32 "
+                  f"{e['max_abs_err_f32']:.3e}, bf16 {e['max_abs_err']:.3e} "
+                  f"(plain RMS {e['plain_rms']}); launches "
+                  f"{e['launches']} on {e['case']}")
 
-    # -- 4c's profiled re-plans -----------------------------------------
+        def flash_at(path, b, sq, skv, hh, hkv, hdd, causal, seed):
+            q = att_rand((b, sq, hh, hdd), seed, bf16)
+            k = att_rand((b, skv, hkv, hdd), seed + 1, bf16)
+            v = att_rand((b, skv, hkv, hdd), seed + 2, bf16)
+            errs, rms = {}, {}
+            for dtype in (torch.float32, bf16):
+                args = [t.to(dtype) for t in (q, k, v)]
+                name = str(dtype).split(".")[1]
+                errs[name], rms[name], ok = att_err(
+                    "flash_attention",
+                    FA.flash_attention(*args, causal=causal),
+                    FA.flash_attention_plain(*args, causal=causal), name)
+                if not ok:
+                    raise AssertionError(f"flash_attention d={hdd} ({path}) "
+                                         f"differs from its plain version in "
+                                         f"{name}: {errs[name]}")
+                del args
+            fn = lambda: FA.flash_attention(  # noqa: E731
+                q, k, v, causal=causal)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+            pairs = sq * (sq + 1) // 2 if causal else sq * skv
+            flops = 4.0 * b * hh * hdd * pairs
+            fbytes = nbytes(q, k, v) + q.numel() * q.element_size()
+            flash = {"name": "flash_attention", "case": path, "head_dim": hdd,
+                     "causal": causal, "shape": [list(q.shape), list(k.shape)],
+                     **launches("flash_attention", path),
+                     "ms": cuda_ms(fn, 10), "device_ms": device_ms(fn, 10),
+                     "call_ms": call_ms(fn, 10), "library_call_ms": call_ms(lib, 10),
+                     "plain_ms": cuda_ms(lambda: FA.flash_attention_plain(
+                         q, k, v, causal=causal), 2),
+                     "library_ms": cuda_ms(lib, 10),
+                     "library_device_ms": device_ms(lib, 10),
+                     "bound_ms": max(flops / BF16_FLOP_PER_S,
+                                     fbytes / HBM_BYTES_PER_S) * 1e3,
+                     "bound_by": ("operations" if flops / BF16_FLOP_PER_S
+                                  > fbytes / HBM_BYTES_PER_S else "bytes"),
+                     "max_abs_err": errs["bfloat16"],
+                     "max_abs_err_f32": errs["float32"], "plain_rms": rms}
+            flash.update(kernel_rates(flops, fbytes, flash["bound_ms"],
+                                      flash["device_ms"]))
+            print_entry(flash, f"d={hdd}" + ("" if causal else " non-causal"))
+            return flash
+
+        def decode_at(path, b, max_len, cl, hh, hkv, hdd, seed):
+            qd = att_rand((b, hh, hdd), seed + 3, bf16)
+            kc = att_rand((b, max_len, hkv, hdd), seed + 4, bf16)
+            vc = att_rand((b, max_len, hkv, hdd), seed + 5, bf16)
+            errs, rms = {}, {}
+            for dtype in (torch.float32, bf16):
+                args = [t.to(dtype) for t in (qd, kc, vc)]
+                name = str(dtype).split(".")[1]
+                errs[name], rms[name], ok = att_err(
+                    "decode_attention", DA.decode_attention(*args, cl),
+                    DA.decode_attention_plain(*args, cl), name)
+                if not ok:
+                    raise AssertionError(f"decode_attention d={hdd} ({path}) "
+                                         f"differs from its plain version in "
+                                         f"{name}: {errs[name]}")
+                del args
+            fn = lambda: DA.decode_attention(qd, kc, vc, cl)  # noqa: E731
+            q4 = qd[:, :, None].contiguous()
+            k4, v4 = (t[:, :cl].transpose(1, 2).contiguous() for t in (kc, vc))
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q4, k4, v4, enable_gqa=True)
+            dflops = 4.0 * b * hh * hdd * cl
+            dbytes = 2 * nbytes(qd) + 2 * (b * cl * hkv * hdd
+                                           * kc.element_size())
+            decode = {"name": "decode_attention", "case": path,
+                      "head_dim": hdd,
+                      "shape": [list(qd.shape), list(kc.shape), cl],
+                      **launches("decode_attention", path),
+                      "ms": cuda_ms(fn, 100), "device_ms": device_ms(fn, 50),
+                      "call_ms": call_ms(fn, 50), "library_call_ms": call_ms(lib, 50),
+                      "plain_ms": cuda_ms(lambda: DA.decode_attention_plain(
+                          qd, kc, vc, cl), 10),
+                      "library_ms": cuda_ms(lib, 100),
+                      "library_device_ms": device_ms(lib, 50),
+                      "bound_ms": max(dflops / BF16_FLOP_PER_S,
+                                      dbytes / HBM_BYTES_PER_S) * 1e3,
+                      "bound_by": ("operations" if dflops / BF16_FLOP_PER_S
+                                   > dbytes / HBM_BYTES_PER_S else "bytes"),
+                      "max_abs_err": errs["bfloat16"],
+                      "max_abs_err_f32": errs["float32"], "plain_rms": rms}
+            decode.update(kernel_rates(dflops, dbytes, decode["bound_ms"],
+                                       decode["device_ms"]))
+            print_entry(decode, f"d={hdd}")
+            return decode
+
+        def attention_at(path, b, plen, n_new, max_len, hh, hkv, hdd, seed):
+            """Causal flash over the prompt and decode at the last step's
+            length (prompt + n_new - 1)."""
+            return (flash_at(path, b, plen, plen, hh, hkv, hdd, True, seed),
+                    decode_at(path, b, max_len, plen + n_new - 1, hh, hkv, hdd,
+                              seed))
+
+        flash112, decode112 = attention_at(
+            "serve_hybrid", HYBRID_BATCH, HYBRID_PROMPT, HYBRID_NEW,
+            HYBRID_MAX_LEN, hcfg.n_heads, hcfg.n_kv_heads, hcfg.head_dim, 31)
+        rows[-2]["d112"] = flash112
+        rows[-1]["d112"] = decode112
+        extra_rows.extend([flash112, decode112])
+        for i, (arch, tag, _) in enumerate(DENSE_SERVE):
+            if arch == "command-r-plus-104b":
+                continue  # its calls are held on the path (hold_model_calls)
+            dc = dense_cfgs[arch]
+            f128, d128 = attention_at(
+                tag, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN,
+                dc.n_heads, dc.n_kv_heads, dc.head_dim, 61 + 10 * i)
+            rows[-2][f"d128_{arch}"] = f128
+            rows[-1][f"d128_{arch}"] = d128
+            extra_rows.extend([f128, d128])
+        # phase 6d's shapes
+        oc, ic = family_cfgs["serve_olmoe"], family_cfgs["serve_internvl2"]
+        fam_rows = {
+            "olmoe": attention_at("serve_olmoe", SERVE_BATCH, SERVE_PROMPT,
+                                  SERVE_NEW, SERVE_MAX_LEN, oc.n_heads,
+                                  oc.n_kv_heads, oc.head_dim, 91),
+            "internvl2": attention_at("serve_internvl2", SERVE_BATCH,
+                                      ic.n_patches + SERVE_PROMPT, SERVE_NEW,
+                                      SERVE_MAX_LEN, ic.n_heads, ic.n_kv_heads,
+                                      ic.head_dim, 101),
+            "whisper": (
+                flash_at("serve_whisper", SERVE_BATCH, WHISPER_FRAMES,
+                         WHISPER_FRAMES, wcfg.n_heads, wcfg.n_kv_heads,
+                         wcfg.head_dim, False, 111),
+                decode_at("serve_whisper", SERVE_BATCH, WHISPER_MAX_LEN,
+                          WHISPER_FRAMES, wcfg.n_heads, wcfg.n_kv_heads,
+                          wcfg.head_dim, 111)),
+            "whisper_cross": (
+                flash_at("serve_whisper", SERVE_BATCH, SERVE_NEW,
+                         WHISPER_FRAMES,
+                         wcfg.n_heads, wcfg.n_kv_heads, wcfg.head_dim, False,
+                         121), None)}
+        for key, (f_e, d_e) in fam_rows.items():
+            rows[-2][key] = f_e
+            extra_rows.append(f_e)
+            if d_e is not None:
+                rows[-1][key] = d_e
+                extra_rows.append(d_e)
+        # phase 6e's training shapes: FlashAttentionFn forward and forward +
+        # backward at whisper's non-causal encoder and cross attention and at
+        # internvl2's layer (their launches are filled in after phase 6e)
+        ftrain_conf = {tag: (arch, TrainerConfig(arch=arch, steps=n, **conf))
+                       for arch, tag, _, conf, n in FAMILY_TRAIN}
+        ftrain_flash_rows = {}
+        for key, tag, causal, sq in (
+                ("train_whisper", "train_whisper", False, None),
+                ("train_whisper_cross", "train_whisper", False,
+                 max(WHISPER_FRAMES // 8, 8)),
+                ("train_internvl2", "train_internvl2", True, None)):
+            arch, ftc_ = ftrain_conf[tag]
+            _, (fq_, fk_, fv_, fdo_), ferrs, freading = hold_flash_fn(
+                f"kernels {key}", get_config(arch), ftc_, sq=sq,
+                causal=causal)
+            row = flash_fn_row("kernels", key, fq_, fk_, fv_, fdo_, causal,
+                               ferrs, freading)
+            ftrain_flash_rows[key] = (tag, row)
+            rows[-2][key] = row
+            extra_rows.append(row)
+            del fq_, fk_, fv_, fdo_
+
+        # ssd_scan at serve_hybrid's shape, on mild-decay inputs (dt in
+        # [0.01, 0.1]: the random model's dt = softplus(N(0, 1)) decays so fast
+        # that the state carried across chunks would not be tested)
+        xs_shape, bc_shape = max(ssd_shapes, key=lambda sh: sh[0][1])
+        bsz, s_len, n_h, p_dim = xs_shape
+        n_g, n_dim = bc_shape[2], bc_shape[3]
+        gen = torch.Generator(device="cuda").manual_seed(41)
+        sx = torch.randn(xs_shape, generator=gen, device=dev).to(bf16)
+        sdt = 0.01 + 0.09 * torch.rand((bsz, s_len, n_h), generator=gen,
+                                        device=dev)
+        salog = 0.5 * torch.randn((n_h,), generator=gen, device=dev)
+        sb = (0.3 * torch.randn(bc_shape, generator=gen, device=dev)).to(bf16)
+        sc_ = (0.3 * torch.randn(bc_shape, generator=gen, device=dev)).to(bf16)
+        sd = 1.0 + 0.2 * torch.randn((n_h,), generator=gen, device=dev)
+        ssd_errs = {}
+        for dtype in (torch.float32, bf16):
+            args = (sx.to(dtype), sdt, salog, sb.to(dtype), sc_.to(dtype), sd)
+            y_k, st_k = SSD.ssd_scan(*args)
+            y_p, st_p = SSD.ssd_scan_plain(*args)
+            torch.cuda.synchronize()
+            name = str(dtype).split(".")[1]
+            err, serr, ok = ssd_err(y_k, st_k, y_p, st_p, name)
+            if not ok:
+                raise AssertionError(f"ssd_scan differs from its plain "
+                                     f"version in {name}: y {err}, state "
+                                     f"{serr}")
+            ssd_errs[name], ssd_errs[name + "_state"] = err, serr
+            del args, y_k, st_k, y_p, st_p
+        fn = lambda: SSD.ssd_scan(sx, sdt, salog, sb, sc_, sd)  # noqa: E731
+        s_ms = cuda_ms(fn, 20)
+        s_dev = device_ms(fn, 20)
+        s_call = call_ms(fn, 20)
+        s_plain = cuda_ms(
+            lambda: SSD.ssd_scan_plain(sx, sdt, salog, sb, sc_, sd), 3)
+        y_out, st_out = fn()
+        # work at the reference's chunk (128): per (batch row, head, chunk)
+        # C B^T and the weighted x (2 cl^2 N + 2 cl^2 P), the chunk state and
+        # the inter-chunk product (4 cl N P)
+        cl = SSD.effective_chunk(s_len, SSD.CHUNK)
+        s_flops = (2.0 * bsz * n_h * (s_len // cl)
+                   * (cl * cl * (n_dim + p_dim) + 2 * cl * n_dim * p_dim))
+        s_bytes = nbytes(sx, sdt, salog, sb, sc_, sd, y_out, st_out)
+        s_bound = max(s_flops / BF16_FLOP_PER_S,
+                      s_bytes / HBM_BYTES_PER_S) * 1e3
+        s_by = ("operations" if s_flops / BF16_FLOP_PER_S
+                > s_bytes / HBM_BYTES_PER_S else "bytes")
+        s_rates = kernel_rates(s_flops, s_bytes, s_bound, s_dev)
+        print(f"[kernels] ssd_scan x {list(xs_shape)} b/c {list(bc_shape)} "
+              f"bf16: {s_ms:.4f} ms (device {s_dev:.4f} ms, per call "
+              f"{s_call:.4f} ms), plain {s_plain:.4f} ms, "
+              f"no library call, bound {s_bound:.5f} ms ({s_by}: "
+              f"{s_flops:.4g} FLOP, {s_bytes} B), "
+              f"{s_rates['bound_fraction']:.3f} of it at the device time, "
+              f"{s_rates['tflops']:.1f} TFLOP/s, {s_rates['gbps']:.0f} GB/s; "
+              f"max err f32 {ssd_errs['float32']:.3e} (state "
+              f"{ssd_errs['float32_state']:.3e}), bf16 "
+              f"{ssd_errs['bfloat16']:.3e} (tol {SSD_TOL} x (1 + |plain|))")
+        rows.append({"name": "ssd_scan", "route": "cuda",
+                     "source": "src/repro_torch/csrc/ssd_scan.cu",
+                     "replaces": "src/repro/kernels/ssm_scan/kernel.py:76",
+                     **launches("ssd_scan", "serve_hybrid"),
+                     "max_abs_err": ssd_errs["bfloat16"], "ms": s_ms,
+                     "plain_ms": s_plain, "bound_ms": s_bound,
+                     "bound_by": s_by,
+                     "library_ms": None,
+                     "shape": [list(xs_shape), list(bc_shape)],
+                     "max_abs_err_f32": ssd_errs["float32"],
+                     "max_abs_err_state_f32": ssd_errs["float32_state"],
+                     "tolerance": SSD_TOL, "device_ms": s_dev,
+                     "call_ms": s_call,
+                     "flops": s_flops, "bytes": s_bytes,
+                     "bound_fraction": s_rates["bound_fraction"],
+                     "tflops": s_rates["tflops"], "gbps": s_rates["gbps"],
+                     "max_abs_err_state_bf16": ssd_errs["bfloat16_state"]})
+        del sx, sdt, sb, sc_, y_out, st_out
+        # ssd_scan at train_hybrid's shape (measured in phase 6c): its forward,
+        # and forward + backward through SsdScanFn
+        rows[-1]["train"] = {**htrain_ssd_row,
+                             **launches("ssd_scan", "train_hybrid")}
+        extra_rows.append(rows[-1]["train"])
+        print(f"[kernels] ssd_scan at train_hybrid's shape "
+              f"{htrain_ssd_row['shape']}: forward {htrain_ssd_row['ms']:.4f} "
+              f"ms (bound {htrain_ssd_row['bound_ms']:.5f}), forward + "
+              f"backward {htrain_ssd_row['fwd_bwd_ms']:.4f} ms (bound "
+              f"{htrain_ssd_row['fwd_bwd_bound_ms']:.5f}); launches "
+              f"{rows[-1]['train']['launches']} on train_hybrid")
+        return rows, extra_rows, ftrain_flash_rows
+
+    rows, extra_rows, ftrain_flash_rows = kernels_phase()
+    # the dispatches the earlier phases kept for phase 7 are done with
+    for calls in (soj_calls, coded_calls, combine_calls,
+                  fleet_coded_calls, serving_widest):
+        calls.clear()
+
+    # -- 4c's profiled re-plans and the trainers' profiled steps ----------
     _phase("tuner profiles")
-    for phase_, key_, tag_, fn_ in deferred_profiles:
-        report["phases"][phase_][key_] = busy_of(tag_, fn_)
-    _phase("train profile")
-    train_profile("train", tr, train_report, med_step,
-                  {"flash_attention": "flash_wgmma"})
-    del tr
-    train_profile("train_hybrid", tr_h, htrain_report, hmed,
-                  {"ssd_scan": SSD_BF16_KERNEL,
-                   "flash_attention": "flash_wgmma"})
-    del tr_h
+
+    def run_deferred():
+        """Phase 4c's profiled re-plans, then phases 6b's and 6c's profiled
+        training steps; each is dropped once run, and its inputs and
+        trainer with it."""
+        while deferred_profiles:
+            phase_, key_, tag_, fn_ = deferred_profiles.pop(0)
+            report["phases"][phase_][key_] = busy_of(tag_, fn_)
+        _phase("train profile")
+        while trainer_profiles:
+            trainer_profiles.pop(0)()
+
+    run_deferred()
+
+    # -- 6e. train_families: MoE, VLM, audio, xLSTM at full width -------
+    import gc
+
+    from repro_torch.models import train_loss
+    from repro_torch.tree import tree_map
+
+    SIM._GROUP_MIN_CACHE.clear()  # the sweeps' cached group minima
+    t_ftrain = time.perf_counter()
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    ftrain_report = {}
+
+    def attention_layers(cfg_):
+        """Flash launches a distinct batch's backward pass makes."""
+        return {"audio": 3 * cfg_.n_layers, "ssm": 0}.get(cfg_.family,
+                                                          cfg_.n_layers)
+
+    def nonzero_leaves(cfg_, g):
+        """The leaves each family reaches only through its own path, whose
+        step-0 gradient a detached or missing path would leave at 0."""
+        if cfg_.family == "moe":
+            names = [(f"blocks/{i}/moe/{n}", lp["moe"][n])
+                     for i, lp in enumerate(g["blocks"])
+                     for n in ("router", "wi_gate", "wi_up", "wo")]
+            names += [(f"blocks/{i}/moe/shared/wi_gate",
+                       lp["moe"]["shared"]["wi_gate"])
+                      for i, lp in enumerate(g["blocks"])
+                      if "shared" in lp["moe"]]
+            names += [(f"blocks/{i}/attn/{n}", lp["attn"][n])
+                      for i, lp in enumerate(g["blocks"])
+                      for n in ("wq", "wk")]
+        elif cfg_.family == "vlm":
+            names = [("projector/w", g["projector"]["w"])]
+            names += [(f"blocks/{i}/attn/{n}", lp["attn"][n])
+                      for i, lp in enumerate(g["blocks"])
+                      for n in ("wq", "wk")]
+        elif cfg_.family == "audio":
+            names = [(f"dec_blocks/{i}/cross/{n}", lp["cross"][n])
+                     for i, lp in enumerate(g["dec_blocks"])
+                     for n in ("wq", "wk", "wv")]
+            names += [(f"enc_blocks/{i}/attn/{n}", lp["attn"][n])
+                      for i, lp in enumerate(g["enc_blocks"])
+                      for n in ("wq", "wk")]
+            names += [("frontend", g["frontend"])]
+        else:
+            names = [(f"slstm_blocks/{i}/r", lp["r"])
+                     for i, lp in enumerate(g["slstm_blocks"])]
+            names += [(f"mlstm_segments/{i}/{j}/{n}", lp[n])
+                      for i, seg in enumerate(g["mlstm_segments"])
+                      for j, lp in enumerate(seg) for n in ("w_q", "w_k")]
+        return names
+
+    def bf16_spread(pin_config):
+        """The CPU's own step-0 loss gap between the reduced trainer's bf16
+        parameters and the same parameters in float32, on its first
+        batch: the random-weight rounding spread a card-vs-CPU loss gap is
+        read against."""
+        host = Trainer(TrainerConfig(**pin_config), device="cpu")
+        hb = host._device_batch(host.pipeline.batch_for(
+            0, 0, host.tc.n_batches))
+        with torch.no_grad():
+            l16 = float(train_loss(host.cfg, host.params, hb)[0])
+            l32 = float(train_loss(host.cfg, tree_map(
+                lambda t: t.float(), host.params), hb)[0])
+        return abs(l16 - l32)
+
+    def train_family(arch, tag, depth, fconf, fsteps):
+        """One family's path at full width through ``Trainer.run``: its
+        memory reckoning, step-0 gradients, ``FlashAttentionFn`` at its
+        shapes, the counted run with its launch pins, and its profiled
+        steps.  Returns the path's report; its trainer dies on return."""
+        held_f = torch.cuda.memory_allocated() / 1e9
+        if tag == "train_internvl2" and not held_f < FTRAIN_START_LIMIT_GB:
+            raise AssertionError(f"{tag} starts with {held_f:.2f} GB "
+                                 f"allocated by earlier phases (limit "
+                                 f"{FTRAIN_START_LIMIT_GB} GB)")
+        ftc = TrainerConfig(arch=arch, steps=fsteps, **fconf)
+        ftr = trainer_at_depth(ftc, depth)
+        fc = ftr.cfg
+        fn_ = count_params(ftr.params)
+        max_b = (max(ftr.cluster_spec.feasible_batches()) if ftc.tuner
+                 else ftc.n_batches)
+        step_gb = (14 + 4 * max_b + 4) * fn_ / 1e9
+        freckon = {"state_gb": 14 * fn_ / 1e9, "grad_tree_gb": 4 * fn_ / 1e9,
+                   "largest_b": max_b, "step_gb": step_gb,
+                   "held_before_gb": held_f, "card_gb": card_gb,
+                   "spare_gb": card_gb - held_f - step_gb}
+        print(f"[{tag}] {fc.name} at full width (d {fc.d_model}, "
+              f"{fc.n_heads} heads / {fc.n_kv_heads} KV of {fc.head_dim}, "
+              f"vocab {fc.vocab_size}), depth {fc.n_layers} of "
+              f"{get_config(arch).n_layers}: {fn_:,} parameters; {fsteps} "
+              f"steps of {fconf}; memory reckoned (14 B a parameter of "
+              f"weights and AdamW state, 4 B a distinct batch's float32 "
+              f"gradient tree at B <= {max_b}, 4 B their aggregate) "
+              f"{ {k: round(v, 3) for k, v in freckon.items()} } (GB)")
+        if freckon["spare_gb"] < FTRAIN_SPARE_GB:
+            raise AssertionError(f"{tag}: the reckoning leaves "
+                                 f"{freckon['spare_gb']:.1f} GB spare; lower "
+                                 f"its global batch")
+
+        # step-0 gradients: every leaf finite, the family's own leaves
+        # nonzero; MoE: the assignments dropped past capacity, and a second
+        # backward pass from the same state bit-equal (not counted)
+        fb0 = ftr._device_batch(ftr.pipeline.batch_for(0, 0, ftc.n_batches))
+        dropped = [0]
+        o_dispatch = MOE_MODEL.dispatch
+
+        def counting_dispatch(moe, gate_e, cap):
+            out = o_dispatch(moe, gate_e, cap)
+            dropped[0] += int((~out[4]).sum())
+            return out
+
+        MOE_MODEL.dispatch = counting_dispatch
+        try:
+            floss0, fg0 = ftr._grad_fn(ftr.params, fb0)
+        finally:
+            MOE_MODEL.dispatch = o_dispatch
+        torch.cuda.synchronize()
+        fleaves = tree_leaves(fg0)
+        if len(fleaves) != len(tree_leaves(ftr.params)) or not all(
+                bool(torch.isfinite(g).all()) for g in fleaves):
+            raise AssertionError(f"{tag}: a parameter leaf got no finite "
+                                 f"gradient")
+        checked = nonzero_leaves(fc, fg0)
+        zero = [n for n, g in checked if not g.abs().max().item() > 0]
+        if zero:
+            raise AssertionError(f"{tag}: zero step-0 gradients at "
+                                 f"{zero[:8]}")
+        fnorms = {n: g.norm().item() for n, g in checked[:4]}
+        print(f"[{tag}] step-0 gradients: {len(fleaves)} leaves, all finite; "
+              f"{len(checked)} of the family's own leaves nonzero; loss "
+              f"{floss0:.4f}; norms {fnorms}")
+        deterministic = None
+        if fc.family == "moe":
+            _, fg1 = ftr._grad_fn(ftr.params, fb0)
+            diff = [i for i, (a, b) in enumerate(zip(fleaves,
+                                                     tree_leaves(fg1)))
+                    if not torch.equal(a, b)]
+            deterministic = not diff
+            del fg1
+            if diff:
+                raise AssertionError(f"{tag}: two backward passes from one "
+                                     f"state differ at {len(diff)} leaves")
+            n_assign = ((fc.n_layers - fc.moe.first_layer_dense)
+                        * fb0["tokens"].numel() * fc.moe.top_k)
+            print(f"[{tag}] two backward passes from one state: every "
+                  f"gradient leaf bit-equal; assignments dropped past "
+                  f"capacity at step 0: {dropped[0]} of {n_assign}")
+        del fg0, fleaves, checked
+
+        # FlashAttentionFn at the path's own shapes (not counted)
+        flash_errs, flash_reading = {}, {}
+        if fc.family == "audio":
+            sd = max(ftc.seq_len // 8, 8)
+            flash_errs["encoder"], flash_reading["encoder"] = hold_flash_fn(
+                tag, fc, ftc, causal=False)[2:]
+            flash_errs["cross"], flash_reading["cross"] = hold_flash_fn(
+                tag, fc, ftc, sq=sd, causal=False)[2:]
+        elif fc.family != "ssm":
+            flash_errs["layer"], flash_reading["layer"] = hold_flash_fn(
+                tag, fc, ftc)[2:]
+
+        fres, fcounts, fwall, n_fgrads, fstep_walls, fattempts, fpeak = (
+            counted_run(tag, ftr))
+        n_attn = attention_layers(fc)
+        fwant = n_attn * n_fgrads
+        if fcounts["flash_attention"] != fwant:
+            raise AssertionError(f"{tag} launched flash_attention "
+                                 f"{fcounts['flash_attention']} times, "
+                                 f"expected {n_attn} attention layers x "
+                                 f"{n_fgrads} distinct batches = "
+                                 f"{fwant}")
+        if ftc.tuner and not fattempts:
+            raise AssertionError(f"{tag}: the tuner made no re-plan attempt")
+        flosses = fres.losses
+        n_avg = 5 if fsteps >= 20 else 3
+        ffirst, flast = (float(np.mean(flosses[:n_avg])),
+                         float(np.mean(flosses[-n_avg:])))
+        if not all(np.isfinite(flosses)) or not flast < ffirst:
+            raise AssertionError(f"{tag}: the loss did not fall: first "
+                                 f"{n_avg} {ffirst}, last {n_avg} {flast}")
+        fmed = statistics.median(fstep_walls)
+        print(f"[{tag}] losses first {flosses[0]:.5f}, last "
+              f"{flosses[-1]:.5f}; mean of the last {n_avg} {flast:.5f} < "
+              f"mean of the first {n_avg} {ffirst:.5f}: the loss falls")
+        print(f"[{tag}] simulated time {fres.total_sim_time:.4f} s; "
+              f"plan_history {fres.plan_history}; events {fres.events}; "
+              f"tuner attempts (tuner step, wall s, moved B) {fattempts}")
+        print(f"[{tag}] wall {fwall:.3f} s; median step wall {fmed:.4f} s "
+              f"(min {min(fstep_walls):.4f}, max {max(fstep_walls):.4f}); "
+              f"peak memory allocated {fpeak:.2f} GB against the reckoned "
+              f"{held_f + step_gb:.2f} GB ({held_f:.2f} GB of it held when "
+              f"the path began)")
+        others = {k: v for k, v in fcounts.items()
+                  if k not in ("flash_attention", "sojourn_cells")}
+        print(f"[{tag}] launches: flash_attention {fcounts['flash_attention']}"
+              f" = {n_attn} attention layers x {n_fgrads} distinct "
+              f"batches; sojourn_cells {fcounts['sojourn_cells']} (the "
+              f"tuner's re-plans score a plain metric); others {others}")
+        frep = {
+            "config": {**fconf, "steps": fsteps, "layers": fc.n_layers,
+                       "slow_workers": {str(k): v for k, v in
+                                        (fconf.get("slow_workers")
+                                         or {}).items()}},
+            "parameters": fn_, "memory_reckoning_gb": freckon,
+            "step0_loss": float(floss0), "step0_grad_norms": fnorms,
+            "moe_backward_bit_equal": deterministic,
+            "moe_dropped_step0": dropped[0] if fc.family == "moe" else None,
+            "flash_fn_max_abs_err": flash_errs,
+            "flash_fn_err_reading": flash_reading,
+            "losses": flosses, "sim_times": fres.sim_times,
+            "total_sim_time": fres.total_sim_time,
+            "plan_history": fres.plan_history, "events": fres.events,
+            "tuner_attempts": fattempts, "wall_s": fwall,
+            "step_walls_s": fstep_walls, "median_step_s": fmed,
+            "peak_memory_gb": fpeak, "held_before_gb": held_f,
+            "launches": fcounts, "distinct_batch_grads": n_fgrads}
+        # one profiled xLSTM step: two steps made 682,559 device events
+        # (the sLSTM's per-position kernels), which took the profiler
+        # longer to list than the steps took to run
+        train_profile(tag, ftr, frep, fmed,
+                      {"flash_attention": "flash_wgmma"} if n_attn else {},
+                      n_steps=1 if fc.family == "ssm" else 2)
+        return frep
+
+    for arch, tag, depth, fconf, fsteps in FAMILY_TRAIN:
+        gc.collect()  # the cycles of the earlier phases' trainers
+        torch.cuda.empty_cache()
+        _phase(tag)
+        t_path = time.perf_counter()
+        frep = train_family(arch, tag, depth, fconf, fsteps)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # card against CPU, reduced, through a whole-group fault and a
+        # checkpoint restore; the CPU's own bf16 spread beside the
+        # tolerance
+        fam = tag[len("train_"):]
+        pin_cfg = {**TRAIN_PIN_CONFIG, "arch": arch}
+        spread = bf16_spread(pin_cfg)
+        frep["pins"] = train_pins(f"train_family_pins_{fam}", pin_cfg)
+        frep["pins"]["cpu_bf16_vs_f32_step0_loss_gap"] = spread
+        print(f"[train_family_pins_{fam}] card vs CPU max |loss diff| "
+              f"{frep['pins']['loss_max_abs_diff']:.3e} against tolerance "
+              f"{TRAIN_PIN_LOSS_TOL}; the CPU's own bf16-vs-float32 step-0 "
+              f"loss gap {spread:.3e}")
+        frep["wall_with_checks_s"] = time.perf_counter() - t_path
+        ftrain_report[tag] = frep
+        print(f"[{tag}] path with its checks and pins: "
+              f"{frep['wall_with_checks_s']:.1f} s")
+    for key, (tag, row) in ftrain_flash_rows.items():
+        row.update(launches("flash_attention", tag))
+    for row in rows:  # every path's launches, phase 6e's included
+        row.update(launches(row["name"], row["launches_path"]))
+    ftrain_wall = time.perf_counter() - t_ftrain
+    report["phases"]["train_families"] = ftrain_report
+    report["phases"]["train_families_wall_s"] = ftrain_wall
+    print(f"[train_families] phase 6e: {ftrain_wall:.1f} s")
 
     report["kernels"] = rows
     report["kernel_shapes"] = extra_rows

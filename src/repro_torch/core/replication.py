@@ -268,6 +268,12 @@ def aggregate_host(
         ]
         if not members:
             continue
+        if len(members) == 1:
+            # x / 1 == x exactly: keep the member's own tree rather than a
+            # copy (the trainer sends one member a batch, and a copy a
+            # batch would double the step's gradient memory)
+            batch_grads.append(grads_per_worker[members[0]])
+            continue
         # replicas agree; average anyway for numerical symmetry
         leaves = [tree_leaves(grads_per_worker[w]) for w in members]
         mean_leaves = [

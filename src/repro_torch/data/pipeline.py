@@ -16,8 +16,9 @@ it only changes WHICH batch ids a data-axis coordinate pulls.
   group members (same ``coord % B``) receive IDENTICAL data (Thm 1 balanced
   non-overlapping placement).
 
-The audio and vlm families (frames, patch embeddings) are not ported:
-:func:`make_batch_shapes` raises for them.
+Every family's batches: audio adds float32 ``frames`` (b, s,
+frontend_dim) ahead of its shorter token stream, vlm float32
+``patch_embeds`` (b, n_patches, frontend_dim) behind the text tokens.
 """
 
 from __future__ import annotations
@@ -33,12 +34,24 @@ __all__ = ["TokenPipeline", "make_batch_shapes"]
 
 
 def make_batch_shapes(cfg: ArchConfig, cell: ShapeCell) -> dict[str, tuple]:
-    """Shapes of one GLOBAL batch for (arch, cell)."""
+    """Shapes of one GLOBAL batch for (arch, cell), in the order the
+    stream draws them."""
     b, s = cell.global_batch, cell.seq_len
     if cell.kind in ("train", "prefill"):
-        if cfg.family in ("audio", "vlm"):
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family's batches are not ported")
+        if cfg.family == "audio":
+            sd = max(s // 8, 8)
+            return {
+                "frames": (b, s, cfg.frontend_dim),
+                "tokens": (b, sd),
+                "labels": (b, sd),
+            }
+        if cfg.family == "vlm":
+            st = s - cfg.n_patches
+            return {
+                "tokens": (b, st),
+                "labels": (b, st),
+                "patch_embeds": (b, cfg.n_patches, cfg.frontend_dim),
+            }
         return {"tokens": (b, s), "labels": (b, s)}
     # decode: one new token per sequence
     return {"token": (b, 1)}
@@ -65,6 +78,10 @@ class TokenPipeline:
                 base = rng.integers(0, v, size=shape[:1] + (1,) * (len(shape) - 1))
                 noise = rng.integers(0, 17, size=shape)
                 out[name] = ((base + np.cumsum(noise, axis=-1)) % v).astype(np.int32)
+            elif name == "labels":
+                pass  # filled from tokens below
+            else:  # float embeddings (frames / patch_embeds)
+                out[name] = rng.standard_normal(shape).astype(np.float32)
         if "labels" in shapes:
             toks = out["tokens"]
             lab = np.roll(toks, -1, axis=-1)

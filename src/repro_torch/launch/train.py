@@ -16,18 +16,23 @@ used by the completion rule, the data feed, fault coverage, and gradient
 aggregation.
 
 On the card every attention layer's forward is the Hopper flash kernel
-(``FlashAttentionFn``) and every Mamba-2 block's scan the SSD scan kernel
+(``FlashAttentionFn``: causal, and whisper's bidirectional encoder and
+cross attention) and every Mamba-2 block's scan the SSD scan kernel
 (``SsdScanFn``), each with a tensor-op backward; the rest of the model is
 PyTorch.  ``Trainer(tc, device=None)`` runs on CUDA and raises without a
 card; ``device="cpu"`` runs on the host (the kernels' plain versions, the
-planners' plain sweeps).  The dense and hybrid families train
-(qwen2-0.5b, qwen2.5-14b, command-r-plus-104b, granite-34b, zamba2-7b).
-A step drops its per-batch gradient trees once they are aggregated, so
-the AdamW update holds one float32 gradient tree, not one a batch.
+planners' plain sweeps).  Every config trains: the dense (qwen2-0.5b,
+qwen2.5-14b, command-r-plus-104b, granite-34b), MoE (olmoe-1b-7b,
+deepseek-moe-16b), VLM (internvl2-76b: patch embeddings from the data
+stream, loss on the text positions), audio (whisper-medium: frames to
+the encoder, tokens to the decoder), xLSTM (xlstm-350m) and hybrid
+(zamba2-7b) families.  A step drops its per-batch gradient trees once
+they are aggregated, and AdamW updates the state and parameters in
+place, so the update holds one float32 gradient tree and one state.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
           --steps 100 --workers 8 --batches 4 [--device cpu]
-      PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b
+      PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-medium
 """
 
 from __future__ import annotations
@@ -66,7 +71,7 @@ from ..distributed import (
     StragglerDetector,
 )
 from ..models import init_params
-from ..optim import AdamWConfig, init as opt_init, update as opt_update
+from ..optim import AdamWConfig, init as opt_init, update_ as opt_update_
 from ..optim import warmup_cosine
 from ..optim.compression import compressed_reduce_host, init_error_state
 from ..tree import tree_map
@@ -198,11 +203,15 @@ class Trainer:
         return loss, tree_map(lambda x: x.to(torch.float32), g)
 
     def _opt_fn(self, grad, opt_state, params, lr):
-        return opt_update(grad, opt_state, params, lr, self.adamw)
+        return opt_update_(grad, opt_state, params, lr, self.adamw)
 
     def _device_batch(self, data: dict) -> dict:
-        """The numpy batch on the trainer's device, tokens as ``long``."""
-        return {k: torch.from_numpy(v).to(self.device).long()
+        """The numpy batch on the trainer's device: the integer entries
+        (tokens, labels) as ``long``, the float ones (audio frames, patch
+        embeddings) float32 as drawn (the models cast them)."""
+        return {k: torch.from_numpy(v).to(self.device,
+                                          torch.long if v.dtype.kind in "iu"
+                                          else torch.float32)
                 for k, v in data.items()}
 
     # -- one step -----------------------------------------------------------
@@ -438,7 +447,8 @@ class Trainer:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--arch", default="qwen2-0.5b",
+                    help="any of the ten configs, in its reduced form")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--workers", type=int, default=8)
     ap.add_argument("--batches", type=int, default=4)

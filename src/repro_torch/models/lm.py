@@ -33,13 +33,17 @@ write it IN PLACE and return it.  ``prefill`` raises
 ``NotImplementedError`` for audio, as the reference's does: whisper runs
 ``whisper.encode``, the cross cache, and ``decode_step``.
 
-``train_loss`` is the training forward of the dense and hybrid families:
-every attention layer runs the flash kernel through ``FlashAttentionFn``
-and, hybrid, every Mamba-2 block the SSD scan kernel through
-``SsdScanFn``, so ``loss.backward()`` reaches every parameter.  The
-reference's per-layer and per-segment ``jax.checkpoint`` only saves memory
-and changes no number; the port keeps every layer's activations.  Training
-of the other families raises ``NotImplementedError``.
+``train_loss`` is the training forward of all six families: every
+attention layer (causal, and whisper's bidirectional encoder and cross
+attention) runs the flash kernel through ``FlashAttentionFn`` and, hybrid,
+every Mamba-2 block the SSD scan kernel through ``SsdScanFn``, so
+``loss.backward()`` reaches every parameter.  moe adds the MoE layers'
+load-balancing losses to the cross entropy; vlm scores only the text
+positions behind the patch slots; audio runs ``whisper.encode`` and
+``whisper.decode_train``; the xLSTM recurrences are tensor ops (no Pallas
+kernel computes them in the reference).  The reference's per-layer and
+per-segment ``jax.checkpoint`` only saves memory and changes no number;
+the port keeps every layer's activations.
 """
 
 from __future__ import annotations
@@ -170,57 +174,85 @@ def _n_dense(cfg: ArchConfig) -> int:
     return 1 if cfg.moe is not None and cfg.moe.first_layer_dense else 0
 
 
-TRAINED_FAMILIES = ("dense", "hybrid")
+TRAINED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 def _trained(cfg: ArchConfig) -> None:
     if cfg.family not in TRAINED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: training of family {cfg.family!r} is not ported "
-            f"(the port trains {TRAINED_FAMILIES})")
+        raise ValueError(
+            f"{cfg.name}: unknown family {cfg.family!r} (the port trains "
+            f"{TRAINED_FAMILIES})")
 
 
 def _embed_inputs(cfg: ArchConfig, params, batch):
-    """Returns (x (b, s, d), positions (s,), loss_mask (b, s) or None).
-    vlm: the projected ``batch["patch_embeds"]`` (b, n_patches,
-    frontend_dim) go before the token embeddings, and the mask zeroes the
-    patch slots."""
+    """Returns (x (b, s, d), positions (s,)).  vlm: the projected
+    ``batch["patch_embeds"]`` (b, n_patches, frontend_dim) go before the
+    token embeddings."""
     dev = _device_of(params)
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
     x = L.embed_tokens(params["embed"], tokens)
     if cfg.family == "vlm":
-        pe = (torch.as_tensor(batch["patch_embeds"], device=dev).to(L.DTYPE)
-              @ params["projector"]["w"])
+        w = params["projector"]["w"]
+        # bfloat16 patches whatever the weights' dtype, as the reference
+        pe = (torch.as_tensor(batch["patch_embeds"], device=dev)
+              .to(L.DTYPE).to(w.dtype) @ w)
         x = torch.cat([pe, x], dim=1)
-        b, s, _ = x.shape
-        mask = torch.ones((b, s), dtype=torch.float32, device=dev)
-        mask[:, : cfg.n_patches] = 0.0
-        return x, torch.arange(s, device=dev), mask
-    return x, torch.arange(x.shape[1], device=dev), None
+    return x, torch.arange(x.shape[1], device=dev)
 
 
 def _backbone(cfg: ArchConfig, params, x, positions):
-    """Residual-stream pass through the blocks.  Returns (y, aux)."""
+    """Residual-stream pass through the blocks, in the reference's order:
+    moe's dense layer 0 first; ssm's segments of mLSTM blocks, each ending
+    in its sLSTM, then the trailing mLSTM blocks.  Returns (y, aux): the
+    MoE layers' load-balancing losses summed, else 0."""
     _trained(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        for kind, lp, _, _ in _xlstm_blocks(cfg, params):
+            apply = X.apply_mlstm_block if kind == "m" else X.apply_slstm_block
+            x, _ = apply(cfg, lp, x)
+        return x, aux
     rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     if cfg.family == "hybrid":
         x = Z.apply_zamba(cfg, params, x, rope)
+    elif cfg.family == "moe":
+        if cfg.moe.first_layer_dense:
+            x = T.apply_block(cfg, params["dense_block"], x, rope)
+        auxs = []
+        for lp in params["blocks"]:
+            x, a = M.apply_moe_block(cfg, lp, x, rope)
+            auxs.append(a)
+        aux = aux + torch.stack(auxs).sum()
     else:
         for lp in params["blocks"]:
             x = T.apply_block(cfg, lp, x, rope)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def train_loss(cfg: ArchConfig, params, batch):
-    """Mean next-token cross entropy.  ``batch``: {"tokens", "labels"},
-    (b, s) integers.  Returns (loss, {"loss", "aux"}), float32 0-dim."""
+    """Mean next-token cross entropy (+ the MoE layers' aux loss).
+    ``batch``: {"tokens", "labels"}, (b, s) integers; vlm adds
+    ``"patch_embeds"`` (b, n_patches, frontend_dim), whose slots go ahead
+    of the tokens and get no loss; audio adds ``"frames"`` (b, t,
+    frontend_dim) for the encoder, the tokens being the decoder's.
+    Returns (loss, {"loss", "aux"}), float32 0-dim."""
     _trained(cfg)
-    x, positions, mask = _embed_inputs(cfg, params, batch)
+    if cfg.family == "audio":
+        enc = W.encode(cfg, params, batch["frames"])
+        logits = W.decode_train(cfg, params, batch["tokens"], enc)
+        labels = torch.as_tensor(batch["labels"], device=logits.device)
+        loss = L.softmax_xent(logits, labels)
+        return loss, {"loss": loss, "aux": torch.zeros(
+            (), dtype=torch.float32, device=loss.device)}
+    x, positions = _embed_inputs(cfg, params, batch)
     x, aux = _backbone(cfg, params, x, positions)
     x = L.apply_norm(cfg, params["final_norm"], x)
+    if cfg.family == "vlm":
+        # only the text positions produce logits and loss
+        x = x[:, cfg.n_patches:]
     logits = L.unembed(cfg, params["embed"], x)
     labels = torch.as_tensor(batch["labels"], device=x.device)
-    xent = L.softmax_xent(logits, labels, mask)
+    xent = L.softmax_xent(logits, labels)
     loss = xent + aux
     return loss, {"loss": xent, "aux": aux}
 
@@ -305,7 +337,7 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int):
             f"{cfg.name}: prefill of family 'audio' (whisper serves through "
             f"whisper.encode and decode_step)")
     dev = _device_of(params)
-    x, positions, _ = _embed_inputs(cfg, params, batch)
+    x, positions = _embed_inputs(cfg, params, batch)
     b, s, _ = x.shape
     if s > max_len:
         raise ValueError(f"prompt of {s} positions exceeds max_len {max_len}")

@@ -9,9 +9,9 @@ calls the hand-written kernels: :func:`prefill_attend` (causal) and
 ``flash_attention`` and :func:`decode_attend` through
 ``decode_attention``.  All read the KV heads natively (no repeat).
 With grad mode on and an input that requires grad (training),
-:func:`prefill_attend` goes through ``FlashAttentionFn``: the same kernel
-forward, and a backward; :func:`apply_block` without ``kv_sink`` is then
-the training block.
+:func:`prefill_attend` and :func:`full_attend` go through
+``FlashAttentionFn``: the same kernel forward, and a backward;
+:func:`apply_block` without ``kv_sink`` is then the training block.
 """
 
 from __future__ import annotations
@@ -38,25 +38,31 @@ def _no_softcap(logit_softcap: float) -> None:
         raise NotImplementedError("the attention kernels have no logit softcap")
 
 
+def _attend(q, k, v, causal: bool) -> torch.Tensor:
+    """The flash kernel, through ``FlashAttentionFn`` when grad mode is on
+    and an input requires grad."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, 0)
+    return flash_attention(q, k, v, causal=causal)
+
+
 def prefill_attend(q, k, v, logit_softcap: float = 0.0) -> torch.Tensor:
     """Causal attention over the prompt.  q: (b, s, H, hd); k, v:
     (b, s, KV, hd).  The twin of the reference's ``chunked_gqa_attend``;
     differentiable when grad mode is on and an input requires grad."""
     _no_softcap(logit_softcap)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return FlashAttentionFn.apply(q, k, v, True, 0)
-    return flash_attention(q, k, v, causal=True)
+    return _attend(q, k, v, True)
 
 
 def full_attend(q, k, v) -> torch.Tensor:
     """Attention without a mask: every query sees every key.  q: (b, sq,
     H, hd); k, v: (b, skv, KV, hd), skv free (the whisper encoder's
     self-attention, and cross attention into its output).  The twin of
-    the reference's ``chunked_gqa_attend(..., causal=False)``."""
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=False)
+    the reference's ``chunked_gqa_attend(..., causal=False)``;
+    differentiable as :func:`prefill_attend` is."""
+    return _attend(q, k, v, False)
 
 
 def decode_attend(q, k_cache, v_cache, cache_len: int,

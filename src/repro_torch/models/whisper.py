@@ -14,7 +14,10 @@ cross attention go through ``flash_attention(causal=False)``
 (``transformer.full_attend``), the decoder's causal self-attention in
 :func:`decode_train` through ``transformer.prefill_attend``, and both
 attentions of :func:`decode_step` through ``decode_attention``
-(``transformer.decode_attend``).
+(``transformer.decode_attend``).  :func:`encode` and :func:`decode_train`
+are also the audio family's training forward: with grad mode on, their
+attention goes through ``FlashAttentionFn`` (the same kernel forward, and
+a backward), so ``lm.train_loss`` differentiates both stacks.
 
 ``params``: {"frontend" (frontend_dim, d), "embed", "enc_blocks": [block,
 ...], "enc_norm", "dec_blocks": [block with "ln_cross" and "cross", ...],
@@ -111,8 +114,10 @@ def _add_positions(cfg: ArchConfig, x, positions):
 
 def encode(cfg: ArchConfig, params, frames):
     """frames: (b, t, frontend_dim) -> (b, t, d)."""
-    dev = params["frontend"].device
-    x = torch.as_tensor(frames, device=dev).to(L.DTYPE) @ params["frontend"]
+    w = params["frontend"]
+    dev = w.device
+    # the reference rounds the frames to bfloat16 whatever its weights' dtype
+    x = torch.as_tensor(frames, device=dev).to(L.DTYPE).to(w.dtype) @ w
     x = _add_positions(cfg, x, torch.arange(x.shape[1], device=dev))
     for lp in params["enc_blocks"]:
         h1 = L.apply_norm(cfg, lp["ln1"], x)

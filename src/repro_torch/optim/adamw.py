@@ -4,6 +4,7 @@ Functional API (no optimizer classes), as ``repro.optim.adamw``:
 
     state = init(params, cfg)
     new_params, new_state, metrics = update(grads, state, params, lr, cfg)
+    params, state, metrics = update_(grads, state, params, lr, cfg)
 
 ``params`` is the port's parameter tree (nested dicts and lists of
 tensors); the state is ``{"step": int32 0-dim, "m", "v", "master"}`` with
@@ -18,7 +19,10 @@ would be float64 and round differently), and the clip scale, the moments
 and the update follow the reference's expression order.  ``update`` runs
 them leaf by leaf, so besides the old and new state it holds one leaf's
 temporaries at a time, not a float32 tree of each (the scaled gradient,
-the moments' terms).
+the moments' terms).  ``update_`` writes the new moments, master weights
+and parameters into the given state's and parameters' tensors and returns
+those trees: a step then holds one state (14 bytes a parameter), not two
+(28).  ``update`` is ``update_`` on copies, so the two give the same bits.
 """
 
 from __future__ import annotations
@@ -27,9 +31,9 @@ import dataclasses
 
 import torch
 
-from ..tree import tree_leaves, tree_map, tree_unflatten
+from ..tree import tree_leaves, tree_map
 
-__all__ = ["AdamWConfig", "init", "update", "global_norm"]
+__all__ = ["AdamWConfig", "init", "update", "update_", "global_norm"]
 
 F32 = torch.float32
 
@@ -64,7 +68,17 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def update(grads, state, params, lr, cfg: AdamWConfig = AdamWConfig()):
-    """Returns (new_params, new_state, metrics)."""
+    """Returns (new_params, new_state, metrics), leaving ``state`` and
+    ``params`` as they were: :func:`update_` on copies of them."""
+    copy = lambda t: t.detach().clone()  # noqa: E731
+    return update_(grads, tree_map(copy, state), tree_map(copy, params), lr,
+                   cfg)
+
+
+def update_(grads, state, params, lr, cfg: AdamWConfig = AdamWConfig()):
+    """Updates the state's moments and master weights and the parameters in
+    their own tensors; returns (params, new_state, metrics), the new state
+    holding those tensors and the next step."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
@@ -78,19 +92,25 @@ def update(grads, state, params, lr, cfg: AdamWConfig = AdamWConfig()):
 
     def leaf(g, m_, v_, p32, p):
         g = g.to(F32) * scale
-        m_ = b1 * m_ + (1 - b1) * g
-        v_ = b2 * v_ + (1 - b2) * g * g
+        m_.mul_(b1).add_((1 - b1) * g)
+        v_.mul_(b2).add_((1 - b2) * g * g)
+        # each temporary is freed once used: an embedding leaf can hold 1 G
+        # elements, 4 GB a float32 temporary
         u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + cfg.eps)
-        p32 = p32.to(F32)
-        p32 = p32 - lr * (u + cfg.weight_decay * p32)
-        return m_, v_, p32, p32.to(p.dtype)
+        del g
+        step_ = lr * (u + cfg.weight_decay * p32.to(F32))
+        del u
+        if p32.dtype == F32:
+            p32.sub_(step_)
+        else:  # bf16 parameters without a master: the step in float32
+            p32 = p32.to(F32) - step_
+        p.copy_(p32)
 
-    outs = [leaf(*args) for args in zip(
-        tree_leaves(grads), tree_leaves(state["m"]), tree_leaves(state["v"]),
-        tree_leaves(ref), tree_leaves(params))]
-    m, v, new_master, new_params = (tree_unflatten(params, list(col))
-                                    for col in zip(*outs))
-    new_state = {"step": step, "m": m, "v": v}
+    for args in zip(tree_leaves(grads), tree_leaves(state["m"]),
+                    tree_leaves(state["v"]), tree_leaves(ref),
+                    tree_leaves(params)):
+        leaf(*args)
+    new_state = {"step": step, "m": state["m"], "v": state["v"]}
     if cfg.master_fp32:
-        new_state["master"] = new_master
-    return new_params, new_state, {"grad_norm": gnorm, "clip_scale": scale}
+        new_state["master"] = state["master"]
+    return params, new_state, {"grad_norm": gnorm, "clip_scale": scale}

@@ -34,8 +34,9 @@ shared, dense layer 0), with the configs of all ten architectures.
   differ must be a near-tie, a margin below 1e-2 between the reference's
   k-th and (k+1)-th probability.  ``apply_moe``'s own routing is held
   above.
-* The device rule, and ``train_loss`` and ``Trainer`` refusing the four
-  new families, naming each.
+* The device rule, and ``train_loss`` and ``Trainer.step`` running on
+  the four families (their training is held against the reference in
+  ``tests/test_torch_train_families.py``).
 """
 
 import dataclasses
@@ -343,10 +344,12 @@ def test_device_rule_and_no_training(arch):
             init_params(torch.Generator(), cfg)
     params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     assert next(iter(params["embed"].values())).device.type == "cpu"
-    batch = {"tokens": torch.zeros((1, 16), dtype=torch.long),
-             "labels": torch.zeros((1, 16), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        train_loss(cfg, params, batch)
-    trainer = Trainer(TrainerConfig(arch=arch, steps=1), device="cpu")
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        trainer.step(0)
+    trainer = Trainer(TrainerConfig(arch=arch, steps=1, seq_len=32,
+                                    global_batch=8), device="cpu")
+    batch = trainer._device_batch(trainer.pipeline.batch_for(0, 0, 4))
+    loss, met = train_loss(cfg, params, batch)
+    assert loss.dtype == torch.float32 and bool(torch.isfinite(loss))
+    assert (float(met["aux"]) > 0) == (cfg.family == "moe")
+    step_loss, completion, decision = trainer.step(0)
+    assert np.isfinite(step_loss) and np.isfinite(completion)
+    assert decision.kind == "ok" and int(trainer.opt_state["step"]) == 1

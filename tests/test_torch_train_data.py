@@ -55,12 +55,20 @@ def test_batch_shapes_match_reference(kind):
 
 
 def test_unported_families_raise():
-    import dataclasses
-
-    cfg = dataclasses.replace(reduced_config(get_config("qwen2-0.5b")),
-                              family="vlm")
-    with pytest.raises(NotImplementedError, match="vlm"):
-        make_batch_shapes(cfg, ShapeCell("t", 64, 4, "train"))
+    """Named when the port refused the audio and vlm batches; it now holds
+    that their shapes are the reference's, frames and patch embeddings
+    included, in every cell kind."""
+    for arch in ("whisper-medium", "internvl2-76b"):
+        for reduced in (True, False):
+            rcfg, cfg = ref_get_config(arch), get_config(arch)
+            if reduced:
+                rcfg, cfg = ref_reduced_config(rcfg), reduced_config(cfg)
+            for kind in ("train", "prefill", "decode"):
+                shapes = make_batch_shapes(cfg, ShapeCell("t", 512, 4, kind))
+                assert shapes == ref_make_batch_shapes(
+                    rcfg, RefShapeCell("t", 512, 4, kind))
+                assert list(shapes) == list(ref_make_batch_shapes(
+                    rcfg, RefShapeCell("t", 512, 4, kind)))
 
 
 @pytest.mark.parametrize("step", [0, 7, 1000])

@@ -325,7 +325,8 @@ def test_wrappers_without_backward_refuse_grad():
 def test_hybrid_training_is_not_ported():
     """Named when the port refused hybrid training; it now holds that it
     does not: ``train_loss`` of reduced zamba2 gives the reference's loss,
-    and only the families the port cannot build still raise."""
+    and only a family the port does not know raises (every one of the six
+    trains)."""
     rcfg, cfg, tree, batch = _case("zamba2-7b-4", None)
     params = params_from_reference(cfg, tree, device="cpu")
     loss, met = train_loss(cfg, params, _torch_batch(batch))
@@ -333,9 +334,9 @@ def test_hybrid_training_is_not_ported():
         jax.tree.map(jnp.asarray, tree), jax.tree.map(jnp.asarray, batch))
     assert abs(float(loss) - float(rloss)) <= LOSS_TOL
     assert float(met["aux"]) == 0.0
-    moe = dataclasses.replace(cfg, family="moe")
-    with pytest.raises(NotImplementedError, match="moe"):
-        train_loss(moe, params, _torch_batch(batch))
+    unknown = dataclasses.replace(cfg, family="rnn")
+    with pytest.raises(ValueError, match="rnn"):
+        train_loss(unknown, params, _torch_batch(batch))
 
 
 @pytest.mark.parametrize("n_micro", [1, 2])
