@@ -3212,10 +3212,9 @@ def main() -> int:
             leaves3, fdo), 5)
         tb_lib = cuda_ms(lambda: fwd_bwd(sdpa_t, st, sdo), 10)
         b_, sq_, hh_, hd_ = fq.shape
-        skv_ = fk.shape[1]
-        pairs = sq_ * (sq_ + 1) // 2 if causal else sq_ * skv_
-        t_flops = 4.0 * b_ * hh_ * hd_ * pairs
-        t_bytes = nbytes(fq, fk, fv) + fq.numel() * fq.element_size()
+        t_flops, t_bytes = FA.flash_attention_work(
+            b_, sq_, fk.shape[1], hh_, fk.shape[2], hd_, causal, 0,
+            fq.element_size())
         t_bound = max(t_flops / BF16_FLOP_PER_S,
                       t_bytes / HBM_BYTES_PER_S) * 1e3
         # backward: 5 products (QK^T again, dV, dP, dQ, dK) to the
@@ -3246,19 +3245,26 @@ def main() -> int:
               f"{tb_lib:.4f}, bound {tb_bound:.5f})")
         return row
 
+    step_rows: dict = {}  # a training path's rows a backward pass, by step
+
     def counted_run(tag, trainer):
         """``trainer.run()`` through its public loop, counting the distinct
-        batches' backward passes and timing each step (synchronised).
-        Returns (result, launches, wall s, backward passes, step walls,
-        tuner attempts, peak GB allocated)."""
+        batches' backward passes and timing each step (synchronised); each
+        step's backward passes' rows go to ``step_rows[tag]`` (the dryrun
+        phase's reckoning and FLOP count).  Returns (result, launches, wall
+        s, backward passes, step walls, tuner attempts, peak GB
+        allocated)."""
         grad_calls, step_walls = [0], []
+        rows = step_rows[tag] = []
         o_grad, o_step = trainer._grad_fn, trainer.step
 
         def counted_grad(params, batch):
             grad_calls[0] += 1
+            rows[-1].append(int(batch["tokens"].shape[0]))
             return o_grad(params, batch)
 
         def timed_step(i):
+            rows.append([])
             t0 = time.perf_counter()
             out = o_step(i)
             torch.cuda.synchronize()
@@ -3661,10 +3667,8 @@ def main() -> int:
             hs_plain = cuda_ms(lambda: scan_fwd(plain_scan, base), 5)
         hsb_ms = cuda_ms(lambda: fwd_bwd_scan(fn_scan), 5)
         hsb_plain = cuda_ms(lambda: fwd_bwd_scan(plain_scan), 5)
-        cl_h = SSD.effective_chunk(htc.seq_len, SSD.CHUNK)
-        hs_flops = (2.0 * hrows * n_hh * (htc.seq_len // cl_h)
-                    * (cl_h * cl_h * (sh_h.state_dim + sh_h.head_dim)
-                       + 2 * cl_h * sh_h.state_dim * sh_h.head_dim))
+        hs_flops = SSD.ssd_scan_work(hrows, htc.seq_len, n_hh, sh_h.n_groups,
+                                     sh_h.head_dim, sh_h.state_dim)[0]
         xv, bv, cv = scan_views(act)
         in_bytes = (xv.numel() + bv.numel() + cv.numel()) * 2 + nbytes(
             hdt, halog, hds)
@@ -4239,9 +4243,9 @@ def main() -> int:
         lib_ms, lib_dev = cuda_ms(sdpa, 20), device_ms(sdpa, 20)
         f_call = call_ms(lambda: FA.flash_attention(q, k, v, causal=True), 20)
         lib_call = call_ms(sdpa, 20)
-        pairs = SERVE_PROMPT * (SERVE_PROMPT + 1) // 2  # causal (q, k) pairs
-        flops = 4.0 * SERVE_BATCH * h * hd * pairs
-        f_bytes = nbytes(q, k, v) + q.numel() * q.element_size()  # + output
+        flops, f_bytes = FA.flash_attention_work(
+            SERVE_BATCH, SERVE_PROMPT, k.shape[1], h, k.shape[2], hd, True,
+            0, q.element_size())
         f_bound = max(flops / BF16_FLOP_PER_S, f_bytes / HBM_BYTES_PER_S) * 1e3
         f_by = ("operations" if flops / BF16_FLOP_PER_S
                 > f_bytes / HBM_BYTES_PER_S else "bytes")
@@ -4307,9 +4311,8 @@ def main() -> int:
         d_call = call_ms(lambda: DA.decode_attention(qd, kc, vc, cache_len),
                          50)
         d_lib_call = call_ms(sdpa_decode, 50)
-        d_flops = 4.0 * SERVE_BATCH * h * hd * cache_len
-        d_bytes = 2 * nbytes(qd) + 2 * (SERVE_BATCH * cache_len * kvh * hd
-                                        * kc.element_size())
+        d_flops, d_bytes = DA.decode_attention_work(
+            SERVE_BATCH, h, kvh, hd, cache_len, kc.element_size())
         d_bound = max(d_flops / BF16_FLOP_PER_S,
                       d_bytes / HBM_BYTES_PER_S) * 1e3
         d_by = ("operations" if d_flops / BF16_FLOP_PER_S
@@ -4387,9 +4390,8 @@ def main() -> int:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, is_causal=causal, enable_gqa=True)
-            pairs = sq * (sq + 1) // 2 if causal else sq * skv
-            flops = 4.0 * b * hh * hdd * pairs
-            fbytes = nbytes(q, k, v) + q.numel() * q.element_size()
+            flops, fbytes = FA.flash_attention_work(
+                b, sq, skv, hh, k.shape[2], hdd, causal, 0, q.element_size())
             flash = {"name": "flash_attention", "case": path, "head_dim": hdd,
                      "causal": causal, "shape": [list(q.shape), list(k.shape)],
                      **launches("flash_attention", path),
@@ -4431,9 +4433,8 @@ def main() -> int:
             k4, v4 = (t[:, :cl].transpose(1, 2).contiguous() for t in (kc, vc))
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q4, k4, v4, enable_gqa=True)
-            dflops = 4.0 * b * hh * hdd * cl
-            dbytes = 2 * nbytes(qd) + 2 * (b * cl * hkv * hdd
-                                           * kc.element_size())
+            dflops, dbytes = DA.decode_attention_work(
+                b, hh, hkv, hdd, cl, kc.element_size())
             decode = {"name": "decode_attention", "case": path,
                       "head_dim": hdd,
                       "shape": [list(qd.shape), list(kc.shape), cl],
@@ -4562,14 +4563,9 @@ def main() -> int:
         s_call = call_ms(fn, 20)
         s_plain = cuda_ms(
             lambda: SSD.ssd_scan_plain(sx, sdt, salog, sb, sc_, sd), 3)
-        y_out, st_out = fn()
-        # work at the reference's chunk (128): per (batch row, head, chunk)
-        # C B^T and the weighted x (2 cl^2 N + 2 cl^2 P), the chunk state and
-        # the inter-chunk product (4 cl N P)
-        cl = SSD.effective_chunk(s_len, SSD.CHUNK)
-        s_flops = (2.0 * bsz * n_h * (s_len // cl)
-                   * (cl * cl * (n_dim + p_dim) + 2 * cl * n_dim * p_dim))
-        s_bytes = nbytes(sx, sdt, salog, sb, sc_, sd, y_out, st_out)
+        # work at the reference's chunk (128): ssd_scan_work's formula
+        s_flops, s_bytes = SSD.ssd_scan_work(bsz, s_len, n_h, n_g, p_dim,
+                                             n_dim, sx.element_size())
         s_bound = max(s_flops / BF16_FLOP_PER_S,
                       s_bytes / HBM_BYTES_PER_S) * 1e3
         s_by = ("operations" if s_flops / BF16_FLOP_PER_S
@@ -4602,7 +4598,7 @@ def main() -> int:
                      "bound_fraction": s_rates["bound_fraction"],
                      "tflops": s_rates["tflops"], "gbps": s_rates["gbps"],
                      "max_abs_err_state_bf16": ssd_errs["bfloat16_state"]})
-        del sx, sdt, sb, sc_, y_out, st_out
+        del sx, sdt, sb, sc_
         # ssd_scan at train_hybrid's shape (measured in phase 6c): its forward,
         # and forward + backward through SsdScanFn
         rows[-1]["train"] = {**htrain_ssd_row,
@@ -4895,6 +4891,122 @@ def main() -> int:
     report["phases"]["train_families"] = ftrain_report
     report["phases"]["train_families_wall_s"] = ftrain_wall
     print(f"[train_families] phase 6e: {ftrain_wall:.1f} s")
+
+    # -- 8. dryrun: the port's dry-run, its reckoning, the paths' FLOPs --
+    _phase("dryrun")
+    import pathlib
+
+    from repro_torch.configs import ARCH_IDS, SHAPE_CELLS, ShapeCell
+    from repro_torch.launch.dryrun import run_cell, train_memory
+    from repro_torch.launch.specs import params_shapes
+    from repro_torch.models import active_params
+    from repro_torch.roofline import PEAK_FLOPS, count_step, model_flops
+
+    def at_depth(arch, depth):
+        cfg_ = get_config(arch)
+        return cfg_ if depth is None else dataclasses.replace(
+            cfg_, n_layers=depth)
+
+    phases_ = report["phases"]
+    train_paths = [("train", "qwen2-0.5b", None, TRAIN_CONFIG),
+                   ("train_hybrid", "zamba2-7b", HTRAIN_LAYERS,
+                    HTRAIN_CONFIG)]
+    train_paths += [(tag, arch, depth, fconf)
+                    for arch, tag, depth, fconf, _ in FAMILY_TRAIN]
+    prefill_paths = [("serve", "qwen2-0.5b", None, SERVE_BATCH, SERVE_PROMPT),
+                     ("serve_hybrid", "zamba2-7b", None, HYBRID_BATCH,
+                      HYBRID_PROMPT)]
+    prefill_paths += [
+        (tag, arch, depth, SERVE_BATCH,
+         SERVE_PROMPT + get_config(arch).n_patches)
+        for arch, tag, depth in DENSE_SERVE + FAMILY_SERVE]
+
+    t_dry = time.perf_counter()
+    dry_dir = pathlib.Path(ROOT, "chiprun_out", "torch_dryrun")
+    dry = [run_cell(a, c, False, dry_dir) for a in ARCH_IDS
+           for c in SHAPE_CELLS]
+    train_counts = {
+        (tag, r): count_step(at_depth(arch, depth), "train", r,
+                             conf["seq_len"])
+        for tag, arch, depth, conf in train_paths
+        for r in {r for st in step_rows[tag] for r in st}}
+    prefill_counts = {
+        tag: count_step(at_depth(arch, depth), "prefill", pb, positions)
+        for tag, arch, depth, pb, positions in prefill_paths}
+    ok_cells = [r for r in dry if r["status"] == "ok"]
+    fits = [r["cell"] for r in ok_cells if r["one_card"]["fits"]]
+    dry_report = {"counts_wall_s": time.perf_counter() - t_dry,
+                  "cells_ok": len(ok_cells), "cells": len(dry),
+                  "fit_one_card": fits, "reckoning": {}, "flop_share": {}}
+    print(f"[dryrun] {len(dry)} (arch, shape) pairs on the 16 x 16 mesh "
+          f"shape: {len(ok_cells)} counted, {len(dry) - len(ok_cells)} "
+          f"skipped (cell_supported); {len(fits)} fit one 80 GB card "
+          f"({fits}); reports in chiprun_out/torch_dryrun/; with the "
+          f"paths' counts {dry_report['counts_wall_s']:.1f} s on the host")
+
+    for tag, arch, depth, conf in train_paths:
+        rep = (phases_[tag] if tag in phases_
+               else phases_["train_families"][tag])
+        cfg_, seq = at_depth(arch, depth), conf["seq_len"]
+        steps_ = step_rows[tag]
+        calls = [r for st in steps_ for r in st]
+        counts = {r: train_counts[tag, r] for r in set(calls)}
+        # the reckoning at the most distinct batches one step computed,
+        # with the activations of its largest batch
+        n_dist = max(len(st) for st in steps_)
+        mem = train_memory(params_shapes(cfg_), n_dist,
+                           counts[max(calls)]["activation_bytes"])
+        peak, held = rep["peak_memory_gb"], rep["held_before_gb"]
+        reckoned = held + mem["peak_bytes"] / 1e9
+        flat = held + mem["reckoning_14_4_4"] / 1e9
+        dry_report["reckoning"][tag] = {
+            "peak_gb": peak, "reckoned_gb": reckoned,
+            "error_gb": reckoned - peak, "peak_phase": mem["peak_phase"],
+            "phases_gb": {k: held + v / 1e9
+                          for k, v in mem["phases"].items()},
+            "distinct_batches": n_dist, "held_before_gb": held,
+            "reckoning_14_4_4_gb": flat}
+        print(f"[dryrun] {tag} memory: peak {peak:.2f} GB measured; the "
+              f"dry-run reckons {reckoned:.2f} GB ({mem['peak_phase']}; "
+              f"{n_dist} distinct batches in a step, {held:.2f} GB held "
+              f"before), error {reckoned - peak:+.2f} GB; 14 + 4 n + 4 B a "
+              f"parameter there: {flat:.2f} GB ({flat - peak:+.2f})")
+        n_act = active_params(cfg_)
+        useful = sum(model_flops(cfg_, ShapeCell("t", seq, r, "train"),
+                                 n_act) for r in calls) / len(steps_)
+        counted = sum(counts[r]["flops"] for r in calls) / len(steps_)
+        wall = rep["median_step_s"]
+        dry_report["flop_share"][tag] = {
+            "model_flops_per_step": useful, "counted_flops_per_step": counted,
+            "median_step_s": wall,
+            "model_flops_share": useful / wall / PEAK_FLOPS,
+            "counted_flops_share": counted / wall / PEAK_FLOPS}
+        print(f"[dryrun] {tag} FLOPs: model {useful:.4g} a step (6 x "
+              f"{n_act:,} active parameters x the tokens of "
+              f"{len(calls) / len(steps_):.2f} distinct batches), counted "
+              f"{counted:.4g}; at the median step wall {wall:.4f} s "
+              f"{useful / wall / PEAK_FLOPS:.4f} of the bf16 peak (counted "
+              f"{counted / wall / PEAK_FLOPS:.4f})")
+
+    for tag, arch, depth, pb, positions in prefill_paths:
+        cfg_ = at_depth(arch, depth)
+        useful = model_flops(cfg_, ShapeCell("p", positions, pb, "prefill"),
+                             active_params(cfg_))
+        counted = prefill_counts[tag]["flops"]
+        wall = phases_[tag]["prefill_s"]
+        dry_report["flop_share"][tag] = {
+            "model_flops": useful, "counted_flops": counted,
+            "prefill_s": wall,
+            "model_flops_share": useful / wall / PEAK_FLOPS,
+            "counted_flops_share": counted / wall / PEAK_FLOPS}
+        print(f"[dryrun] {tag} prefill FLOPs ({cfg_.n_layers} layers, "
+              f"{pb} x {positions} positions): model {useful:.4g}, counted "
+              f"{counted:.4g}; at the measured {wall:.5f} s "
+              f"{useful / wall / PEAK_FLOPS:.4f} of the bf16 peak (counted "
+              f"{counted / wall / PEAK_FLOPS:.4f})")
+    dry_report["phase_wall_s"] = time.perf_counter() - t_dry
+    report["phases"]["dryrun"] = dry_report
+    print(f"[dryrun] phase 8: {dry_report['phase_wall_s']:.1f} s")
 
     report["kernels"] = rows
     report["kernel_shapes"] = extra_rows

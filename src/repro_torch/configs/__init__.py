@@ -5,7 +5,9 @@ from .base import (
     HybridConfig,
     MoEConfig,
     ShapeCell,
+    ShardingPolicy,
     SSMConfig,
+    cell_supported,
     get_config,
     reduced_config,
 )
@@ -18,6 +20,8 @@ __all__ = [
     "MoEConfig",
     "SSMConfig",
     "ShapeCell",
+    "ShardingPolicy",
+    "cell_supported",
     "get_config",
     "reduced_config",
 ]

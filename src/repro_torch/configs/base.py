@@ -3,9 +3,11 @@
 A config is pure data: the models read it.  This is the port's own copy of
 ``repro.configs.base.ArchConfig`` and its sub-configs (:class:`MoEConfig`,
 the Mamba-2 / xLSTM :class:`SSMConfig`, the Zamba :class:`HybridConfig`),
-of the shape cells (:class:`ShapeCell`, :data:`SHAPE_CELLS`), and of
-:func:`get_config` and :func:`reduced_config`.  The sharding policy and
-``cell_supported`` are not ported yet (they serve the pod dry-run).
+of the shape cells (:class:`ShapeCell`, :data:`SHAPE_CELLS`), of the
+sharding policy (:class:`ShardingPolicy`, which ``launch.policies``
+derives per arch, cell and mesh shape, and the placement trees and
+``launch.dryrun`` read), of :func:`cell_supported`, and of
+:func:`get_config` and :func:`reduced_config`.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ __all__ = [
     "ShapeCell",
     "SHAPE_CELLS",
     "ARCH_IDS",
+    "ShardingPolicy",
+    "cell_supported",
     "get_config",
     "reduced_config",
 ]
@@ -132,6 +136,39 @@ ARCH_IDS = (
     "zamba2-7b",
     "whisper-medium",
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingPolicy:
+    """How an arch maps onto a mesh of (data-parallel axes, model axis):
+    the reference's fields and defaults (derived per arch x cell x mesh
+    shape by ``launch.policies.auto_policy``)."""
+
+    dp_axes: tuple[str, ...] = ("data",)  # data-parallel mesh axes
+    model_axis: str = "model"
+    fsdp: bool = False  # shard params over dp_axes too (ZeRO-3 style)
+    seq_shard: bool = False  # Megatron-style sequence parallelism
+    attn_mode: Literal["heads", "head_dim"] = "heads"
+    # pad q-heads (zero weights) up to this count so the head dim divides
+    # the model axis; 0 = no padding
+    attn_pad_heads: int = 0
+    # under sequence parallelism, pin full-seq placement around the weight
+    # matmuls (inputs and cotangents) so weight gradients never all-reduce
+    # over the model axis
+    sp_weightgrad_fix: bool = False
+    shard_kv_heads: bool = True  # false when kv_heads % model_size != 0
+    shard_vocab: bool = True
+    remat: bool = True
+    num_microbatches: int = 1
+    # decode: place the KV cache's sequence dim over the dp axes
+    kv_seq_shard: bool = False
+
+
+def cell_supported(cfg: ArchConfig, cell: ShapeCell) -> tuple[bool, str]:
+    """Whether (arch x shape) is a runnable dry-run cell, and why not."""
+    if cell.name == "long_500k" and not cfg.subquadratic:
+        return False, "long_500k skipped: pure full-attention arch (DESIGN.md)"
+    return True, ""
 
 
 def get_config(arch_id: str) -> ArchConfig:

@@ -12,10 +12,16 @@ this host may have no ``nvcc``.  The launch counters live here too: each
 wrapper adds one to its kernel's count where it launches the kernel, and
 nowhere else.  :func:`refuse_grad` is the guard of every wrapper whose
 kernel has no backward.
+
+On a meta tensor (shapes only, ``launch.dryrun``) the attention and scan
+wrappers launch nothing and count nothing: they allocate their outputs on
+the meta device and, inside :func:`record_meta_work`, note the operations
+and bytes their kernel would do (:func:`note_meta_work`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -33,6 +39,8 @@ __all__ = [
     "launch_counts",
     "reset_launch_counts",
     "count_launch",
+    "record_meta_work",
+    "note_meta_work",
     "check",
     "refuse_grad",
     "stack_frames",
@@ -95,6 +103,28 @@ BUILD_SECONDS: dict[str, float] = {}
 
 def count_launch(name: str) -> None:
     _LAUNCHES[name] += 1
+
+
+_META_WORK: list = []
+
+
+@contextlib.contextmanager
+def record_meta_work():
+    """Collects, in the list it yields, one (kernel, operations, bytes) a
+    wrapper call on meta tensors while the block runs."""
+    work: list = []
+    _META_WORK.append(work)
+    try:
+        yield work
+    finally:
+        _META_WORK.remove(work)
+
+
+def note_meta_work(name: str, flops: float, nbytes: float) -> None:
+    """A wrapper's meta-tensor call: its kernel's work, to every open
+    :func:`record_meta_work` (nothing when none is open)."""
+    for work in _META_WORK:
+        work.append((name, float(flops), float(nbytes)))
 
 
 def launch_counts() -> dict[str, int]:

@@ -25,7 +25,8 @@ import torch
 from .. import _build
 from ..flash_attention.ops import DTYPES, HEAD_DIMS, NEG_INF, repeat_kv
 
-__all__ = ["decode_attention", "decode_attention_plain", "split_plan"]
+__all__ = ["decode_attention", "decode_attention_plain",
+           "decode_attention_work", "split_plan"]
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
 MAX_SPLITS = 8  # the portable thread-block cluster size
@@ -58,6 +59,17 @@ def split_plan(b: int, kv: int, d: int, cache_len: int) -> tuple[int, int]:
     n = max(1, min(MAX_SPLITS, _cdiv(SMS, b * kv), _cdiv(cache_len, min_len)))
     split_len = _cdiv(_cdiv(cache_len, n), SPLIT_ALIGN) * SPLIT_ALIGN
     return _cdiv(cache_len, split_len), split_len
+
+
+def decode_attention_work(b: int, h: int, kv: int, d: int, cache_len: int,
+                          itemsize: int = 2) -> tuple[float, float]:
+    """(operations, bytes) of one call: 4 d operations a head and cached
+    position, q read and the output written, and the first ``cache_len``
+    positions of K and V read once.  The bound of the kernel table and the
+    roofline's count of a call."""
+    flops = 4.0 * b * h * d * cache_len
+    nbytes = itemsize * (2 * b * h * d + 2 * b * cache_len * kv * d)
+    return flops, float(nbytes)
 
 
 def decode_attention_plain(q, k_cache, v_cache, cache_len: int) -> torch.Tensor:
@@ -111,6 +123,11 @@ def decode_attention(q, k_cache, v_cache, cache_len: int) -> torch.Tensor:
     dev = q.device
     if dev.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len)
+    if dev.type == "meta":
+        b, h, d = q.shape
+        _build.note_meta_work("decode_attention", *decode_attention_work(
+            b, h, k_cache.shape[2], d, cache_len, q.element_size()))
+        return torch.empty_like(q)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):

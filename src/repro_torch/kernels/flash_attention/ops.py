@@ -37,7 +37,7 @@ import torch
 from .. import _build
 
 __all__ = ["FlashAttentionFn", "flash_attention", "flash_attention_grad",
-           "flash_attention_plain", "repeat_kv"]
+           "flash_attention_plain", "flash_attention_work", "repeat_kv"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 112, 128)
@@ -51,6 +51,23 @@ def repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     if kv == n_heads:
         return k
     return k.repeat_interleave(n_heads // kv, dim=2)
+
+
+def flash_attention_work(b: int, sq: int, skv: int, h: int, kv: int, d: int,
+                         causal: bool, q_offset: int = 0,
+                         itemsize: int = 2) -> tuple[float, float]:
+    """(operations, bytes) of one forward call: 4 d operations a visible
+    (query, key) pair and head (Q K^T and P V; a causal call sees about
+    half the pairs), and q, k, v read once and the output written once.
+    The bound of the kernel table and the roofline's count of a call."""
+    if causal:
+        full = min(max(skv - q_offset, 0), sq)  # rows that stop before skv
+        pairs = full * q_offset + full * (full + 1) // 2 + (sq - full) * skv
+    else:
+        pairs = sq * skv
+    flops = 4.0 * b * h * d * pairs
+    nbytes = itemsize * (2 * b * sq * h * d + 2 * b * skv * kv * d)
+    return flops, float(nbytes)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -109,11 +126,18 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 def _attend(q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
-    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+    """The kernel on a CUDA tensor, the plain version on a CPU one; on a
+    meta tensor only the output's shape, and the kernel's work noted."""
     _check(q, k, v, q_offset)
     dev = q.device
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
+    if dev.type == "meta":
+        b, sq, h, d = q.shape
+        _build.note_meta_work("flash_attention", *flash_attention_work(
+            b, sq, k.shape[1], h, k.shape[2], d, causal, q_offset,
+            q.element_size()))
+        return torch.empty_like(q)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     for name, t in (("q", q), ("k", k), ("v", v)):

@@ -45,7 +45,8 @@ import torch
 from .. import _build
 
 __all__ = ["CHUNK", "SsdScanFn", "effective_chunk", "expand_groups",
-           "ssd_scan", "ssd_scan_grad", "ssd_scan_plain", "ssd_sequential"]
+           "ssd_scan", "ssd_scan_grad", "ssd_scan_plain", "ssd_scan_work",
+           "ssd_sequential"]
 
 CHUNK = 128  # the reference's default chunk (zamba2's SSMConfig.chunk)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,6 +83,25 @@ def effective_chunk(s: int, chunk: int = CHUNK) -> int:
     """The reference model's chunk rule (``apply_mamba2_block``)."""
     eff = min(chunk, s)
     return s if s % eff else eff
+
+
+def ssd_scan_work(bs: int, s: int, h: int, g: int, p: int, n: int,
+                  itemsize: int = 2, initial_state: bool = False,
+                  chunk: int = CHUNK) -> tuple[float, float]:
+    """(operations, bytes) of one call, at the reference's chunk rule
+    (:func:`effective_chunk`): a (batch row, head, chunk) forms C B^T and
+    the weighted x (2 cl^2 N + 2 cl^2 P), the chunk state and the
+    inter-chunk product (4 cl N P); x, b and c read once in their dtype,
+    dt (float32), a_log and d_skip, the initial state if given, y written
+    in x's dtype and the float32 final state.  The bound of the kernel
+    table and the roofline's count of a call."""
+    cl = effective_chunk(s, chunk)
+    flops = (2.0 * bs * h * (s // cl)
+             * (cl * cl * (n + p) + 2 * cl * n * p))
+    state = bs * h * n * p * 4
+    nbytes = (itemsize * (2 * bs * s * h * p + 2 * bs * s * g * n)
+              + 4 * (bs * s * h + 2 * h) + state * (2 if initial_state else 1))
+    return flops, float(nbytes)
 
 
 def ssd_scan_plain(x, dt, a_log, b, c, d_skip, initial_state=None,
@@ -208,13 +228,19 @@ def _scan(x, dt, a_log, b, c, d_skip, initial_state, chunk: int):
     if dev.type == "cpu":
         return ssd_scan_plain(x, dt, a_log, b, c, d_skip, initial_state,
                               chunk)
+    bs, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    if dev.type == "meta":
+        _build.note_meta_work("ssd_scan", *ssd_scan_work(
+            bs, s, h, g, p, n, x.element_size(), initial_state is not None,
+            chunk))
+        return (torch.empty(x.shape, dtype=x.dtype, device=dev),
+                torch.empty((bs, h, n, p), dtype=torch.float32, device=dev))
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     for name, t in (("x", x), ("b", b), ("c", c)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    bs, s, h, p = x.shape
-    g, n = b.shape[2], b.shape[3]
     lib = _build.load("ssd_scan")
     y = torch.empty(x.shape, dtype=x.dtype, device=dev)
     state = torch.empty((bs, h, n, p), dtype=torch.float32, device=dev)

@@ -5,8 +5,14 @@ parameters and activations are bfloat16 (:data:`DTYPE`), norms, RoPE and
 the softmax run in float32, and each projection keeps the reference's
 einsum layout (wq (d, H, hd), wk and wv (d, KV, hd), wo (H, hd, d)).  A
 projection is a plain ``torch.matmul`` on the flattened weight.  The
-sharding specs and the functional head padding of the reference wait for
-the distributed slice.
+functional head padding of the reference is not ported: one card holds
+every head.
+
+``*_specs`` give each parameter's placement on a production mesh under a
+``ShardingPolicy``: a tuple with one entry per tensor dim, each ``None``,
+an axis name or a tuple of axis names (a ``PartitionSpec``'s contents),
+in the parameter tree's layout.  The port's models do not read them on
+one card; ``launch.specs`` and ``launch.dryrun`` do.
 
 ``init_*`` draw from an explicit ``torch.Generator`` with the reference's
 shapes and scales (normal * fan_in^-0.5, embeddings * 0.02, biases zero,
@@ -22,22 +28,26 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShardingPolicy
 
 __all__ = [
     "DTYPE",
     "init_norm",
+    "norm_specs",
     "apply_norm",
     "rope_freqs",
     "apply_rope",
     "rope_tables",
     "rotate",
     "init_attention",
+    "attention_specs",
     "qkv_project",
     "attn_out",
     "init_mlp",
+    "mlp_specs",
     "apply_mlp",
     "init_embedding",
+    "embedding_specs",
     "embed_tokens",
     "unembed",
     "softmax_xent",
@@ -48,7 +58,14 @@ DTYPE = torch.bfloat16
 
 def _normal(gen: torch.Generator, shape, scale: float,
             device: torch.device) -> torch.Tensor:
+    if torch.device(device).type == "meta":  # shapes only (dry-run counts)
+        return torch.empty(shape, dtype=DTYPE, device=device)
     return (torch.randn(shape, generator=gen, device=device) * scale).to(DTYPE)
+
+
+def _dp(policy: ShardingPolicy):
+    """The axes parameters are FSDP-placed over, or None."""
+    return policy.dp_axes if policy.fsdp else None
 
 
 # ---------------------------------------------------------------------------
@@ -60,6 +77,13 @@ def init_norm(cfg: ArchConfig, device, d: Optional[int] = None):
     p = {"scale": torch.ones((d,), dtype=DTYPE, device=device)}
     if cfg.norm == "layernorm":
         p["bias"] = torch.zeros((d,), dtype=DTYPE, device=device)
+    return p
+
+
+def norm_specs(cfg: ArchConfig):
+    p = {"scale": (None,)}
+    if cfg.norm == "layernorm":
+        p["bias"] = (None,)
     return p
 
 
@@ -133,6 +157,30 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, device,
     return p
 
 
+def attention_specs(cfg: ArchConfig, policy: ShardingPolicy):
+    m = policy.model_axis
+    dp = _dp(policy)
+    if policy.attn_mode == "heads":
+        # padded-head mode: the parameters' head count does not divide the
+        # axis, so the weights stay whole on heads (the padded activation
+        # is placed)
+        h_ax = None if policy.attn_pad_heads else m
+        kv_ax = m if policy.shard_kv_heads else None
+        q_spec, kv_spec, o_spec = (dp, h_ax, None), (dp, kv_ax, None), (
+            h_ax, None, dp)
+        bq, bkv = (h_ax, None), (kv_ax, None)
+    else:  # head_dim placement (e.g. qwen2-0.5b: 14 heads, 16-way axis)
+        q_spec = kv_spec = (dp, None, m)
+        o_spec = (None, m, dp)
+        bq = bkv = (None, m)
+    p = {"wq": q_spec, "wk": kv_spec, "wv": kv_spec, "wo": o_spec}
+    if cfg.qkv_bias:
+        p["bq"], p["bk"], p["bv"] = bq, bkv, bkv
+    if cfg.attn_out_bias:
+        p["bo"] = (None,)
+    return p
+
+
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum('bsd,dhk->bshk') as one matmul on the flattened weight."""
     d, heads, hd = w.shape
@@ -191,6 +239,19 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig, device,
     return p
 
 
+def mlp_specs(cfg: ArchConfig, policy: ShardingPolicy):
+    m = policy.model_axis
+    dp = _dp(policy)
+    if cfg.activation == "swiglu":
+        p = {"wi_gate": (dp, m), "wi_up": (dp, m), "wo": (m, dp)}
+    else:
+        p = {"wi_up": (dp, m), "wo": (m, dp)}
+    if cfg.mlp_bias:
+        p["bi"] = (m,)
+        p["bo"] = (None,)
+    return p
+
+
 def apply_mlp(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
     if cfg.activation == "swiglu":
         g = x @ params["wi_gate"]
@@ -216,6 +277,15 @@ def init_embedding(gen: torch.Generator, cfg: ArchConfig, device):
     if not cfg.tie_embeddings:
         p["unembed"] = _normal(gen, (cfg.d_model, cfg.vocab_size),
                                cfg.d_model ** -0.5, device)
+    return p
+
+
+def embedding_specs(cfg: ArchConfig, policy: ShardingPolicy):
+    m = policy.model_axis if policy.shard_vocab else None
+    dp = _dp(policy)
+    p = {"tokens": (m, dp)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = (dp, m)
     return p
 
 

@@ -1,12 +1,14 @@
 """Model API of the port, over all ten architectures.
 
     params          = init_params(generator, cfg, device)
+    specs           = param_specs(cfg, policy)   # placements, same layout
     loss, metrics   = train_loss(cfg, params, batch)
     logits, state   = prefill(cfg, params, batch, max_len)
     logits, state   = decode_step(cfg, params, state, token, cache_len)
 
-As ``repro.models.lm`` without the ``Shard`` argument (the port runs on
-one device until the distributed slice).  ``params`` is a dict; the
+As ``repro.models.lm`` without the ``Shard`` argument (a model runs on
+one card; ``models.sharding.Shard`` gives the placements the reference's
+hooks would apply, and the models do not call it).  ``params`` is a dict; the
 reference's blocks, stacked on leading axes by ``vmap``, are lists here,
 one dict per block:
 
@@ -20,6 +22,16 @@ one dict per block:
   "slstm_blocks": [block per segment], "mlstm_trailing"``
   (``models.xlstm``; :func:`_xlstm_layout`);
 * audio (whisper): ``models.whisper.init_whisper``'s tree.
+
+:func:`param_specs` and :func:`decode_state_specs` are the placement
+trees of the parameters and of the decode state on a production mesh
+under a ``ShardingPolicy``: the reference's ``PartitionSpec`` trees with
+each spec a tuple of its entries (``None``, an axis name or a tuple of
+them), in the port's layout.  Where the reference stacks blocks on
+leading dims (unplaced, ``P(None, *spec)``), the port's list holds each
+block's own spec.  The decode state keeps the reference's stacked layout,
+so its placements are the reference's.  The models do not read them on one
+card (``launch.specs``, ``launch.dryrun``).
 
 The decode state keeps the reference's layout: dense, vlm and moe
 ``{"k", "v"}`` (L, b, max_len, KV, hd) bfloat16 (moe's dense layer 0 holds
@@ -48,11 +60,12 @@ the port keeps every layer's activations.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShardingPolicy
 from ..device import resolve_device
 from . import layers as L
 from . import moe as M
@@ -63,10 +76,13 @@ from . import zamba as Z
 
 __all__ = [
     "init_params",
+    "param_specs",
     "params_to",
     "count_params",
     "active_params",
     "init_decode_state",
+    "decode_state_shapes",
+    "decode_state_specs",
     "train_loss",
     "prefill",
     "decode_step",
@@ -135,6 +151,37 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, device=None):
     return _build(generator, cfg, resolve_device(device))
 
 
+def param_specs(cfg: ArchConfig, policy: ShardingPolicy):
+    """The placement tree of :func:`init_params`'s tree (the module's
+    docstring)."""
+    if cfg.family == "audio":
+        return W.whisper_specs(cfg, policy)
+    p = {"embed": L.embedding_specs(cfg, policy)}
+    if cfg.family == "vlm":
+        p["projector"] = {"w": (None, L._dp(policy))}
+    if cfg.family in ("dense", "vlm"):
+        p["blocks"] = [T.block_specs(cfg, policy)] * cfg.n_layers
+    elif cfg.family == "moe":
+        if cfg.moe.first_layer_dense:
+            p["dense_block"] = T.block_specs(cfg, policy)
+        p["blocks"] = ([M.moe_block_specs(cfg, policy)]
+                       * (cfg.n_layers - _n_dense(cfg)))
+    elif cfg.family == "ssm":
+        n_seg, m_per, trailing = _xlstm_layout(cfg)
+        ms = X.mlstm_block_specs(cfg, policy)
+        if n_seg:
+            p["mlstm_segments"] = [[ms] * m_per for _ in range(n_seg)]
+            p["slstm_blocks"] = [X.slstm_block_specs(cfg, policy)] * n_seg
+        if trailing:
+            p["mlstm_trailing"] = [ms] * trailing
+    elif cfg.family == "hybrid":
+        p.update(Z.zamba_specs(cfg, policy))
+    else:
+        raise ValueError(f"unknown family {cfg.family}")
+    p["final_norm"] = L.norm_specs(cfg)
+    return p
+
+
 def params_to(params, device):
     """The same parameter tree with every tensor moved to ``device``."""
     if isinstance(params, dict):
@@ -146,15 +193,21 @@ def params_to(params, device):
 
 def count_params(params) -> int:
     """Elements of a parameter tree; given an ``ArchConfig``, of its tree
-    at full size, built on the meta device (nothing is allocated)."""
+    at full size, built on the meta device (nothing is allocated), once a
+    config."""
     if isinstance(params, ArchConfig):
-        params.validate()
-        params = _build(None, params, torch.device("meta"))
+        return _full_size_count(params)
     if isinstance(params, dict):
         return sum(count_params(v) for v in params.values())
     if isinstance(params, list):
         return sum(count_params(v) for v in params)
     return params.numel()
+
+
+@functools.lru_cache(maxsize=None)
+def _full_size_count(cfg: ArchConfig) -> int:
+    cfg.validate()
+    return count_params(_build(None, cfg, torch.device("meta")))
 
 
 def active_params(cfg: ArchConfig) -> int:
@@ -283,18 +336,78 @@ def decode_state_shapes(cfg: ArchConfig, batch: int, max_len: int):
                 out[f"t_{k}"] = ((trailing,) + m[k],
                                  bf16 if k == "conv" else f32)
         return out
+    if cfg.family == "hybrid":
+        return {k: (v, Z.STATE_DTYPES[k]) for k, v in
+                Z.zamba_decode_state_shape(cfg, batch, max_len).items()}
     if cfg.family == "audio":
         return {k: (v, bf16) for k, v in
                 W.whisper_cache_shape(cfg, batch, max_len).items()}
     raise ValueError(cfg.family)
 
 
+def decode_state_specs(cfg: ArchConfig, policy: ShardingPolicy,
+                       batch_shardable: bool = True):
+    """The placement tree of :func:`decode_state_shapes`' state.
+    ``batch_shardable=False`` (long_500k's batch of 1): the batch dim is
+    whole and long-context caches place their seq dim over dp instead."""
+    dp = policy.dp_axes if batch_shardable else None
+    m = policy.model_axis
+    kv_m = m if policy.shard_kv_heads else None
+    if policy.kv_seq_shard and not batch_shardable:
+        kv_spec = (None, None, policy.dp_axes, kv_m, None)
+    elif policy.kv_seq_shard:
+        kv_spec = (None, dp, m, None, None)
+    else:
+        kv_spec = (None, dp, None, kv_m, None)
+    if cfg.family in ("dense", "vlm", "moe"):
+        return {"k": kv_spec, "v": kv_spec}
+    if cfg.family == "ssm":
+        n_seg, _, trailing = _xlstm_layout(cfg)
+        out = {}
+        # mLSTM state: dv over model (the heads are few)
+        if n_seg:
+            out.update(m_c=(None, None, dp, None, None, m),
+                       m_n=(None, None, dp, None, None),
+                       m_m=(None, None, dp, None),
+                       m_conv=(None, None, dp, None, m))
+            for k in ("s_c", "s_n", "s_m", "s_h"):
+                out[k] = (None, dp, None, m)
+        if trailing:
+            out.update(t_c=(None, dp, None, None, m), t_n=(None, dp, None, None),
+                       t_m=(None, dp, None), t_conv=(None, dp, None, m))
+        return out
+    if cfg.family == "hybrid":
+        if policy.kv_seq_shard and not batch_shardable:
+            att = (None, None, policy.dp_axes, m, None)
+        elif policy.kv_seq_shard:
+            att = (None, dp, m, None, None)
+        else:
+            att = (None, dp, None, m, None)
+        return {
+            "seg_ssm": (None, None, dp, m, None, None),
+            "seg_conv": (None, None, dp, None, m),
+            "attn_k": att,
+            "attn_v": att,
+            "trail_ssm": (None, dp, m, None, None),
+            "trail_conv": (None, dp, None, m),
+        }
+    if cfg.family == "audio":
+        kv2 = ((None, dp, m, None, None) if policy.kv_seq_shard
+               else (None, dp, None, m, None))
+        return {k: kv2 for k in ("self_k", "self_v", "cross_k", "cross_v")}
+    raise ValueError(cfg.family)
+
+
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, device=None):
     """Zero decode state in the reference's layout (the module's
-    docstring); hybrid: ``zamba.init_zamba_decode_state``."""
-    dev = resolve_device(device)
-    if cfg.family == "hybrid":
-        return Z.init_zamba_decode_state(cfg, batch, max_len, dev)
+    docstring)."""
+    return _zero_state(cfg, batch, max_len, resolve_device(device))
+
+
+def _zero_state(cfg: ArchConfig, batch: int, max_len: int,
+                dev: torch.device):
+    """The zero decode state on ``dev`` (the parameters' device: the
+    meta device too, for the dry-run's count)."""
     return {k: torch.zeros(shape, dtype=dt, device=dev)
             for k, (shape, dt) in decode_state_shapes(cfg, batch,
                                                       max_len).items()}
@@ -341,7 +454,7 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int):
     b, s, _ = x.shape
     if s > max_len:
         raise ValueError(f"prompt of {s} positions exceeds max_len {max_len}")
-    state = init_decode_state(cfg, b, max_len, dev)
+    state = _zero_state(cfg, b, max_len, dev)
     rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     if cfg.family == "hybrid":
         x = Z.apply_zamba_prefill(cfg, params, x, rope, state)

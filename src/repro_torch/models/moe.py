@@ -49,12 +49,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..configs.base import ArchConfig, MoEConfig
+from ..configs.base import ArchConfig, MoEConfig, ShardingPolicy
 from . import layers as L
 from . import transformer as T
 
-__all__ = ["router_capacity", "init_moe", "apply_moe", "init_moe_block",
-           "apply_moe_block", "apply_moe_block_decode"]
+__all__ = ["router_capacity", "init_moe", "moe_specs", "apply_moe",
+           "init_moe_block", "moe_block_specs", "apply_moe_block",
+           "apply_moe_block_decode"]
 
 
 def router_capacity(moe: MoEConfig, n_tokens: int) -> int:
@@ -79,6 +80,22 @@ def init_moe(gen: torch.Generator, cfg: ArchConfig, device):
     if moe.n_shared > 0:
         p["shared"] = L.init_mlp(gen, cfg, device,
                                  d_ff=moe.n_shared * moe.d_expert)
+    return p
+
+
+def moe_specs(cfg: ArchConfig, policy: ShardingPolicy):
+    """Experts over the model axis (expert parallelism), their d_model dim
+    over dp under FSDP; the router whole."""
+    m = policy.model_axis
+    dp = L._dp(policy)
+    p = {
+        "router": (None, None),
+        "wi_gate": (m, dp, None),
+        "wi_up": (m, dp, None),
+        "wo": (m, None, dp),
+    }
+    if cfg.moe.n_shared > 0:
+        p["shared"] = L.mlp_specs(cfg, policy)
     return p
 
 
@@ -165,6 +182,15 @@ def init_moe_block(gen: torch.Generator, cfg: ArchConfig, device):
         "attn": L.init_attention(gen, cfg, device),
         "ln2": L.init_norm(cfg, device),
         "moe": init_moe(gen, cfg, device),
+    }
+
+
+def moe_block_specs(cfg: ArchConfig, policy: ShardingPolicy):
+    return {
+        "ln1": L.norm_specs(cfg),
+        "attn": L.attention_specs(cfg, policy),
+        "ln2": L.norm_specs(cfg),
+        "moe": moe_specs(cfg, policy),
     }
 
 

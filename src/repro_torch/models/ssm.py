@@ -28,7 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShardingPolicy
 from ..kernels.ssm_scan.ops import SsdScanFn, expand_groups, ssd_scan
 from . import layers as L
 
@@ -36,6 +36,7 @@ __all__ = [
     "ssd_decode_step",
     "mamba2_state_shape",
     "init_mamba2_block",
+    "mamba2_block_specs",
     "apply_mamba2_block",
     "apply_mamba2_decode",
 ]
@@ -96,6 +97,22 @@ def init_mamba2_block(gen: torch.Generator, cfg: ArchConfig, device):
         "gate_ln": {"scale": torch.ones((d_inner,), dtype=L.DTYPE,
                                         device=device)},
         "out_proj": L._normal(gen, (d_inner, d), d_inner ** -0.5, device),
+    }
+
+
+def mamba2_block_specs(cfg: ArchConfig, policy: ShardingPolicy):
+    m = policy.model_axis
+    dp = L._dp(policy)
+    return {
+        "ln": L.norm_specs(cfg),
+        "in_proj": (dp, m),
+        "conv_w": (None, m),
+        "conv_b": (m,),
+        "a_log": (m,),
+        "d_skip": (m,),
+        "dt_bias": (m,),
+        "gate_ln": {"scale": (m,)},
+        "out_proj": (m, dp),
     }
 
 

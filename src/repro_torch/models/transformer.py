@@ -18,13 +18,14 @@ from __future__ import annotations
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShardingPolicy
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import FlashAttentionFn, flash_attention
 from . import layers as L
 
 __all__ = [
     "init_block",
+    "block_specs",
     "apply_block",
     "apply_block_decode",
     "prefill_attend",
@@ -83,6 +84,17 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, device):
     }
     if not cfg.parallel_block:
         p["ln2"] = L.init_norm(cfg, device)
+    return p
+
+
+def block_specs(cfg: ArchConfig, policy: ShardingPolicy):
+    p = {
+        "ln1": L.norm_specs(cfg),
+        "attn": L.attention_specs(cfg, policy),
+        "mlp": L.mlp_specs(cfg, policy),
+    }
+    if not cfg.parallel_block:
+        p["ln2"] = L.norm_specs(cfg)
     return p
 
 

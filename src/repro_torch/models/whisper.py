@@ -33,12 +33,13 @@ import math
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShardingPolicy
 from . import layers as L
 from . import transformer as T
 
 __all__ = [
     "init_whisper",
+    "whisper_specs",
     "encode",
     "decode_train",
     "whisper_cache_shape",
@@ -78,6 +79,27 @@ def init_whisper(gen: torch.Generator, cfg: ArchConfig, device):
         "dec_blocks": [init_dec_block(gen, cfg, device)
                        for _ in range(cfg.n_layers)],
         "dec_norm": L.init_norm(cfg, device),
+    }
+
+
+def dec_block_specs(cfg: ArchConfig, policy: ShardingPolicy):
+    p = T.block_specs(cfg, policy)
+    p["ln_cross"] = L.norm_specs(cfg)
+    p["cross"] = L.attention_specs(cfg, policy)
+    return p
+
+
+def whisper_specs(cfg: ArchConfig, policy: ShardingPolicy):
+    """The placement tree of :func:`init_whisper`'s layout (the reference
+    stacks each stack's blocks on one unplaced leading dim)."""
+    enc, dec = T.block_specs(cfg, policy), dec_block_specs(cfg, policy)
+    return {
+        "frontend": (None, L._dp(policy)),
+        "embed": L.embedding_specs(cfg, policy),
+        "enc_blocks": [enc] * cfg.n_layers,
+        "enc_norm": L.norm_specs(cfg),
+        "dec_blocks": [dec] * cfg.n_layers,
+        "dec_norm": L.norm_specs(cfg),
     }
 
 

@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShardingPolicy
 from . import layers as L
 from .ssm import _causal_depthwise_conv
 
@@ -37,10 +37,12 @@ __all__ = [
     "mlstm_decode_step",
     "mlstm_state_shape",
     "init_mlstm_block",
+    "mlstm_block_specs",
     "apply_mlstm_block",
     "apply_mlstm_decode",
     "slstm_state_shape",
     "init_slstm_block",
+    "slstm_block_specs",
     "apply_slstm_block",
     "apply_slstm_decode",
 ]
@@ -210,6 +212,27 @@ def init_mlstm_block(gen: torch.Generator, cfg: ArchConfig, device):
     }
 
 
+def mlstm_block_specs(cfg: ArchConfig, policy: ShardingPolicy):
+    """The projections' d_inner dim over model (4 heads do not cover a
+    16-way axis)."""
+    m = policy.model_axis
+    dp = L._dp(policy)
+    return {
+        "ln": L.norm_specs(cfg),
+        "w_up": (dp, m),
+        "w_z": (dp, m),
+        "conv_w": (None, m),
+        "conv_b": (m,),
+        "w_q": (m, None, None),
+        "w_k": (m, None, None),
+        "w_v": (m, None, None),
+        "w_if": (m, None, None),
+        "b_if": (None, None),
+        "head_ln": {"scale": (None, None)},
+        "w_out": (m, dp),
+    }
+
+
 def _head_rmsnorm(x, scale):
     """Per-head RMSNorm over the value dim.  x: (..., H, DV)."""
     xf = x.float()
@@ -300,6 +323,19 @@ def init_slstm_block(gen: torch.Generator, cfg: ArchConfig, device):
         "head_ln": {"scale": torch.ones((h, dh), dtype=L.DTYPE,
                                         device=device)},
         "w_out": L._normal(gen, (d, d), d ** -0.5, device),
+    }
+
+
+def slstm_block_specs(cfg: ArchConfig, policy: ShardingPolicy):
+    m = policy.model_axis
+    dp = L._dp(policy)
+    return {
+        "ln": L.norm_specs(cfg),
+        "w_in": (dp, None, None, m),
+        "r": (None, None, None, m),
+        "b": (None, None, m),
+        "head_ln": {"scale": (None, m)},
+        "w_out": (dp, m),
     }
 
 

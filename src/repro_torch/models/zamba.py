@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShardingPolicy
 from . import layers as L
 from . import ssm
 from . import transformer as T
@@ -39,10 +39,10 @@ from . import transformer as T
 __all__ = [
     "segment_layout",
     "init_zamba",
+    "zamba_specs",
     "apply_zamba",
     "apply_zamba_prefill",
     "zamba_decode_state_shape",
-    "init_zamba_decode_state",
     "apply_zamba_decode",
 ]
 
@@ -73,6 +73,22 @@ def init_zamba(gen: torch.Generator, cfg: ArchConfig, device):
     return p
 
 
+def zamba_specs(cfg: ArchConfig, policy: ShardingPolicy):
+    """The placement tree of :func:`init_zamba`'s layout: every Mamba-2
+    block's is ``ssm.mamba2_block_specs`` (the reference stacks the blocks
+    on two leading dims, segment and block, or one for the trailing ones,
+    each unplaced)."""
+    n_seg, seg, trailing = segment_layout(cfg)
+    mspec = ssm.mamba2_block_specs(cfg, policy)
+    p = {
+        "mamba_segments": [[mspec] * seg for _ in range(n_seg)],
+        "shared_attn": T.block_specs(cfg, policy),
+    }
+    if trailing:
+        p["mamba_trailing"] = [mspec] * trailing
+    return p
+
+
 def zamba_decode_state_shape(cfg: ArchConfig, batch: int, max_len: int):
     n_seg, seg, trailing = segment_layout(cfg)
     st = ssm.mamba2_state_shape(cfg, batch)
@@ -87,14 +103,6 @@ def zamba_decode_state_shape(cfg: ArchConfig, batch: int, max_len: int):
         shapes["trail_ssm"] = (trailing,) + st["ssm"]
         shapes["trail_conv"] = (trailing,) + st["conv"]
     return shapes
-
-
-def init_zamba_decode_state(cfg: ArchConfig, batch: int, max_len: int,
-                            device):
-    """Zeros with the reference's keys, layouts and dtypes: SSM states in
-    float32, conv tails and KV caches in bfloat16."""
-    return {k: torch.zeros(v, dtype=STATE_DTYPES[k], device=device)
-            for k, v in zamba_decode_state_shape(cfg, batch, max_len).items()}
 
 
 def apply_zamba(cfg: ArchConfig, params, x, rope):

@@ -9,9 +9,10 @@ Functional API (no optimizer classes), as ``repro.optim.adamw``:
 ``params`` is the port's parameter tree (nested dicts and lists of
 tensors); the state is ``{"step": int32 0-dim, "m", "v", "master"}`` with
 ``m``, ``v`` and ``master`` float32 trees of the parameters' structure.
-Gradients arrive in float32 (cast by the train step).  The reference's
-``state_specs`` (a ``PartitionSpec`` tree for pod sharding) waits with the
-port's sharding.
+Gradients arrive in float32 (cast by the train step).  :func:`state_specs`
+is the state's placement tree on a production mesh: ``m``, ``v`` and
+``master`` take the parameters' placements (``models.param_specs``),
+``step`` is whole, as the reference's ``state_specs``.
 
 The arithmetic is the reference's, in float32: the bias corrections are
 ``1 - b ** step`` with the power taken in float32 (a Python ``b ** step``
@@ -33,7 +34,8 @@ import torch
 
 from ..tree import tree_leaves, tree_map
 
-__all__ = ["AdamWConfig", "init", "update", "update_", "global_norm"]
+__all__ = ["AdamWConfig", "init", "update", "update_", "state_specs",
+           "global_norm"]
 
 F32 = torch.float32
 
@@ -60,6 +62,14 @@ def init(params, cfg: AdamWConfig = AdamWConfig()):
         state["master"] = tree_map(lambda p: p.detach().to(F32, copy=True),
                                    params)
     return state
+
+
+def state_specs(param_specs, cfg: AdamWConfig = AdamWConfig()):
+    """The placement tree of :func:`init`'s state, from the parameters'."""
+    specs = {"step": (), "m": param_specs, "v": param_specs}
+    if cfg.master_fp32:
+        specs["master"] = param_specs
+    return specs
 
 
 def global_norm(tree) -> torch.Tensor:

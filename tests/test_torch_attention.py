@@ -19,6 +19,8 @@ points; the Pallas kernel scales q in float32 and keeps p until the PV
 product).
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -22,6 +22,8 @@ Tolerances are ``tests/test_kernels.py``'s: 5e-5 in float32 and 5e-2 in
 bfloat16.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -10,6 +10,8 @@ dict keys sorted), and the port restores without ``ml_dtypes`` (a
 subprocess where importing it fails).
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import json
 import os
 import subprocess

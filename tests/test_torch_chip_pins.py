@@ -39,6 +39,8 @@ constant:
 Reference sweeps start from an empty group-minima cache.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import os
 import sys
 

@@ -10,6 +10,8 @@ invariants, not to timings.  A module fixture reaps any worker a failed
 test leaves behind.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import os
 import signal
 

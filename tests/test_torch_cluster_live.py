@@ -9,6 +9,8 @@ reaps any worker a failed test leaves behind (the session reaper in
 ``tests/conftest.py`` knows only the reference's registry).
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import math
 import os
 import signal

@@ -21,6 +21,8 @@ float64 coverage rule in both packages.  The port runs on
 ``device="cpu"``.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import socket
 
 import numpy as np

@@ -12,6 +12,8 @@ with torch (its checksum is not the reference's by design) and never runs
 on the host unless asked.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import math
 import signal
 import socket

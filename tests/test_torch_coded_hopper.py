@@ -28,6 +28,8 @@ planner's and the fleet's rows, and held equal to the port's plain
 ``coded_radix_counts_plain``, which the card's kernel is held to.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch

@@ -8,6 +8,8 @@ factors — the port keeps its own copy of the same numpy code.  Within
 1e-12 relative: decoded data blocks, which go through a linear solve.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import math
 
 import numpy as np

@@ -63,6 +63,8 @@ CPU; the reduced models (whisper through ``encode`` and its cross cache)
 against the CPU's logits.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import dataclasses
 import os
 import sys

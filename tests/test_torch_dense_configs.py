@@ -28,6 +28,8 @@ on the CPU: qwen2.5-14b (GQA 40 / 8, QKV bias, untied), command-r-plus-104b
   trials in both packages), and serves tokens of the right shape.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import dataclasses
 
 import jax

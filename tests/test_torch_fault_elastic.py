@@ -14,6 +14,8 @@ and the sojourn seam's cell split over ``["cpu", "cpu"]`` on that fleet's
 load-aware sweep, bit-equal to one device.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import dataclasses
 
 import numpy as np

@@ -11,6 +11,8 @@ bench takes 20,000), and the simulated mean at B* lies within
 check.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import numpy as np
 import pytest
 

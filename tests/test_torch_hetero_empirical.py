@@ -33,6 +33,8 @@
 Reference sweeps start from an empty group-minima cache.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import dataclasses
 import math
 

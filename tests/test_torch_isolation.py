@@ -13,6 +13,8 @@
   leaves every launch counter at 0.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import os
 import pkgutil
 import subprocess

@@ -17,6 +17,8 @@ through the residual stream.  Measured: at most 1.6e-2 on logits up to
 the two paths agree bit for bit.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -39,6 +39,8 @@ shared, dense layer 0), with the configs of all ten architectures.
   ``tests/test_torch_train_families.py``).
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import dataclasses
 
 import jax

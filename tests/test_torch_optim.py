@@ -24,6 +24,8 @@ The same float32 trees (made with numpy from a seed) go through
   trees (``torch.round`` and ``jnp.round`` both round half to even).
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,8 @@ same decision (``n_batches``, ``policy``, ``speculation_quantile``,
 plus the speculative-trigger objective and the closed-form planner.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import math
 
 import numpy as np

@@ -16,6 +16,8 @@
 * ``allreduce_bytes`` equals the reference's in every mode.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import json
 import os
 import subprocess

@@ -18,6 +18,8 @@ The model half cannot match token for token (the weights come from a
 to shape, range, determinism and the decode-equals-prefill rule.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch

@@ -7,6 +7,8 @@ the same tenant labels — bit for bit, the same derived rates, and the
 same refusals of bad parameters.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import numpy as np
 import pytest
 

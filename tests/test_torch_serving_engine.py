@@ -26,6 +26,8 @@ engine by default; a CPU engine's re-plans and model launch no kernel.
 The model's tokens are held in ``tests/test_torch_serving_model.py``.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import dataclasses
 import math
 import os

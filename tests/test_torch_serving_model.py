@@ -17,6 +17,8 @@ replication level, ``serve_round``'s remainder and event mode give every
 request its tokens, and the prompt rule.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import jax
 import numpy as np
 import pytest

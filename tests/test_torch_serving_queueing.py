@@ -18,6 +18,8 @@ reconfiguration with a live ``swap_policy``, ``submit_formed``,
 ``partition_requests``, ``late_threshold`` and ``job_observations``.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import math
 
 import numpy as np

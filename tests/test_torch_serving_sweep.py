@@ -28,6 +28,8 @@ keys it without the class labels' origin (ROADMAP §C, pinned by
 another test in the same process could leak into its draws.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import math
 
 import numpy as np

@@ -7,6 +7,8 @@ with ``backend="pallas"`` (``sweep_simulate``'s pallas lane resolves onto
 its jit lane).  The inputs are built once in the reference and converted.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import numpy as np
 import pytest
 

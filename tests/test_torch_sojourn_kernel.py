@@ -13,6 +13,8 @@
   order).
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch

@@ -30,6 +30,8 @@ A last test holds ``sweep_sojourn_policies`` through the one-call seam
 against the reference's ``pallas`` lane.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch

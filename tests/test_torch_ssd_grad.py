@@ -24,6 +24,8 @@ copy) and their gradients land in the activation's.  Inputs decay mildly
 (dt in [0.01, 0.1]), so the state carried across chunks matters.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

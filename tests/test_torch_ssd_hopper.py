@@ -32,6 +32,8 @@ Inputs decay mildly (dt in [0.01, 0.1]), as in ``tests/test_torch_ssm.py``,
 so the state carried across chunks matters.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

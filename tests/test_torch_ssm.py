@@ -23,6 +23,8 @@ within 5e-5 (float32) or 5e-2 (bfloat16) absolute and relative, the final
 state within 5e-3.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -23,6 +23,8 @@ Inputs come from numpy seeds; the reference's Pallas kernel runs in
 interpret mode on the CPU.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,8 @@ global batch, replica-group members getting identical data, shifted
 labels; plus the shapes, a seeded sweep over (step, B) and the cells.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import numpy as np
 import pytest
 

@@ -26,6 +26,8 @@ and saves a compile a case.  The reference's 40-step runs (loss decrease, the tu
 are marked ``slow``; tier-1 runs the same paths in 10-14 steps.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import dataclasses
 
 import jax

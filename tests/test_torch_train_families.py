@@ -66,6 +66,8 @@
   bit, dtypes included.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import dataclasses
 
 import jax

@@ -29,6 +29,8 @@ reference's, on the CPU, and the trainer's handling of float batch entries.
   trains.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import dataclasses
 
 import jax
@@ -84,6 +86,11 @@ def _moe_without_overflow(monkeypatch):
         monkeypatch.setattr(mod, "reduced_config", reduced)
 
 
+# arch -> (the first reference trainer's jitted grad and optimizer
+# functions, the recorder's list their MoE callback appends to)
+_REF_FNS: dict = {}
+
+
 def _routed_runs(arch, **kw):
     """Both trainers run (reference first): the port's from the
     reference's parameters and state, its final norm scale near 1/4 as the
@@ -91,14 +98,24 @@ def _routed_runs(arch, **kw):
     the reference's experts call by call (``tests/test_torch_moe.py``'s
     recorder; the reference's backward recomputes each layer and records
     it again, so each gradient call records twice its MoE layers, the
-    forward's first).  Returns (ref result, port result, ref trainer, port
-    trainer, routing flips)."""
-    calls, flips = [], []
+    forward's first).  Every reference trainer of an arch runs the jitted
+    functions of the module's first one (the same config and AdamW; the
+    reference re-jits per instance), whose recorder callback appends to
+    one list, emptied here before each run.  Returns (ref result, port
+    result, ref trainer, port trainer, routing flips)."""
+    fns = _REF_FNS.get(arch)
+    calls = fns[2] if fns else []
+    calls.clear()
+    flips = []
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ref_moe, "apply_moe", _ref_recorder(calls,
                                                        ref_moe.apply_moe))
         rt = ref_train_mod.Trainer(ref_train_mod.TrainerConfig(
             **{**BASE, **kw, "arch": arch}))
+        if fns:
+            rt._grad_fn, rt._opt_fn = fns[:2]
+        else:
+            _REF_FNS[arch] = (rt._grad_fn, rt._opt_fn, calls)
         if "final_norm" in rt.params:  # an untied unembedding
             rt.params = jax.tree.map(jnp.asarray, _untied_scale(
                 jax.tree.map(np.array, rt.params)))

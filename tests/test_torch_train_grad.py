@@ -46,6 +46,8 @@ the CPU.
   ``SsdScanFn`` is held in ``tests/test_torch_ssd_grad.py``.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import dataclasses
 
 import jax

@@ -7,6 +7,8 @@ ran, and on the card that is gigabytes a step (a full-width model's float32
 gradient tree is 4 bytes a parameter).
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import gc
 import weakref
 

@@ -26,6 +26,8 @@ a drift to a two-mode pool, re-planned through the rate-aware planner and
 the gate's empirical fallback.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import dataclasses
 import math
 

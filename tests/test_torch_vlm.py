@@ -19,6 +19,8 @@ reference's, on the CPU.
   its patch embeddings are drawn from the prompts' generator.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

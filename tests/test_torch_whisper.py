@@ -22,6 +22,8 @@ scale set to seeded values (as ``tests/test_torch_models.py`` does), on
   ``run_serving``.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -18,6 +18,8 @@ on the CPU.
   logits within 4e-2, and every state key within 5e-2 x (1 + |ref|).
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import dataclasses
 
 import jax

@@ -18,6 +18,8 @@ caches) must meet the reference's, and a decode step must equal a
 teacher-forced prefill of the same tokens.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+
 import dataclasses
 
 import jax
