@@ -16,6 +16,25 @@ non-zero:
                       ``sojourn_cells`` launch.  Then a small plan
                       run on the card and on the CPU (the kernels' plain
                       versions) must agree exactly.
+2b. ``plan_wide``     a fleet wider than the staged ``sojourn_cells``
+                      kernel holds (11,520 sets on the H100): first the
+                      kernel, all four policy kinds, bit-equal to its plain
+                      version on 1,000 jobs at G 11,520 (staged), 11,521,
+                      16,384 and 65,536 (unstaged) and in one launch of
+                      cells of 0, 1, 11,520, 11,521 and 16,384 sets; the
+                      unstaged kernel forced onto phase 2's dispatch, and
+                      onto 12,000 jobs over cells of 5,000 and 10,000 sets
+                      (sets revisited in every slot of its node table),
+                      equal to the staged one on every job; the build's
+                      ptxas figures of each instantiation; phase 2's
+                      dispatch re-timed on the staged one.  Then
+                      ``SimulatedPlanner`` at N 16,384, SExp(0.05, 2.0), B
+                      in {2,048, 4,096, 8,192, 16,384} (r = 1 included),
+                      phase 2's objective, 4,000 trials: one
+                      ``sojourn_cells`` launch, the reference's pinned
+                      decision and points (``WIDE_FLEET``), its dispatch
+                      bit-equal to the plain version on its first 1,000
+                      jobs, its wall, stages and times.
 3. ``fleet_grid``     ``sweep_sojourn_policies`` on the bootstrap grid of
                       ``benchmarks/bench_sweep_kernel.py``: 256 Empirical
                       resamples x B in {50, 100, 200} x 4 policies, J=300;
@@ -342,7 +361,7 @@ non-zero:
                       the planner's shape (strip kernel) and 1024 x 1024
                       x 2048 (tiled kernel).
 
-Each path of phases 2-6, 4b-4e and 6a-6e runs with the launch counts and the sweeps'
+Each path of phases 2-6, 2b, 4b-4e and 6a-6e runs with the launch counts and the sweeps'
 stage seconds (``simulator.STAGE_SECONDS``) set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.  One more
 run of phases 2 and 3 under ``torch.profiler`` gives the card's busy time.
@@ -637,6 +656,68 @@ FAULT_FLEET = {
 # the recovery's coverage samples on the card, held bit-equal to the host
 # walk (simulate_coverage_reference) at the chosen B on this many trials
 FAULT_FLEET_CHECK_TRIALS = 2_000
+# phase 2b, plan_wide: a fleet wider than the staged sojourn_cells kernel
+# holds: N 16,384 workers, SExp(0.05, 2.0), B in {2,048 .. 16,384} (r = 8,
+# 4, 2, 1), phase 2's four policies, p99 at utilization 0.7, 4,000 trials,
+# seed 0.  The reference's decision and points there (plan_summary of
+# repro.core.planner.SimulatedPlanner's plan on its pallas lane), pinned on
+# the CPU by tests/test_torch_chip_pins.py::
+# test_wide_fleet_decision_is_the_references
+WIDE_FLEET_N, WIDE_FLEET_B = 16_384, (2_048, 4_096, 8_192, 16_384)
+WIDE_FLEET_TRIALS = 4_000
+WIDE_FLEET = {
+    "n_batches": 2048, "policy": ("clone", 0.85, 1.0),
+    "points": (
+        (2048, 8, 0.1117496303603467, 0.003236382678895726,
+         0.2909033820033073, 0.3702632533609841),
+        (4096, 4, 0.16858859105760024, 0.010721338605621232,
+         0.4729626163840289, 0.5916383626461006),
+        (8192, 2, 0.276864408608526, 0.03994838953585716,
+         0.879720829129219, 1.2733843674659726),
+        (16384, 1, 0.5175963086934967, 0.1673918386389002,
+         1.7116460025310507, 2.4445390894412937))}
+# plan_wide's kernel checks: row widths on both sides of the staged limit
+# (11,520 sets on the H100) and the mixed-n_groups launch, bit-equal to the
+# plain version on their first jobs
+WIDE_CHECK_GROUPS = (11_520, 11_521, 16_384, 65_536)
+WIDE_MIXED_GROUPS = (0, 1, 11_520, 11_521, 16_384)
+WIDE_CHECK_JOBS = 1_000
+# and the unstaged kernel forced onto more jobs than sets, two and three
+# table entries a lane, held bit-equal to the staged one
+WIDE_REVISIT_GROUPS, WIDE_REVISIT_JOBS = (5_000, 10_000), 12_000
+
+
+def soj_ptxas_figures() -> dict:
+    """{sojourn_cells kernel: (registers, static shared bytes)} from the
+    ``-Xptxas -v`` log the build keeps beside the library."""
+    from repro_torch.kernels import _build
+
+    log = _build._lib_path("sojourn_cells").with_suffix(".log").read_text()
+    figures, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m[1]
+            continue
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and name:
+            s = re.search(r"sojourn_cells_kernelILi(\d+)E", name)
+            key = (f"sojourn_cells_kernel<{s[1]}>" if s else
+                   "sojourn_cells_kernel_wide"
+                   if "sojourn_cells_kernel_wide" in name else name)
+            figures[key] = (int(m[1]), int(m[2]))
+            name = None
+    return figures
+
+
+def plan_summary(plan) -> dict:
+    """A plan's decision and spectrum, as ``WIDE_FLEET`` pins them (the
+    reference's and the port's plans name these fields alike)."""
+    pol = plan.policy
+    return {"n_batches": plan.n_batches,
+            "policy": (pol.kind, pol.quantile, pol.hedge_fraction),
+            "points": tuple((p.n_batches, p.replication, p.mean, p.var, p.p99,
+                             p.p999) for p in plan.spectrum.points)}
 
 
 def fault_fleet_rates(np):
@@ -1186,6 +1267,240 @@ def main() -> int:
         "small_plan_card_equals_cpu": same, **busy,
     }
 
+    # sojourn_cells' chain bound, for phases 2b and 4c's checks and phase 7's
+    # rows
+    sm_clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+
+    def resolving_programs(a_, kw):
+        """(C, P) mask of the programs that resolve triggers: clone or
+        relaunch at a finite threshold, when the launch resolves."""
+        thr_ = a_[4]
+        armed = torch.tensor([k in (1, 2) for k in a_[3].tolist()],
+                             device=thr_.device)[None, :] & (thr_ < math.inf)
+        return armed & bool(kw.get("resolve", True))
+
+    def chain_bound_ms(a_, kw, extra):
+        """The least time of the launch's longest program on the chain of
+        dependent steps its code runs (``csrc/sojourn_cells.cu``): each of
+        J dispatches stores the picked set and reloads its node (L cycles),
+        then needs the free root's key and then its index (two dependent
+        warp reductions, R each) before the next can pick; a program that
+        resolves triggers waits on the trigger root's key, job id and set
+        instead (3 R), and on one more walk (L + 2 R) for each trigger that
+        fired in this run.  L and R from the probe, at the card's top SM
+        clock; the kernel's other instructions are left out."""
+        lat, red = chain_cycles["sts_syncwarp_lds128"], chain_cycles["redux"]
+        ng_ = a_[6]
+        n_jobs = a_[1].shape[1]
+        resolving = resolving_programs(a_, kw)
+        cycles = torch.where(
+            resolving, n_jobs * (lat + 3 * red) + extra.double() * (lat + 2 * red),
+            torch.full_like(extra, n_jobs, dtype=torch.float64)
+            * (lat + 2 * red))
+        cycles = torch.where(ng_[:, None] > 0, cycles, torch.zeros_like(cycles))
+        return cycles.max().item() / (sm_clock_mhz * 1e6) * 1e3
+
+    def soj_bytes_ms(a_, out_, x_):
+        """The least time to move the bytes a launch needs: the arrivals
+        and hedge masks once, one 32-byte sector of svc for each job of
+        each cell of at least one set (the draw it is dispatched on; a
+        cell's programs read one row), ``out`` and ``extra`` once.  Not
+        the whole of svc and alt: a program reads a few draws of a row.
+        alt's sectors are left out (a hedged job reads one only when its
+        runner-up is idle), and so is the unstaged kernel's scratch (its
+        own traffic, not the function's)."""
+        arr_, svc_, hm_, ng_ = a_[0], a_[1], a_[5], a_[6]
+        sectors = int((ng_ > 0).sum().item()) * svc_.shape[1]
+        total = (32 * sectors + arr_.numel() * arr_.element_size()
+                 + hm_.numel() * hm_.element_size()
+                 + out_.numel() * out_.element_size()
+                 + x_.numel() * x_.element_size())
+        return total / HBM_BYTES_PER_S * 1e3
+
+    def soj_prefix_check(tag, a_, kw_, jobs=SOJOURN_PLAIN_JOBS):
+        """Hold one ``sojourn_cells`` dispatch bit-equal to the plain
+        version on its first ``jobs`` jobs, at the dispatch's own cells,
+        groups and policies (the plain version loops over jobs in
+        Python); time both there."""
+        j_ = min(jobs, a_[1].shape[1])
+        cut_ = (a_[0][:j_].contiguous(), a_[1][:, :j_].contiguous(),
+                a_[2][:, :j_].contiguous(), a_[3], a_[4],
+                a_[5][:, :j_].contiguous(), a_[6])
+        out_c, x_c = SK.sojourn_cells(*cut_, **kw_)
+        k_ms = cuda_ms(lambda: SK.sojourn_cells(*cut_, **kw_), 3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_p, x_p = SK.sojourn_cells_plain(*cut_, **kw_)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        if not (torch.equal(out_c, out_p) and torch.equal(x_c, x_p)):
+            diff = (out_c - out_p).abs().max().item()
+            raise AssertionError(f"sojourn_cells ({tag}) differs from its "
+                                 f"plain version: max |diff| {diff}")
+        chain = chain_bound_ms(cut_, kw_, x_c)
+        bytes_ = soj_bytes_ms(cut_, out_c, x_c)
+        return {"plain_jobs": j_, "ms_at_plain_jobs": k_ms, "plain_ms": p_ms,
+                "max_abs_err": 0.0,
+                "bound_ms_at_plain_jobs": max(chain, bytes_),
+                "bound_by_at_plain_jobs": ("operations" if chain >= bytes_
+                                           else "bytes")}
+
+    # -- 2b. plan_wide ---------------------------------------------------
+    _phase("plan_wide")
+    t_wide = time.perf_counter()
+    wide_entries: list = []  # kernel rows of the unstaged instantiation
+
+    def wide_cells(seed, n_jobs, n_g, n_groups):
+        """A launch's inputs made on the card: every cell padded to n_g,
+        phase 2's four policy kinds, finite clone and relaunch thresholds
+        (about svc's 0.67 and 0.83 quantiles), a 0.3 hedge mask."""
+        g_ = torch.Generator(device=dev).manual_seed(seed)
+        n_c = len(n_groups)
+        arr_ = torch.cumsum(torch.empty(n_jobs, device=dev).exponential_(
+            1.0, generator=g_) * (1.6 / n_g), 0)
+        svc_, alt_ = (torch.empty(n_c, n_jobs, n_g, device=dev).exponential_(
+            1.0, generator=g_) + 0.1 for _ in range(2))
+        kinds_ = torch.tensor([0, 1, 2, 3], dtype=torch.int32, device=dev)
+        thr_ = torch.tensor([[math.inf, 1.2, 1.9, math.inf]] * n_c,
+                            device=dev)
+        hm_ = torch.as_tensor(np.stack([SOPS.hedge_mask(n_jobs, f)
+                                        for f in (0, 0, 0, 0.3)])).to(dev)
+        ng_ = torch.tensor(n_groups, dtype=torch.int32, device=dev)
+        return (arr_, svc_, alt_, kinds_, thr_, hm_, ng_)
+
+    def wide_row(tag, a_, kw_):
+        """One sojourn_cells call held bit-equal to the plain version on
+        its first WIDE_CHECK_JOBS jobs (soj_prefix_check), then the whole
+        call's event times and bounds: a kernel row."""
+        e = {"name": "sojourn_cells", "case": tag,
+             "shape": [int(v) for v in a_[1].shape] + [int(a_[3].shape[0])],
+             "n_groups": a_[6].tolist(),
+             "staged": a_[1].shape[2] <= SK._max_groups(),
+             "resolve": bool(kw_.get("resolve", True)),
+             **soj_prefix_check(tag, a_, kw_, WIDE_CHECK_JOBS)}
+        fn = lambda: SK.sojourn_cells(*a_, **kw_)  # noqa: E731
+        out_, x_ = fn()
+        chain = chain_bound_ms(a_, kw_, x_)
+        bytes_ = soj_bytes_ms(a_, out_, x_)
+        e.update({"ms": cuda_ms(fn, 3), "call_ms": call_ms(fn, 3),
+                  "bound_ms": max(chain, bytes_),
+                  "bound_by": "operations" if chain >= bytes_ else "bytes",
+                  "chain_bound_ms": chain, "bytes_bound_ms": bytes_,
+                  "fired": int(x_[resolving_programs(a_, kw_)].sum().item()),
+                  "library_ms": None})
+        print(f"[plan_wide] {tag} C,J,G,P={e['shape']} "
+              f"({'staged' if e['staged'] else 'unstaged'}): first "
+              f"{e['plain_jobs']} jobs bit-equal to plain (kernel "
+              f"{e['ms_at_plain_jobs']:.3f} ms, plain {e['plain_ms']:.1f} "
+              f"ms); {e['ms']:.3f} ms (per call {e['call_ms']:.3f} ms), "
+              f"chain bound {chain:.4f} ms ({e['fired']} triggers fired), "
+              f"bytes bound {bytes_:.4f} ms", flush=True)
+        return e
+
+    # (a) both sides of the staged limit, and the mixed launch
+    if SK._max_groups() != WIDE_CHECK_GROUPS[0]:
+        print(f"[plan_wide] this card stages up to {SK._max_groups()} sets "
+              f"(the H100's limit is {WIDE_CHECK_GROUPS[0]})")
+    for n_g_ in WIDE_CHECK_GROUPS:
+        # two cells, the second padded, but at the widest: one cell
+        groups = ((n_g_,) if n_g_ == WIDE_CHECK_GROUPS[-1]
+                  else (n_g_ // 2, n_g_))
+        a_ = wide_cells(n_g_, WIDE_CHECK_JOBS, n_g_, groups)
+        e = wide_row(f"G {n_g_}", a_, {"resolve": True})
+        if n_g_ == WIDE_CHECK_GROUPS[-1]:
+            wide_entries.append(e)
+        del a_
+    a_ = wide_cells(7, WIDE_CHECK_JOBS, WIDE_MIXED_GROUPS[-1],
+                    WIDE_MIXED_GROUPS)
+    wide_row("mixed n_groups", a_, {"resolve": True})
+    del a_
+    # the unstaged kernel forced past its sets, every job held bit-equal to
+    # the staged kernel: phase 2's dispatch (20,000 jobs on 2,000 sets, one
+    # table entry a lane), and more jobs than sets where a lane keeps two
+    # and three entries (cells of 5,000 and 10,000 sets, 12,000 jobs), so
+    # that sets are revisited in every slot of the table
+    (p2_args, p2_kw), = soj_calls
+    a_ = wide_cells(10, WIDE_REVISIT_JOBS, WIDE_REVISIT_GROUPS[-1],
+                    WIDE_REVISIT_GROUPS)
+    for tag, (args_, kw_) in (("phase 2's dispatch", (p2_args, p2_kw)),
+                              (f"{WIDE_REVISIT_JOBS} jobs on "
+                               f"{WIDE_REVISIT_GROUPS} sets",
+                               (a_, {"resolve": True}))):
+        wide_o = SK.sojourn_cells(*args_, **kw_, force_wide=True)
+        staged_o = SK.sojourn_cells(*args_, **kw_)
+        if not all(torch.equal(u, v) for u, v in zip(wide_o, staged_o)):
+            raise AssertionError(f"the unstaged sojourn_cells differs from "
+                                 f"the staged one on {tag}")
+        print(f"[plan_wide] the unstaged kernel forced onto {tag}: every job "
+              f"bit-equal to the staged one", flush=True)
+    # the loop's names too: they hold the last inputs (2 GB of the card)
+    del a_, args_, kw_, wide_o, staged_o
+    # ptxas's registers and shared memory of each instantiation, from the
+    # build's log (the staged ones are to match the parent's)
+    ptxas = soj_ptxas_figures()
+    print(f"[plan_wide] ptxas: {ptxas}")
+    # (c) phase 2's dispatch on the staged kernel, re-timed here
+    p2_fn = lambda: SK.sojourn_cells(*p2_args, **p2_kw)  # noqa: E731
+    p2_wide_fn = lambda: SK.sojourn_cells(  # noqa: E731
+        *p2_args, **p2_kw, force_wide=True)
+    p2_ms, p2_call = cuda_ms(p2_fn, 3), call_ms(p2_fn, 3)
+    p2_wide_ms = cuda_ms(p2_wide_fn, 3)
+    print(f"[plan_wide] phase 2's dispatch C,J,G,P="
+          f"{list(p2_args[1].shape) + [int(p2_args[3].shape[0])]}: staged "
+          f"{p2_ms:.3f} ms (per call {p2_call:.3f} ms); the unstaged kernel "
+          f"forced there {p2_wide_ms:.3f} ms, bit-equal to the staged one")
+
+    # (b) the wide fleet's plan: one launch over 4 B x 4 policies at r = 1's
+    # 16,384 sets
+    wide_spec = ClusterSpec(n_workers=WIDE_FLEET_N, dist=heavy,
+                            feasible_b=WIDE_FLEET_B)
+
+    def wide_plan():
+        return SimulatedPlanner(n_trials=WIDE_FLEET_TRIALS, seed=0,
+                                device="cuda").plan(wide_spec, objective)
+
+    wide_calls: list = []
+    # the later phases find the sweeps' group-minima cache as phase 2 left
+    # it (the wide fleet's entry alone holds 2 GB of the card)
+    cached = dict(SIM._GROUP_MIN_CACHE)
+    orig = capture(SK, "sojourn_cells", wide_calls)
+    try:
+        wplan, wcounts, wwall, wstages = run_path("plan_wide", wide_plan)
+    finally:
+        SK.sojourn_cells = orig
+        SIM._GROUP_MIN_CACHE.clear()
+        SIM._GROUP_MIN_CACHE.update(cached)
+    if wcounts["sojourn_cells"] != 1:
+        raise AssertionError(f"plan_wide launched sojourn_cells "
+                             f"{wcounts['sojourn_cells']} times, want one")
+    got = plan_summary(wplan)
+    if got != WIDE_FLEET or wplan.backend != "cuda":
+        raise AssertionError(f"plan_wide: {got} on {wplan.backend}, want the "
+                             f"reference's {WIDE_FLEET}")
+    print(f"[plan_wide] B={wplan.n_batches} policy={wplan.policy} "
+          f"p99={wplan.predicted.p99!r}: the reference's decision and "
+          f"points")
+    (wa, wkw), = wide_calls
+    fleet_e = wide_row("WIDE_FLEET dispatch", wa, wkw)
+    fleet_e["launches"] = {"plan_wide": wcounts["sojourn_cells"]}
+    wide_entries.append(fleet_e)
+    wide_wall = time.perf_counter() - t_wide
+    print(f"[plan_wide] phase 2b: {wide_wall:.1f} s")
+    report["phases"]["plan_wide"] = {
+        "wall_s": wwall, "stages_s": wstages, "launches": wcounts,
+        "decision": got, "kernels": wide_entries,
+        "phase2_dispatch_ms": p2_ms, "phase2_dispatch_call_ms": p2_call,
+        "phase2_dispatch_forced_unstaged_ms": p2_wide_ms,
+        "ptxas": ptxas, "phase_wall_s": wide_wall}
+    # phase 2's captured inputs stay in soj_calls alone, which phase 7
+    # clears: a name here would keep 2 GB of the card until the script ends
+    del wa, wkw, wide_calls, cached, p2_args, p2_kw, p2_fn, p2_wide_fn
+    del wplan
+    torch.cuda.empty_cache()
+
     # -- 3. fleet_grid ----------------------------------------------------
     _phase("fleet_grid")
     rng = np.random.default_rng(0)
@@ -1467,69 +1782,6 @@ def main() -> int:
         if out["device_busy_s"] is None:
             raise AssertionError(f"the profiler saw no device work in {tag}")
         return out
-
-    # sojourn_cells' chain bound, for phase 4c's checks and phase 7's rows
-    sm_clock_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.split()[0])
-
-    def resolving_programs(a_, kw):
-        """(C, P) mask of the programs that resolve triggers: clone or
-        relaunch at a finite threshold, when the launch resolves."""
-        thr_ = a_[4]
-        armed = torch.tensor([k in (1, 2) for k in a_[3].tolist()],
-                             device=thr_.device)[None, :] & (thr_ < math.inf)
-        return armed & bool(kw.get("resolve", True))
-
-    def chain_bound_ms(a_, kw, extra):
-        """The least time of the launch's longest program on the chain of
-        dependent steps its code runs (``csrc/sojourn_cells.cu``): each of
-        J dispatches stores the picked set and reloads its node (L cycles),
-        then needs the free root's key and then its index (two dependent
-        warp reductions, R each) before the next can pick; a program that
-        resolves triggers waits on the trigger root's key, job id and set
-        instead (3 R), and on one more walk (L + 2 R) for each trigger that
-        fired in this run.  L and R from the probe, at the card's top SM
-        clock; the kernel's other instructions are left out."""
-        lat, red = chain_cycles["sts_syncwarp_lds128"], chain_cycles["redux"]
-        ng_ = a_[6]
-        n_jobs = a_[1].shape[1]
-        resolving = resolving_programs(a_, kw)
-        cycles = torch.where(
-            resolving, n_jobs * (lat + 3 * red) + extra.double() * (lat + 2 * red),
-            torch.full_like(extra, n_jobs, dtype=torch.float64)
-            * (lat + 2 * red))
-        cycles = torch.where(ng_[:, None] > 0, cycles, torch.zeros_like(cycles))
-        return cycles.max().item() / (sm_clock_mhz * 1e6) * 1e3
-
-    def soj_prefix_check(tag, a_, kw_):
-        """Hold one ``sojourn_cells`` dispatch bit-equal to the plain
-        version on its first SOJOURN_PLAIN_JOBS jobs, at the dispatch's own
-        cells, groups and policies (the plain version loops over jobs in
-        Python); time both there."""
-        j_ = min(SOJOURN_PLAIN_JOBS, a_[1].shape[1])
-        cut_ = (a_[0][:j_].contiguous(), a_[1][:, :j_].contiguous(),
-                a_[2][:, :j_].contiguous(), a_[3], a_[4],
-                a_[5][:, :j_].contiguous(), a_[6])
-        out_c, x_c = SK.sojourn_cells(*cut_, **kw_)
-        k_ms = cuda_ms(lambda: SK.sojourn_cells(*cut_, **kw_), 3)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out_p, x_p = SK.sojourn_cells_plain(*cut_, **kw_)
-        torch.cuda.synchronize()
-        p_ms = (time.perf_counter() - t0) * 1e3
-        if not (torch.equal(out_c, out_p) and torch.equal(x_c, x_p)):
-            diff = (out_c - out_p).abs().max().item()
-            raise AssertionError(f"sojourn_cells ({tag}) differs from its "
-                                 f"plain version: max |diff| {diff}")
-        chain = chain_bound_ms(cut_, kw_, x_c)
-        bytes_ = nbytes(*cut_, out_c, x_c) / HBM_BYTES_PER_S * 1e3
-        return {"plain_jobs": j_, "ms_at_plain_jobs": k_ms, "plain_ms": p_ms,
-                "max_abs_err": 0.0,
-                "bound_ms_at_plain_jobs": max(chain, bytes_),
-                "bound_by_at_plain_jobs": ("operations" if chain >= bytes_
-                                           else "bytes")}
 
     # the widest sojourn_cells dispatch (and the coded_cells calls) of each
     # 4c path, held against the plain versions at the path's own shapes
@@ -3825,7 +4077,7 @@ def main() -> int:
                       f"{n_ev} device events of {reps} calls: "
                       f"{sorted(by_name)})")
             chain = chain_bound_ms(a_, kw, x_k)
-            nbytes_ = nbytes(*a_, out_k, x_k) / HBM_BYTES_PER_S * 1e3
+            nbytes_ = soj_bytes_ms(a_, out_k, x_k)
             return {
                 "name": "sojourn_cells", "case": tag,
                 "shape": [int(v) for v in svc_.shape] + [int(a_[3].shape[0])],
@@ -3913,8 +4165,10 @@ def main() -> int:
                                     "measured SM cycles",
                      "chain_cycles": chain_cycles,
                      "sm_clock_mhz": sm_clock_mhz,
-                     "serving_fleet": serving_e})
+                     "serving_fleet": serving_e,
+                     "unstaged": wide_entries})
         extra_rows.extend(soj_entries)
+        extra_rows.extend(wide_entries)  # phase 2b's
         # 4c's and 4d's dispatches, checked there
         extra_rows.extend(plain_checks)
 

@@ -19,16 +19,26 @@
 //   resolves triggers: resolve && (clone or relaunch) && threshold < inf.
 //   resolve=0 skips the pass for every program, as the reference's static
 //   flag does.  A program never reads past its own ng.
-// - Tournament trees.  The per-set state (free, doneg, trigger time,
-//   trigger aux, job id: 20 bytes a set) lives in dynamic shared memory.
-//   Two trees run over the sets: one over free keyed by (free, index) that
-//   keeps the lowest two, one over the armed triggers keyed by (effective
-//   time, job id, index).  Sets form nodes of 128, four a lane; a node's
-//   entry (its lowest two, or its lowest trigger) lives in a register of
-//   the lane that keeps it (lane l keeps nodes l * slots + s, slots set at
-//   run time by the program's ng; the kernel is built for 1 node a lane, up
-//   to 4,096 sets, and for 3, up to 12,288, and the launch picks the first
-//   that holds its widest program).  Keys are the
+// - Tournament trees.  Each set has 20 bytes of state (free, doneg,
+//   trigger time, trigger aux, job id).  Two trees run over the sets: one
+//   over free keyed by (free, index) that keeps the lowest two, one over
+//   the armed triggers keyed by (effective time, job id, index).  Sets
+//   form nodes of 128, four a lane; a node's entry (its lowest two, or its
+//   lowest trigger: 28 bytes) is kept by one lane (lane l keeps nodes
+//   l * slots + s, slots = ceil(nodes / 32) set at run time by the
+//   program's ng).
+// - Two instantiations of one kernel body, picked by the launch's row
+//   width n_g.  Staged (sojourn_cells_kernel<S>): the sets' state lives in
+//   dynamic shared memory and a lane's nodes in registers, S = 1 node a
+//   lane up to 4,096 sets, S = 3 above; the state's 20 bytes a set cap n_g
+//   at what one block's shared memory holds (sojourn_cells_max_groups:
+//   11,520 on the H100).  Unstaged (sojourn_cells_wide_kernel, any wider
+//   row): each program's set state lives in a device-memory scratch that
+//   the caller allocates (sojourn_cells_state_words a program) and the
+//   node level in dynamic shared memory, node s * 32 + l of the table
+//   being lane l's slot s, read and written by that lane only; its 28
+//   bytes a node cap n_g at sojourn_cells_max_wide_groups (1,060,864 on
+//   the H100).  Both run the same steps on the same values.  Keys are the
 //   order-preserving uint32 image of the floats (-0 and +0 share it); the
 //   warp's lowest comes from __reduce_min_sync on the key and then on the
 //   index (or job id) among the lanes holding it, so ties go to the lowest
@@ -38,6 +48,8 @@
 //   time, the root from the other kept nodes and the changed node's sets
 //   (independent warp reductions in one instruction stream); the keeping
 //   lane stores the new node.  A program of one node needs only the first.
+//   Lane 0 writes a set's state and the warp reads it after __syncwarp,
+//   which orders shared and global memory alike.
 //   A walk's time is its instruction count more than any one latency, so
 //   the code avoids branches and empty merges.  There is no block barrier
 //   in the loop.
@@ -102,18 +114,30 @@ __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m *
 
 constexpr int LOG_FAN = 7;
 constexpr int FAN = 1 << LOG_FAN;  // sets a node: four a lane
-constexpr int MAX_SLOTS = 3;       // nodes a lane keeps: 96 nodes, 12,288 sets
+constexpr int MAX_SLOTS = 3;       // nodes a lane keeps in registers: 96 nodes
 constexpr uint32_t KNONE = 0xffffffffu;
+constexpr int STATE_WORDS = 5;     // free, doneg, tt, aux, jobid
+constexpr int NODE_BYTES = 28;     // a node's Top2 and Trip
 
-// Shared memory of a launch of row width n_g: 20 bytes a set (free, doneg,
-// tt, aux, jobid), n_g rounded up to whole nodes; -1 past 96 nodes.
+// Shared memory of a staged launch of row width n_g: 20 bytes a set, n_g
+// rounded up to whole nodes; -1 past 96 nodes.
 __host__ __device__ inline int set_slots(int n_g) {
   return round_up(n_g < 1 ? 1 : n_g, FAN);
 }
 
 __host__ __device__ inline int smem_bytes(int n_g) {
   const int gp = set_slots(n_g);
-  return gp / FAN > 32 * MAX_SLOTS ? -1 : 20 * gp;
+  return gp / FAN > 32 * MAX_SLOTS ? -1 : 4 * STATE_WORDS * gp;
+}
+
+// Nodes a lane keeps in an unstaged launch of row width n_g, and the node
+// table's shared memory: 32 lanes x that many nodes of 28 bytes.
+__host__ __device__ inline int wide_slots(int n_g) {
+  return (set_slots(n_g) / FAN + 31) / 32;
+}
+
+__host__ __device__ inline long long wide_smem_bytes(int n_g) {
+  return 32LL * NODE_BYTES * wide_slots(n_g);
 }
 
 // The float of an order-preserving key (a zero comes back as +0, which no
@@ -183,7 +207,10 @@ __device__ __forceinline__ Trip warp_trip(const Trip& v) {
   return r;
 }
 
-template <int S>  // nodes a lane keeps, at most MAX_SLOTS
+// S: nodes a lane keeps in registers, at most MAX_SLOTS (staged).  W:
+// unstaged, the sets' state in device memory and the lanes' nodes in the
+// shared table fsm / tsm (S unused).
+template <int S, bool W = false>
 struct Prog {
   float* fr;  // free time of each set
   float* dn;  // completion of the set's current job (doneg)
@@ -196,15 +223,28 @@ struct Prog {
   bool clone;
   Top2 fs[S];  // this lane's nodes of the free tree
   Trip ts[S];  // and of the trigger tree
+  Top2* fsm;   // W: lane l's slot s of the free tree at fsm[s * 32 + l]
+  Trip* tsm;   // and of the trigger tree
   Top2 froot;          // the warp's roots, the same in every lane
   Trip troot;
 };
 
+// W: the table entry of node q, valid in the lane that keeps it.
+template <int S, bool W>
+__device__ __forceinline__ int node_entry(const Prog<S, W>& P, int q) {
+  return (q % P.slots) * 32 + lane_id();
+}
+
+template <int S, bool W>
+__device__ __forceinline__ bool keeps(const Prog<S, W>& P, int q) {
+  return q / P.slots == lane_id();
+}
+
 // A lane's four sets of node p, reduced.  A set at or past ng holds +inf
 // from the start and is never written, so with its index at or past ng it
 // loses every tie to a set of the cell.
-template <int S>
-__device__ __forceinline__ Top2 kids_free(const Prog<S>& P, int p) {
+template <int S, bool W>
+__device__ __forceinline__ Top2 kids_free(const Prog<S, W>& P, int p) {
   const int base = (p << LOG_FAN) + 4 * lane_id();
   const float4 v = *reinterpret_cast<const float4*>(P.fr + base);
   const Pair c0 = {fkey(v.x), base}, c1 = {fkey(v.y), base + 1};
@@ -215,8 +255,8 @@ __device__ __forceinline__ Top2 kids_free(const Prog<S>& P, int p) {
   return merge2(x, y);
 }
 
-template <int S>
-__device__ __forceinline__ Trip kids_trig(const Prog<S>& P, int p) {
+template <int S, bool W>
+__device__ __forceinline__ Trip kids_trig(const Prog<S, W>& P, int p) {
   const int base = (p << LOG_FAN) + 4 * lane_id();
   const float INF = f_inf();
   const float4 t = *reinterpret_cast<const float4*>(P.tt + base);
@@ -238,30 +278,46 @@ __device__ __forceinline__ Trip kids_trig(const Prog<S>& P, int p) {
 }
 
 // This lane's kept nodes, but nodes xa and xb (being recomputed).
-template <int S>
-__device__ __forceinline__ Top2 kept_free(const Prog<S>& P, int xa, int xb) {
+template <int S, bool W>
+__device__ __forceinline__ Top2 kept_free(const Prog<S, W>& P, int xa, int xb) {
   const Top2 none = {{KNONE, INT_MAX_}, {KNONE, INT_MAX_}};
   Top2 r = none;
+  if constexpr (W) {
+    for (int s = 0; s < P.slots; ++s) {
+      const int q = lane_id() * P.slots + s;
+      const bool keep = q < P.n_nodes && q != xa && q != xb;
+      r = merge2(r, keep ? P.fsm[s * 32 + lane_id()] : none);
+    }
+  } else {
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const int q = lane_id() * P.slots + s;
-    const bool keep = s < P.slots && q < P.n_nodes && q != xa && q != xb;
-    const Top2 v = keep ? P.fs[s] : none;
-    r = s == 0 ? v : merge2(r, v);
+    for (int s = 0; s < S; ++s) {
+      const int q = lane_id() * P.slots + s;
+      const bool keep = s < P.slots && q < P.n_nodes && q != xa && q != xb;
+      const Top2 v = keep ? P.fs[s] : none;
+      r = s == 0 ? v : merge2(r, v);
+    }
   }
   return r;
 }
 
-template <int S>
-__device__ __forceinline__ Trip kept_trig(const Prog<S>& P, int x) {
+template <int S, bool W>
+__device__ __forceinline__ Trip kept_trig(const Prog<S, W>& P, int x) {
   const Trip none = {KNONE, JOB_NONE, INT_MAX_};
   Trip r = none;
+  if constexpr (W) {
+    for (int s = 0; s < P.slots; ++s) {
+      const int q = lane_id() * P.slots + s;
+      const bool keep = q < P.n_nodes && q != x;
+      r = pick3(r, keep ? P.tsm[s * 32 + lane_id()] : none);
+    }
+  } else {
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const int q = lane_id() * P.slots + s;
-    const bool keep = s < P.slots && q < P.n_nodes && q != x;
-    const Trip v = keep ? P.ts[s] : none;
-    r = s == 0 ? v : pick3(r, v);
+    for (int s = 0; s < S; ++s) {
+      const int q = lane_id() * P.slots + s;
+      const bool keep = s < P.slots && q < P.n_nodes && q != x;
+      const Trip v = keep ? P.ts[s] : none;
+      r = s == 0 ? v : pick3(r, v);
+    }
   }
   return r;
 }
@@ -271,9 +327,9 @@ __device__ __forceinline__ Trip kept_trig(const Prog<S>& P, int x) {
 // sets, four a lane, and at the same time the root from every lane's kept
 // nodes but the changed ones plus the changed nodes' sets: independent warp
 // reductions (a program of one node skips the second).  The lane keeping a
-// changed node updates it.  The sets' new state is in shared memory.
-template <int S, int NF, bool T>
-__device__ __forceinline__ void walk(Prog<S>& P, int fa, int fb, int ta) {
+// changed node updates it.  The sets' new state is already stored.
+template <int S, bool W, int NF, bool T>
+__device__ __forceinline__ void walk(Prog<S, W>& P, int fa, int fb, int ta) {
   __syncwarp();
   if (NF > 0) {
     const Top2 none = {{KNONE, INT_MAX_}, {KNONE, INT_MAX_}};
@@ -290,10 +346,15 @@ __device__ __forceinline__ void walk(Prog<S>& P, int fa, int fb, int ta) {
       if (two) rc = merge2(rc, cb);
       P.froot = warp_top2(rc);
     }
+    if constexpr (W) {
+      if (keeps(P, pa)) P.fsm[node_entry(P, pa)] = na;
+      if (two && keeps(P, pb)) P.fsm[node_entry(P, pb)] = nb;
+    } else {
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const int q = lane_id() * P.slots + s;
-      P.fs[s] = q == pa ? na : (two && q == pb ? nb : P.fs[s]);
+      for (int s = 0; s < S; ++s) {
+        const int q = lane_id() * P.slots + s;
+        P.fs[s] = q == pa ? na : (two && q == pb ? nb : P.fs[s]);
+      }
     }
   }
   if (T) {
@@ -301,31 +362,49 @@ __device__ __forceinline__ void walk(Prog<S>& P, int fa, int fb, int ta) {
     const Trip ct = kids_trig(P, pt);
     const Trip nt = warp_trip(ct);
     P.troot = P.n_nodes == 1 ? nt : warp_trip(pick3(kept_trig(P, pt), ct));
+    if constexpr (W) {
+      if (keeps(P, pt)) P.tsm[node_entry(P, pt)] = nt;
+    } else {
 #pragma unroll
-    for (int s = 0; s < S; ++s)
-      P.ts[s] = lane_id() * P.slots + s == pt ? nt : P.ts[s];
+      for (int s = 0; s < S; ++s)
+        P.ts[s] = lane_id() * P.slots + s == pt ? nt : P.ts[s];
+    }
   }
 }
 
 // Every node and both roots from the sets.
-template <int S>
-__device__ __forceinline__ void build_trees(Prog<S>& P) {
+template <int S, bool W>
+__device__ __forceinline__ void build_trees(Prog<S, W>& P) {
   __syncwarp();
   const Top2 none = {{KNONE, INT_MAX_}, {KNONE, INT_MAX_}};
   const Trip none3 = {KNONE, JOB_NONE, INT_MAX_};
+  if constexpr (W) {
+    for (int s = 0; s < P.slots; ++s) {
+      P.fsm[s * 32 + lane_id()] = none;
+      P.tsm[s * 32 + lane_id()] = none3;
+    }
+  } else {
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    P.fs[s] = none;
-    P.ts[s] = none3;
+    for (int s = 0; s < S; ++s) {
+      P.fs[s] = none;
+      P.ts[s] = none3;
+    }
   }
   for (int q = 0; q < P.n_nodes; ++q) {
     const Top2 n = warp_top2(kids_free(P, q));
     const Trip t = warp_trip(kids_trig(P, q));
+    if constexpr (W) {
+      if (keeps(P, q)) {
+        P.fsm[node_entry(P, q)] = n;
+        P.tsm[node_entry(P, q)] = t;
+      }
+    } else {
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const bool mine = lane_id() * P.slots + s == q;
-      P.fs[s] = mine ? n : P.fs[s];
-      P.ts[s] = mine ? t : P.ts[s];
+      for (int s = 0; s < S; ++s) {
+        const bool mine = lane_id() * P.slots + s == q;
+        P.fs[s] = mine ? n : P.fs[s];
+        P.ts[s] = mine ? t : P.ts[s];
+      }
     }
   }
   P.froot = warp_top2(kept_free(P, -1, -1));
@@ -360,15 +439,17 @@ struct Slot {
   int alt_set;
 };
 
-template <int S>
-__global__ void __launch_bounds__(32)
-sojourn_cells_kernel(const float* __restrict__ arr, const float* __restrict__ svc,
-                     const float* __restrict__ alt, const int* __restrict__ kinds,
-                     const float* __restrict__ thresholds,
-                     const uint8_t* __restrict__ hmasks,
-                     const int* __restrict__ n_groups, float* __restrict__ out,
-                     int* __restrict__ extra_out, int n_pol, int n_jobs, int n_g,
-                     int resolve) {
+// One program of the scan, in either instantiation (Prog's S and W).
+// state: W's device-memory scratch, STATE_WORDS x set_slots(n_g) words a
+// program.
+template <int S, bool W>
+__device__ __forceinline__ void sojourn_program(
+    const float* __restrict__ arr, const float* __restrict__ svc,
+    const float* __restrict__ alt, const int* __restrict__ kinds,
+    const float* __restrict__ thresholds, const uint8_t* __restrict__ hmasks,
+    const int* __restrict__ n_groups, float* __restrict__ out,
+    int* __restrict__ extra_out, int n_pol, int n_jobs, int n_g, int resolve,
+    float* state) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Slot ring[RING];
   const int prog = blockIdx.x;
@@ -388,13 +469,19 @@ sojourn_cells_kernel(const float* __restrict__ arr, const float* __restrict__ sv
   const uint8_t* hm = hmasks + (size_t)p * n_jobs;
   float* out_l = out + (size_t)prog * n_jobs;
 
-  Prog<S> P;
+  Prog<S, W> P;
   const int gp = set_slots(n_g);
   P.ng = min(n_groups[c], n_g);
   P.n_nodes = (max(P.ng, 1) + FAN - 1) / FAN;
   P.slots = (P.n_nodes + 31) / 32;
   P.clone = is_clone;
-  P.fr = reinterpret_cast<float*>(smem);
+  if constexpr (W) {
+    P.fr = state + (size_t)prog * STATE_WORDS * gp;
+    P.fsm = reinterpret_cast<Top2*>(smem);
+    P.tsm = reinterpret_cast<Trip*>(P.fsm + 32 * wide_slots(n_g));
+  } else {
+    P.fr = reinterpret_cast<float*>(smem);
+  }
   P.dn = P.fr + gp;
   P.tt = P.dn + gp;
   P.ax = P.tt + gp;
@@ -465,7 +552,7 @@ sojourn_cells_kernel(const float* __restrict__ arr, const float* __restrict__ sv
           __syncwarp();
           if (me == 0) P.tt[r] = t;
           m_hw = fmax_ref(m_hw, m);
-          walk<S, 0, true>(P, 0, 0, r);
+          walk<S, W, 0, true>(P, 0, 0, r);
         }
       }
       if (!(kval(P.troot.k) < INF)) return;  // nothing armed
@@ -498,11 +585,11 @@ sojourn_cells_kernel(const float* __restrict__ arr, const float* __restrict__ sv
       }
       if (h >= 0 && me == 0) P.fr[h] = done_new;
       if (h >= 0)
-        walk<S, 2, true>(P, g, h, g);
+        walk<S, W, 2, true>(P, g, h, g);
       else if (moved)
-        walk<S, 1, true>(P, g, g, g);
+        walk<S, W, 1, true>(P, g, g, g);
       else
-        walk<S, 0, true>(P, 0, 0, g);
+        walk<S, W, 0, true>(P, 0, 0, g);
       if (me == 0) out_l[jid] = done_new - a_j;
       extra += disarm ? 0 : 1;
     }
@@ -595,17 +682,46 @@ sojourn_cells_kernel(const float* __restrict__ arr, const float* __restrict__ sv
       }
     }
     if (do_resolve)
-      walk<S, 1, true>(P, g, g, g);
+      walk<S, W, 1, true>(P, g, g, g);
     else if (h >= 0)
-      walk<S, 2, false>(P, g, h, 0);
+      walk<S, W, 2, false>(P, g, h, 0);
     else
-      walk<S, 1, false>(P, g, g, 0);
+      walk<S, W, 1, false>(P, g, g, 0);
     issue_row(i + 2);
     cp_async_commit();
   }
   cp_async_wait<0>();
   if (do_resolve) resolve_events(INF);
   if (me == 0) extra_out[prog] = extra;
+}
+
+template <int S>
+__global__ void __launch_bounds__(32)
+sojourn_cells_kernel(const float* __restrict__ arr, const float* __restrict__ svc,
+                     const float* __restrict__ alt, const int* __restrict__ kinds,
+                     const float* __restrict__ thresholds,
+                     const uint8_t* __restrict__ hmasks,
+                     const int* __restrict__ n_groups, float* __restrict__ out,
+                     int* __restrict__ extra_out, int n_pol, int n_jobs, int n_g,
+                     int resolve) {
+  sojourn_program<S, false>(arr, svc, alt, kinds, thresholds, hmasks, n_groups,
+                            out, extra_out, n_pol, n_jobs, n_g, resolve,
+                            nullptr);
+}
+
+__global__ void __launch_bounds__(32)
+sojourn_cells_kernel_wide(const float* __restrict__ arr,
+                          const float* __restrict__ svc,
+                          const float* __restrict__ alt,
+                          const int* __restrict__ kinds,
+                          const float* __restrict__ thresholds,
+                          const uint8_t* __restrict__ hmasks,
+                          const int* __restrict__ n_groups,
+                          float* __restrict__ out, int* __restrict__ extra_out,
+                          int n_pol, int n_jobs, int n_g, int resolve,
+                          float* state) {
+  sojourn_program<1, true>(arr, svc, alt, kinds, thresholds, hmasks, n_groups,
+                           out, extra_out, n_pol, n_jobs, n_g, resolve, state);
 }
 
 template <int S>
@@ -622,6 +738,18 @@ int launch(dim3 grid, int smem, cudaStream_t stream, const float* arr,
   return (int)cudaGetLastError();
 }
 
+// Shared memory a block may take beside a kernel's static ring, or -1.
+int smem_room(const void* kernel) {
+  int dev = 0, max_optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return -1;
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) return -1;
+  return max_optin - (int)attr.sharedSizeBytes;
+}
+
 }  // namespace
 
 extern "C" {
@@ -630,16 +758,10 @@ const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Largest row width whose per-set state and group entries fit one block's
-// shared memory beside the kernel's static prefetch ring.
+// Largest row width whose per-set state fits one block's shared memory
+// beside the kernel's static prefetch ring: the staged instantiations'.
 int sojourn_cells_max_groups() {
-  int dev = 0, max_optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, sojourn_cells_kernel<MAX_SLOTS>) != cudaSuccess)
-    return 0;
-  const int room = max_optin - (int)attr.sharedSizeBytes;
+  const int room = smem_room((const void*)sojourn_cells_kernel<MAX_SLOTS>);
   int lo = 0, hi = 1 << 20;
   while (lo < hi) {
     const int mid = (lo + hi + 1) / 2;
@@ -649,6 +771,22 @@ int sojourn_cells_max_groups() {
   return lo;
 }
 
+// Largest row width whose node table fits one block's shared memory beside
+// the ring: the unstaged instantiation's (its set state is in device
+// memory).
+int sojourn_cells_max_wide_groups() {
+  const int room = smem_room((const void*)sojourn_cells_kernel_wide);
+  if (room < 0) return 0;
+  return room / (32 * NODE_BYTES) * 32 * FAN;
+}
+
+// Words of device-memory scratch a program of the unstaged instantiation
+// keeps at row width n_g.
+long long sojourn_cells_state_words(int n_g) {
+  return (long long)STATE_WORDS * set_slots(n_g);
+}
+
+// The staged instantiations, n_g <= sojourn_cells_max_groups().
 int sojourn_cells_launch(const float* arr, const float* svc, const float* alt,
                          const int* kinds, const float* thresholds,
                          const uint8_t* hmasks, const int* n_groups, float* out,
@@ -666,6 +804,29 @@ int sojourn_cells_launch(const float* arr, const float* svc, const float* alt,
   return launch<MAX_SLOTS>(grid, smem, s, arr, svc, alt, kinds, thresholds,
                            hmasks, n_groups, out, extra, n_pol, n_jobs, n_g,
                            resolve);
+}
+
+// The unstaged instantiation, at any n_g <= sojourn_cells_max_wide_groups();
+// state: n_cells x n_pol x sojourn_cells_state_words(n_g) floats of device
+// memory, written before they are read.
+int sojourn_cells_wide_launch(const float* arr, const float* svc,
+                              const float* alt, const int* kinds,
+                              const float* thresholds, const uint8_t* hmasks,
+                              const int* n_groups, float* out, int* extra,
+                              float* state, int n_cells, int n_pol, int n_jobs,
+                              int n_g, int resolve, void* stream) {
+  const long long smem = wide_smem_bytes(n_g);
+  if (n_g < 1 || state == nullptr || smem > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      sojourn_cells_kernel_wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  sojourn_cells_kernel_wide<<<dim3(n_cells * n_pol), 32, (size_t)smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      arr, svc, alt, kinds, thresholds, hmasks, n_groups, out, extra, n_pol,
+      n_jobs, n_g, resolve, state);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

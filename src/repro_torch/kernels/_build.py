@@ -72,6 +72,9 @@ SIGNATURES = {
     "sojourn_cells": {
         "sojourn_cells_launch": ([_PTR] * 9 + [_INT] * 5 + [_PTR], _INT),
         "sojourn_cells_max_groups": ([], _INT),
+        "sojourn_cells_wide_launch": ([_PTR] * 10 + [_INT] * 5 + [_PTR], _INT),
+        "sojourn_cells_max_wide_groups": ([], _INT),
+        "sojourn_cells_state_words": ([_INT], _I64),
     },
     "coded_cells": {
         "coded_cells_launch": ([_PTR] * 5 + [_INT] * 4 + [_PTR], _INT),

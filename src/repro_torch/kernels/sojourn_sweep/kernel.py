@@ -250,19 +250,32 @@ def _stream() -> ctypes.c_void_p:
 
 @functools.lru_cache(maxsize=None)
 def _max_groups() -> int:
-    """Largest G whose per-set state fits the card's shared memory."""
+    """Largest G of the staged instantiations: the per-set state in one
+    block's shared memory."""
     return int(_build.load("sojourn_cells").sojourn_cells_max_groups())
 
 
+@functools.lru_cache(maxsize=None)
+def _max_wide_groups() -> int:
+    """Largest G of the unstaged instantiation: its node table in one
+    block's shared memory (the per-set state is in device memory)."""
+    return int(_build.load("sojourn_cells").sojourn_cells_max_wide_groups())
+
+
 def sojourn_cells(arrivals, svc, alt, kinds, thresholds, hedge_masks,
-                  n_groups, resolve: bool = True):
+                  n_groups, resolve: bool = True, force_wide: bool = False):
     """All (cell, policy) sojourn scans: ``(out (C,P,J) f32, extra (C,P) i32)``.
 
     Inputs: ``arrivals`` (J,) float32; ``svc``/``alt`` (C,J,G) float32;
     ``kinds`` (P,) int32; ``thresholds`` (C,P) float32; ``hedge_masks``
     (P,J) bool; ``n_groups`` (C,) int32; all on one device and contiguous.
     ``resolve=False`` skips the event-resolution pass (valid only when no
-    lane can arm a trigger).  A CPU tensor runs :func:`sojourn_cells_plain`.
+    lane can arm a trigger).  On the card, G up to :func:`_max_groups`
+    runs the staged kernel (the sets' state in shared memory) and a wider
+    G the unstaged one (the state in a device-memory scratch allocated
+    here, 20 bytes a set a program); ``force_wide`` runs the unstaged one
+    at any G (to hold the two against each other on the same input).  A
+    CPU tensor runs :func:`sojourn_cells_plain`.
     """
     n_cells, n_jobs, n_g = svc.shape
     n_pol = kinds.shape[0]
@@ -281,19 +294,35 @@ def sojourn_cells(arrivals, svc, alt, kinds, thresholds, hedge_masks,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     lib = _build.load("sojourn_cells")
-    if not 1 <= n_g <= _max_groups():
+    if n_g < 1:
+        raise ValueError(f"G={n_g} replica sets: the kernel needs at least 1")
+    wide = force_wide or n_g > _max_groups()
+    if wide and n_g > _max_wide_groups():
         raise ValueError(
-            f"G={n_g} replica sets: the kernel's shared-memory state holds "
-            f"1 to {_max_groups()}")
+            f"G={n_g} replica sets: the kernel's tree nodes (28 bytes a node "
+            f"of 128 sets) do not fit one block's shared memory on "
+            f"{torch.cuda.get_device_name(dev)}, which holds them for up to "
+            f"{_max_wide_groups()}")
     out = torch.empty((n_cells, n_pol, n_jobs), dtype=f32, device=dev)
     extra = torch.empty((n_cells, n_pol), dtype=torch.int32, device=dev)
     if n_cells * n_pol == 0 or n_jobs == 0:
         extra.zero_()
         return out, extra
-    code = lib.sojourn_cells_launch(
-        _ptr(arrivals), _ptr(svc), _ptr(alt), _ptr(kinds), _ptr(thresholds),
-        _ptr(hedge_masks.view(torch.uint8)), _ptr(n_groups), _ptr(out),
-        _ptr(extra), n_cells, n_pol, n_jobs, n_g, int(bool(resolve)), _stream())
+    args = (_ptr(arrivals), _ptr(svc), _ptr(alt), _ptr(kinds),
+            _ptr(thresholds), _ptr(hedge_masks.view(torch.uint8)),
+            _ptr(n_groups), _ptr(out), _ptr(extra))
+    if wide:
+        # each program's set state, on the launch's stream (an allocation
+        # the card cannot hold raises here)
+        state = torch.empty(
+            n_cells * n_pol * lib.sojourn_cells_state_words(n_g), dtype=f32,
+            device=dev)
+        code = lib.sojourn_cells_wide_launch(
+            *args, _ptr(state), n_cells, n_pol, n_jobs, n_g,
+            int(bool(resolve)), _stream())
+    else:
+        code = lib.sojourn_cells_launch(
+            *args, n_cells, n_pol, n_jobs, n_g, int(bool(resolve)), _stream())
     _build.check(lib, code, "sojourn_cells launch")
     _build.count_launch("sojourn_cells")
     return out, extra

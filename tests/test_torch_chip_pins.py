@@ -30,6 +30,12 @@ constant:
   the engine's own 4,000 trials; ``tests/test_torch_serving_engine.py``
   holds the port's CPU lane bit-equal to that lane on the same kinds of
   engine at smaller sizes.
+* ``WIDE_FLEET`` -- phase 2b's fleet wider than the staged sojourn
+  kernel holds (N 16,384, SExp(0.05, 2.0), B 2,048 to 16,384, phase 2's
+  four policies, p99 at utilization 0.7, 4,000 trials): the reference's
+  decision and points on its ``pallas`` lane (``slow``: about a minute
+  and 9 GB on one worker); at 400 trials the port's CPU lane makes the
+  reference's plan, bit for bit.
 * ``FAULT_FLEET`` -- phase 4e's fault path on 1,024 workers (B 256, 32
   slow workers, one replica group dead): the reference's ``decide()`` and
   rate-aware p99 ``plan_recovery`` (``slow``: about 110 s on its numpy
@@ -213,6 +219,45 @@ def test_engine_model_decision_is_the_references():
     log = chip_smoke.replan_log(eng)
     out = eng.run_load(n)
     assert chip_smoke.ENGINE_MODEL == chip_smoke.model_decision(out, eng, log)
+
+
+# -- phase 2b: a fleet wider than the staged sojourn kernel -----------------
+
+WIDE_POLS = (RPol(), RPol("clone", quantile=0.85),
+             RPol("relaunch", quantile=0.9), RPol("hedged", hedge_fraction=0.3))
+
+
+def _wide_fleet_plan(n_trials):
+    """The reference's WIDE_FLEET plan on its pallas lane, and its spec
+    and objective."""
+    spec = RP.ClusterSpec(n_workers=chip_smoke.WIDE_FLEET_N,
+                          dist=RSExp(0.05, 2.0),
+                          feasible_b=chip_smoke.WIDE_FLEET_B)
+    objective = RP.Objective(metric="p99", utilization=0.7,
+                             policies=WIDE_POLS)
+    _clear()
+    plan = RP.SimulatedPlanner(n_trials=n_trials, seed=0,
+                               backend="pallas").plan(spec, objective)
+    return plan, spec, objective
+
+
+@pytest.mark.slow
+def test_wide_fleet_decision_is_the_references():
+    """chip_smoke.py's plan_wide decision: B*, the policy and every
+    point's mean, variance, p99 and p99.9 at the card's 4,000 trials."""
+    plan, _, _ = _wide_fleet_plan(chip_smoke.WIDE_FLEET_TRIALS)
+    assert chip_smoke.plan_summary(plan) == chip_smoke.WIDE_FLEET
+
+
+def test_wide_fleet_port_plan_is_the_references():
+    """The same fleet at 400 trials: the port's CPU lane (the plain scan,
+    padded to r = 1's 16,384 sets) makes the reference's plan bit for
+    bit."""
+    ref, spec, objective = _wide_fleet_plan(400)
+    port = TP.SimulatedPlanner(n_trials=400, seed=0, device="cpu").plan(
+        from_reference(spec), from_reference(objective))
+    assert chip_smoke.plan_summary(port) == chip_smoke.plan_summary(ref)
+    assert ref.n_batches in chip_smoke.WIDE_FLEET_B
 
 
 def _fault_fleet_manager(fm_cls, plan_cls, **kw):

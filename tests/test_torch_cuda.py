@@ -185,13 +185,90 @@ def test_sojourn_kernel_fleet_width(cuda):
 
 
 def test_sojourn_kernel_rejects_too_many_groups(cuda):
-    args = _cells(0, 1, 4, 20_000, False, False, cuda)
-    with pytest.raises(ValueError, match="shared-memory"):
+    """No replica set, or a row whose node table the card's shared memory
+    cannot hold (past 1,060,864 sets on the H100), raises and says why."""
+    wide_max = K._max_wide_groups()
+    assert wide_max >= 65_536
+    args = _cells(0, 1, 4, wide_max + 1, False, False, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
         K.sojourn_cells(*args, resolve=False)
     args = _cells(0, 1, 4, 1, False, False, cuda)
     empty = args[1][:, :, :0].contiguous()
-    with pytest.raises(ValueError, match="shared-memory"):
+    with pytest.raises(ValueError, match="at least 1"):
         K.sojourn_cells(args[0], empty, empty, *args[3:], resolve=False)
+
+
+# the staged limit and one past it, the last and first widths of 3 and 4
+# nodes a lane, r = 1 of a 16,384-worker fleet, 65,536 sets, and the
+# widest row the unstaged node table holds
+WIDE_GROUPS = [11_520, 11_521, 12_288, 12_289, 16_384, 65_536]
+
+
+@pytest.mark.parametrize("n_g", WIDE_GROUPS)
+@pytest.mark.parametrize("ties", [False, True])
+def test_sojourn_wide_kernel_bit_equals_plain(cuda, n_g, ties):
+    """Two cells (n_g // 2 and n_g sets) and all four policies in one
+    launch, finite and infinite thresholds, bit-equal to the plain version;
+    G <= the staged limit runs the staged kernel, a wider G the unstaged
+    one, each one launch."""
+    assert (n_g <= K._max_groups()) == (n_g <= 11_520)
+    for finite in (True, False):
+        args = _cells(n_g, 2, 200, n_g, ties, finite, cuda)
+        resolve = O.needs_resolve(args[3], args[4])
+        before = launch_counts()["sojourn_cells"]
+        out_k, x_k = K.sojourn_cells(*args, resolve=resolve)
+        assert launch_counts()["sojourn_cells"] == before + 1
+        out_p, x_p = K.sojourn_cells_plain(*args, resolve=resolve)
+        assert torch.equal(out_k, out_p) and torch.equal(x_k, x_p)
+
+
+def test_sojourn_wide_kernel_mixed_groups(cuda):
+    """Cells of 0, 1, 11,520, 11,521 and 16,384 sets padded to 16,384 in
+    one unstaged launch, bit-equal to the plain version."""
+    for ties in (False, True):
+        args = list(_cells(17 + ties, 5, 200, 16_384, ties, True, cuda))
+        args[6] = torch.tensor([0, 1, 11_520, 11_521, 16_384],
+                               dtype=torch.int32, device=cuda)
+        resolve = O.needs_resolve(args[3], args[4])
+        out_k, x_k = K.sojourn_cells(*args, resolve=resolve)
+        out_p, x_p = K.sojourn_cells_plain(*args, resolve=resolve)
+        assert torch.equal(out_k, out_p) and torch.equal(x_k, x_p)
+
+
+@pytest.mark.parametrize("n_g,n_jobs,n_cells", [
+    (9, 400, 3), (300, 2_000, 3), (5_000, 8_000, 3), (10_000, 12_000, 1)])
+def test_sojourn_wide_kernel_equals_staged_past_the_sets(cuda, n_g, n_jobs,
+                                                         n_cells):
+    """The unstaged kernel at widths the staged one holds (force_wide),
+    on more jobs than sets, so that every lane's table entries win the
+    root, lose it and are rewritten (1 to 3 nodes a lane): bit-equal to
+    the staged kernel, and at 400 jobs to the plain version; negative
+    draws (the clone recompute) at 9 sets."""
+    for ties in (False, True):
+        args = _cells(n_g + ties, n_cells, n_jobs, n_g, ties, True, cuda)
+        if n_g == 9:
+            args = (args[0], args[1] - 0.9, args[2] - 0.9, *args[3:])
+        resolve = O.needs_resolve(args[3], args[4])
+        wide = K.sojourn_cells(*args, resolve=resolve, force_wide=True)
+        staged = K.sojourn_cells(*args, resolve=resolve)
+        assert torch.equal(wide[0], staged[0])
+        assert torch.equal(wide[1], staged[1])
+        if n_jobs <= 400:
+            plain = K.sojourn_cells_plain(*args, resolve=resolve)
+            assert torch.equal(wide[0], plain[0])
+            assert torch.equal(wide[1], plain[1])
+
+
+def test_sojourn_wide_kernel_at_its_widest_row(cuda):
+    """The widest row the node table holds (259 nodes a lane on the H100:
+    a dynamic shared-memory request past the 48 KB default), bit-equal to
+    the plain version."""
+    n_g = K._max_wide_groups()
+    args = _cells(3, 1, 40, n_g, False, True, cuda)
+    resolve = O.needs_resolve(args[3], args[4])
+    out_k, x_k = K.sojourn_cells(*args, resolve=resolve)
+    out_p, x_p = K.sojourn_cells_plain(*args, resolve=resolve)
+    assert torch.equal(out_k, out_p) and torch.equal(x_k, x_p)
 
 
 # every width of the short-row path (W = 1, 2, 4, 8, 16, 32 lanes a row,

@@ -260,16 +260,143 @@ class TreeScan:
         return out, extra
 
 
-def tree_cells(arr, svc, alt, kinds, thr, hm, ng, resolve, fan=128):
-    """Every (cell, policy) program of one launch: (out, extra, recomputes)."""
+def _keys(x):
+    """``fkey`` of every float32 of an array, as uint32."""
+    b = np.asarray(x, F32).view(np.uint32)
+    b = np.where((b << np.uint32(1)) == 0, np.uint32(0), b)
+    return np.where(b & np.uint32(0x80000000), ~b, b | np.uint32(0x80000000))
+
+
+def merge2(x, y):
+    """The kernel's merge of two lowest-two pairs, each sorted."""
+    (xa, xb), (ya, yb) = x, y
+    lo, hi = (ya, xa) if ya < xa else (xa, ya)
+    l2 = yb if yb < xb else xb
+    return (lo, l2 if l2 < hi else hi)
+
+
+def warp_top2(v):
+    """The kernel's warp_top2 over every lane's (a, b): the least key, the
+    least index holding it, then the same over every lane's best but the
+    winner's, which offers its second."""
+    ka = min(a[0] for a, _ in v)
+    ia = min(a[1] for a, _ in v if a[0] == ka)
+    c = [b if a == (ka, ia) else a for a, b in v]
+    kb = min(k for k, _ in c)
+    return ((ka, ia), (kb, min(i for k, i in c if k == kb)))
+
+
+NONE2 = ((KNONE, INT_MAX), (KNONE, INT_MAX))
+NONE3 = (KNONE, NONE, INT_MAX)
+
+
+class WideTreeScan(TreeScan):
+    """One program of the unstaged instantiation (``sojourn_cells_kernel_
+    wide``): the sets' state as :class:`TreeScan` keeps it (the kernel's
+    device-memory scratch), the node level as the kernel's shared table.
+
+    A node of ``fan`` sets is ``lanes`` lanes of ``fan // lanes`` sets
+    (32 of four in the kernel).  Lane l keeps nodes l * slots + s, slots =
+    ceil(nodes / lanes) from the program's own ``n_groups``, in table
+    entry ``[s][l]``, and reads and writes only those.  A walk re-reduces
+    a changed node from its sets (each lane its own, then across lanes)
+    and the root across lanes from each lane's merge of its kept entries
+    but the changed nodes', with the changed nodes' sets of that lane; a
+    program of one node takes the node as the root.  Table entries past
+    the program's nodes stay empty.
+    """
+
+    def __init__(self, *a, lanes=32, **kw):
+        self.lanes = lanes
+        super().__init__(*a, **kw)
+
+    def _lane_free(self, q):
+        """Each lane's lowest two free (key, index) of node q's sets."""
+        per = self.fan // self.lanes
+        base = q * self.fan
+        keys = _keys(self.fr[base:base + self.fan]).astype(np.int64)
+        out = []
+        for lane in range(self.lanes):
+            pairs = sorted((int(keys[lane * per + j]), base + lane * per + j)
+                           for j in range(per))
+            out.append(_top2(pairs))
+        return out
+
+    def _lane_trig(self, q):
+        per = self.fan // self.lanes
+        return [min(self._set_trig(q * self.fan + lane * per + j)
+                    for j in range(per)) for lane in range(self.lanes)]
+
+    def _kept(self, lane, table, none, pick, skip):
+        r = none
+        for s in range(self.slots):
+            q = lane * self.slots + s
+            keep = q < self.n_nodes and q not in skip
+            r = pick(r, table[s][lane] if keep else none)
+        return r
+
+    def _store(self, table, q, entry):
+        table[q % self.slots][q // self.slots] = entry
+
+    def _build(self):
+        self.slots = -(-self.n_nodes // self.lanes)
+        self.ftab = [[NONE2] * self.lanes for _ in range(self.slots)]
+        self.ttab = [[NONE3] * self.lanes for _ in range(self.slots)]
+        for q in range(self.n_nodes):
+            self._store(self.ftab, q, warp_top2(self._lane_free(q)))
+            self._store(self.ttab, q, min(self._lane_trig(q)))
+        self.froot = warp_top2([self._kept(lane, self.ftab, NONE2, merge2, ())
+                                for lane in range(self.lanes)])
+        self.troot = min(self._kept(lane, self.ttab, NONE3, min, ())
+                         for lane in range(self.lanes))
+
+    def _walk(self, free_sets, trig_set=None):
+        fq = sorted({s // self.fan for s in free_sets})
+        if fq:
+            kids = [self._lane_free(q) for q in fq]
+            nodes = [warp_top2(k) for k in kids]
+            if self.n_nodes == 1:
+                self.froot = nodes[0]
+            else:
+                rc = []
+                for lane in range(self.lanes):
+                    r = self._kept(lane, self.ftab, NONE2, merge2, fq)
+                    for k in kids:
+                        r = merge2(r, k[lane])
+                    rc.append(r)
+                self.froot = warp_top2(rc)
+            for q, n in zip(fq, nodes):
+                self._store(self.ftab, q, n)
+        if trig_set is not None:
+            q = trig_set // self.fan
+            kids = self._lane_trig(q)
+            node = min(kids)
+            self.troot = node if self.n_nodes == 1 else min(
+                min(self._kept(lane, self.ttab, NONE3, min, (q,)), kids[lane])
+                for lane in range(self.lanes))
+            self._store(self.ttab, q, node)
+
+
+# the H100's staged limit: 20 bytes a set, whole nodes of 128, in 227 KB
+# of shared memory a block less the 128-byte prefetch ring
+STAGED_MAX = (232_448 - 128) // (20 * 128) * 128
+
+
+def tree_cells(arr, svc, alt, kinds, thr, hm, ng, resolve, fan=128,
+               wide=False, lanes=32):
+    """Every (cell, policy) program of one launch: (out, extra, recomputes).
+    ``wide``: the unstaged instantiation's layout (:class:`WideTreeScan`
+    with ``lanes`` lanes a node)."""
     n_cells, n_jobs, _ = svc.shape
     out = np.zeros((n_cells, len(kinds), n_jobs), F32)
     extra = np.zeros((n_cells, len(kinds)), np.int64)
     recomputes = 0
+    kw = {"lanes": lanes} if wide else {}
     for c in range(n_cells):
         for p, kind in enumerate(kinds):
-            prog = TreeScan(arr, svc[c], alt[c], int(kind), thr[c, p], hm[p],
-                            int(ng[c]), resolve, fan)
+            prog = (WideTreeScan if wide else TreeScan)(
+                arr, svc[c], alt[c], int(kind), thr[c, p], hm[p], int(ng[c]),
+                resolve, fan, **kw)
             out[c, p], extra[c, p] = prog.run()
             recomputes += prog.recomputes
     return out, extra, recomputes
@@ -303,14 +430,17 @@ def _cells(seed, n_cells, n_jobs, n_g, ties, finite, negative=False):
             thr.astype(F32), hm, ng.astype(np.int32))
 
 
-def _check(args, fan=128):
-    """Emulation == ref.py == the plain version, bit for bit."""
+def _check(args, fan=128, wide=False, lanes=32):
+    """Emulation == ref.py == the plain version, bit for bit (ref.py on
+    the cells of at least one replica set: it has no answer for none)."""
     arr, svc, alt, kinds, thr, hm, ng = args
     resolve = O.needs_resolve(kinds, thr)
-    out_t, x_t, recomputes = tree_cells(*args, resolve, fan)
-    out_r, x_r = sojourn_cells_reference(arr, svc, alt, kinds, thr, hm, ng)
-    np.testing.assert_array_equal(out_t, out_r)
-    np.testing.assert_array_equal(x_t, x_r)
+    out_t, x_t, recomputes = tree_cells(*args, resolve, fan, wide, lanes)
+    some = ng > 0
+    out_r, x_r = sojourn_cells_reference(arr, svc[some], alt[some], kinds,
+                                         thr[some], hm, ng[some])
+    np.testing.assert_array_equal(out_t[some], out_r)
+    np.testing.assert_array_equal(x_t[some], x_r)
     tens = [torch.as_tensor(np.ascontiguousarray(a)) for a in args]
     tens[3] = tens[3].to(torch.int32)
     out_p, x_p = K.sojourn_cells_plain(*tens, resolve=resolve)
@@ -373,6 +503,77 @@ def test_kernel_layout_covers_the_largest_grid():
     benchmark's N at r = 1, must fit both."""
     slots = -(-10_000 // 128) * 128
     assert 20 * slots <= 232_448 - 128 and slots // 128 <= 96
+
+
+# the unstaged instantiation's widths: the staged limit and one past it,
+# the last and first widths of 3 and 4 nodes a lane, the wide
+# fleet's r = 1 and 65,536 sets (16 table entries a lane)
+WIDE_GROUPS = [11_520, 11_521, 12_288, 12_289, 16_384, 65_536]
+WIDE_CASES = {"draws": (False, True, False), "ties": (True, True, False),
+              "infinite": (False, False, False),
+              "negative": (False, True, True)}
+
+
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+@pytest.mark.parametrize("n_g", WIDE_GROUPS)
+def test_wide_layout_matches_reference(n_g, case):
+    """All four kinds, two cells (n_g // 2 and n_g sets) padded to n_g, in
+    the layout the kernel's launch picks at n_g: staged up to the H100's
+    11,520, the unstaged table above; finite and infinite thresholds,
+    forced ties, and negative draws (which lower m and make clone programs
+    recompute their triggers; m rises, and so can fall, only once the jobs
+    outnumber the sets, so there the first cell has 9)."""
+    ties, finite, negative = WIDE_CASES[case]
+    args = _cells(n_g + len(case), 2, 64, n_g, ties, finite, negative)
+    if negative:
+        args[6][0] = 9
+    recomputes = _check(args, wide=n_g > STAGED_MAX)
+    if negative:
+        assert recomputes > 0
+
+
+@pytest.mark.parametrize("ties,finite", [(False, True), (True, False)])
+def test_wide_layout_mixed_launch(ties, finite):
+    """One launch of cells of 0, 1, 11,520, 11,521 and 16,384 sets padded
+    to 16,384: each program reads its own n_groups, keeps its own number
+    of nodes a lane, and the cell of none gives the plain version's
+    answer."""
+    arr, svc, alt, kinds, thr, hm, _ = _cells(29 + ties, 5, 64, 16_384, ties,
+                                              finite)
+    ng = np.array([0, 1, 11_520, 11_521, 16_384], np.int32)
+    _check((arr, svc, alt, kinds, thr, hm, ng), wide=True)
+
+
+@pytest.mark.parametrize("n_g", [5, 17, 70, 257])
+@pytest.mark.parametrize("ties", [False, True])
+def test_wide_layout_small_nodes_match_reference(n_g, ties):
+    """The unstaged table at nodes of four sets, one a lane over four
+    lanes: up to 17 nodes a lane, and 200 jobs, more than the sets, so
+    every lane's entries win the root, lose it and are rewritten."""
+    _check(_cells(300 + n_g, 3, 200, n_g, ties, True), fan=4, wide=True,
+           lanes=4)
+
+
+def test_wide_layout_small_nodes_take_the_exact_clone_path():
+    """Negative draws in the unstaged table: 33 sets, nine nodes of four,
+    three a lane."""
+    args = _cells(2, 2, 150, 33, False, True, negative=True)
+    assert _check(args, fan=4, wide=True, lanes=4) > 0
+
+
+def test_wide_layout_covers_65536_sets():
+    """The unstaged instantiation keeps each program's 20 bytes a set in
+    device memory and its node table (16 nodes a lane of 28 bytes at
+    65,536 sets: 14,336 bytes) in one block's shared memory beside the
+    prefetch ring; 65,536 sets are 512 nodes, and the table's limit lies
+    far past them."""
+    nodes = 65_536 // 128
+    slots = -(-nodes // 32)
+    assert slots == 16 and 32 * slots * 28 == 14_336
+    assert 32 * slots * 28 <= 232_448 - 128
+    room_slots = (232_448 - 128) // (32 * 28)
+    assert room_slots * 32 * 128 == 1_060_864 >= 65_536
+    assert 16 * 20 * 16_384 == 5_242_880  # the wide fleet's 16 programs
 
 
 def test_policy_sweep_is_one_call_and_equals_the_reference(monkeypatch):
