@@ -21,13 +21,17 @@ non-zero:
                       kernel, all four policy kinds, bit-equal to its plain
                       version on 1,000 jobs at G 11,520 (staged), 11,521,
                       16,384 and 65,536 (unstaged) and in one launch of
-                      cells of 0, 1, 11,520, 11,521 and 16,384 sets; the
-                      unstaged kernel forced onto phase 2's dispatch, and
-                      onto 12,000 jobs over cells of 5,000 and 10,000 sets
-                      (sets revisited in every slot of its node table),
-                      equal to the staged one on every job; the build's
-                      ptxas figures of each instantiation; phase 2's
-                      dispatch re-timed on the staged one.  Then
+                      cells of 0, 1, 11,520, 11,521 and 16,384 sets, and
+                      in one launch of cells of K - 1, K and K + 1 sets
+                      padded to 65,536 (K its split there: the sets whose
+                      hot words sit in shared memory); the unstaged kernel
+                      forced onto phase 2's dispatch, and onto 12,000 jobs
+                      over cells of 5,000 and 10,000 sets (sets revisited
+                      in two and three groups of nodes), equal to the
+                      staged one on every job; the build's ptxas figures
+                      of each instantiation, the staged ones against PR
+                      28's; phase 2's dispatch re-timed on the staged one
+                      and on the unstaged one.  Then
                       ``SimulatedPlanner`` at N 16,384, SExp(0.05, 2.0), B
                       in {2,048, 4,096, 8,192, 16,384} (r = 1 included),
                       phase 2's objective, 4,000 trials: one
@@ -191,7 +195,10 @@ non-zero:
                       weights, float32 AdamW state), seq 512, global batch
                       32, 8 workers from B 4, worker 3 slowed 8x, the tuner
                       on the simulate planner, ``TRAIN_STEPS`` steps.
-                      First, at step 0, every parameter leaf's gradient is
+                      First, AdamW's float32 ``sqrt_`` on 2^26 values
+                      (``torch.sqrt`` on the card) against the float64
+                      root rounded back: none may differ.  Then, at step
+                      0, every parameter leaf's gradient is
                       finite and every layer's attention projections get a
                       nonzero one (what a detached kernel output would
                       lose), and ``FlashAttentionFn``'s output and dq / dk /
@@ -683,16 +690,42 @@ WIDE_CHECK_GROUPS = (11_520, 11_521, 16_384, 65_536)
 WIDE_MIXED_GROUPS = (0, 1, 11_520, 11_521, 16_384)
 WIDE_CHECK_JOBS = 1_000
 # and the unstaged kernel forced onto more jobs than sets, two and three
-# table entries a lane, held bit-equal to the staged one
+# groups of nodes, held bit-equal to the staged one
 WIDE_REVISIT_GROUPS, WIDE_REVISIT_JOBS = (5_000, 10_000), 12_000
+# ptxas's registers and static shared bytes of the staged instantiations,
+# which the unstaged kernel's redesign leaves as they were (PR 28's build)
+STAGED_PTXAS = {"sojourn_cells_kernel<1>": (71, 128),
+                "sojourn_cells_kernel<3>": (92, 128)}
+# phase 6b's check of AdamW's float32 square root on the card, on this
+# many values
+SQRT_CHECK_N = 1 << 26
 
 
-def soj_ptxas_figures() -> dict:
+def sqrt_mismatches(torch, dev, n: int = SQRT_CHECK_N) -> int:
+    """How many of ``n`` float32 values (|N(0, 1)| scaled by 10^U(-40, 30),
+    zeros and subnormals among them) AdamW's ``sqrt_`` on the card takes
+    to another float32 than the float64 root rounded back, the CPU's
+    route, which is correctly rounded: 0 lets the card keep CUDA's
+    ``sqrtf``."""
+    from repro_torch.optim import adamw
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = (torch.randn(n, generator=g, device=dev).abs()
+         * torch.pow(10.0, torch.empty(n, device=dev).uniform_(
+             -40.0, 30.0, generator=g))).float()
+    x[:4] = torch.tensor([0.0, 1e-45, 1e-40, 3.4e38], device=dev)
+    want = torch.sqrt(x.double()).float()
+    return int((adamw.sqrt_(x.clone()) != want).sum().item())
+
+
+def soj_ptxas_figures(log: str | None = None) -> dict:
     """{sojourn_cells kernel: (registers, static shared bytes)} from the
-    ``-Xptxas -v`` log the build keeps beside the library."""
-    from repro_torch.kernels import _build
+    ``-Xptxas -v`` log the build keeps beside the library (or ``log``)."""
+    if log is None:
+        from repro_torch.kernels import _build
 
-    log = _build._lib_path("sojourn_cells").with_suffix(".log").read_text()
+        log = _build._lib_path("sojourn_cells").with_suffix(
+            ".log").read_text()
     figures, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -701,8 +734,8 @@ def soj_ptxas_figures() -> dict:
             continue
         m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
         if m and name:
-            s = re.search(r"sojourn_cells_kernelILi(\d+)E", name)
-            key = (f"sojourn_cells_kernel<{s[1]}>" if s else
+            s = re.search(r"sojourn_cells_kernel(_wide)?ILi(\d+)E", name)
+            key = (f"sojourn_cells_kernel{s[1] or ''}<{s[2]}>" if s else
                    "sojourn_cells_kernel_wide"
                    if "sojourn_cells_kernel_wide" in name else name)
             figures[key] = (int(m[1]), int(m[2]))
@@ -1417,6 +1450,16 @@ def main() -> int:
                     WIDE_MIXED_GROUPS)
     wide_row("mixed n_groups", a_, {"resolve": True})
     del a_
+    # the split at 65,536 sets (the hot words of the sets below K on chip):
+    # cells of K - 1, K and K + 1 sets padded to 65,536, one launch
+    k_split = SK._wide_split(WIDE_CHECK_GROUPS[-1])[0]
+    a_ = wide_cells(11, WIDE_CHECK_JOBS, WIDE_CHECK_GROUPS[-1],
+                    (k_split - 1, k_split, k_split + 1))
+    soj_prefix_check("split", a_, {"resolve": True}, WIDE_CHECK_JOBS)
+    print(f"[plan_wide] cells of K - 1, K and K + 1 sets (K = {k_split}, "
+          f"the split at {WIDE_CHECK_GROUPS[-1]}): first {WIDE_CHECK_JOBS} "
+          f"jobs bit-equal to plain", flush=True)
+    del a_
     # the unstaged kernel forced past its sets, every job held bit-equal to
     # the staged kernel: phase 2's dispatch (20,000 jobs on 2,000 sets, one
     # table entry a lane), and more jobs than sets where a lane keeps two
@@ -1441,17 +1484,20 @@ def main() -> int:
     # ptxas's registers and shared memory of each instantiation, from the
     # build's log (the staged ones are to match the parent's)
     ptxas = soj_ptxas_figures()
-    print(f"[plan_wide] ptxas: {ptxas}")
+    staged_same = all(ptxas.get(k) == v for k, v in STAGED_PTXAS.items())
+    print(f"[plan_wide] ptxas: {ptxas}; the staged instantiations' as PR "
+          f"28's build {STAGED_PTXAS}: {staged_same}")
     # (c) phase 2's dispatch on the staged kernel, re-timed here
     p2_fn = lambda: SK.sojourn_cells(*p2_args, **p2_kw)  # noqa: E731
     p2_wide_fn = lambda: SK.sojourn_cells(  # noqa: E731
         *p2_args, **p2_kw, force_wide=True)
     p2_ms, p2_call = cuda_ms(p2_fn, 3), call_ms(p2_fn, 3)
-    p2_wide_ms = cuda_ms(p2_wide_fn, 3)
+    p2_wide_ms, p2_wide_call = cuda_ms(p2_wide_fn, 3), call_ms(p2_wide_fn, 3)
     print(f"[plan_wide] phase 2's dispatch C,J,G,P="
           f"{list(p2_args[1].shape) + [int(p2_args[3].shape[0])]}: staged "
           f"{p2_ms:.3f} ms (per call {p2_call:.3f} ms); the unstaged kernel "
-          f"forced there {p2_wide_ms:.3f} ms, bit-equal to the staged one")
+          f"forced there {p2_wide_ms:.3f} ms (per call {p2_wide_call:.3f} "
+          f"ms), bit-equal to the staged one")
 
     # (b) the wide fleet's plan: one launch over 4 B x 4 policies at r = 1's
     # 16,384 sets
@@ -1494,7 +1540,9 @@ def main() -> int:
         "decision": got, "kernels": wide_entries,
         "phase2_dispatch_ms": p2_ms, "phase2_dispatch_call_ms": p2_call,
         "phase2_dispatch_forced_unstaged_ms": p2_wide_ms,
-        "ptxas": ptxas, "phase_wall_s": wide_wall}
+        "phase2_dispatch_forced_unstaged_call_ms": p2_wide_call,
+        "split_65536": k_split, "ptxas": ptxas,
+        "staged_ptxas_as_parent": staged_same, "phase_wall_s": wide_wall}
     # phase 2's captured inputs stay in soj_calls alone, which phase 7
     # clears: a name here would keep 2 GB of the card until the script ends
     del wa, wkw, wide_calls, cached, p2_args, p2_kw, p2_fn, p2_wide_fn
@@ -3318,6 +3366,17 @@ def main() -> int:
     # -- 6b. train: the training path at qwen2-0.5b's full width ----------
     _phase("train")
     import tempfile
+
+    # AdamW's float32 square root: torch.sqrt on the card must round as
+    # the float64 route the CPU takes does (the reference's rounding)
+    sqrt_bad = sqrt_mismatches(torch, dev)
+    print(f"[train] AdamW's sqrt_ on the card against the float64 root "
+          f"rounded back, {SQRT_CHECK_N} float32 values: {sqrt_bad} differ")
+    if sqrt_bad:
+        raise AssertionError(f"torch.sqrt on the card is not correctly "
+                             f"rounded on {sqrt_bad} values: AdamW's sqrt_ "
+                             f"must take the float64 route there too")
+    report["phases"]["train_sqrt_mismatches"] = sqrt_bad
 
     import torch.nn.functional as F
 

@@ -66,15 +66,17 @@ SOURCES = {
 }
 
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_PINT = ctypes.POINTER(ctypes.c_int)
 # name -> {C function: (argtypes, restype)}: the plain C interface of each
 # library, declared once when it is loaded
 SIGNATURES = {
     "sojourn_cells": {
         "sojourn_cells_launch": ([_PTR] * 9 + [_INT] * 5 + [_PTR], _INT),
         "sojourn_cells_max_groups": ([], _INT),
-        "sojourn_cells_wide_launch": ([_PTR] * 10 + [_INT] * 5 + [_PTR], _INT),
+        "sojourn_cells_wide_launch": ([_PTR] * 10 + [_INT] * 7 + [_PTR], _INT),
         "sojourn_cells_max_wide_groups": ([], _INT),
-        "sojourn_cells_state_words": ([_INT], _I64),
+        "sojourn_cells_wide_split": ([_INT, _PINT, _PINT], _INT),
+        "sojourn_cells_state_words": ([_INT] * 3, _I64),
     },
     "coded_cells": {
         "coded_cells_launch": ([_PTR] * 5 + [_INT] * 4 + [_PTR], _INT),

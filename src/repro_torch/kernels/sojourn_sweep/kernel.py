@@ -257,9 +257,23 @@ def _max_groups() -> int:
 
 @functools.lru_cache(maxsize=None)
 def _max_wide_groups() -> int:
-    """Largest G of the unstaged instantiation: its node table in one
-    block's shared memory (the per-set state is in device memory)."""
+    """Largest G of the unstaged instantiation: its node and group tables
+    in one block's shared memory (with no set staged beside them)."""
     return int(_build.load("sojourn_cells").sojourn_cells_max_wide_groups())
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_split(n_g: int) -> tuple[int, int]:
+    """The unstaged instantiation's split at G = ``n_g``: the first ``kh``
+    sets keep their hot words (free, trigger time, doneg) in shared memory
+    beside the tables, the first ``kc`` their cold ones (aux, job id); the
+    rest live in the scratch."""
+    lib = _build.load("sojourn_cells")
+    kh, kc = ctypes.c_int(), ctypes.c_int()
+    _build.check(lib, lib.sojourn_cells_wide_split(n_g, ctypes.byref(kh),
+                                                   ctypes.byref(kc)),
+                 "sojourn_cells_wide_split")
+    return kh.value, kc.value
 
 
 def sojourn_cells(arrivals, svc, alt, kinds, thresholds, hedge_masks,
@@ -272,10 +286,11 @@ def sojourn_cells(arrivals, svc, alt, kinds, thresholds, hedge_masks,
     ``resolve=False`` skips the event-resolution pass (valid only when no
     lane can arm a trigger).  On the card, G up to :func:`_max_groups`
     runs the staged kernel (the sets' state in shared memory) and a wider
-    G the unstaged one (the state in a device-memory scratch allocated
-    here, 20 bytes a set a program); ``force_wide`` runs the unstaged one
-    at any G (to hold the two against each other on the same input).  A
-    CPU tensor runs :func:`sojourn_cells_plain`.
+    G the unstaged one (node and group tables and the first sets' state in
+    shared memory, :func:`_wide_split`; the other sets' state in a
+    device-memory scratch allocated here); ``force_wide`` runs the
+    unstaged one at any G (to hold the two against each other on the same
+    input).  A CPU tensor runs :func:`sojourn_cells_plain`.
     """
     n_cells, n_jobs, n_g = svc.shape
     n_pol = kinds.shape[0]
@@ -299,8 +314,9 @@ def sojourn_cells(arrivals, svc, alt, kinds, thresholds, hedge_masks,
     wide = force_wide or n_g > _max_groups()
     if wide and n_g > _max_wide_groups():
         raise ValueError(
-            f"G={n_g} replica sets: the kernel's tree nodes (28 bytes a node "
-            f"of 128 sets) do not fit one block's shared memory on "
+            f"G={n_g} replica sets: the kernel's tree tables (32 bytes a "
+            f"node of 128 sets, and its groups of 32 nodes) do not fit one "
+            f"block's shared memory on "
             f"{torch.cuda.get_device_name(dev)}, which holds them for up to "
             f"{_max_wide_groups()}")
     out = torch.empty((n_cells, n_pol, n_jobs), dtype=f32, device=dev)
@@ -312,14 +328,15 @@ def sojourn_cells(arrivals, svc, alt, kinds, thresholds, hedge_masks,
             _ptr(thresholds), _ptr(hedge_masks.view(torch.uint8)),
             _ptr(n_groups), _ptr(out), _ptr(extra))
     if wide:
-        # each program's set state, on the launch's stream (an allocation
-        # the card cannot hold raises here)
+        # each program's set state past the split, on the launch's stream
+        # (an allocation the card cannot hold raises here)
+        kh, kc = _wide_split(n_g)
         state = torch.empty(
-            n_cells * n_pol * lib.sojourn_cells_state_words(n_g), dtype=f32,
-            device=dev)
+            n_cells * n_pol * lib.sojourn_cells_state_words(n_g, kh, kc),
+            dtype=f32, device=dev)
         code = lib.sojourn_cells_wide_launch(
             *args, _ptr(state), n_cells, n_pol, n_jobs, n_g,
-            int(bool(resolve)), _stream())
+            int(bool(resolve)), kh, kc, _stream())
     else:
         code = lib.sojourn_cells_launch(
             *args, n_cells, n_pol, n_jobs, n_g, int(bool(resolve)), _stream())

@@ -35,9 +35,11 @@ import torch
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["AdamWConfig", "init", "update", "update_", "state_specs",
-           "global_norm"]
+           "global_norm", "sqrt_"]
 
 F32 = torch.float32
+# elements of a leaf that :func:`sqrt_` widens to float64 at a time (32 MB)
+_SQRT_CHUNK = 1 << 22
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +79,25 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
+def sqrt_(x: torch.Tensor) -> torch.Tensor:
+    """``x`` <- its square root, correctly rounded in float32 as ``np.sqrt``
+    and ``jnp.sqrt`` are.  On the CPU, float32 ``torch.sqrt`` is not
+    correctly rounded on some hosts (its vectorised path may be one
+    spacing off), so the root is taken in float64 and rounded back, which
+    is correctly rounded (53 >= 2 * 24 + 2 bits), a chunk of the leaf at a
+    time so that no float64 copy of a whole embedding is held.  On the
+    card ``torch.sqrt`` is CUDA's IEEE ``sqrtf``, correctly rounded
+    (``chip_smoke.py`` holds it bit-equal to the float64 route).  ``x``
+    is float32 and contiguous."""
+    if x.is_cuda:
+        return x.sqrt_()
+    flat = x.view(-1)
+    for i in range(0, flat.numel(), _SQRT_CHUNK):
+        c = flat[i:i + _SQRT_CHUNK]
+        c.copy_(c.double().sqrt_())
+    return x
+
+
 def update(grads, state, params, lr, cfg: AdamWConfig = AdamWConfig()):
     """Returns (new_params, new_state, metrics), leaving ``state`` and
     ``params`` as they were: :func:`update_` on copies of them."""
@@ -106,7 +127,7 @@ def update_(grads, state, params, lr, cfg: AdamWConfig = AdamWConfig()):
         v_.mul_(b2).add_((1 - b2) * g * g)
         # each temporary is freed once used: an embedding leaf can hold 1 G
         # elements, 4 GB a float32 temporary
-        u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + cfg.eps)
+        u = (m_ / bc1) / sqrt_(v_ / bc2).add_(cfg.eps)
         del g
         step_ = lr * (u + cfg.weight_decay * p32.to(F32))
         del u

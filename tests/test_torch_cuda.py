@@ -185,8 +185,9 @@ def test_sojourn_kernel_fleet_width(cuda):
 
 
 def test_sojourn_kernel_rejects_too_many_groups(cuda):
-    """No replica set, or a row whose node table the card's shared memory
-    cannot hold (past 1,060,864 sets on the H100), raises and says why."""
+    """No replica set, or a row whose node and group tables the card's
+    shared memory cannot hold (past 897,024 sets on the H100), raises and
+    says why."""
     wide_max = K._max_wide_groups()
     assert wide_max >= 65_536
     args = _cells(0, 1, 4, wide_max + 1, False, False, cuda)
@@ -199,8 +200,8 @@ def test_sojourn_kernel_rejects_too_many_groups(cuda):
 
 
 # the staged limit and one past it, the last and first widths of 3 and 4
-# nodes a lane, r = 1 of a 16,384-worker fleet, 65,536 sets, and the
-# widest row the unstaged node table holds
+# groups of nodes, r = 1 of a 16,384-worker fleet, 65,536 sets, and the
+# widest row the unstaged tables hold
 WIDE_GROUPS = [11_520, 11_521, 12_288, 12_289, 16_384, 65_536]
 
 
@@ -260,15 +261,102 @@ def test_sojourn_wide_kernel_equals_staged_past_the_sets(cuda, n_g, n_jobs,
 
 
 def test_sojourn_wide_kernel_at_its_widest_row(cuda):
-    """The widest row the node table holds (259 nodes a lane on the H100:
-    a dynamic shared-memory request past the 48 KB default), bit-equal to
-    the plain version."""
+    """The widest row the tables hold (219 groups, seven entries a lane, on
+    the H100: a dynamic shared-memory request past the 48 KB default, no
+    set staged), bit-equal to the plain version."""
     n_g = K._max_wide_groups()
+    assert K._wide_split(n_g) == (0, 0)
     args = _cells(3, 1, 40, n_g, False, True, cuda)
     resolve = O.needs_resolve(args[3], args[4])
     out_k, x_k = K.sojourn_cells(*args, resolve=resolve)
     out_p, x_p = K.sojourn_cells_plain(*args, resolve=resolve)
     assert torch.equal(out_k, out_p) and torch.equal(x_k, x_p)
+
+
+def test_sojourn_wide_split_fills_shared_memory(cuda):
+    """The unstaged split on the H100: every set's hot words and the first
+    4,352 sets' cold ones at 16,384 sets (nodes in registers), the first
+    17,792 sets' hot words at 65,536 (beside the tables); none past the
+    widest row's tables."""
+    if K._max_groups() != 11_520:
+        pytest.skip("the figures are the H100's")
+    assert K._wide_split(16_384) == (16_384, 4_352)
+    assert K._wide_split(65_536) == (17_792, 0)
+    assert K._max_wide_groups() == 897_024
+
+
+@pytest.mark.parametrize("offset", [-1, 0, 1])
+def test_sojourn_wide_kernel_around_the_split(cuda, offset):
+    """Cells of 9 and K + offset sets (K the split at 65,536) padded to
+    65,536, one launch, bit-equal to the plain version, with and without
+    ties."""
+    kh, _ = K._wide_split(65_536)
+    for ties in (False, True):
+        args = _cells(kh + offset + ties, 2, 120, 65_536, ties, True, cuda)
+        args[6].copy_(torch.tensor([9, kh + offset], dtype=torch.int32))
+        resolve = O.needs_resolve(args[3], args[4])
+        out_k, x_k = K.sojourn_cells(*args, resolve=resolve)
+        out_p, x_p = K.sojourn_cells_plain(*args, resolve=resolve)
+        assert torch.equal(out_k, out_p) and torch.equal(x_k, x_p)
+
+
+def test_sojourn_wide_tables_past_the_sets(cuda):
+    """The node and group tables (past 16,384 sets: 17,000 sets, five
+    groups) on more jobs than sets, so that every group's entries win the
+    root, lose it and are rewritten, and two changed nodes fall in two
+    groups: bit-equal to the plain version at the kernel's split, and to
+    that at splits with sets on both sides of others and with none on
+    chip."""
+    args = _cells(17_000, 1, 17_500, 17_000, False, True, cuda)
+    resolve = O.needs_resolve(args[3], args[4])
+    got = K.sojourn_cells(*args, resolve=resolve)
+    want = K.sojourn_cells_plain(*args, resolve=resolve)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for split in ((2_048, 1_024), (0, 0)):
+        other = _wide_launch(args, resolve, *split)
+        assert torch.equal(other[0], got[0]) and torch.equal(other[1], got[1])
+
+
+def _wide_launch(args, resolve, kh, kc):
+    """The unstaged kernel through its C interface at split (kh, kc)."""
+    import ctypes
+
+    lib = _build.load("sojourn_cells")
+    n_cells, n_jobs, n_g = args[1].shape
+    n_pol = args[3].shape[0]
+    out = torch.empty((n_cells, n_pol, n_jobs), device=args[1].device)
+    extra = torch.empty((n_cells, n_pol), dtype=torch.int32,
+                        device=args[1].device)
+    state = torch.empty(max(1, n_cells * n_pol * lib.sojourn_cells_state_words(
+        n_g, kh, kc)), device=args[1].device)
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (
+        *args[:5], args[5].view(torch.uint8), args[6], out, extra, state)]
+    code = lib.sojourn_cells_wide_launch(
+        *ptrs, n_cells, n_pol, n_jobs, n_g, int(resolve), kh, kc,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _build.check(lib, code, "sojourn_cells_wide_launch")
+    return out, extra
+
+
+@pytest.mark.parametrize("kc", [0, 128, 640, 1_024])
+@pytest.mark.parametrize("n_g,n_jobs", [(1_000, 1_500), (9_000, 10_000)])
+def test_sojourn_wide_kernel_across_the_split(cuda, n_g, n_jobs, kc):
+    """The nodes in registers (up to 16,384 sets) keep every set's hot
+    words on chip and split the cold ones (aux, job id) at kc: on more
+    jobs than sets, so that sets on both sides are picked, fire and are
+    rewritten, over one and three groups of nodes, bit-equal to the
+    staged kernel.  A split that is not whole nodes, or that leaves hot
+    words of these widths in the scratch, is refused."""
+    gp = -(-n_g // 128) * 128
+    for ties in (False, True):
+        args = _cells(n_g + kc + ties, 2, n_jobs, n_g, ties, True, cuda)
+        resolve = O.needs_resolve(args[3], args[4])
+        out_w, x_w = _wide_launch(args, resolve, gp, kc)
+        out_s, x_s = K.sojourn_cells(*args, resolve=resolve)
+        assert torch.equal(out_w, out_s) and torch.equal(x_w, x_s)
+    for bad in ((gp, 100), (0, 0)):
+        with pytest.raises(RuntimeError, match="wide_launch"):
+            _wide_launch(args, resolve, *bad)
 
 
 # every width of the short-row path (W = 1, 2, 4, 8, 16, 32 lanes a row,

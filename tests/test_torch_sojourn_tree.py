@@ -103,7 +103,11 @@ class TreeScan:
         self.ax = np.full(gp, INF, F32)
         self.jb = np.full(gp, INT_MAX, np.int64)
         self.recomputes = 0
+        self._stage()
         self._build()
+
+    def _stage(self):
+        """Where the sets' state lives: numpy arrays here."""
 
     # -- keys of sets and nodes -------------------------------------------
     def _set_free(self, s):
@@ -289,27 +293,139 @@ def warp_top2(v):
 NONE2 = ((KNONE, INT_MAX), (KNONE, INT_MAX))
 NONE3 = (KNONE, NONE, INT_MAX)
 
+# the H100's shared memory a block (227 KB) less the kernels' 128-byte
+# prefetch ring
+SMEM_ROOM = 232_448 - 128
+HOT, COLD = ("fr", "tt", "dn"), ("ax", "jb")
+# the unstaged kernel's lanes keep the nodes in registers up to this many
+# a lane (its WIDE_SLOTS: 16,384 sets)
+WIDE_SLOTS = 4
+
+
+def wide_groups(n_g, fan=128, lanes=32):
+    """Groups of ``lanes`` nodes of ``fan`` sets at row width ``n_g``."""
+    return -(-(-(-max(n_g, 1) // fan)) // lanes)
+
+
+def wide_split(n_g, room=SMEM_ROOM, fan=128, lanes=32):
+    """The unstaged kernel's layout at row width ``n_g`` (``csrc/
+    sojourn_cells.cu``'s ``sojourn_cells_wide_split``): past WIDE_SLOTS
+    groups, node and group tables of 16-byte entries (a free and a trigger
+    table each, rows of ``lanes`` nodes, the group table padded to whole
+    rows; none when the lanes keep the nodes in registers), then the hot
+    words (free, trigger time, doneg: 12 bytes) of the first ``kh`` sets
+    and, when every set's fit, the cold ones (aux, job id: 8 bytes) of the
+    first ``kc``; both whole nodes.  Returns (kh, kc, table bytes)."""
+    gp = -(-max(n_g, 1) // fan) * fan
+    groups = wide_groups(n_g, fan, lanes)
+    table = 0 if groups <= WIDE_SLOTS else 2 * 16 * (
+        lanes * groups + -(-groups // lanes) * lanes)
+    avail = room - table
+    assert avail >= 0, "the tables do not fit"
+    kh = min(gp, avail // (12 * fan) * fan)
+    kc = 0 if kh < gp else min(gp, (avail - 12 * gp) // (8 * fan) * fan)
+    return kh, kc, table
+
+
+class SplitWord:
+    """One state word of every set, as the unstaged kernel keeps it: sets
+    below ``k`` in shared memory (``on``), the others in the scratch at
+    ``s - k`` (``off``).  A slice (a lane's or a node's sets) must lie on
+    one side, as the kernel's whole-node split makes it."""
+
+    def __init__(self, values, k):
+        self.k = k
+        self.on, self.off = values[:k].copy(), values[k:].copy()
+        self.reads = [0, 0]  # reads on chip, in the scratch
+
+    def _side(self, s):
+        if isinstance(s, slice):
+            assert (s.start < self.k) == (s.stop - 1 < self.k), (s, self.k)
+            return (self.on, s) if s.start < self.k else (
+                self.off, slice(s.start - self.k, s.stop - self.k))
+        return (self.on, s) if s < self.k else (self.off, s - self.k)
+
+    def __getitem__(self, s):
+        a, i = self._side(s)
+        self.reads[a is self.off] += 1
+        return a[i]
+
+    def __setitem__(self, s, v):
+        a, i = self._side(s)
+        a[i] = v
+
 
 class WideTreeScan(TreeScan):
-    """One program of the unstaged instantiation (``sojourn_cells_kernel_
-    wide``): the sets' state as :class:`TreeScan` keeps it (the kernel's
-    device-memory scratch), the node level as the kernel's shared table.
+    """One program of the unstaged instantiations (``sojourn_cells_kernel_
+    wide<S>``), their trees and their split of the sets' state.
 
-    A node of ``fan`` sets is ``lanes`` lanes of ``fan // lanes`` sets
-    (32 of four in the kernel).  Lane l keeps nodes l * slots + s, slots =
-    ceil(nodes / lanes) from the program's own ``n_groups``, in table
-    entry ``[s][l]``, and reads and writes only those.  A walk re-reduces
-    a changed node from its sets (each lane its own, then across lanes)
-    and the root across lanes from each lane's merge of its kept entries
-    but the changed nodes', with the changed nodes' sets of that lane; a
-    program of one node takes the node as the root.  Table entries past
-    the program's nodes stay empty.
+    Up to WIDE_SLOTS groups at the launch's width the lanes keep the nodes
+    in registers, as the staged kernel does (:class:`TreeScan`'s tree);
+    past it the tables.  A node of ``fan`` sets is ``lanes`` lanes of
+    ``fan // lanes`` sets (32 of four in the kernel); nodes form groups
+    of ``lanes``, node q being lane q % lanes's node of group q // lanes,
+    and lane l keeps groups l + lanes * s.  Table entries are 16-byte rows of uint32: a
+    free entry (ka, ia, kb, ib), a trigger entry (k, j, i, 0).  A walk
+    reduces the changed nodes from their sets, each changed group across
+    the lanes from each lane's entry of it (the changed nodes' left out)
+    and its sets of the changed nodes, and the root across the lanes from
+    each lane's group entries (the changed groups' left out) and its
+    share of the changed groups; a program of one group takes the group
+    as the root, a program of one node the node.  Entries past the
+    program's nodes and groups stay empty.  Each state word of the first
+    ``kh`` (free, trigger time, doneg) or ``kc`` (aux, job id) sets is on
+    chip, of the others in the scratch (:class:`SplitWord`); the default
+    split is :func:`wide_split`'s at the launch's width.
     """
 
-    def __init__(self, *a, lanes=32, **kw):
+    def __init__(self, *a, lanes=32, split=None, **kw):
         self.lanes = lanes
+        self.split = split
         super().__init__(*a, **kw)
 
+    @property
+    def tables(self):
+        """Whether the launch's width takes the node and group tables."""
+        return wide_groups(len(self.jb.on) + len(self.jb.off)
+                           if isinstance(self.jb, SplitWord) else len(self.jb),
+                           self.fan, self.lanes) > WIDE_SLOTS
+
+    # -- the split of the state and the 16-byte tables --------------------
+    def _stage(self):
+        gp = len(self.fr)
+        if self.split is None:
+            self.split = wide_split(gp, fan=self.fan, lanes=self.lanes)[:2]
+        kh, kc = self.split
+        assert kh % self.fan == 0 and kc % self.fan == 0
+        # with the nodes in registers every set's hot words are on chip
+        assert self.tables or kh == gp
+        for name in HOT + COLD:
+            setattr(self, name, SplitWord(getattr(self, name),
+                                          kh if name in HOT else kc))
+
+    def scratch_reads(self):
+        return sum(getattr(self, n).reads[1] for n in HOT + COLD)
+
+    @staticmethod
+    def _f_row(t):
+        (ka, ia), (kb, ib) = t
+        return (ka, ia & 0xFFFFFFFF, kb, ib & 0xFFFFFFFF)
+
+    @staticmethod
+    def _t_row(t):
+        return (t[0], t[1], t[2] & 0xFFFFFFFF, 0)
+
+    def _f_get(self, tab, q):
+        ka, ia, kb, ib = (int(v) for v in tab[q])
+        as_int = lambda v: v if v < 2**31 else v - 2**32  # noqa: E731
+        return ((ka, as_int(ia)), (kb, as_int(ib)))
+
+    def _t_get(self, tab, q):
+        k, j, i, pad = (int(v) for v in tab[q])
+        assert pad == 0
+        return (k, j, i if i < 2**31 else i - 2**32)
+
+    # -- keys of a lane's sets ----------------------------------------------
     def _lane_free(self, q):
         """Each lane's lowest two free (key, index) of node q's sets."""
         per = self.fan // self.lanes
@@ -327,71 +443,122 @@ class WideTreeScan(TreeScan):
         return [min(self._set_trig(q * self.fan + lane * per + j)
                     for j in range(per)) for lane in range(self.lanes)]
 
-    def _kept(self, lane, table, none, pick, skip):
+    def _groups(self, lane, get, tab, none, pick, skip):
         r = none
-        for s in range(self.slots):
-            q = lane * self.slots + s
-            keep = q < self.n_nodes and q not in skip
-            r = pick(r, table[s][lane] if keep else none)
+        for s in range(self.gslots):
+            q = s * self.lanes + lane
+            r = pick(r, none if q in skip else get(tab, q))
         return r
 
-    def _store(self, table, q, entry):
-        table[q % self.slots][q // self.slots] = entry
-
     def _build(self):
-        self.slots = -(-self.n_nodes // self.lanes)
-        self.ftab = [[NONE2] * self.lanes for _ in range(self.slots)]
-        self.ttab = [[NONE3] * self.lanes for _ in range(self.slots)]
+        if not self.tables:
+            return TreeScan._build(self)
+        lanes = self.lanes
+        self.n_groups = -(-self.n_nodes // lanes)
+        self.gslots = -(-self.n_groups // lanes)
+        rows = self.n_groups * lanes
+        self.ftab = np.array([self._f_row(NONE2)] * rows, np.uint32)
+        self.ttab = np.array([self._t_row(NONE3)] * rows, np.uint32)
+        self.gftab = np.array([self._f_row(NONE2)] * self.gslots * lanes,
+                              np.uint32)
+        self.gttab = np.array([self._t_row(NONE3)] * self.gslots * lanes,
+                              np.uint32)
         for q in range(self.n_nodes):
-            self._store(self.ftab, q, warp_top2(self._lane_free(q)))
-            self._store(self.ttab, q, min(self._lane_trig(q)))
-        self.froot = warp_top2([self._kept(lane, self.ftab, NONE2, merge2, ())
-                                for lane in range(self.lanes)])
-        self.troot = min(self._kept(lane, self.ttab, NONE3, min, ())
-                         for lane in range(self.lanes))
+            self.ftab[q] = self._f_row(warp_top2(self._lane_free(q)))
+            self.ttab[q] = self._t_row(min(self._lane_trig(q)))
+        if self.n_groups == 1:
+            self.froot = warp_top2([self._f_get(self.ftab, l)
+                                    for l in range(lanes)])
+            self.troot = min(self._t_get(self.ttab, l) for l in range(lanes))
+            return
+        for g in range(self.n_groups):
+            self.gftab[g] = self._f_row(warp_top2(
+                [self._f_get(self.ftab, g * lanes + l) for l in range(lanes)]))
+            self.gttab[g] = self._t_row(min(
+                self._t_get(self.ttab, g * lanes + l) for l in range(lanes)))
+        self.froot = warp_top2([
+            self._groups(l, self._f_get, self.gftab, NONE2, merge2, ())
+            for l in range(lanes)])
+        self.troot = min(self._groups(l, self._t_get, self.gttab, NONE3, min,
+                                      ()) for l in range(lanes))
 
     def _walk(self, free_sets, trig_set=None):
+        if not self.tables:
+            return TreeScan._walk(self, free_sets, trig_set)
+        lanes = self.lanes
         fq = sorted({s // self.fan for s in free_sets})
         if fq:
-            kids = [self._lane_free(q) for q in fq]
-            nodes = [warp_top2(k) for k in kids]
+            kids = {q: self._lane_free(q) for q in fq}
+            nodes = {q: warp_top2(kids[q]) for q in fq}
             if self.n_nodes == 1:
-                self.froot = nodes[0]
+                self.froot = nodes[fq[0]]
             else:
-                rc = []
-                for lane in range(self.lanes):
-                    r = self._kept(lane, self.ftab, NONE2, merge2, fq)
-                    for k in kids:
-                        r = merge2(r, k[lane])
-                    rc.append(r)
-                self.froot = warp_top2(rc)
-            for q, n in zip(fq, nodes):
-                self._store(self.ftab, q, n)
+                gq = sorted({q // lanes for q in fq})
+                # each lane's share of each changed group
+                share = {g: [self._f_share(g, l, fq, kids) for l in range(lanes)]
+                         for g in gq}
+                if self.n_groups == 1:
+                    self.froot = warp_top2(share[0])
+                else:
+                    rc = []
+                    for l in range(lanes):
+                        r = self._groups(l, self._f_get, self.gftab, NONE2,
+                                         merge2, gq)
+                        for g in gq:
+                            r = merge2(r, share[g][l])
+                        rc.append(r)
+                    self.froot = warp_top2(rc)
+                    for g in gq:
+                        self.gftab[g] = self._f_row(warp_top2(share[g]))
+            for q in fq:
+                self.ftab[q] = self._f_row(nodes[q])
         if trig_set is not None:
             q = trig_set // self.fan
+            g = q // lanes
             kids = self._lane_trig(q)
             node = min(kids)
-            self.troot = node if self.n_nodes == 1 else min(
-                min(self._kept(lane, self.ttab, NONE3, min, (q,)), kids[lane])
-                for lane in range(self.lanes))
-            self._store(self.ttab, q, node)
+            if self.n_nodes == 1:
+                self.troot = node
+            else:
+                share = [min(NONE3 if g * lanes + l == q
+                             else self._t_get(self.ttab, g * lanes + l),
+                             kids[l]) for l in range(lanes)]
+                if self.n_groups == 1:
+                    self.troot = min(share)
+                else:
+                    self.troot = min(min(self._groups(
+                        l, self._t_get, self.gttab, NONE3, min, (g,)),
+                        share[l]) for l in range(lanes))
+                    self.gttab[g] = self._t_row(min(share))
+            self.ttab[q] = self._t_row(node)
+
+    def _f_share(self, g, lane, fq, kids):
+        """Lane ``lane``'s entry of group g (none for a changed node) with
+        its sets of the changed nodes of g."""
+        q = g * self.lanes + lane
+        r = NONE2 if q in fq else self._f_get(self.ftab, q)
+        for p in fq:
+            if p // self.lanes == g:
+                r = merge2(r, kids[p][lane])
+        return r
 
 
 # the H100's staged limit: 20 bytes a set, whole nodes of 128, in 227 KB
 # of shared memory a block less the 128-byte prefetch ring
-STAGED_MAX = (232_448 - 128) // (20 * 128) * 128
+STAGED_MAX = SMEM_ROOM // (20 * 128) * 128
 
 
 def tree_cells(arr, svc, alt, kinds, thr, hm, ng, resolve, fan=128,
-               wide=False, lanes=32):
+               wide=False, lanes=32, split=None, progs=None):
     """Every (cell, policy) program of one launch: (out, extra, recomputes).
     ``wide``: the unstaged instantiation's layout (:class:`WideTreeScan`
-    with ``lanes`` lanes a node)."""
+    with ``lanes`` lanes a node and the state split at ``split`` = (kh,
+    kc), by default the kernel's); ``progs`` collects the programs."""
     n_cells, n_jobs, _ = svc.shape
     out = np.zeros((n_cells, len(kinds), n_jobs), F32)
     extra = np.zeros((n_cells, len(kinds)), np.int64)
     recomputes = 0
-    kw = {"lanes": lanes} if wide else {}
+    kw = {"lanes": lanes, "split": split} if wide else {}
     for c in range(n_cells):
         for p, kind in enumerate(kinds):
             prog = (WideTreeScan if wide else TreeScan)(
@@ -399,6 +566,8 @@ def tree_cells(arr, svc, alt, kinds, thr, hm, ng, resolve, fan=128,
                 resolve, fan, **kw)
             out[c, p], extra[c, p] = prog.run()
             recomputes += prog.recomputes
+            if progs is not None:
+                progs.append(prog)
     return out, extra, recomputes
 
 
@@ -430,12 +599,13 @@ def _cells(seed, n_cells, n_jobs, n_g, ties, finite, negative=False):
             thr.astype(F32), hm, ng.astype(np.int32))
 
 
-def _check(args, fan=128, wide=False, lanes=32):
+def _check(args, fan=128, wide=False, lanes=32, split=None, progs=None):
     """Emulation == ref.py == the plain version, bit for bit (ref.py on
     the cells of at least one replica set: it has no answer for none)."""
     arr, svc, alt, kinds, thr, hm, ng = args
     resolve = O.needs_resolve(kinds, thr)
-    out_t, x_t, recomputes = tree_cells(*args, resolve, fan, wide, lanes)
+    out_t, x_t, recomputes = tree_cells(*args, resolve, fan, wide, lanes,
+                                        split, progs)
     some = ng > 0
     out_r, x_r = sojourn_cells_reference(arr, svc[some], alt[some], kinds,
                                          thr[some], hm, ng[some])
@@ -506,8 +676,9 @@ def test_kernel_layout_covers_the_largest_grid():
 
 
 # the unstaged instantiation's widths: the staged limit and one past it,
-# the last and first widths of 3 and 4 nodes a lane, the wide
-# fleet's r = 1 and 65,536 sets (16 table entries a lane)
+# the last and first widths of 3 and 4 groups of nodes, the wide fleet's
+# r = 1 and 65,536 sets (16 groups, the hot words of the first 17,792 sets
+# on chip)
 WIDE_GROUPS = [11_520, 11_521, 12_288, 12_289, 16_384, 65_536]
 WIDE_CASES = {"draws": (False, True, False), "ties": (True, True, False),
               "infinite": (False, False, False),
@@ -562,18 +733,83 @@ def test_wide_layout_small_nodes_take_the_exact_clone_path():
 
 
 def test_wide_layout_covers_65536_sets():
-    """The unstaged instantiation keeps each program's 20 bytes a set in
-    device memory and its node table (16 nodes a lane of 28 bytes at
-    65,536 sets: 14,336 bytes) in one block's shared memory beside the
-    prefetch ring; 65,536 sets are 512 nodes, and the table's limit lies
-    far past them."""
-    nodes = 65_536 // 128
-    slots = -(-nodes // 32)
-    assert slots == 16 and 32 * slots * 28 == 14_336
-    assert 32 * slots * 28 <= 232_448 - 128
-    room_slots = (232_448 - 128) // (32 * 28)
-    assert room_slots * 32 * 128 == 1_060_864 >= 65_536
-    assert 16 * 20 * 16_384 == 5_242_880  # the wide fleet's 16 programs
+    """The unstaged instantiations' layout on the H100: at 65,536 sets
+    (512 nodes, 16 groups) the tables take 17,408 bytes and the hot words
+    of the first 17,792 sets fill the rest of the block's shared memory; at
+    the wide fleet's 16,384 (four groups: nodes in registers, no table)
+    every set's hot words fit, and the cold words of the first 4,352; the
+    tables' limit, 219 groups (897,024 sets), lies far past 65,536.  The
+    scratch holds what is left: 1,097,216 bytes a program at 65,536 sets
+    (20 bytes a set would be 1,310,720), 96,256 at 16,384."""
+    assert wide_split(65_536) == (17_792, 0, 17_408)
+    assert wide_split(16_384) == (16_384, 4_352, 0)
+    assert wide_split(16_385) == (16_512, 3_456, 6_144)
+    assert wide_split(11_521) == (11_648, 11_520, 0)
+    assert wide_split(897_024)[2] <= SMEM_ROOM
+    with pytest.raises(AssertionError, match="do not fit"):
+        wide_split(897_025)
+    words = lambda g, kh, kc: 3 * (g - kh) + 2 * (g - kc)  # noqa: E731
+    assert 4 * words(65_536, 17_792, 0) == 1_097_216
+    assert 4 * words(16_384, 16_384, 4_352) == 96_256
+
+
+# the unstaged kernel's split at 65,536 sets on the H100 (hot words of
+# sets below it on chip)
+SPLIT_65536 = wide_split(65_536)[0]
+
+
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+@pytest.mark.parametrize("offset", [-1, 0, 1])
+def test_wide_layout_around_the_split(offset, case):
+    """Cells of K - 1, K and K + 1 sets (K the split the kernel picks at
+    65,536) padded to 65,536, all four kinds: the last node on chip ends
+    at K, so the cell's last node is on chip, full, or one set past it in
+    the scratch; with negative draws a first cell of 9 sets (where m can
+    fall) takes the clone recompute."""
+    ties, finite, negative = WIDE_CASES[case]
+    args = _cells(SPLIT_65536 + offset + len(case), 2, 48, 65_536, ties,
+                  finite, negative)
+    args[6][:] = [9 if negative else SPLIT_65536 - 1, SPLIT_65536 + offset]
+    progs = []
+    recomputes = _check(args, wide=True, progs=progs)
+    assert all(p.split == (SPLIT_65536, 0) for p in progs)
+    if negative:
+        assert recomputes > 0
+
+
+@pytest.mark.parametrize("split", [(0, 0), (4, 4), (8, 4), (16, 0)])
+@pytest.mark.parametrize("n_g,ties", [(33, False), (70, True), (257, False)])
+def test_wide_layout_crosses_the_split(n_g, ties, split):
+    """Dispatches on both sides of the split: nodes of four sets over four
+    lanes, groups of four nodes (70 and 257 sets: the tables, up to five
+    group entries a lane; 33 sets: three groups, the nodes in registers,
+    where every set's hot words are on chip and only the cold ones split,
+    at kc = the split's kh), the state of the first kh / kc sets on chip
+    and of the rest in the scratch, 200 jobs, more than the sets, so that
+    sets on both sides are picked, fire and are rewritten."""
+    if n_g == 33:
+        split = (36, split[0])
+    progs = []
+    _check(_cells(400 + n_g, 3, 200, n_g, ties, True), fan=4, wide=True,
+           lanes=4, split=split, progs=progs)
+    assert all(p.tables == (n_g > 64) for p in progs)
+    # the programs that resolve triggers read every word
+    armed = [p for p in progs if p.do_resolve]
+    kc = split[1]
+    assert armed and all(p.scratch_reads() > 0 for p in armed if p.ng > kc)
+    if kc:
+        assert all(p.jb.reads[0] > 0 for p in armed)
+
+
+def test_wide_layout_crosses_the_split_at_full_width():
+    """The kernel's own nodes (128 sets over 32 lanes, in registers) over
+    1,000 sets, every hot word on chip and the cold words of the first
+    node: 400 jobs reach the scratch."""
+    progs = []
+    _check(_cells(77, 2, 400, 1_000, False, True), wide=True,
+           split=(1_024, 128), progs=progs)
+    armed = [p for p in progs if p.do_resolve]
+    assert armed and all(p.scratch_reads() > 0 for p in armed)
 
 
 def test_policy_sweep_is_one_call_and_equals_the_reference(monkeypatch):

@@ -15,12 +15,23 @@ on the CPU.
   ``params_from_reference`` (norm scales seeded; the untied final norm
   near 1/4 as ``tests/test_torch_dense_configs.py`` does): prefill of 32
   tokens (two chunks) and four greedy decode steps give the reference's
-  logits within 4e-2, and every state key within 5e-2 x (1 + |ref|).
+  logits within 4e-2 of the reference's, and every state key within
+  5e-2 x (1 + |ref|) of the reference's run on XLA's SSE4.2 code
+  (``tests/_xlstm_pinned_reference.py``, in a subprocess fed the same
+  tokens).  XLA's CPU ``tanh``, ``exp``, ``rsqrt`` and logistic functions
+  give other last bits on AVX2 hosts (FMAs inside them), whether jitted or
+  run op by op, and the sLSTM recurrence carries them into the 6-block
+  model's trailing state: on an AMD EPYC host the native reference's
+  ``t_conv`` moved 0.035 x (1 + |ref|) from the SSE4.2 one, and the port's
+  lay 0.0575 from the native one and 0.030 from the SSE4.2 one.
 """
 
 import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -144,10 +155,28 @@ def _seeded_scales(tree, seed=0):
     return out
 
 
+def _pinned_reference_state(tmp_path, n_layers, toks, steps):
+    """The reference's state after the same prompt and decode tokens, run
+    on XLA's SSE4.2 code in a subprocess."""
+    src, dst = tmp_path / "in.npz", tmp_path / "out.npz"
+    np.savez(src, n_layers=n_layers, tokens=toks, steps=np.stack(steps))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
+                        + " --xla_cpu_max_isa=SSE4_2").strip()
+    helper = os.path.join(os.path.dirname(__file__),
+                          "_xlstm_pinned_reference.py")
+    out = subprocess.run([sys.executable, helper, str(src), str(dst)],
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    with np.load(dst) as f:
+        return {k: f[k] for k in f.files}
+
+
 @pytest.fixture(scope="module", params=[4, 6])
-def runs(request):
+def runs(request, tmp_path_factory):
     """Prefill + STEPS greedy decode steps in both packages, each fed the
-    reference's greedy token."""
+    reference's greedy token; and the reference's state from the same
+    tokens on XLA's SSE4.2 code."""
     n = request.param
     rcfg = dataclasses.replace(ref_reduced_config(ref_get_config(ARCH)),
                                n_layers=n)
@@ -162,14 +191,18 @@ def runs(request):
     tl, ts = prefill(cfg, tparams, {"tokens": torch.as_tensor(toks)}, MAX_LEN)
     ref_logits, port_logits, states = [rl], [tl], [(rs, dict(ts))]
     step = jax.jit(lambda p, s, t, c: ref_decode_step(rcfg, shard, p, s, t, c))
+    fed = []
     for i in range(STEPS):
         tok = np.array(jnp.argmax(ref_logits[-1][:, -1], axis=-1))[:, None]
+        fed.append(tok)
         rl, rs = step(rparams, rs, jnp.asarray(tok, jnp.int32),
                       jnp.int32(S + i))
         tl, ts = decode_step(cfg, tparams, ts, torch.as_tensor(tok), S + i)
         ref_logits.append(rl)
         port_logits.append(tl)
-    return cfg, tparams, ref_logits, port_logits, rs, ts
+    pinned = _pinned_reference_state(tmp_path_factory.mktemp("xlstm"), n,
+                                     toks, fed)
+    return cfg, tparams, ref_logits, port_logits, pinned, ts
 
 
 def test_xlstm_layout_and_params(runs):
