@@ -367,6 +367,23 @@ non-zero:
                       device time and per-call time beside matmul's, at
                       the planner's shape (strip kernel) and 1024 x 1024
                       x 2048 (tiled kernel).
+8. ``dryrun``         the port's dry-run of the 40 (arch, shape) pairs on
+                      the 16 x 16 mesh shape and the meta-device counts of
+                      every train and prefill path above (each cell and
+                      each count in a pool of spawned processes, one a
+                      host core): each training path's memory
+                      reckoning against its measured peak; each path's
+                      model-FLOP share; its walked roofline
+                      (``roofline.op_cost``: compute and memory terms, a
+                      train step's backward passes with one AdamW update,
+                      the whole-step share max(terms) / the measured median
+                      wall, the five ops with the most walked bytes); the
+                      hill-climb's terms (``roofline.hillclimb``: plain,
+                      kernel-substituted, the bound that set it, and as
+                      run) for its cells the dry-run wrote; zamba2's
+                      prefill walk outside the matmul family and the hand
+                      kernels (D1) and olmoe's dispatch backward (D2),
+                      beside the profiled device time of their kernels.
 
 Each path of phases 2-6, 2b, 4b-4e and 6a-6e runs with the launch counts and the sweeps'
 stage seconds (``simulator.STAGE_SECONDS``) set to 0 just before it and
@@ -467,13 +484,14 @@ ATT_TOL = {"float32": 5e-5, "bfloat16": 5e-2}
 DECODE_BF16_RMS_FRAC = 0.1
 # the train phase: qwen2-0.5b at full width and depth, the tuner on the
 # simulate planner, one slow worker; TRAIN_STEPS steps, enough for the
-# tuner's first re-plan attempt (its window fills after 8 steps of 8
-# workers) and for the loss to fall
+# tuner's first re-plan attempts (its window fills after 8 steps of 8
+# workers) and for the loss to fall (40 until the script neared its
+# 1,200 s limit on a slow host)
 TRAIN_CONFIG = dict(arch="qwen2-0.5b", reduced=False, seq_len=512,
                     global_batch=32, n_workers=8, n_batches=4,
                     slow_workers={3: 8.0}, tuner=True,
                     planner_mode="simulate")
-TRAIN_STEPS = 40
+TRAIN_STEPS = 30
 # train_pins: reduced qwen2-0.5b, card against CPU through a whole-group
 # fault (workers 1 and 5 from step 3) and a checkpoint restore.  The
 # control plane must be equal exactly; the losses within this (the
@@ -925,15 +943,22 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+_T0 = time.perf_counter()
+PHASE_STARTS: dict = {}  # phase -> seconds since the script started
+
+
 def _phase(name: str) -> None:
-    """The phase's banner, with the card's allocated memory once CUDA is
-    up (what earlier phases still hold)."""
+    """The phase's banner, with the seconds since the script started and
+    the card's allocated memory once CUDA is up (what earlier phases
+    still hold)."""
     held = ""
     torch = sys.modules.get("torch")
     if torch is not None and torch.cuda.is_initialized():
         held = (f" (allocated on the card: "
                 f"{torch.cuda.memory_allocated() / 1e9:.2f} GB)")
-    print(f"\n=== {name} ==={held}", flush=True)
+    PHASE_STARTS[name] = time.perf_counter() - _T0
+    print(f"\n=== {name} === (at {PHASE_STARTS[name]:.1f} s)"
+          f"{held}", flush=True)
 
 
 def main() -> int:
@@ -3005,7 +3030,8 @@ def main() -> int:
             HYBRID_MAX_LEN,
             {"ssd_scan": hcfg.n_layers, "flash_attention": n_seg,
              "decode_attention": n_seg * (HYBRID_NEW - 1)},
-            prefill_shares={"ssd_scan": SSD_BF16_KERNEL})
+            prefill_shares={"ssd_scan": SSD_BF16_KERNEL,
+                            "elementwise": "elementwise_kernel"})
     finally:
         SSM_MODEL.ssd_scan = o_ssd
     ssd_share = hybrid_report["busy_prefill"]["shares"]["ssd_scan"]
@@ -5166,8 +5192,10 @@ def main() -> int:
         # one profiled xLSTM step: two steps made 682,559 device events
         # (the sLSTM's per-position kernels), which took the profiler
         # longer to list than the steps took to run
-        train_profile(tag, ftr, frep, fmed,
-                      {"flash_attention": "flash_wgmma"} if n_attn else {},
+        shares = {"flash_attention": "flash_wgmma"} if n_attn else {}
+        if fc.family == "moe":  # the dispatch gathers' backward (D2)
+            shares["dispatch_backward"] = "indexing_backward_kernel"
+        train_profile(tag, ftr, frep, fmed, shares,
                       n_steps=1 if fc.family == "ssm" else 2)
         return frep
 
@@ -5207,13 +5235,17 @@ def main() -> int:
 
     # -- 8. dryrun: the port's dry-run, its reckoning, the paths' FLOPs --
     _phase("dryrun")
+    import concurrent.futures
+    import multiprocessing
     import pathlib
 
     from repro_torch.configs import ARCH_IDS, SHAPE_CELLS, ShapeCell
     from repro_torch.launch.dryrun import run_cell, train_memory
     from repro_torch.launch.specs import params_shapes
     from repro_torch.models import active_params
-    from repro_torch.roofline import PEAK_FLOPS, count_step, model_flops
+    from repro_torch.roofline import (HBM_BW, PEAK_FLOPS, count_step,
+                                      hillclimb, model_flops)
+    from repro_torch.roofline.op_cost import rank_ops
 
     def at_depth(arch, depth):
         cfg_ = get_config(arch)
@@ -5236,26 +5268,76 @@ def main() -> int:
 
     t_dry = time.perf_counter()
     dry_dir = pathlib.Path(ROOT, "chiprun_out", "torch_dryrun")
-    dry = [run_cell(a, c, False, dry_dir) for a in ARCH_IDS
-           for c in SHAPE_CELLS]
-    train_counts = {
-        (tag, r): count_step(at_depth(arch, depth), "train", r,
-                             conf["seq_len"])
-        for tag, arch, depth, conf in train_paths
-        for r in {r for st in step_rows[tag] for r in st}}
-    prefill_counts = {
-        tag: count_step(at_depth(arch, depth), "prefill", pb, positions)
-        for tag, arch, depth, pb, positions in prefill_paths}
+    # the counts are CPU-bound Python on the meta device: every cell and
+    # every path count runs whole in one of a pool of spawned processes,
+    # one a core, in this order: the xLSTM's train counts first (six
+    # counting points each, each looping its sLSTM over hundreds of
+    # positions: the longest), then the cells and the other paths
+    jobs = {}
+    for tag, arch, depth, conf in sorted(
+            train_paths, key=lambda p: p[1] != "xlstm-350m"):
+        for r in sorted({r for st in step_rows[tag] for r in st},
+                        reverse=True):
+            jobs["train", tag, r] = (count_step, (
+                at_depth(arch, depth), "train", r, conf["seq_len"]))
+    for a in sorted(ARCH_IDS, key=lambda a: a != "xlstm-350m"):
+        for c in SHAPE_CELLS:
+            jobs["dry", a, c] = (run_cell, (a, c, False, dry_dir))
+    for tag, arch, depth, pb, positions in prefill_paths:
+        jobs["prefill", tag] = (count_step, (
+            at_depth(arch, depth), "prefill", pb, positions))
+    n_procs = min(8, os.cpu_count() or 1)
+    with concurrent.futures.ProcessPoolExecutor(
+            n_procs, mp_context=multiprocessing.get_context("spawn")
+    ) as procs:
+        futs = {key: procs.submit(fn, *args)
+                for key, (fn, args) in jobs.items()}
+        done = {key: f.result() for key, f in futs.items()}
+    dry = [done["dry", a, c] for a in ARCH_IDS for c in SHAPE_CELLS]
+    train_counts = {(k[1], k[2]): v for k, v in done.items()
+                    if k[0] == "train"}
+    prefill_counts = {k[1]: v for k, v in done.items() if k[0] == "prefill"}
     ok_cells = [r for r in dry if r["status"] == "ok"]
     fits = [r["cell"] for r in ok_cells if r["one_card"]["fits"]]
     dry_report = {"counts_wall_s": time.perf_counter() - t_dry,
+                  "count_processes": n_procs,
                   "cells_ok": len(ok_cells), "cells": len(dry),
-                  "fit_one_card": fits, "reckoning": {}, "flop_share": {}}
+                  "fit_one_card": fits, "reckoning": {}, "flop_share": {},
+                  "walk": {}}
     print(f"[dryrun] {len(dry)} (arch, shape) pairs on the 16 x 16 mesh "
           f"shape: {len(ok_cells)} counted, {len(dry) - len(ok_cells)} "
           f"skipped (cell_supported); {len(fits)} fit one 80 GB card "
           f"({fits}); reports in chiprun_out/torch_dryrun/; with the "
-          f"paths' counts {dry_report['counts_wall_s']:.1f} s on the host")
+          f"paths' counts {dry_report['counts_wall_s']:.1f} s on the host "
+          f"in {n_procs} processes")
+    t_hc = time.perf_counter()
+    hc = hillclimb.run(dry_dir, pathlib.Path(
+        ROOT, "chiprun_out", "torch_perf_hillclimb.json"))
+    dry_report["hillclimb"] = hc
+    dry_report["hillclimb_wall_s"] = time.perf_counter() - t_hc
+    print(f"[dryrun] hill-climb: {len(hc)} of its 7 cells in the dry-run's "
+          f"reports (the 2 x 16 x 16 one is not written here), "
+          f"{dry_report['hillclimb_wall_s']:.1f} s")
+
+    def walk_line(tag, label, flops, walked, by_op, wall):
+        """The walked roofline of one step: its terms, the whole-step
+        share max(terms) / the measured wall, the five ops with the most
+        walked bytes."""
+        terms = {"compute_s": flops / PEAK_FLOPS,
+                 "memory_s": walked / HBM_BW}
+        top = rank_ops(by_op, "bytes", 5)
+        share = max(terms.values()) / wall
+        dry_report["walk"][tag] = {
+            "flops": flops, "walked_bytes": walked, "terms": terms,
+            "dominant": max(terms, key=terms.get), "wall_s": wall,
+            "roofline_share": share,
+            "top_ops_by_bytes": [[n, b, c] for b, n, c in top]}
+        print(f"[dryrun] {tag} walked roofline ({label}): compute "
+              f"{terms['compute_s']:.6f} s, memory {terms['memory_s']:.6f} s "
+              f"({walked:.4g} bytes); measured {wall:.5f} s: whole-step "
+              f"share {share:.4f}")
+        print(f"[dryrun] {tag} top walked bytes: " + "; ".join(
+            f"{n} {b:.4g} B ({c:g} calls)" for b, n, c in top))
 
     for tag, arch, depth, conf in train_paths:
         rep = (phases_[tag] if tag in phases_
@@ -5300,12 +5382,42 @@ def main() -> int:
               f"{counted:.4g}; at the median step wall {wall:.4f} s "
               f"{useful / wall / PEAK_FLOPS:.4f} of the bf16 peak (counted "
               f"{counted / wall / PEAK_FLOPS:.4f})")
+        # a step's walk: each backward pass's (the update's walk taken
+        # out of each call's count), and the float32 cast and AdamW update
+        # once: a step runs one update whatever its distinct batches
+        upd = counts[max(calls)]
+        by_op: dict = {}
+
+        def add_ops(table, w):
+            for name, row in table.items():
+                agg = by_op.setdefault(name, {"calls": 0, "flops": 0.0,
+                                              "bytes": 0.0})
+                for k in agg:
+                    agg[k] += w * row[k]
+
+        for r in calls:
+            add_ops(counts[r]["by_op"], 1 / len(steps_))
+            add_ops(counts[r]["update_by_op"], -1 / len(steps_))
+        add_ops(upd["update_by_op"], 1)
+        walked = upd["update_bytes"] + sum(
+            counts[r]["walked_bytes"] - counts[r]["update_bytes"]
+            for r in calls) / len(steps_)
+        walk_line(tag, f"a step at the median wall: "
+                  f"{len(calls) / len(steps_):.2f} backward passes and one "
+                  f"update of {upd['update_bytes']:.4g} B",
+                  sum(counts[r]["walked_flops"] for r in calls) / len(steps_),
+                  walked, by_op, wall)
+        dry_report["walk"][tag]["update_bytes_per_step"] = upd[
+            "update_bytes"]
+        dry_report["walk"][tag]["backward_passes_per_step"] = (
+            len(calls) / len(steps_))
 
     for tag, arch, depth, pb, positions in prefill_paths:
         cfg_ = at_depth(arch, depth)
         useful = model_flops(cfg_, ShapeCell("p", positions, pb, "prefill"),
                              active_params(cfg_))
-        counted = prefill_counts[tag]["flops"]
+        pc = prefill_counts[tag]
+        counted = pc["flops"]
         wall = phases_[tag]["prefill_s"]
         dry_report["flop_share"][tag] = {
             "model_flops": useful, "counted_flops": counted,
@@ -5317,12 +5429,62 @@ def main() -> int:
               f"{counted:.4g}; at the measured {wall:.5f} s "
               f"{useful / wall / PEAK_FLOPS:.4f} of the bf16 peak (counted "
               f"{counted / wall / PEAK_FLOPS:.4f})")
+        walk_line(tag, "the prefill", pc["walked_flops"], pc["walked_bytes"],
+                  pc["by_op"], wall)
+
+    # D1: the serve_hybrid prefill walk's ops outside the matmul family and
+    # the hand kernels (the elementwise chains, copies, reductions and
+    # indexing), beside the profiled prefill's kernels whose names hold
+    # "elementwise_kernel"
+    pc = prefill_counts["serve_hybrid"]
+    rest = {n: row for n, row in pc["by_op"].items()
+            if row["flops"] == 0 and n not in pc["kernels"]}
+    rest_bytes = sum(row["bytes"] for row in rest.values())
+    ew = phases_["serve_hybrid"]["busy_prefill"]["shares"]["elementwise"]
+    dry_report["d1_prefill_non_matmul"] = {
+        "walked_bytes": rest_bytes, "ops": len(rest),
+        "prefill_walked_bytes": pc["walked_bytes"],
+        "top_ops_by_bytes": [[n, b, c] for b, n, c in
+                             rank_ops(rest, "bytes", 5)],
+        "profiled_elementwise": ew}
+    print(f"[dryrun] D1 serve_hybrid prefill ({HYBRID_BATCH} x "
+          f"{HYBRID_PROMPT}), walked ops outside the matmul family and the "
+          f"hand kernels: {rest_bytes:.4g} B of {pc['walked_bytes']:.4g} "
+          f"walked, {rest_bytes / HBM_BW * 1e3:.3f} ms at 3.35 TB/s; top: "
+          + "; ".join(f"{n} {b:.4g} B" for b, n, _ in
+                      rank_ops(rest, "bytes", 5))
+          + f"; the profiled prefill's elementwise_kernel kernels "
+          f"{ew['device_s']:.6f} s ({ew['share']:.2%} of its device time, "
+          f"{ew['events']} events)")
+    # D2: olmoe's dispatch backward (the gathers' functional index_put),
+    # walked a step, beside the profiled steps' indexing backward kernel
+    olm = dry_report["walk"]["train_olmoe"]
+    olm_steps = step_rows["train_olmoe"]
+    ip = {name: sum(train_counts["train_olmoe", r]["by_op"].get(
+        name, {"bytes": 0.0})["bytes"] for st in olm_steps for r in st)
+        / len(olm_steps) for name in ("aten.index_put", "aten.index")}
+    prof = phases_["train_families"]["train_olmoe"]["profile"]
+    dsh = prof["shares"]["dispatch_backward"]
+    dry_report["d2_dispatch_backward"] = {
+        "walked_bytes_per_step": ip, "profiled": dsh,
+        "profiled_steps": prof["steps"],
+        "step_walked_bytes": olm["walked_bytes"]}
+    print(f"[dryrun] D2 train_olmoe dispatch backward: walked "
+          f"{ip['aten.index_put']:.4g} B a step in the gathers' backward "
+          f"(index_put), {ip['aten.index']:.4g} B in their forward (index), "
+          f"of {olm['walked_bytes']:.4g} B a step walked; "
+          f"{ip['aten.index_put'] / HBM_BW * 1e3:.3f} ms a step at 3.35 "
+          f"TB/s; profiled indexing backward {dsh['device_s']:.6f} s over "
+          f"{prof['steps']} steps ({dsh['share']:.2%} of device time, "
+          f"{dsh['events']} events)")
     dry_report["phase_wall_s"] = time.perf_counter() - t_dry
     report["phases"]["dryrun"] = dry_report
     print(f"[dryrun] phase 8: {dry_report['phase_wall_s']:.1f} s")
 
     report["kernels"] = rows
     report["kernel_shapes"] = extra_rows
+    report["phase_starts_s"] = PHASE_STARTS
+    report["wall_s"] = time.perf_counter() - _T0
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

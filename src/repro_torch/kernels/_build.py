@@ -16,7 +16,10 @@ kernel has no backward.
 On a meta tensor (shapes only, ``launch.dryrun``) the attention and scan
 wrappers launch nothing and count nothing: they allocate their outputs on
 the meta device and, inside :func:`record_meta_work`, note the operations
-and bytes their kernel would do (:func:`note_meta_work`).
+and bytes their kernel would do (:func:`note_meta_work`); inside
+:func:`plain_on_meta` they run their plain twin's tensor ops instead (the
+roofline's walk of the unfused step).  Neither acts on a CPU or CUDA
+tensor.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ __all__ = [
     "count_launch",
     "record_meta_work",
     "note_meta_work",
+    "plain_on_meta",
+    "meta_runs_plain",
     "check",
     "refuse_grad",
     "stack_frames",
@@ -130,6 +135,25 @@ def note_meta_work(name: str, flops: float, nbytes: float) -> None:
     :func:`record_meta_work` (nothing when none is open)."""
     for work in _META_WORK:
         work.append((name, float(flops), float(nbytes)))
+
+
+_PLAIN_ON_META: list = []
+
+
+@contextlib.contextmanager
+def plain_on_meta():
+    """While the block runs, a wrapper called on meta tensors runs its
+    plain twin's tensor ops in place of noting its kernel's work."""
+    _PLAIN_ON_META.append(True)
+    try:
+        yield
+    finally:
+        _PLAIN_ON_META.pop()
+
+
+def meta_runs_plain() -> bool:
+    """Whether a :func:`plain_on_meta` block is open."""
+    return bool(_PLAIN_ON_META)
 
 
 def launch_counts() -> dict[str, int]:

@@ -124,6 +124,8 @@ def decode_attention(q, k_cache, v_cache, cache_len: int) -> torch.Tensor:
     if dev.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len)
     if dev.type == "meta":
+        if _build.meta_runs_plain():
+            return decode_attention_plain(q, k_cache, v_cache, cache_len)
         b, h, d = q.shape
         _build.note_meta_work("decode_attention", *decode_attention_work(
             b, h, k_cache.shape[2], d, cache_len, q.element_size()))

@@ -127,12 +127,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 def _attend(q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
     """The kernel on a CUDA tensor, the plain version on a CPU one; on a
-    meta tensor only the output's shape, and the kernel's work noted."""
+    meta tensor only the output's shape, and the kernel's work noted (in
+    ``_build.plain_on_meta``, the plain version's ops)."""
     _check(q, k, v, q_offset)
     dev = q.device
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
     if dev.type == "meta":
+        if _build.meta_runs_plain():
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         q_offset=q_offset)
         b, sq, h, d = q.shape
         _build.note_meta_work("flash_attention", *flash_attention_work(
             b, sq, k.shape[1], h, k.shape[2], d, causal, q_offset,

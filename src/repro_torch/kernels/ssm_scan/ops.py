@@ -231,6 +231,9 @@ def _scan(x, dt, a_log, b, c, d_skip, initial_state, chunk: int):
     bs, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     if dev.type == "meta":
+        if _build.meta_runs_plain():
+            return ssd_scan_plain(x, dt, a_log, b, c, d_skip, initial_state,
+                                  chunk)
         _build.note_meta_work("ssd_scan", *ssd_scan_work(
             bs, s, h, g, p, n, x.element_size(), initial_state is not None,
             chunk))

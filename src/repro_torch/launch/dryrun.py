@@ -14,7 +14,10 @@ decisions and the counts and drops the XLA lowering; per cell it:
      of the axes it is placed on (the counterpart of XLA's
      ``memory_analysis``),
   4. counts the step on the meta device: the H100 roofline
-     (``roofline.analysis``),
+     (``roofline.analysis``), its memory term from the walk of the ops
+     the step dispatches (``roofline.op_cost``), and the same step walked
+     with the kernels' plain twins in their place
+     (``bytes_per_device_plain``, which ``roofline.hillclimb`` reads),
   5. reckons whether the step fits one 80 GB card (:func:`one_card`),
   6. writes ``<out>/<arch>__<shape>__<mesh>.json``.
 
@@ -188,14 +191,22 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: pathlib.Path,
         t0 = time.perf_counter()
         counts = count_step(cfg, cell.kind, cell.global_batch, cell.seq_len)
         t_count = time.perf_counter() - t0
-        report = analyze_cell(cfg, cell, chips=mesh_size(mesh_shape),
-                              counts=counts)
+        t0 = time.perf_counter()
+        plain = counts  # a step that calls no kernel walks the same
+        if counts["kernels"]:
+            plain = count_step(cfg, cell.kind, cell.global_batch,
+                               cell.seq_len, plain=True)
+        t_plain = time.perf_counter() - t0
+        chips = mesh_size(mesh_shape)
+        report = analyze_cell(cfg, cell, chips=chips, counts=counts)
         report.update({
             "cell": tag, "status": "ok", "mesh": dict(mesh_shape),
             "policy": dataclasses.asdict(policy),
+            "bytes_per_device_plain": plain["walked_bytes"] / chips,
             "placed_bytes_per_device": placed,
             "one_card": one_card(cfg, cell, counts, rdp_batches or 1),
-            "timings": {"specs_s": t_specs, "count_s": t_count},
+            "timings": {"specs_s": t_specs, "count_s": t_count,
+                        "count_plain_s": t_plain},
         })
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / f"{tag}.json").write_text(json.dumps(report, indent=2))

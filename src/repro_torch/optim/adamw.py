@@ -87,9 +87,10 @@ def sqrt_(x: torch.Tensor) -> torch.Tensor:
     is correctly rounded (53 >= 2 * 24 + 2 bits), a chunk of the leaf at a
     time so that no float64 copy of a whole embedding is held.  On the
     card ``torch.sqrt`` is CUDA's IEEE ``sqrtf``, correctly rounded
-    (``chip_smoke.py`` holds it bit-equal to the float64 route).  ``x``
-    is float32 and contiguous."""
-    if x.is_cuda:
+    (``chip_smoke.py`` holds it bit-equal to the float64 route), and the
+    roofline's meta-device walk counts that op.  ``x`` is float32 and
+    contiguous."""
+    if x.device.type != "cpu":
         return x.sqrt_()
     flat = x.view(-1)
     for i in range(0, flat.numel(), _SQRT_CHUNK):

@@ -8,7 +8,8 @@ with ``src`` on ``PYTHONPATH``.  It joins a gloo group through the file
 store ``STORE``, runs the RDP cases of ``tests/test_torch_replication.py``
 (the reference's 8-device ``shard_map`` script, r = 2, B = 4) on the port's
 ``make_rdp_mesh``, ``aggregate_gradients`` and collectives, records the
-ranks of every group a collective ran on, and saves its results to
+ranks of every group a collective ran on, walks the steady-state
+collectives with ``roofline.op_cost.walk_ops``, and saves its results to
 ``OUT/rank{RANK}.pt``.  It imports torch and ``repro_torch`` only.
 """
 
@@ -80,6 +81,20 @@ def main(rank, world, store, out):
         res["hier_tree"] = hierarchical_allreduce(tree, batch)
         res["pmean_tree"] = replication_aware_pmean(tree, batch)
         res["steady_groups"] = calls[n0:]
+        # the steady-state collectives walked (roofline.op_cost): a
+        # gradient whose length divides the batch group (no padding), in
+        # nodes of 8 ranks and of 2
+        from repro_torch.roofline.op_cost import walk_ops
+
+        grad = {"w": torch.arange(64.0).reshape(8, 8) * (rank + 1)}
+        for ns in (8, 2):
+            for name, fn in (("pmean", replication_aware_pmean),
+                             ("hier", hierarchical_allreduce)):
+                c = walk_ops(fn, grad, batch, node_size=ns)
+                res[f"walk_{name}_{ns}"] = {
+                    "intra": c.coll_intra, "inter": c.coll_inter,
+                    "by_type": c.coll_by_type, "n": c.n_collectives,
+                    "by_op": c.by_op}
         res["inputs_unchanged"] = bool(
             torch.equal(g, torch.tensor([float(rank % 4)]))
             and torch.equal(tree["w"], torch.arange(6.0).reshape(2, 3)

@@ -13,7 +13,9 @@
 * Recording the groups every collective ran on shows that the steady-state
   paths (``hierarchical`` mode, ``replication_aware_pmean``,
   ``hierarchical_allreduce``) never touch the replica group.
-* ``allreduce_bytes`` equals the reference's in every mode.
+* ``allreduce_bytes`` equals the reference's in every mode, and the
+  steady-state collectives walked on the ranks (``roofline.op_cost``)
+  move its "rdp" wire bytes, inside a node or across nodes.
 """
 
 import _torch_threads  # noqa: F401  (first: caps torch's CPU threads)
@@ -259,6 +261,31 @@ def test_steady_state_never_touches_the_replica_group(runs):
         # the recording sees the replica group where it is used
         assert any(len({x // 4 for x in ranks}) > 1
                    for _, ranks in port[r]["psum_all_groups"])
+
+
+@pytest.mark.parametrize("name", ["pmean", "hier"])
+@pytest.mark.parametrize("node_size", [8, 2])
+def test_walked_collectives_equal_allreduce_bytes(runs, name, node_size):
+    """``roofline.op_cost.walk_ops`` of the steady-state collectives on
+    each rank (a 64-element float32 gradient, the batch group of 4 ranks):
+    the ring-model wire bytes equal ``allreduce_bytes(256, plan, "rdp")``
+    exactly, an all-reduce or a reduce-scatter then an all-gather; inside
+    one node of 8 ranks, across nodes of 2 (ranks 0-3 or 4-7)."""
+    port, _ = runs
+    want = TC.allreduce_bytes(256, TR.ReplicationPlan(8, 4), "rdp")
+    for r in range(WORLD):
+        got = port[r][f"walk_{name}_{node_size}"]
+        assert got["intra"] + got["inter"] == want["total"] == 384.0
+        assert (got["inter"], got["intra"]) == (
+            (want["total"], 0.0) if node_size == 2 else (0.0, want["total"]))
+        if name == "pmean":
+            assert got["n"] == 1 and got["by_type"] == {"all-reduce": 384.0}
+            # the op's bytes: twice its result
+            assert got["by_op"]["c10d.allreduce_"]["bytes"] == 2 * 256
+        else:
+            assert got["n"] == 2
+            assert got["by_type"] == {"reduce-scatter": 192.0,
+                                      "all-gather": 192.0}
 
 
 # ------------------------------------------------------------- byte model
