@@ -512,6 +512,16 @@ HCHECK_LAYERS, HCHECK_PROMPT = 7, 256
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # the bf16 scan's tensor-core kernel, as the profiler names it
 SSD_BF16_KERNEL = "ssd_mma_kernel"
+# the backward kernels as the profiler names them: flash attention's two
+# launches (flash_bwd_dq_bf16, flash_bwd_dkdv_bf16) and the scan's reverse
+# walk
+FLASH_BWD_KERNEL = "flash_bwd_"
+SSD_BWD_KERNEL = "ssd_bwd_mma_kernel"
+# a training path's profile: the forward and backward kernels' device time
+TRAIN_SHARES = {"flash_attention": "flash_wgmma",
+                "flash_attention_bwd": FLASH_BWD_KERNEL}
+# phase 6c's float32 hold of SsdScanFn's gradients: (batch, positions)
+SSD_F32_HOLD = (1, 200)
 # phase 6a: the head-dim-128 dense configs at full width, random bf16
 # weights, (arch, phase tag, layers on the card): qwen2.5-14b at full depth
 # (48 layers, 29.5 GB); command-r-plus-104b at depth 8 of 64 (31.5 GB, 6.3
@@ -1101,6 +1111,14 @@ def main() -> int:
             seen.add(t.data_ptr())
             total += t.numel() * t.element_size()
         return total
+
+    def bf16_bound(flops, nbytes_):
+        """(ms, "operations" or "bytes"): the least time of a bf16 call,
+        operations at 989 TFLOP/s or bytes at 3.35 TB/s."""
+        by = ("operations" if flops / BF16_FLOP_PER_S
+              > nbytes_ / HBM_BYTES_PER_S else "bytes")
+        return max(flops / BF16_FLOP_PER_S,
+                   nbytes_ / HBM_BYTES_PER_S) * 1e3, by
 
     def kernel_rates(flops, nbytes_, bound_ms, dev_ms):
         """Achieved TFLOP/s and GB/s at the device time, and the fraction
@@ -3450,9 +3468,13 @@ def main() -> int:
         (1 + |plain|), and within 5e-2 x (min(1, RMS) + |plain|) of the
         plain version in float32 on the same inputs (``fn_err``; the bf16
         plain version rounds its logits, the kernel does not, which can
-        leave the two near that limit); dq, dk, dv within 5e-2 x (min(1,
-        RMS) + |plain|) of autograd through the plain version (the
-        backward follows its numerics).
+        leave the two near that limit); dq, dk, dv (the backward kernel's)
+        within 5e-2 x (min(1, RMS) + |plain|) of autograd through the
+        plain version in float32 (the kernel keeps S and dP in float32,
+        where the bf16 plain autograd rounds them), their distance from
+        the bf16 plain autograd and that autograd's own from float32
+        printed beside, and a second backward pass bit-equal to the
+        first.
         Non-causal, the plain output without the last key must read past
         that limit: the check would fail a kernel that skipped it.
         Returns the shapes, the inputs and dO, the max |err|s against the
@@ -3486,15 +3508,32 @@ def main() -> int:
                 f"version's by {errs['out']}, from its float32 by "
                 f"{reading['out']} of min(1, RMS) + |plain| (tolerance "
                 f"{tol})")
-        for name, a, b in (("dq", fn_in[0].grad, plain_in[0].grad),
-                           ("dk", fn_in[1].grad, plain_in[1].grad),
-                           ("dv", fn_in[2].grad, plain_in[2].grad)):
-            errs[name], reading[name] = fn_err(a, b)
+        # the gradients (the backward kernel's) are held to the float32
+        # plain autograd, as the output is: the bf16 plain autograd rounds
+        # its logits, dP and dS products, which puts it itself up to about
+        # 6e-2 of this reading from the float32 gradients at these shapes
+        # (printed as plain_vs_f32)
+        ref32 = [t.float().requires_grad_(True) for t in (q_, k_, v_)]
+        FA.flash_attention_plain(*ref32, causal=causal).backward(do_.float())
+        for i, name in enumerate(("dq", "dk", "dv")):
+            errs[name], reading[f"{name}_vs_bf16_plain"] = fn_err(
+                fn_in[i].grad, plain_in[i].grad)
+            reading[name] = fn_err(fn_in[i].grad, ref32[i].grad)[1]
+            reading[f"{name}_plain_vs_f32"] = fn_err(plain_in[i].grad,
+                                                     ref32[i].grad)[1]
             if not reading[name] <= tol:
                 raise AssertionError(
                     f"{tag}: FlashAttentionFn {name} differs from the plain "
-                    f"version's autograd by {errs[name]}, {reading[name]} of "
-                    f"min(1, RMS) + |plain| (tolerance {tol})")
+                    f"version's float32 autograd by {reading[name]} of "
+                    f"min(1, RMS) + |plain| (tolerance {tol}); the bf16 "
+                    f"plain autograd reads {reading[f'{name}_plain_vs_f32']}")
+        del ref32
+        again = [t.clone().requires_grad_(True) for t in (q_, k_, v_)]
+        FA.FlashAttentionFn.apply(*again, causal, 0).backward(do_)
+        if not all(torch.equal(a.grad, b.grad) for a, b in zip(again, fn_in)):
+            raise AssertionError(f"{tag}: two FlashAttentionFn backward "
+                                 f"passes differ")
+        del again
         planted = ""
         if not causal:
             with torch.no_grad():
@@ -3515,13 +3554,18 @@ def main() -> int:
               f"(min(1, RMS) + |plain|), the output against the plain "
               f"version in float32 "
               f"{ {k: round(v, 5) for k, v in reading.items()} } (tolerance "
-              f"{tol}){planted}")
+              f"{tol} on out, dq, dk, dv; the _vs_bf16_plain and "
+              f"_plain_vs_f32 readings printed, not held){planted}; a "
+              f"second backward pass bit-equal")
         return shapes, (q_, k_, v_, do_), errs, reading
 
     def flash_fn_row(tag, case, fq, fk, fv, fdo, causal, fn_errs, reading):
-        """FlashAttentionFn's forward and forward + backward times at one
-        shape (bf16), beside the plain version's autograd, SDPA's and the
-        bound of each; ``fn_errs`` and ``reading`` are hold_flash_fn's."""
+        """FlashAttentionFn's forward, backward and forward + backward
+        times at one shape (bf16), beside the plain version's, SDPA's and
+        the bound of each; and, in the same call, the trainable form as it
+        ran before the backward kernel (the forward kernel, then the plain
+        backward ``flash_attention_grad``).  ``fn_errs`` and ``reading``
+        are hold_flash_fn's."""
         leaves3 = [t.detach().requires_grad_(True) for t in (fq, fk, fv)]
         st = [t.detach().transpose(1, 2).contiguous().requires_grad_(True)
               for t in (fq, fk, fv)]
@@ -3548,28 +3592,42 @@ def main() -> int:
                                                       causal=causal),
             leaves3, fdo), 5)
         tb_lib = cuda_ms(lambda: fwd_bwd(sdpa_t, st, sdo), 10)
+        with torch.no_grad():
+            tb_old = cuda_ms(lambda: (
+                FA.flash_attention(fq, fk, fv, causal=causal),
+                FA.flash_attention_grad(fq, fk, fv, fdo, causal=causal)), 5)
+            # the backward alone: the kernel from the forward's output and
+            # LSE, the plain backward, SDPA's backward through its graph
+            out_, lse_, lo_ = FA._attend(fq, fk, fv, causal, 0,
+                                         with_lse=True)
+            bk_ms = cuda_ms(lambda: FA._attend_grad(fq, fk, fv, out_, lo_,
+                                                    lse_, fdo, causal, 0), 10)
+            bk_plain = cuda_ms(lambda: FA.flash_attention_grad(
+                fq, fk, fv, fdo, causal=causal), 5)
+        so = sdpa_t(*st)
+        bk_lib = cuda_ms(lambda: torch.autograd.grad(so, st, sdo,
+                                                     retain_graph=True), 10)
+        del so, out_, lse_, lo_
         b_, sq_, hh_, hd_ = fq.shape
-        t_flops, t_bytes = FA.flash_attention_work(
-            b_, sq_, fk.shape[1], hh_, fk.shape[2], hd_, causal, 0,
-            fq.element_size())
-        t_bound = max(t_flops / BF16_FLOP_PER_S,
-                      t_bytes / HBM_BYTES_PER_S) * 1e3
-        # backward: 5 products (QK^T again, dV, dP, dQ, dK) to the
-        # forward's 2; reads q, k, v, dO, writes dq, dk, dv
-        tb_flops = 3.5 * t_flops
-        tb_bytes = 2 * t_bytes + nbytes(fk, fv)
-        tb_bound = max(tb_flops / BF16_FLOP_PER_S,
-                       tb_bytes / HBM_BYTES_PER_S) * 1e3
+        work = (b_, sq_, fk.shape[1], hh_, fk.shape[2], hd_, causal, 0,
+                fq.element_size())
+        t_flops, t_bytes = FA.flash_attention_work(*work)
+        k_flops, k_bytes = FA.flash_attention_grad_work(*work)
+
+        t_bound, t_by = bf16_bound(t_flops, t_bytes)
+        k_bound, k_by = bf16_bound(k_flops, k_bytes)
+        tb_bound, tb_by = bf16_bound(t_flops + k_flops, t_bytes + k_bytes)
         row = {
             "name": "flash_attention", "case": case, "causal": causal,
             "shape": [list(fq.shape), list(fk.shape)], "ms": tf_ms,
             "plain_ms": tf_plain, "library_ms": tf_lib, "bound_ms": t_bound,
-            "bound_by": ("operations" if t_flops / BF16_FLOP_PER_S
-                         > t_bytes / HBM_BYTES_PER_S else "bytes"),
+            "bound_by": t_by,
+            "bwd_ms": bk_ms, "bwd_plain_ms": bk_plain,
+            "bwd_library_ms": bk_lib, "bwd_bound_ms": k_bound,
+            "bwd_bound_by": k_by,
             "fwd_bwd_ms": tb_ms, "fwd_bwd_plain_ms": tb_plain,
             "fwd_bwd_library_ms": tb_lib, "fwd_bwd_bound_ms": tb_bound,
-            "fwd_bwd_bound_by": ("operations" if tb_flops / BF16_FLOP_PER_S
-                                 > tb_bytes / HBM_BYTES_PER_S else "bytes"),
+            "fwd_bwd_bound_by": tb_by, "fwd_bwd_tensor_op_bwd_ms": tb_old,
             "max_abs_err": fn_errs, "err_reading": reading,
             "tolerance": (f"out {ATT_TOL['bfloat16']} x (1 + |plain|), and x "
                           f"(min(1, RMS) + |plain|) of the float32 plain "
@@ -3577,12 +3635,28 @@ def main() -> int:
         print(f"[{tag}] flash_attention at {row['shape']} "
               f"{'causal' if causal else 'non-causal'}: forward {tf_ms:.4f} "
               f"ms (plain {tf_plain:.4f}, SDPA {tf_lib:.4f}, bound "
-              f"{t_bound:.5f}); forward + backward through FlashAttentionFn "
+              f"{t_bound:.5f}); backward kernel {bk_ms:.4f} ms (plain "
+              f"backward {bk_plain:.4f}, SDPA's backward {bk_lib:.4f}, bound "
+              f"{k_bound:.5f}); forward + backward through FlashAttentionFn "
               f"{tb_ms:.4f} ms (plain autograd {tb_plain:.4f}, SDPA "
-              f"{tb_lib:.4f}, bound {tb_bound:.5f})")
+              f"{tb_lib:.4f}, bound {tb_bound:.5f}; the forward kernel and "
+              f"the tensor-op backward, as before the backward kernel, "
+              f"{tb_old:.4f})")
         return row
 
     step_rows: dict = {}  # a training path's rows a backward pass, by step
+
+    def pin_backwards(tag, counts, kernels=("flash_attention", "ssd_scan")):
+        """Every forward launch of a trainable kernel on a training path is
+        under grad, so each has its backward: the backward kernel's count
+        (one a backward call) must equal the forward's."""
+        for k in kernels:
+            if counts[f"{k}_bwd"] != counts[k]:
+                raise AssertionError(f"{tag}: {k}_bwd launched "
+                                     f"{counts[f'{k}_bwd']} times against "
+                                     f"{counts[k]} forward launches under "
+                                     f"grad")
+        return {k: counts[f"{k}_bwd"] for k in kernels}
 
     def counted_run(tag, trainer):
         """``trainer.run()`` through its public loop, counting the distinct
@@ -3694,6 +3768,7 @@ def main() -> int:
         for k in kernels:
             if pcounts[k] <= 0:
                 raise AssertionError(f"{tag} never launched {k}")
+        pin_backwards(tag, pcounts)
         print(f"[{tag}] {ptc.arch} reduced ({pin_card.cfg.n_layers} layers), "
               f"{ptc.steps} steps, workers 1 and 5 dead from step 3, "
               f"checkpoints every {ptc.checkpoint_every}: card == CPU for "
@@ -3792,6 +3867,7 @@ def main() -> int:
                                  f"expected {tcfg.n_layers} layers x "
                                  f"{n_grads} distinct batches = "
                                  f"{want_flash}")
+        pin_backwards("train", tcounts)
         if not attempts:
             raise AssertionError("the tuner made no re-plan attempt")
         losses = res.losses
@@ -3818,10 +3894,13 @@ def main() -> int:
               f"peak memory allocated {peak_gb:.2f} GB ({held_gb:.2f} GB of "
               f"it held by earlier phases' tensors when the phase began)")
         others = {k: v for k, v in tcounts.items()
-                  if k not in ("flash_attention", "sojourn_cells")}
+                  if k not in ("flash_attention", "flash_attention_bwd",
+                               "sojourn_cells")}
         print(f"[train] launches: flash_attention "
               f"{tcounts['flash_attention']} = {tcfg.n_layers} layers x "
-              f"{n_grads} distinct batches over {len(losses)} steps; "
+              f"{n_grads} distinct batches over {len(losses)} steps, "
+              f"flash_attention_bwd {tcounts['flash_attention_bwd']} (one a "
+              f"forward under grad); "
               f"sojourn_cells {tcounts['sojourn_cells']} (the tuner's "
               f"{len(attempts)} re-plan attempt(s) score a plain metric, the "
               f"mean completion: sweep_simulated's torch ops, no sojourn "
@@ -3847,8 +3926,7 @@ def main() -> int:
         print(f"[train] phase 6b: {time.perf_counter() - t_train:.1f} s")
         report["phases"]["train"] = train_report
         trainer_profiles.append(lambda: train_profile(
-            "train", tr, train_report, med_step,
-            {"flash_attention": "flash_wgmma"}))
+            "train", tr, train_report, med_step, TRAIN_SHARES))
         return train_flash_row
 
     train_flash_row = train_phase()
@@ -3930,26 +4008,36 @@ def main() -> int:
         hfshape, _, hflash_errs, hflash_reading = hold_flash_fn(
             "train_hybrid", hc, htc)
 
-        # SsdScanFn's forward at the path's shape (x, B, C as views of one
-        # activation, mild-decay dt) against the plain version, then its time,
-        # forward and forward + backward (not counted).  Its backward is
-        # autograd through the plain scan itself, held by the step-0 leaves
-        # above and by the CPU and card tests
+        # SsdScanFn at the path's shape (x, B, C as views of one
+        # activation, mild-decay dt): its forward against the plain version;
+        # its seven gradients (an initial state and a final-state cotangent
+        # given) against the plain backward ssd_scan_grad, in bf16 here and
+        # in float32 at a smaller shape, and a second backward pass
+        # bit-equal; then its times, forward, backward and forward +
+        # backward (not counted)
         hrows = htc.global_batch // htc.n_batches
         sh_h = hc.ssm
         n_hh, gn = d_inner // sh_h.head_dim, sh_h.n_groups * sh_h.state_dim
-        gen = torch.Generator(device="cuda").manual_seed(51)
-        act = torch.randn((hrows, htc.seq_len, d_inner + 2 * gn),
-                          generator=gen,
-                          device=dev).to(torch.bfloat16)
-        act[..., d_inner:] *= 0.3
-        hdt = 0.01 + 0.09 * torch.rand((hrows, htc.seq_len, n_hh),
-                                       generator=gen,
-                                       device=dev)
-        halog = 0.5 * torch.randn((n_hh,), generator=gen, device=dev)
-        hds = 1.0 + 0.2 * torch.randn((n_hh,), generator=gen, device=dev)
-        hdy = torch.randn((hrows, htc.seq_len, n_hh, sh_h.head_dim),
-                          generator=gen, device=dev).to(torch.bfloat16)
+
+        def scan_inputs(rows_, seq_, dtype, seed):
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            act_ = torch.randn((rows_, seq_, d_inner + 2 * gn),
+                               generator=gen, device=dev).to(dtype)
+            act_[..., d_inner:] *= 0.3
+            dt_ = 0.01 + 0.09 * torch.rand((rows_, seq_, n_hh),
+                                           generator=gen, device=dev)
+            al_ = 0.5 * torch.randn((n_hh,), generator=gen, device=dev)
+            ds_ = 1.0 + 0.2 * torch.randn((n_hh,), generator=gen, device=dev)
+            init_ = 0.5 * torch.randn((rows_, n_hh, sh_h.state_dim,
+                                       sh_h.head_dim), generator=gen,
+                                      device=dev)
+            dy_ = torch.randn((rows_, seq_, n_hh, sh_h.head_dim),
+                              generator=gen, device=dev).to(dtype)
+            dst_ = torch.randn(init_.shape, generator=gen, device=dev)
+            return act_, dt_, al_, ds_, init_, dy_, dst_
+
+        act, hdt, halog, hds, hinit, hdy, hdst = scan_inputs(
+            hrows, htc.seq_len, torch.bfloat16, 51)
 
         def scan_views(a):
             xs, b_, c_ = a.split([d_inner, gn, gn], dim=-1)
@@ -3992,6 +4080,81 @@ def main() -> int:
               f"|err| {ssd_fn_errs} (tolerance {SSD_TOL['bfloat16']} x (1 + "
               f"|plain|); the state {SSD_TOL['float32']})")
         del yw, sw, yg, sg
+
+        names7 = ("x", "dt", "a_log", "b", "c", "d_skip", "initial_state")
+
+        def hold_scan_grads(ins, tol_name):
+            """SsdScanFn's seven gradients (the backward kernel) against
+            ssd_scan_grad on float32 views of the same activation, within
+            tol x (1 + |plain|); a second pass bit-equal.  In bf16 the
+            plain backward on the bf16 views is read too, not held: it
+            rounds each head's dB and dC to bf16 before the group sum over
+            112 heads, which puts its dc about 0.11 of this reading from
+            the float32 one.  Returns the max |err|s and the readings."""
+            a0, dt0, al0, ds0, init0, dy0, dst0 = ins
+
+            def kernel_grads():
+                leaves = [t.detach().clone().requires_grad_(True)
+                          for t in (a0, dt0, al0, ds0, init0)]
+                xs, b_, c_ = scan_views(leaves[0])
+                y_, st_ = SSD.SsdScanFn.apply(xs, leaves[1], leaves[2], b_,
+                                              c_, leaves[3], leaves[4],
+                                              sh_h.chunk)
+                g_ = torch.autograd.grad([y_, st_], leaves, [dy0, dst0])
+                gx, gb, gc = scan_views(g_[0])
+                return (gx, g_[1], g_[2], gb, gc, g_[3], g_[4])
+
+            got = kernel_grads()
+            again = kernel_grads()
+            bit_equal = all(torch.equal(u, w) for u, w in zip(got, again))
+            del again
+
+            def plain_grads(a_, dy_):
+                xs, b_, c_ = scan_views(a_)
+                return SSD.ssd_scan_grad(xs, dt0, al0, b_, c_, ds0, init0,
+                                         dy_, dst0, sh_h.chunk)
+
+            def read(g_, w):
+                diff = (g_.float() - w.float()).abs()
+                return diff.max().item(), (diff / (1 + w.float().abs())
+                                           ).max().item()
+
+            want = plain_grads(a0.float(), dy0.float())
+            tol = SSD_TOL[tol_name]
+            errs, reading = {}, {}
+            for nm, g_, w in zip(names7, got, want):
+                errs[nm], reading[nm] = read(g_, w)
+            if a0.dtype == torch.bfloat16:
+                for nm, g_, w in zip(names7, got, plain_grads(a0, dy0)):
+                    reading[f"{nm}_vs_bf16_plain"] = read(g_, w)[1]
+            bad = {nm: reading[nm] for nm in names7
+                   if not reading[nm] <= tol}
+            if bad or not bit_equal:
+                raise AssertionError(
+                    f"SsdScanFn's gradients ({tol_name}) against "
+                    f"ssd_scan_grad in float32: {bad} past {tol} x (1 + "
+                    f"|plain|); two passes bit-equal: {bit_equal}")
+            return errs, reading
+
+        ssd_grad_errs, ssd_grad_reading = hold_scan_grads(
+            (act, hdt, halog, hds, hinit, hdy, hdst), "bfloat16")
+        f32_in = scan_inputs(*SSD_F32_HOLD, torch.float32, 52)
+        ssd_grad_errs_f32, ssd_grad_reading_f32 = hold_scan_grads(
+            f32_in, "float32")
+        del f32_in
+        print(f"[train_hybrid] SsdScanFn's seven gradients (the backward "
+              f"kernel; an initial state and a final-state cotangent given) "
+              f"against ssd_scan_grad on float32 views: bf16 at the path's "
+              f"shape "
+              f"max |err| { {k: round(v, 6) for k, v in ssd_grad_errs.items()} }"
+              f", largest |err| / (1 + |plain|) "
+              f"{ {k: round(v, 6) for k, v in ssd_grad_reading.items()} } "
+              f"(tolerance {SSD_TOL['bfloat16']}); float32 at "
+              f"{list(SSD_F32_HOLD)} rows x positions "
+              f"{ {k: round(v, 8) for k, v in ssd_grad_reading_f32.items()} } "
+              f"(tolerance {SSD_TOL['float32']}); two backward passes "
+              f"bit-equal in each")
+
         base = [t.detach() for t in (act, hdt, halog, hds)]
         fb_leaves = scan_leaves()
 
@@ -3999,43 +4162,67 @@ def main() -> int:
             y_, _ = scan_fwd(fn, fb_leaves)
             return torch.autograd.grad(y_, fb_leaves, hdy)
 
+        xv, bv, cv = scan_views(act)
         with torch.no_grad():
             hs_ms = cuda_ms(lambda: scan_fwd(SSD.ssd_scan, base), 20)
             hs_plain = cuda_ms(lambda: scan_fwd(plain_scan, base), 5)
-        hsb_ms = cuda_ms(lambda: fwd_bwd_scan(fn_scan), 5)
+            # the backward alone: the kernel from the forward's chunk
+            # states, and the plain backward
+            _, _, hstates = SSD._scan(xv, hdt, halog, bv, cv, hds, None,
+                                      sh_h.chunk, with_states=True)
+            hbk_ms = cuda_ms(lambda: SSD._scan_grad(
+                xv, hdt, halog, bv, cv, hds, None, hstates, hdy, None,
+                sh_h.chunk, (True,) * 6 + (False,)), 10)
+        hbk_plain = cuda_ms(lambda: SSD.ssd_scan_grad(
+            xv, hdt, halog, bv, cv, hds, None, hdy, None, sh_h.chunk), 5)
+        hsb_ms = cuda_ms(lambda: fwd_bwd_scan(fn_scan), 10)
         hsb_plain = cuda_ms(lambda: fwd_bwd_scan(plain_scan), 5)
+        # the trainable form as it ran before the backward kernel: the
+        # forward kernel, then the plain backward
+        hsb_old = cuda_ms(lambda: (
+            scan_fwd(SSD.ssd_scan, base),
+            SSD.ssd_scan_grad(xv, hdt, halog, bv, cv, hds, None, hdy, None,
+                              sh_h.chunk)), 5)
+        del hstates
         hs_flops = SSD.ssd_scan_work(hrows, htc.seq_len, n_hh, sh_h.n_groups,
                                      sh_h.head_dim, sh_h.state_dim)[0]
-        xv, bv, cv = scan_views(act)
         in_bytes = (xv.numel() + bv.numel() + cv.numel()) * 2 + nbytes(
             hdt, halog, hds)
         out_bytes = (xv.numel() * 2
                      + hrows * n_hh * sh_h.state_dim * sh_h.head_dim * 4)
-        hs_bound = max(hs_flops / BF16_FLOP_PER_S,
-                       (in_bytes + out_bytes) / HBM_BYTES_PER_S) * 1e3
-        # the backward: two products for each of the forward's, reading the
-        # inputs and dy, writing a gradient for each input
-        hsb_flops = 3 * hs_flops
-        hsb_bytes = 2 * in_bytes + out_bytes + xv.numel() * 2
-        hsb_bound = max(hsb_flops / BF16_FLOP_PER_S,
-                        hsb_bytes / HBM_BYTES_PER_S) * 1e3
+        hb_flops, hb_bytes = SSD.ssd_scan_grad_work(
+            hrows, htc.seq_len, n_hh, sh_h.n_groups, sh_h.head_dim,
+            sh_h.state_dim)
+
+        hs_bound, hs_by = bf16_bound(hs_flops, in_bytes + out_bytes)
+        hb_bound, hb_by = bf16_bound(hb_flops, hb_bytes)
+        hsb_bound, hsb_by = bf16_bound(hs_flops + hb_flops,
+                                   in_bytes + out_bytes + hb_bytes)
         htrain_ssd_row = {
             "name": "ssd_scan", "case": "train_hybrid (forward; SsdScanFn)",
             "shape": [xs_shape, bc_shape], "ms": hs_ms, "plain_ms": hs_plain,
-            "library_ms": None, "bound_ms": hs_bound,
-            "bound_by": ("operations" if hs_flops / BF16_FLOP_PER_S
-                         > (in_bytes + out_bytes) / HBM_BYTES_PER_S else "bytes"),
+            "library_ms": None, "bound_ms": hs_bound, "bound_by": hs_by,
+            "bwd_ms": hbk_ms, "bwd_plain_ms": hbk_plain,
+            "bwd_library_ms": None, "bwd_bound_ms": hb_bound,
+            "bwd_bound_by": hb_by,
             "fwd_bwd_ms": hsb_ms, "fwd_bwd_plain_ms": hsb_plain,
             "fwd_bwd_library_ms": None, "fwd_bwd_bound_ms": hsb_bound,
-            "fwd_bwd_bound_by": ("operations" if hsb_flops / BF16_FLOP_PER_S
-                                 > hsb_bytes / HBM_BYTES_PER_S else "bytes"),
-            "max_abs_err": ssd_fn_errs}
+            "fwd_bwd_bound_by": hsb_by, "fwd_bwd_tensor_op_bwd_ms": hsb_old,
+            "max_abs_err": ssd_fn_errs,
+            "grad_max_abs_err": ssd_grad_errs,
+            "grad_err_reading": ssd_grad_reading,
+            "grad_max_abs_err_f32": ssd_grad_errs_f32,
+            "grad_err_reading_f32": ssd_grad_reading_f32,
+            "grad_f32_shape": list(SSD_F32_HOLD)}
         print(f"[train_hybrid] ssd_scan at the path's shape: forward "
               f"{hs_ms:.4f} ms (plain {hs_plain:.4f}, bound {hs_bound:.5f}); "
-              f"forward + backward through SsdScanFn {hsb_ms:.4f} ms (plain "
-              f"autograd {hsb_plain:.4f}, bound {hsb_bound:.5f}); no library "
-              f"call computes the scan")
-        del act, hdt, halog, hds, hdy, base, fb_leaves, xv, bv, cv
+              f"backward kernel {hbk_ms:.4f} ms (plain backward "
+              f"{hbk_plain:.4f}, bound {hb_bound:.5f}); forward + backward "
+              f"through SsdScanFn {hsb_ms:.4f} ms (plain autograd "
+              f"{hsb_plain:.4f}, bound {hsb_bound:.5f}; the forward kernel "
+              f"and the tensor-op backward, as before the backward kernel, "
+              f"{hsb_old:.4f}); no library call computes the scan")
+        del act, hdt, halog, hds, hinit, hdy, hdst, base, fb_leaves, xv, bv, cv
 
         hres, hcounts, hwall, n_hgrads, hstep_walls, hattempts, hpeak = (
             counted_run("train_hybrid", tr_h))
@@ -4045,6 +4232,7 @@ def main() -> int:
             if hcounts[k] != n:
                 raise AssertionError(f"train_hybrid launched {k} "
                                      f"{hcounts[k]} times, expected {n}")
+        pin_backwards("train_hybrid", hcounts)
         if not hattempts:
             raise AssertionError("train_hybrid: the tuner made no re-plan "
                                  "attempt")
@@ -4068,11 +4256,14 @@ def main() -> int:
               f"{max(hstep_walls):.4f}); peak memory allocated {hpeak:.2f} GB "
               f"({held_h:.2f} GB of it held by earlier phases' tensors when "
               "the phase began)")
+        hothers = {k: v for k, v in hcounts.items()
+                   if k not in hwant and not k.endswith("_bwd")}
         print(f"[train_hybrid] launches: ssd_scan {hcounts['ssd_scan']} = "
               f"{n_mamba} Mamba-2 blocks x {n_hgrads} distinct batches, "
               f"flash_attention {hcounts['flash_attention']} = {n_seg_h} "
-              f"shared applications x {n_hgrads}; others "
-              f"{ {k: v for k, v in hcounts.items() if k not in hwant} }")
+              f"shared applications x {n_hgrads}; their backwards "
+              f"ssd_scan_bwd {hcounts['ssd_scan_bwd']}, flash_attention_bwd "
+              f"{hcounts['flash_attention_bwd']}; others {hothers}")
         htrain_report = {
             "config": {**HTRAIN_CONFIG, "steps": HTRAIN_STEPS,
                        "layers": HTRAIN_LAYERS,
@@ -4105,7 +4296,8 @@ def main() -> int:
         report["phases"]["train_hybrid"] = htrain_report
         trainer_profiles.append(lambda: train_profile(
             "train_hybrid", tr_h, htrain_report, hmed,
-            {"ssd_scan": SSD_BF16_KERNEL, "flash_attention": "flash_wgmma"}))
+            {**TRAIN_SHARES, "ssd_scan": SSD_BF16_KERNEL,
+             "ssd_scan_bwd": SSD_BWD_KERNEL}))
         return htrain_ssd_row
 
     htrain_ssd_row = train_hybrid_phase()
@@ -4949,6 +5141,52 @@ def main() -> int:
               f"backward {htrain_ssd_row['fwd_bwd_ms']:.4f} ms (bound "
               f"{htrain_ssd_row['fwd_bwd_bound_ms']:.5f}); launches "
               f"{rows[-1]['train']['launches']} on train_hybrid")
+
+        # the backward kernels, at their main paths' shapes (timed in
+        # phases 6b and 6c, the backward alone: from the forward's saved
+        # LSE or chunk states); they replace no TPU kernel (the reference
+        # differentiates XLA twins), so ``replaces`` names the TPU kernel
+        # whose trainable form's backward they are
+        def bwd_row(name, source, replaces, home, fwd_row, errs, tol):
+            return {"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces,
+                    "replaces_note": "the backward of this TPU kernel's "
+                                     "trainable form; the reference has no "
+                                     "backward kernel",
+                    **launches(name, home),
+                    "max_abs_err": max(errs.values()),
+                    "ms": fwd_row["bwd_ms"], "plain_ms": fwd_row["bwd_plain_ms"],
+                    "bound_ms": fwd_row["bwd_bound_ms"],
+                    "bound_by": fwd_row["bwd_bound_by"],
+                    "library_ms": fwd_row["bwd_library_ms"],
+                    "shape": fwd_row["shape"], "max_abs_errs": errs,
+                    "tolerance": tol,
+                    "fwd_bwd_ms": fwd_row["fwd_bwd_ms"],
+                    "fwd_bwd_tensor_op_bwd_ms":
+                        fwd_row["fwd_bwd_tensor_op_bwd_ms"],
+                    "fwd_bwd_library_ms": fwd_row["fwd_bwd_library_ms"],
+                    "fwd_bwd_bound_ms": fwd_row["fwd_bwd_bound_ms"]}
+
+        rows.append(bwd_row(
+            "flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention/kernel.py:83", "train",
+            train_flash_row,
+            {k: train_flash_row["max_abs_err"][k] for k in ("dq", "dk", "dv")},
+            f"{ATT_TOL['bfloat16']} x (min(1, RMS) + |plain|) of the plain "
+            f"version's autograd"))
+        rows.append(bwd_row(
+            "ssd_scan_bwd", "src/repro_torch/csrc/ssd_scan_bwd.cu",
+            "src/repro/kernels/ssm_scan/kernel.py:76", "train_hybrid",
+            htrain_ssd_row, htrain_ssd_row["grad_max_abs_err"],
+            f"{SSD_TOL['bfloat16']} x (1 + |plain|) of ssd_scan_grad"))
+        for r in rows[-2:]:
+            print(f"[kernels] {r['name']} at {r['shape']}: {r['ms']:.4f} ms "
+                  f"(plain backward {r['plain_ms']:.4f}, library "
+                  f"{r['library_ms']}, bound {r['bound_ms']:.5f} "
+                  f"({r['bound_by']})); forward + backward {r['fwd_bwd_ms']:.4f}"
+                  f" ms, with the tensor-op backward "
+                  f"{r['fwd_bwd_tensor_op_bwd_ms']:.4f}; max |err| "
+                  f"{r['max_abs_err']:.4g}")
         return rows, extra_rows, ftrain_flash_rows
 
     rows, extra_rows, ftrain_flash_rows = kernels_phase()
@@ -5144,6 +5382,7 @@ def main() -> int:
                                  f"expected {n_attn} attention layers x "
                                  f"{n_fgrads} distinct batches = "
                                  f"{fwant}")
+        pin_backwards(tag, fcounts)
         if ftc.tuner and not fattempts:
             raise AssertionError(f"{tag}: the tuner made no re-plan attempt")
         flosses = fres.losses
@@ -5166,10 +5405,12 @@ def main() -> int:
               f"{held_f + step_gb:.2f} GB ({held_f:.2f} GB of it held when "
               f"the path began)")
         others = {k: v for k, v in fcounts.items()
-                  if k not in ("flash_attention", "sojourn_cells")}
+                  if k not in ("flash_attention", "flash_attention_bwd",
+                               "sojourn_cells")}
         print(f"[{tag}] launches: flash_attention {fcounts['flash_attention']}"
               f" = {n_attn} attention layers x {n_fgrads} distinct "
-              f"batches; sojourn_cells {fcounts['sojourn_cells']} (the "
+              f"batches, flash_attention_bwd "
+              f"{fcounts['flash_attention_bwd']}; sojourn_cells {fcounts['sojourn_cells']} (the "
               f"tuner's re-plans score a plain metric); others {others}")
         frep = {
             "config": {**fconf, "steps": fsteps, "layers": fc.n_layers,
@@ -5192,7 +5433,7 @@ def main() -> int:
         # one profiled xLSTM step: two steps made 682,559 device events
         # (the sLSTM's per-position kernels), which took the profiler
         # longer to list than the steps took to run
-        shares = {"flash_attention": "flash_wgmma"} if n_attn else {}
+        shares = dict(TRAIN_SHARES) if n_attn else {}
         if fc.family == "moe":  # the dispatch gathers' backward (D2)
             shares["dispatch_backward"] = "indexing_backward_kernel"
         train_profile(tag, ftr, frep, fmed, shares,

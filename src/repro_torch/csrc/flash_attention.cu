@@ -47,6 +47,16 @@
 // P V is one m64n112k16 per 16 keys, whose two column blocks lie a
 // sub-tile apart (the descriptor's leading offset).
 //
+// With a non-null `lse` (the trainable form, FlashAttentionFn) each row's
+// log-sum-exp of the scaled logits goes out too, float32 (b, H, sq): the
+// backward (flash_attention_bwd.cu) rebuilds P = exp(S - LSE) from it.
+// In bfloat16 the trainable form also takes `out_lo`, the bf16 residual of
+// each output element (the output's float32 value as bf16 hi + lo): the
+// backward's Delta = rowsum(dO o out) from the rounded output alone put dQ
+// past its 5e-2 hold against the float32 plain backward at `train`'s shape
+// (tests/test_torch_flash_bwd_hopper.py).  Inference passes null for both
+// and writes nothing more.
+//
 // float32 keeps the FMA kernel below (TF32 would break the 5e-5 float32
 // tolerance): one 256-thread block per (64-row query tile, head, batch),
 // the scaled query tile and K (transposed) and V staged in shared memory,
@@ -261,8 +271,9 @@ __global__ void __launch_bounds__(WG_THREADS, D <= 112 ? 2 : 1)
 flash_wgmma(const __grid_constant__ CUtensorMap tq,
             const __grid_constant__ CUtensorMap tk,
             const __grid_constant__ CUtensorMap tv,
-            __nv_bfloat16* __restrict__ out, int sq, int skv, int H, int KV,
-            int causal, int q_offset, float scale_log2) {
+            __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+            __nv_bfloat16* __restrict__ out_lo, int sq, int skv, int H,
+            int KV, int causal, int q_offset, float scale_log2) {
   using T = Tiles<D>;
   constexpr int STAGES = T::STAGES, BK = WG_BK;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -441,11 +452,24 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
     const int row = qw + r0 + 8 * i;
     if (row >= sq) continue;
     const float inv = 1.0f / fmaxf(l, 1e-30f);
-    __nv_bfloat16* orow = out + (((size_t)bi * sq + row) * H + h) * D + c0;
+    // the row's log-sum-exp of the scaled logits, for the backward
+    if (lse != nullptr && lane % 4 == 0)
+      lse[((size_t)bi * H + h) * sq + row] =
+          (m_r[i] * scale_log2 + log2f(fmaxf(l, 1e-30f))) *
+          0.6931471805599453f;
+    const size_t off = (((size_t)bi * sq + row) * H + h) * D + c0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-          pack_bf16(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+    for (int j = 0; j < D / 8; ++j) {
+      const float v0 = o[4 * j + 2 * i] * inv, v1 = o[4 * j + 2 * i + 1] * inv;
+      const uint32_t hi = pack_bf16(v0, v1);
+      *reinterpret_cast<uint32_t*>(out + off + 8 * j) = hi;
+      if (out_lo != nullptr) {  // what the bf16 output misses, for Delta
+        const float2 hf =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+        *reinterpret_cast<uint32_t*>(out_lo + off + 8 * j) =
+            pack_bf16(v0 - hf.x, v1 - hf.y);
+      }
+    }
   }
 }
 
@@ -496,8 +520,8 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int b, int s, int heads,
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int b, int sq, int skv, int H, int KV, int causal,
-                 int q_offset, cudaStream_t s) {
+                 float* lse, void* out_lo, int b, int sq, int skv, int H,
+                 int KV, int causal, int q_offset, cudaStream_t s) {
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, b, sq, H, D, WG_ROWS) ||
       !tensor_map(&tk, k, b, skv, KV, D, WG_BK) ||
@@ -509,8 +533,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return (int)err;
   dim3 grid(H, b, (sq + WG_BQ - 1) / WG_BQ);
   flash_wgmma<D><<<grid, WG_THREADS, smem, s>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), sq, skv, H, KV, causal,
-      q_offset, 1.4426950408889634f / sqrtf((float)D));
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse,
+      static_cast<__nv_bfloat16*>(out_lo), sq, skv, H, KV, causal, q_offset,
+      1.4426950408889634f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -544,9 +569,9 @@ __device__ inline void store(float* p, float v) { *p = v; }
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int sq, int skv,
-             int H, int KV, int causal, int q_offset, float scale,
-             int n_qtiles) {
+             const T* __restrict__ v, T* __restrict__ out,
+             float* __restrict__ lse, int sq, int skv, int H, int KV,
+             int causal, int q_offset, float scale, int n_qtiles) {
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [D][BQ], scaled
   float* Ks = Qs + D * BQ;                      // [D][BK]
@@ -718,6 +743,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty * 4 + i;
     if (row >= sq) continue;
     const float inv = 1.0f / fmaxf(l_i[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)bi * H + h) * sq + row] =
+          m_i[i] + logf(fmaxf(l_i[i], 1e-30f));
     T* o = out + (((size_t)bi * sq + row) * H + h) * D;
 #pragma unroll
     for (int cb = 0; cb < CB; ++cb) {
@@ -730,9 +758,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int sq, int skv, int H, int KV, int causal, int q_offset,
-           cudaStream_t s) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int b, int sq, int skv, int H, int KV, int causal,
+           int q_offset, cudaStream_t s) {
   const int smem = (D * BQ + D * BK + BK * D + BQ * PSTRIDE) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -741,8 +769,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   dim3 grid(n_qtiles, H, b);
   flash_kernel<T, D><<<grid, THREADS, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, skv, H, KV, causal,
-      q_offset, 1.0f / sqrtf((float)D), n_qtiles);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, sq, skv, H, KV,
+      causal, q_offset, 1.0f / sqrtf((float)D), n_qtiles);
   return (int)cudaGetLastError();
 }
 
@@ -755,31 +783,36 @@ const char* repro_error_string(int code) {
 }
 
 // dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma kernel); d in
-// {64, 112, 128}.  The wrapper checks shapes, strides (contiguous),
-// alignment and q_offset >= 0.
+// {64, 112, 128}.  lse may be null (inference); else it receives each
+// row's log-sum-exp of the scaled logits, float32 (b, H, sq), which the
+// backward (flash_attention_bwd.cu) reads.  out_lo (bfloat16 only, may be
+// null) receives the bf16 rounding residual of each output element, so
+// that out + out_lo carries the float32 output to the backward's Delta.
+// The wrapper checks shapes, strides (contiguous), alignment and
+// q_offset >= 0.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* out, int b, int sq, int skv, int H, int KV,
-                           int d, int causal, int q_offset, int dtype,
-                           void* stream) {
+                           void* out, float* lse, void* out_lo, int b, int sq,
+                           int skv, int H, int KV, int d, int causal,
+                           int q_offset, int dtype, void* stream) {
   if (b == 0 || sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && d == 64)
-    return launch_wgmma<64>(q, k, v, out, b, sq, skv, H, KV, causal, q_offset,
-                            s);
+    return launch_wgmma<64>(q, k, v, out, lse, out_lo, b, sq, skv, H, KV,
+                            causal, q_offset, s);
   if (dtype == 1 && d == 112)
-    return launch_wgmma<112>(q, k, v, out, b, sq, skv, H, KV, causal,
-                             q_offset, s);
+    return launch_wgmma<112>(q, k, v, out, lse, out_lo, b, sq, skv, H, KV,
+                             causal, q_offset, s);
   if (dtype == 1 && d == 128)
-    return launch_wgmma<128>(q, k, v, out, b, sq, skv, H, KV, causal,
-                             q_offset, s);
+    return launch_wgmma<128>(q, k, v, out, lse, out_lo, b, sq, skv, H, KV,
+                             causal, q_offset, s);
   if (dtype == 0 && d == 64)
-    return launch<float, 64>(q, k, v, out, b, sq, skv, H, KV, causal,
+    return launch<float, 64>(q, k, v, out, lse, b, sq, skv, H, KV, causal,
                              q_offset, s);
   if (dtype == 0 && d == 112)
-    return launch<float, 112>(q, k, v, out, b, sq, skv, H, KV, causal,
+    return launch<float, 112>(q, k, v, out, lse, b, sq, skv, H, KV, causal,
                               q_offset, s);
   if (dtype == 0 && d == 128)
-    return launch<float, 128>(q, k, v, out, b, sq, skv, H, KV, causal,
+    return launch<float, 128>(q, k, v, out, lse, b, sq, skv, H, KV, causal,
                               q_offset, s);
   return (int)cudaErrorInvalidValue;
 }

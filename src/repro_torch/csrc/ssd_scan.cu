@@ -55,6 +55,10 @@
 // thread at P = N = 64: four blocks an SM.  Warp 0, whose intra work is the
 // smallest, scans the next chunk's dt with shuffles.
 //
+// With a non-null `chunk_states` (the trainable form, SsdScanFn) both
+// kernels also write the float32 state before each chunk, (B, H, nc, N, P),
+// for the backward (ssd_scan_bwd.cu); inference passes null.
+//
 // float32: ssd_kernel, 256 threads on the FMA units.  Per chunk it stages
 // x (float32, [L][PP]), B and C (transposed, [N][L + 4]) and dt; two warps
 // take the inclusive scan of dt A with shuffles.  The weights W[t][s] are
@@ -100,8 +104,9 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
            const float* __restrict__ a_log, const T* __restrict__ bm,
            const T* __restrict__ cm, const float* __restrict__ d_skip,
            const float* __restrict__ init, T* __restrict__ y,
-           float* __restrict__ state_out, int S, int H, int G, int P, int N,
-           long long xbs, long long xts, long long bbs, long long bts) {
+           float* __restrict__ state_out, float* __restrict__ chunk_states,
+           int S, int H, int G, int P, int N, long long xbs, long long xts,
+           long long bbs, long long bts) {
   constexpr int CG = PP / 4;                      // 4-column groups
   constexpr int RGS = THREADS / CG;               // row groups = row stride
   constexpr int YR = L / RGS;                     // y rows per thread
@@ -139,6 +144,12 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   for (int ck = 0; ck < n_chunks; ++ck) {
     const int t0 = ck * L;
     __syncthreads();  // the previous chunk's readers are done
+    if (chunk_states != nullptr) {  // the state before this chunk
+      float* cs =
+          chunk_states + (((size_t)bi * H + h) * n_chunks + ck) * N * P;
+      for (int e = tid; e < N * P; e += THREADS)
+        cs[e] = Ss[(e / P) * PP + e % P];
+    }
 
     // dt and its scaled inclusive scan, one warp per 32 positions
     if (tid < L) {
@@ -462,6 +473,28 @@ struct MmaSmem {
   static constexpr int TOTAL = A0 + 2 * AUX * 4;
 };
 
+// the float32 state held in the warps' accumulators, (N, P) row-major
+template <int NSW, int PT>
+__device__ inline void store_state(float* dst, const float (&sacc)[NSW][PT][4],
+                                   int warp, int g, int q, int P, int N) {
+#pragma unroll
+  for (int i = 0; i < NSW; ++i) {
+    const int n0 = 16 * (warp + MW * i) + g;
+#pragma unroll
+    for (int pt = 0; pt < PT; ++pt) {
+      const int p = 8 * pt + 2 * q;
+      if (p >= P) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int n = n0 + 8 * r;
+        if (n < N)
+          *reinterpret_cast<float2*>(dst + (size_t)n * P + p) =
+              make_float2(sacc[i][pt][2 * r], sacc[i][pt][2 * r + 1]);
+      }
+    }
+  }
+}
+
 template <int PP, int NP>
 __global__ void __launch_bounds__(MT, (PP == 64 && NP == 64) ? 4 : 1)
 ssd_mma_kernel(const __nv_bfloat16* __restrict__ x,
@@ -470,7 +503,8 @@ ssd_mma_kernel(const __nv_bfloat16* __restrict__ x,
                const __nv_bfloat16* __restrict__ cm,
                const float* __restrict__ d_skip,
                const float* __restrict__ init, __nv_bfloat16* __restrict__ y,
-               float* __restrict__ state_out, int S, int H, int G, int P,
+               float* __restrict__ state_out,
+               float* __restrict__ chunk_states, int S, int H, int G, int P,
                int N, long long xbs, long long xts, long long bbs,
                long long bts) {
   using SM = MmaSmem<PP, NP>;
@@ -603,6 +637,10 @@ ssd_mma_kernel(const __nv_bfloat16* __restrict__ x,
     const uint32_t Cs = sbase + SM::C0, Sb = sbase + SM::S0;
     const unsigned char* xg = smem_mma + SM::X0 + st * SM::X_TILE;
     const float* a = aux + st * AUX;
+    if (chunk_states != nullptr)  // the float32 state before this chunk
+      store_state(chunk_states + (((size_t)bi * H + h) * n_chunks + ck) *
+                                     N * P,
+                  sacc, warp, g, q, P, N);
 
     // C's A fragments of this warp's rows
     uint32_t cf[NK][4];
@@ -778,29 +816,14 @@ ssd_mma_kernel(const __nv_bfloat16* __restrict__ x,
     }
   }
 
-#pragma unroll
-  for (int i = 0; i < NSW; ++i) {
-    const int n0 = 16 * (warp + MW * i) + g;
-#pragma unroll
-    for (int pt = 0; pt < PT; ++pt) {
-      const int p = 8 * pt + 2 * q;
-      if (p >= P) continue;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int n = n0 + 8 * r;
-        if (n < N)
-          *reinterpret_cast<float2*>(state_out + st_off + (size_t)n * P + p) =
-              make_float2(sacc[i][pt][2 * r], sacc[i][pt][2 * r + 1]);
-      }
-    }
-  }
+  store_state(state_out + st_off, sacc, warp, g, q, P, N);
 }
 
 struct Args {
   const void *x, *b, *c;
   const float *dt, *a_log, *d_skip, *init;
   void* y;
-  float* state;
+  float *state, *chunk_states;
   int B, S, H, G, P, N;
   long long xbs, xts, bbs, bts;
 };
@@ -815,8 +838,8 @@ int launch_fma(const Args& r, cudaStream_t s) {
   ssd_kernel<float, PP><<<dim3(r.H, r.B), THREADS, smem, s>>>(
       static_cast<const float*>(r.x), r.dt, r.a_log,
       static_cast<const float*>(r.b), static_cast<const float*>(r.c),
-      r.d_skip, r.init, static_cast<float*>(r.y), r.state, r.S, r.H, r.G,
-      r.P, r.N, r.xbs, r.xts, r.bbs, r.bts);
+      r.d_skip, r.init, static_cast<float*>(r.y), r.state, r.chunk_states,
+      r.S, r.H, r.G, r.P, r.N, r.xbs, r.xts, r.bbs, r.bts);
   return (int)cudaGetLastError();
 }
 
@@ -837,7 +860,8 @@ int launch_mma(const Args& r, cudaStream_t s) {
   ssd_mma_kernel<PP, NP><<<dim3(r.H, r.B), MT, smem, s>>>(
       static_cast<const bf*>(r.x), r.dt, r.a_log, static_cast<const bf*>(r.b),
       static_cast<const bf*>(r.c), r.d_skip, r.init, static_cast<bf*>(r.y),
-      r.state, r.S, r.H, r.G, r.P, r.N, r.xbs, r.xts, r.bbs, r.bts);
+      r.state, r.chunk_states, r.S, r.H, r.G, r.P, r.N, r.xbs, r.xts, r.bbs,
+      r.bts);
   return (int)cudaGetLastError();
 }
 
@@ -856,14 +880,18 @@ const char* repro_error_string(int code) {
 }
 
 // dtype (of x, b, c and y): 0 = float32 (ssd_kernel), 1 = bfloat16
-// (ssd_mma_kernel).  init may be null (a zero initial state).  x's rows
+// (ssd_mma_kernel).  init may be null (a zero initial state).
+// chunk_states may be null (inference); else it receives the float32 state
+// before each 64-position chunk, (B, H, ceil(S / 64), N, P), which the
+// backward (ssd_scan_bwd.cu) reads.  x's rows
 // are at x + b * xbs + t * xts (elements) with (H, P) packed; b's and c's
 // at b * bbs + t * bts with (G, N) packed; dt, y and the state are
 // contiguous.  The wrapper checks shapes (P and N multiples of 16 up to
 // 128, H % G == 0), dtypes, layouts and 16-byte alignment.
 int ssd_scan_launch(const void* x, const float* dt, const float* a_log,
                     const void* b, const void* c, const float* d_skip,
-                    const float* init, void* y, float* state, int B, int S,
+                    const float* init, void* y, float* state,
+                    float* chunk_states, int B, int S,
                     int H, int G, int P, int N, int dtype, long long xbs,
                     long long xts, long long bbs, long long bts,
                     void* stream) {
@@ -871,8 +899,8 @@ int ssd_scan_launch(const void* x, const float* dt, const float* a_log,
   if (P % 16 || N % 16 || P < 16 || N < 16 || P > 128 || N > MAX_N ||
       G < 1 || H % G)
     return (int)cudaErrorInvalidValue;
-  const Args r{x, b, c, dt, a_log, d_skip, init, y, state, B, S, H, G, P, N,
-               xbs, xts, bbs, bts};
+  const Args r{x, b, c, dt, a_log, d_skip, init, y, state, chunk_states,
+               B, S, H, G, P, N, xbs, xts, bbs, bts};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_fma_p(r, s);
   if (dtype == 1) return launch_mma_pn(r, s);

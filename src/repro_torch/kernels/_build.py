@@ -10,12 +10,15 @@ and an unchanged one is reused.  All sources are compiled at once, one
 Nothing here runs at import time: the CPU tests import every module, and
 this host may have no ``nvcc``.  The launch counters live here too: each
 wrapper adds one to its kernel's count where it launches the kernel, and
-nowhere else.  :func:`refuse_grad` is the guard of every wrapper whose
-kernel has no backward.
+nowhere else; a backward kernel (``flash_attention_bwd``,
+``ssd_scan_bwd``) counts one a backward call, however many launches it
+makes.  :func:`refuse_grad` is the guard of every wrapper whose kernel
+has no backward.
 
 On a meta tensor (shapes only, ``launch.dryrun``) the attention and scan
-wrappers launch nothing and count nothing: they allocate their outputs on
-the meta device and, inside :func:`record_meta_work`, note the operations
+wrappers, and the backwards of their trainable forms, launch nothing and
+count nothing: they allocate their outputs on the meta device and,
+inside :func:`record_meta_work`, note the operations
 and bytes their kernel would do (:func:`note_meta_work`); inside
 :func:`plain_on_meta` they run their plain twin's tensor ops instead (the
 roofline's walk of the unfused step).  Neither acts on a CPU or CUDA
@@ -66,8 +69,10 @@ SOURCES = {
     "coded_cells": ("coded_cells.cu", ["-fmad=false"]),
     "combine": ("combine.cu", []),
     "flash_attention": ("flash_attention.cu", []),
+    "flash_attention_bwd": ("flash_attention_bwd.cu", []),
     "decode_attention": ("decode_attention.cu", []),
     "ssd_scan": ("ssd_scan.cu", []),
+    "ssd_scan_bwd": ("ssd_scan_bwd.cu", []),
 }
 
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -95,14 +100,22 @@ SIGNATURES = {
         "combine_path": ([_INT] * 2, _INT),
     },
     "flash_attention": {
-        "flash_attention_launch": ([_PTR] * 4 + [_INT] * 9 + [_PTR], _INT),
+        "flash_attention_launch": ([_PTR] * 6 + [_INT] * 9 + [_PTR], _INT),
+    },
+    "flash_attention_bwd": {
+        "flash_attention_bwd_launch": ([_PTR] * 11 + [_INT] * 9 + [_PTR],
+                                       _INT),
     },
     "decode_attention": {
         "decode_attention_launch": ([_PTR] * 4 + [_INT] * 9 + [_PTR], _INT),
     },
     "ssd_scan": {
-        "ssd_scan_launch": ([_PTR] * 9 + [_INT] * 7 + [_I64] * 4 + [_PTR],
+        "ssd_scan_launch": ([_PTR] * 10 + [_INT] * 7 + [_I64] * 4 + [_PTR],
                             _INT),
+    },
+    "ssd_scan_bwd": {
+        "ssd_scan_bwd_launch": ([_PTR] * 16 + [_INT] * 7 + [_I64] * 4
+                                + [_PTR], _INT),
     },
 }
 

@@ -20,12 +20,19 @@ summation order only (held to 5e-5).
 :func:`flash_attention` has no backward: with grad mode on and an input
 that requires grad it raises ``RuntimeError`` (the kernel's output would
 carry no autograd graph).  :class:`FlashAttentionFn` is the trainable
-form: its forward is the same kernel launch (or, on a CPU tensor, the
-plain version), and its backward, :func:`flash_attention_grad`, is the
-gradient of the reference's numerics written as tensor ops.  The
-reference has no backward kernel: its training forward runs an XLA twin
-of the attention, differentiated by XLA, so the backward's products stay
-``torch.matmul`` calls here.
+form.  Its forward is the same kernel launch, which on a CUDA tensor also
+writes each row's log-sum-exp (LSE, float32 (b, H, sq)) and, in
+bfloat16, each output element's bf16 rounding residual; inference passes
+neither buffer and runs nothing more.  Its backward, on a CUDA tensor,
+launches ``csrc/flash_attention_bwd.cu`` (or raises): an FA2-style
+backward that rebuilds P = exp(S - LSE), forms Delta = rowsum(dO o out)
+from the float32 output (the bf16 output plus its residual) and writes
+dQ from one kernel and the group-summed dK and dV from another, in
+float32 registers with no atomics, so two passes are bit-equal.  On a CPU tensor the backward is :func:`flash_attention_grad`,
+the plain backward (the gradient of the reference's numerics as tensor
+ops), which is also the card's oracle in ``chip_smoke.py``.  The
+reference has no backward kernel: its training differentiates an XLA
+twin of the attention.
 """
 
 from __future__ import annotations
@@ -37,7 +44,8 @@ import torch
 from .. import _build
 
 __all__ = ["FlashAttentionFn", "flash_attention", "flash_attention_grad",
-           "flash_attention_plain", "flash_attention_work", "repeat_kv"]
+           "flash_attention_grad_work", "flash_attention_plain",
+           "flash_attention_work", "repeat_kv"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 112, 128)
@@ -53,6 +61,15 @@ def repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     return k.repeat_interleave(n_heads // kv, dim=2)
 
 
+def _visible_pairs(sq: int, skv: int, causal: bool, q_offset: int) -> int:
+    """(query, key) pairs a head sees: all of them, or under the causal
+    mask those with key <= query + q_offset (about half)."""
+    if not causal:
+        return sq * skv
+    full = min(max(skv - q_offset, 0), sq)  # rows that stop before skv
+    return full * q_offset + full * (full + 1) // 2 + (sq - full) * skv
+
+
 def flash_attention_work(b: int, sq: int, skv: int, h: int, kv: int, d: int,
                          causal: bool, q_offset: int = 0,
                          itemsize: int = 2) -> tuple[float, float]:
@@ -60,13 +77,26 @@ def flash_attention_work(b: int, sq: int, skv: int, h: int, kv: int, d: int,
     (query, key) pair and head (Q K^T and P V; a causal call sees about
     half the pairs), and q, k, v read once and the output written once.
     The bound of the kernel table and the roofline's count of a call."""
-    if causal:
-        full = min(max(skv - q_offset, 0), sq)  # rows that stop before skv
-        pairs = full * q_offset + full * (full + 1) // 2 + (sq - full) * skv
-    else:
-        pairs = sq * skv
-    flops = 4.0 * b * h * d * pairs
+    flops = 4.0 * b * h * d * _visible_pairs(sq, skv, causal, q_offset)
     nbytes = itemsize * (2 * b * sq * h * d + 2 * b * skv * kv * d)
+    return flops, float(nbytes)
+
+
+def flash_attention_grad_work(b: int, sq: int, skv: int, h: int, kv: int,
+                              d: int, causal: bool, q_offset: int = 0,
+                              itemsize: int = 2) -> tuple[float, float]:
+    """(operations, bytes) of one backward call, the minimal work: 10 d
+    operations a visible (query, key) pair and head (S = Q K^T again,
+    dV = P^T dO, dP = dO V^T, dQ = dS K and dK = dS^T Q; causal about
+    half), q, k, v, out and dO read once in their dtype and the float32
+    LSE, dq, dk and dv written once.  The kernel recomputes S and dP in
+    both of its launches (14 d a pair), which this count leaves out.  The
+    bound of the kernel table and the roofline's count of a call."""
+    flops = 10.0 * b * h * d * _visible_pairs(sq, skv, causal, q_offset)
+    q_elems, kv_elems = b * sq * h * d, b * skv * kv * d
+    nbytes = (itemsize * (3 * q_elems + 2 * kv_elems)  # q, out, dO; k, v
+              + 4 * b * h * sq  # LSE
+              + itemsize * (q_elems + 2 * kv_elems))  # dq, dk, dv
     return flops, float(nbytes)
 
 
@@ -125,23 +155,27 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return _attend(q, k, v, causal, int(q_offset))
 
 
-def _attend(q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
+def _attend(q, k, v, causal: bool, q_offset: int, with_lse: bool = False):
     """The kernel on a CUDA tensor, the plain version on a CPU one; on a
     meta tensor only the output's shape, and the kernel's work noted (in
-    ``_build.plain_on_meta``, the plain version's ops)."""
+    ``_build.plain_on_meta``, the plain version's ops).  With ``with_lse``
+    (the trainable form) returns (out, LSE, out_lo): on a CUDA tensor the
+    LSE, float32 (b, H, sq), and in bfloat16 out_lo, the bf16 residual of
+    each output element (out + out_lo is the float32 output, which the
+    backward's Delta reads); None elsewhere (the CPU and meta backwards
+    read neither)."""
     _check(q, k, v, q_offset)
     dev = q.device
-    if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
+    if dev.type == "cpu" or (dev.type == "meta" and _build.meta_runs_plain()):
+        out = flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
+        return (out, None, None) if with_lse else out
     if dev.type == "meta":
-        if _build.meta_runs_plain():
-            return flash_attention_plain(q, k, v, causal=causal,
-                                         q_offset=q_offset)
         b, sq, h, d = q.shape
         _build.note_meta_work("flash_attention", *flash_attention_work(
             b, sq, k.shape[1], h, k.shape[2], d, causal, q_offset,
             q.element_size()))
-        return torch.empty_like(q)
+        out = torch.empty_like(q)
+        return (out, None, None) if with_lse else out
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -151,20 +185,84 @@ def _attend(q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
     skv, kv = k.shape[1], k.shape[2]
     lib = _build.load("flash_attention")
     out = torch.empty_like(q)
+    lse = out_lo = None
+    if with_lse:
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+        if q.dtype == torch.bfloat16:
+            out_lo = torch.empty_like(q)
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
     code = lib.flash_attention_launch(
-        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-        ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), ptr(out_lo),
         b, sq, skv, h, kv, d, int(bool(causal)), q_offset, DTYPES[q.dtype],
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(lib, code, "flash_attention launch")
     _build.count_launch("flash_attention")
-    return out
+    return (out, lse, out_lo) if with_lse else out
+
+
+def _attend_grad(q, k, v, out, out_lo, lse, dout, causal: bool,
+                 q_offset: int):
+    """(dq, dk, dv) by device, with the forwards' rule: the plain backward
+    on a CPU tensor; on a meta tensor the outputs' shapes and the backward
+    kernel's work noted (in ``_build.plain_on_meta``, the plain backward's
+    ops); on a CUDA tensor the backward kernel, or a raise; anything else
+    raises."""
+    dev = q.device
+    if dev.type == "cpu" or (dev.type == "meta" and _build.meta_runs_plain()):
+        return flash_attention_grad(q, k, v, dout, causal=causal,
+                                    q_offset=q_offset)
+    _check(q, k, v, q_offset)
+    if tuple(dout.shape) != tuple(q.shape) or dout.dtype != q.dtype or (
+            dout.device != dev):
+        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} must match "
+                         f"q {tuple(q.shape)} {q.dtype} on {dev}")
+    b, sq, h, d = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    if dev.type == "meta":
+        _build.note_meta_work("flash_attention_bwd", *flash_attention_grad_work(
+            b, sq, skv, h, kv, d, causal, q_offset, q.element_size()))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if lse is None or tuple(lse.shape) != (b, h, sq) or (
+            lse.dtype != torch.float32):
+        raise ValueError("the backward kernel needs the forward's float32 "
+                         f"LSE of shape {(b, h, sq)}")
+    if out_lo is None and q.dtype == torch.bfloat16:
+        raise ValueError("the bf16 backward kernel needs the forward's "
+                         "output residual out_lo")
+    rows = [("out", out), ("dout", dout)]
+    if out_lo is not None:
+        rows.append(("out_lo", out_lo))
+    for name, t in rows:
+        if (tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {tuple(q.shape)} "
+                             f"{q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v), *rows):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    lib = _build.load("flash_attention_bwd")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
+    code = lib.flash_attention_bwd_launch(
+        ptr(q), ptr(k), ptr(v), ptr(out), ptr(out_lo), ptr(dout), ptr(lse),
+        ptr(delta), ptr(dq), ptr(dk), ptr(dv), b, sq, skv, h, kv, d,
+        int(bool(causal)), q_offset, DTYPES[q.dtype],
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(lib, code, "flash_attention_bwd launch")
+    _build.count_launch("flash_attention_bwd")
+    return dq, dk, dv
 
 
 def flash_attention_grad(q, k, v, dout, *, causal: bool = True,
                          q_offset: int = 0):
     """(dq, dk, dv) of :func:`flash_attention_plain` at (q, k, v) for the
-    output cotangent ``dout`` (b, sq, H, d), in q's dtype.
+    output cotangent ``dout`` (b, sq, H, d), in q's dtype: the plain
+    backward (the CPU's, the tests', and the card's oracle in
+    ``chip_smoke.py``; on the card :class:`FlashAttentionFn` launches the
+    backward kernel instead).
 
     The gradient of the reference's numerics: the logits recomputed in the
     input dtype from (q * d^-0.5) and K then taken to float32, the causal
@@ -212,22 +310,26 @@ def flash_attention_grad(q, k, v, dout, *, causal: bool = True,
 class FlashAttentionFn(torch.autograd.Function):
     """Trainable flash attention: ``FlashAttentionFn.apply(q, k, v, causal,
     q_offset)``.  The forward is :func:`flash_attention`'s launch (the
-    Hopper kernel on a CUDA tensor, or a raise; the plain version on a CPU
-    one) and saves q, k and v; the backward recomputes the softmax and
-    returns :func:`flash_attention_grad`.  Not a fallback: on the card the
-    forward always launches the kernel."""
+    Hopper kernel on a CUDA tensor, which also writes the rows' LSE and,
+    in bfloat16, the output's residual, or a raise; the plain version on a
+    CPU one) and saves q, k, v, the output, its residual and the LSE.  The
+    backward dispatches as the forward does: on a CUDA tensor the backward
+    kernel (``csrc/flash_attention_bwd.cu``, one count
+    of ``flash_attention_bwd`` a call), or a raise; on a CPU tensor
+    :func:`flash_attention_grad`; on a meta tensor the kernel's work noted.
+    Not a fallback: on the card both directions always launch kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = True, q_offset: int = 0):
-        out = _attend(q, k, v, causal, int(q_offset))
-        ctx.save_for_backward(q, k, v)
+        out, lse, out_lo = _attend(q, k, v, causal, int(q_offset),
+                                   with_lse=True)
+        ctx.save_for_backward(q, k, v, out, out_lo, lse)
         ctx.causal, ctx.q_offset = causal, int(q_offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = flash_attention_grad(q, k, v, dout.contiguous(),
-                                          causal=ctx.causal,
-                                          q_offset=ctx.q_offset)
+        q, k, v, out, out_lo, lse = ctx.saved_tensors
+        dq, dk, dv = _attend_grad(q, k, v, out, out_lo, lse,
+                                  dout.contiguous(), ctx.causal, ctx.q_offset)
         return dq, dk, dv, None, None

@@ -26,11 +26,18 @@ per-chunk decay stays mild.
 
 :func:`ssd_scan` has no backward: with grad mode on and an input that
 requires grad it raises ``RuntimeError``.  :class:`SsdScanFn` is the
-trainable form: its forward is the same launch (or, on a CPU tensor, the
-plain version), and its backward is the gradient of the reference's
-``ssd_chunked`` at the reference model's chunk rule, taken by autograd
-through a recompute of :func:`ssd_scan_plain` (tensor ops).  The reference
-has no backward kernel: its training forward differentiates the XLA twin.
+trainable form.  Its forward is the same launch, which on a CUDA tensor
+also writes the float32 state before each 64-position chunk (B, H, nc,
+N, P); inference passes no such buffer and runs nothing more.  Its
+backward, on a CUDA tensor, launches ``csrc/ssd_scan_bwd.cu`` (or
+raises): a reverse scan over the forward's chunks from those saved
+states, which writes dx, ddt, the per-head dB and dC and the per-row
+parts of da_log and dd_skip, summed here over each group's heads and the
+batch rows in a fixed order (no atomics: two passes are bit-equal).  On a
+CPU tensor the backward is :func:`ssd_scan_grad`, the plain backward
+(autograd through a recompute of :func:`ssd_scan_plain`), which is also
+the card's oracle in ``chip_smoke.py``.  The reference has no backward
+kernel: its training forward differentiates the XLA twin.
 
 :func:`ssd_sequential` is the reference's step-by-step oracle.
 """
@@ -44,11 +51,12 @@ import torch
 
 from .. import _build
 
-__all__ = ["CHUNK", "SsdScanFn", "effective_chunk", "expand_groups",
-           "ssd_scan", "ssd_scan_grad", "ssd_scan_plain", "ssd_scan_work",
-           "ssd_sequential"]
+__all__ = ["CHUNK", "KERNEL_CHUNK", "SsdScanFn", "effective_chunk",
+           "expand_groups", "ssd_scan", "ssd_scan_grad", "ssd_scan_grad_work",
+           "ssd_scan_plain", "ssd_scan_work", "ssd_sequential"]
 
 CHUNK = 128  # the reference's default chunk (zamba2's SSMConfig.chunk)
+KERNEL_CHUNK = 64  # the kernels' own chunk (csrc/ssd_scan.cu, ssd_scan_bwd.cu)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DIM = 128  # P and N: multiples of 16, at most this
 
@@ -101,6 +109,34 @@ def ssd_scan_work(bs: int, s: int, h: int, g: int, p: int, n: int,
     state = bs * h * n * p * 4
     nbytes = (itemsize * (2 * bs * s * h * p + 2 * bs * s * g * n)
               + 4 * (bs * s * h + 2 * h) + state * (2 if initial_state else 1))
+    return flops, float(nbytes)
+
+
+def ssd_scan_grad_work(bs: int, s: int, h: int, g: int, p: int, n: int,
+                       itemsize: int = 2, initial_state: bool = False,
+                       dstate: bool = False) -> tuple[float, float]:
+    """(operations, bytes) of one backward call, the minimal work of the
+    chunked gradient at the kernel's chunk L = 64 (nc = ceil(S / 64)): a
+    (batch row, head, chunk) forms G = C B^T, Q = dy x^T, W^T dy, M^T C
+    and M B (2 L^2 (3 N + 2 P)) and the four state products x dS'^T,
+    B dS', dy S_k^T and C^T dy (8 L N P); x, b, c and dy read once in
+    their dtype, dt, a_log and d_skip, the float32 chunk states the forward
+    saved and the final state's cotangent if given; dx, db and dc written
+    in their dtype, ddt, da_log and d_skip's gradient, and the initial
+    state's if one was given.  The kernel's bf16 hi + lo products and its
+    per-head dB / dC partials are left out.  The bound of the kernel table
+    and the roofline's count of a call."""
+    cl = KERNEL_CHUNK
+    nc = -(-s // cl)
+    flops = (2.0 * bs * h * nc
+             * (cl * cl * (3 * n + 2 * p) + 4 * cl * n * p))
+    state = bs * h * n * p * 4
+    act = itemsize * (2 * bs * s * h * p + 2 * bs * s * g * n)  # x, dy; b, c
+    nbytes = (act + 4 * (bs * s * h + 2 * h)  # inputs; dt, a_log, d_skip
+              + nc * state + (state if dstate else 0)  # chunk states; dstate
+              + act - itemsize * bs * s * h * p  # dx, db, dc
+              + 4 * (bs * s * h + 2 * h)  # ddt, da_log, dd_skip
+              + (state if initial_state else 0))
     return flops, float(nbytes)
 
 
@@ -221,24 +257,26 @@ def ssd_scan(x, dt, a_log, b, c, d_skip,
     return _scan(x, dt, a_log, b, c, d_skip, initial_state, chunk)
 
 
-def _scan(x, dt, a_log, b, c, d_skip, initial_state, chunk: int):
-    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+def _scan(x, dt, a_log, b, c, d_skip, initial_state, chunk: int,
+          with_states: bool = False):
+    """The kernel on a CUDA tensor, the plain version on a CPU one.  With
+    ``with_states`` returns (y, state, chunk states): the float32 state
+    before each of the kernel's chunks, from the kernel on a CUDA tensor
+    and None elsewhere (the CPU and meta backwards do not read it)."""
     _check(x, dt, a_log, b, c, d_skip, initial_state)
     dev = x.device
-    if dev.type == "cpu":
-        return ssd_scan_plain(x, dt, a_log, b, c, d_skip, initial_state,
-                              chunk)
+    if dev.type == "cpu" or (dev.type == "meta" and _build.meta_runs_plain()):
+        out = ssd_scan_plain(x, dt, a_log, b, c, d_skip, initial_state, chunk)
+        return (*out, None) if with_states else out
     bs, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     if dev.type == "meta":
-        if _build.meta_runs_plain():
-            return ssd_scan_plain(x, dt, a_log, b, c, d_skip, initial_state,
-                                  chunk)
         _build.note_meta_work("ssd_scan", *ssd_scan_work(
             bs, s, h, g, p, n, x.element_size(), initial_state is not None,
             chunk))
-        return (torch.empty(x.shape, dtype=x.dtype, device=dev),
-                torch.empty((bs, h, n, p), dtype=torch.float32, device=dev))
+        out = (torch.empty(x.shape, dtype=x.dtype, device=dev),
+               torch.empty((bs, h, n, p), dtype=torch.float32, device=dev))
+        return (*out, None) if with_states else out
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     for name, t in (("x", x), ("b", b), ("c", c)):
@@ -247,15 +285,79 @@ def _scan(x, dt, a_log, b, c, d_skip, initial_state, chunk: int):
     lib = _build.load("ssd_scan")
     y = torch.empty(x.shape, dtype=x.dtype, device=dev)
     state = torch.empty((bs, h, n, p), dtype=torch.float32, device=dev)
+    nc = -(-s // KERNEL_CHUNK)
+    states = (torch.empty((bs, h, nc, n, p), dtype=torch.float32, device=dev)
+              if with_states else None)
     ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
     code = lib.ssd_scan_launch(
         ptr(x), ptr(dt), ptr(a_log), ptr(b), ptr(c), ptr(d_skip),
-        ptr(initial_state), ptr(y), ptr(state), bs, s, h, g, p, n,
-        DTYPES[x.dtype], x.stride(0), x.stride(1), b.stride(0), b.stride(1),
+        ptr(initial_state), ptr(y), ptr(state), ptr(states), bs, s, h, g, p,
+        n, DTYPES[x.dtype], x.stride(0), x.stride(1), b.stride(0),
+        b.stride(1),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(lib, code, "ssd_scan launch")
     _build.count_launch("ssd_scan")
-    return y, state
+    return (y, state, states) if with_states else (y, state)
+
+
+def _scan_grad(x, dt, a_log, b, c, d_skip, initial_state, states, dy,
+               dstate, chunk: int, needs):
+    """The seven gradients by device, with the forwards' rule: the plain
+    backward on a CPU tensor; on a meta tensor the needed gradients'
+    shapes and the backward kernel's work noted (in
+    ``_build.plain_on_meta``, the plain backward's ops); on a CUDA tensor
+    the backward kernel, or a raise; anything else raises."""
+    dev = x.device
+    if dev.type == "cpu" or (dev.type == "meta" and _build.meta_runs_plain()):
+        return ssd_scan_grad(x, dt, a_log, b, c, d_skip, initial_state, dy,
+                             dstate, chunk, needs)
+    inputs = (x, dt, a_log, b, c, d_skip, initial_state)
+    if not any(nd and t is not None for t, nd in zip(inputs, needs)):
+        return (None,) * len(inputs)
+    bs, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    if dev.type == "meta":
+        _build.note_meta_work("ssd_scan_bwd", *ssd_scan_grad_work(
+            bs, s, h, g, p, n, x.element_size(), initial_state is not None,
+            dstate is not None))
+        return tuple(None if t is None or not nd else torch.empty_like(t)
+                     for t, nd in zip(inputs, needs))
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    nc = -(-s // KERNEL_CHUNK)
+    if states is None or tuple(states.shape) != (bs, h, nc, n, p):
+        raise ValueError("the backward kernel needs the forward's chunk "
+                         f"states of shape {(bs, h, nc, n, p)}")
+    dy = (torch.zeros(x.shape, dtype=x.dtype, device=dev) if dy is None
+          else dy.to(x.dtype).contiguous())
+    if dstate is not None:
+        dstate = dstate.float().contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty(x.shape, dtype=x.dtype, device=dev)
+    ddt = torch.empty((bs, s, h), **f32)
+    dbh = torch.empty((bs, s, h, n), **f32)
+    dch = torch.empty((bs, s, h, n), **f32)
+    da_part = torch.empty((bs, h), **f32)
+    dd_part = torch.empty((bs, h), **f32)
+    dinit = torch.empty((bs, h, n, p), **f32)
+    lib = _build.load("ssd_scan_bwd")
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
+    code = lib.ssd_scan_bwd_launch(
+        ptr(x), ptr(dt), ptr(a_log), ptr(b), ptr(c), ptr(d_skip),
+        ptr(states), ptr(dy), ptr(dstate), ptr(dx), ptr(ddt), ptr(dbh),
+        ptr(dch), ptr(da_part), ptr(dd_part), ptr(dinit), bs, s, h, g, p, n,
+        DTYPES[x.dtype], x.stride(0), x.stride(1), b.stride(0), b.stride(1),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(lib, code, "ssd_scan_bwd launch")
+    _build.count_launch("ssd_scan_bwd")
+
+    def group_sum(t):  # per-head (B, S, H, N) -> (B, S, G, N), fixed order
+        return t.view(bs, s, g, h // g, n).sum(dim=3).to(b.dtype)
+
+    grads = (dx, ddt, da_part.sum(dim=0), group_sum(dbh), group_sum(dch),
+             dd_part.sum(dim=0), dinit)
+    return tuple(None if t is None or not nd else gr
+                 for t, nd, gr in zip(inputs, needs, grads))
 
 
 def ssd_scan_grad(x, dt, a_log, b, c, d_skip, initial_state, dy, dstate,
@@ -264,7 +366,10 @@ def ssd_scan_grad(x, dt, a_log, b, c, d_skip, initial_state, dy, dstate,
     cotangents ``dy`` (of y, in x's dtype) and ``dstate`` (of the final
     state, float32), either None where its output is not used: (dx, ddt,
     da_log, db, dc, dd_skip, dinitial_state), each None where ``needs``
-    says so (or, for the initial state, where none was given).
+    says so (or, for the initial state, where none was given).  The plain
+    backward: the CPU's, the tests', and the card's oracle in
+    ``chip_smoke.py`` (on the card :class:`SsdScanFn` launches the
+    backward kernel instead).
 
     This is the gradient of the reference's ``ssd_chunked`` at
     :func:`effective_chunk` (S, ``chunk``), its float32 numerics (x, b and
@@ -301,27 +406,31 @@ class SsdScanFn(torch.autograd.Function):
     initial_state, chunk)`` returns (y, final_state) as :func:`ssd_scan`.
 
     The forward is :func:`ssd_scan`'s launch: ``csrc/ssd_scan.cu`` on a
-    CUDA tensor (``ssd_mma_kernel`` in bfloat16, 64-position chunks), or
-    a raise; the plain version on a CPU tensor.  x, b and c reach the
-    kernel as the views they are, without a copy.  The forward saves its
-    inputs; the backward returns :func:`ssd_scan_grad`: the gradient of
-    the reference's float32 chunked numerics at its chunk rule, so on the
-    card the forward and the backward follow different roundings (the
-    kernel's bf16 tensor-core products against float32 tensor ops).  Not a
-    fallback: on the card the forward always launches the kernel."""
+    CUDA tensor (``ssd_mma_kernel`` in bfloat16, 64-position chunks),
+    which also writes the state before each chunk, or a raise; the plain
+    version on a CPU tensor.  x, b and c reach the kernel as the views
+    they are, without a copy.  The forward saves its inputs and the chunk
+    states.  The backward dispatches as the forward does: on a CUDA tensor
+    the backward kernel (``csrc/ssd_scan_bwd.cu``, one count of
+    ``ssd_scan_bwd`` a call), or a raise; on a CPU tensor
+    :func:`ssd_scan_grad`, the gradient of the reference's float32 chunked
+    numerics at its chunk rule; on a meta tensor the kernel's work noted.
+    Not a fallback: on the card both directions always launch kernels."""
 
     @staticmethod
     def forward(ctx, x, dt, a_log, b, c, d_skip, initial_state=None,
                 chunk: int = CHUNK):
-        y, state = _scan(x, dt, a_log, b, c, d_skip, initial_state,
-                         int(chunk))
-        ctx.save_for_backward(x, dt, a_log, b, c, d_skip, initial_state)
+        y, state, states = _scan(x, dt, a_log, b, c, d_skip, initial_state,
+                                 int(chunk), with_states=True)
+        ctx.save_for_backward(x, dt, a_log, b, c, d_skip, initial_state,
+                              states)
         ctx.chunk = int(chunk)
         ctx.set_materialize_grads(False)
         return y, state
 
     @staticmethod
     def backward(ctx, dy, dstate):
-        grads = ssd_scan_grad(*ctx.saved_tensors, dy, dstate, ctx.chunk,
-                              ctx.needs_input_grad[:7])
+        *inputs, states = ctx.saved_tensors
+        grads = _scan_grad(*inputs, states, dy, dstate, ctx.chunk,
+                           ctx.needs_input_grad[:7])
         return (*grads, None)

@@ -18,8 +18,9 @@ aggregation.
 On the card every attention layer's forward is the Hopper flash kernel
 (``FlashAttentionFn``: causal, and whisper's bidirectional encoder and
 cross attention) and every Mamba-2 block's scan the SSD scan kernel
-(``SsdScanFn``), each with a tensor-op backward; the rest of the model is
-PyTorch.  ``Trainer(tc, device=None)`` runs on CUDA and raises without a
+(``SsdScanFn``), and the backward of each is a Hopper kernel too
+(``csrc/flash_attention_bwd.cu``, ``csrc/ssd_scan_bwd.cu``); the rest of
+the model is PyTorch.  ``Trainer(tc, device=None)`` runs on CUDA and raises without a
 card; ``device="cpu"`` runs on the host (the kernels' plain versions, the
 planners' plain sweeps).  Every config trains: the dense (qwen2-0.5b,
 qwen2.5-14b, command-r-plus-104b, granite-34b), MoE (olmoe-1b-7b,

@@ -48,7 +48,8 @@ write it IN PLACE and return it.  ``prefill`` raises
 ``train_loss`` is the training forward of all six families: every
 attention layer (causal, and whisper's bidirectional encoder and cross
 attention) runs the flash kernel through ``FlashAttentionFn`` and, hybrid,
-every Mamba-2 block the SSD scan kernel through ``SsdScanFn``, so
+every Mamba-2 block the SSD scan kernel through ``SsdScanFn``, whose
+backwards are kernels too (on a CPU tensor, the plain backwards), so
 ``loss.backward()`` reaches every parameter.  moe adds the MoE layers'
 load-balancing losses to the cross entropy; vlm scores only the text
 positions behind the patch slots; audio runs ``whisper.encode`` and

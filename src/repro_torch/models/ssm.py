@@ -10,7 +10,8 @@ Prefill runs the chunked form through the hand-written ``ssd_scan`` kernel
 where the reference calls its XLA twin ``ssd_chunked`` (on a CPU tensor the
 kernel's plain version, which is ``ssd_chunked``).  With grad mode on and
 an input that requires grad (training), :func:`apply_mamba2_block` goes
-through ``SsdScanFn`` instead: the same kernel forward, and a backward.
+through ``SsdScanFn`` instead: the same kernel forward, and a backward
+kernel.
 Decode keeps S as the cache and takes one recurrent step
 (:func:`ssd_decode_step`, plain PyTorch, as the reference's, which has no
 Pallas kernel).

@@ -10,7 +10,7 @@ calls the hand-written kernels: :func:`prefill_attend` (causal) and
 ``decode_attention``.  All read the KV heads natively (no repeat).
 With grad mode on and an input that requires grad (training),
 :func:`prefill_attend` and :func:`full_attend` go through
-``FlashAttentionFn``: the same kernel forward, and a backward;
+``FlashAttentionFn``: the same kernel forward, and a backward kernel;
 :func:`apply_block` without ``kv_sink`` is then the training block.
 """
 

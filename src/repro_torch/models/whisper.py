@@ -16,8 +16,8 @@ cross attention go through ``flash_attention(causal=False)``
 attentions of :func:`decode_step` through ``decode_attention``
 (``transformer.decode_attend``).  :func:`encode` and :func:`decode_train`
 are also the audio family's training forward: with grad mode on, their
-attention goes through ``FlashAttentionFn`` (the same kernel forward, and
-a backward), so ``lm.train_loss`` differentiates both stacks.
+attention goes through ``FlashAttentionFn`` (the same kernel forward,
+and a backward kernel), so ``lm.train_loss`` differentiates both stacks.
 
 ``params``: {"frontend" (frontend_dim, d), "embed", "enc_blocks": [block,
 ...], "enc_norm", "dec_blocks": [block with "ln_cross" and "cross", ...],

@@ -17,14 +17,15 @@ Prefill and decode write the decode state IN PLACE.
 
 :func:`apply_zamba` is the training forward: under grad mode each Mamba-2
 block's scan goes through ``SsdScanFn`` and each shared application's
-attention through ``FlashAttentionFn``, so ``backward`` reaches every
-parameter.  The shared block's weights enter the graph once per
+attention through ``FlashAttentionFn``, whose backwards are kernels on
+the card, so ``backward`` reaches every parameter.  The shared block's weights enter the graph once per
 application, so autograd sums their gradient over the applications.  The
 reference wraps each block and each segment in ``jax.checkpoint`` (save
 nothing, recompute in the backward), which only saves memory: the port
 keeps every block's activations in the autograd graph until the
-backward, and recomputes only the scan (``ssd_scan_grad`` runs the plain
-scan again under grad mode).
+backward, and recomputes nothing: on the card the scan's backward kernel
+reads the float32 state the forward kernel saved before each chunk (on a
+CPU tensor ``ssd_scan_grad`` runs the plain scan again under grad mode).
 """
 
 from __future__ import annotations

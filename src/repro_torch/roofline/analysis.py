@@ -16,10 +16,13 @@ card is needed:
   operations and bytes (``flash_attention_work``, ``decode_attention_work``
   and ``ssd_scan_work``, the formulas of the kernel table's bound column,
   causal attention at its visible pairs, about half), and those are added.
-  The kernels' training backwards (``FlashAttentionFn``'s
-  ``flash_attention_grad`` and ``SsdScanFn``'s ``ssd_scan_grad``) are tensor
-  ops, so the counter counts what they do: the backward's full (not
-  causal-halved) score products, and the scan's plain recompute.
+  The kernels' training backwards are kernels too: ``FlashAttentionFn``'s
+  and ``SsdScanFn``'s backwards note their minimal work
+  (``flash_attention_grad_work``: 10 d a visible pair and head, causal
+  about half; ``ssd_scan_grad_work``: the chunked gradient's products at
+  the kernel's 64-chunk), and the walk adds their bytes.  Inside
+  ``_build.plain_on_meta`` (the plain walk) they run the plain backwards,
+  ``flash_attention_grad`` and ``ssd_scan_grad``, as tensor ops.
 * Bytes, walked (``walked_bytes``, the report's ``bytes_per_device``):
   every op the step dispatches, costed by ``op_cost.walk_ops`` (operands
   read and result written, views free), elementwise chains, gathers and

@@ -21,14 +21,14 @@ What is subtracted is not what the port's plain train walk holds.  The
 model takes out, a call site, two plain forwards and one autograd
 forward and backward of the plain attention: XLA's forward, its remat
 recompute and its backward.  The dry-run's plain walk
-(``bytes_per_device_plain``, ``_build.plain_on_meta``) swaps only the
-kernel's forward for the plain one; its backward is the port's own
-``flash_attention_grad`` (a recompute and a backward in tensor ops, the
-scores materialised) in the plain walk and the as-run walk alike, and
-there is no second forward.  So in a train cell the subtraction can
-exceed the attention the walk holds, and the floor or the cap then sets
-the substituted bytes, not the kernel's saving: ``kernel_adjusted_terms``
-names which (``bound``).
+(``bytes_per_device_plain``, ``_build.plain_on_meta``) swaps the kernel's
+forward for the plain one and its backward kernel for the port's plain
+backward, ``flash_attention_grad`` (a recompute and a backward in tensor
+ops, the scores materialised); the as-run walk holds the backward
+kernel's noted bytes instead, and neither has a second forward.  So in a
+train cell the subtraction can exceed the attention the walk holds, and
+the floor or the cap then sets the substituted bytes, not the kernel's
+saving: ``kernel_adjusted_terms`` names which (``bound``).
 """
 
 from __future__ import annotations

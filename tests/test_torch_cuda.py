@@ -1168,11 +1168,13 @@ def test_flash_fn_gradients_match_plain_autograd(cuda, dtype, d, causal):
     want = FA.flash_attention_plain(*plain, causal=causal)
     want.backward(do)
     fn = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    before = launch_counts()["flash_attention"]
+    before = launch_counts()
     got = FA.FlashAttentionFn.apply(*fn, causal, 0)
     got.backward(do)
     torch.cuda.synchronize()
-    assert launch_counts()["flash_attention"] == before + 1
+    after = launch_counts()
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert after[name] == before[name] + 1, name
     torch.testing.assert_close(got.detach().float(), want.detach().float(),
                                **ATT_TOL[dtype])
     for a, w in zip(fn, plain):
@@ -1293,16 +1295,143 @@ def test_ssd_fn_gradients_match_plain_autograd(cuda, dtype, s, h, p, g, n):
         y.backward(dy)
         return y.detach(), st.detach(), [t.grad for t in leaves]
 
-    before = launch_counts()["ssd_scan"]
+    before = launch_counts()
     y, st, grads = run(lambda *a: SS.SsdScanFn.apply(*a, None, 16))
     torch.cuda.synchronize()
-    assert launch_counts()["ssd_scan"] == before + 1
+    after = launch_counts()
+    for name in ("ssd_scan", "ssd_scan_bwd"):
+        assert after[name] == before[name] + 1, name
     yp, sp, want = run(lambda *a: SS.ssd_scan_plain(*a, chunk=16))
     _ssd_close(y, yp, SSD_TOL[dtype])
     _ssd_close(st, sp, 1e-4)
     for gr, w in zip(grads, want):
         assert gr.dtype == w.dtype and bool(torch.isfinite(gr).all())
         _ssd_close(gr, w, SSD_TOL[dtype])
+
+
+# the backward kernels' edge shapes: whisper's cross attention (sq !=
+# skv, both ragged), groups 7, 8 and 48, causal with a q_offset (queries
+# behind a cached prefix), every head dim
+FLASH_BWD_EDGES = [(2, 187, 1500, 8, 8, 64, False, 0),
+                   (1, 130, 130, 7, 1, 112, True, 0),
+                   (2, 100, 164, 16, 2, 128, True, 64),
+                   (1, 70, 70, 48, 1, 128, True, 0),
+                   (2, 64, 64, 4, 4, 64, True, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kv,d,causal,off", FLASH_BWD_EDGES)
+def test_flash_bwd_kernel_matches_the_plain_backward(cuda, dtype, b, sq, skv,
+                                                     h, kv, d, causal, off):
+    """FlashAttentionFn's backward on the card is one ``flash_attention_bwd``
+    count and within the attention tolerances of ``flash_attention_grad``
+    (the plain backward) on the same inputs; two passes are bit-equal."""
+    q = _randn((b, sq, h, d), 51, cuda, dtype)
+    k = _randn((b, skv, kv, d), 52, cuda, dtype)
+    v = _randn((b, skv, kv, d), 53, cuda, dtype)
+    do = _randn((b, sq, h, d), 54, cuda, dtype)
+
+    def grads():
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = FA.FlashAttentionFn.apply(*leaves, causal, off)
+        return torch.autograd.grad(out, leaves, do)
+
+    before = launch_counts()["flash_attention_bwd"]
+    got = grads()
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention_bwd"] == before + 1
+    want = FA.flash_attention_grad(q, k, v, do, causal=causal, q_offset=off)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == w.shape, name
+        torch.testing.assert_close(a.float(), w.float(), **ATT_TOL[dtype],
+                                   msg=name)
+    again = grads()
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_lse_is_the_rows_logsumexp(cuda, dtype):
+    """The trainable forward's LSE: each row's log-sum-exp of the scaled
+    float32 logits of its visible keys; in bfloat16 its output residual
+    out_lo, what rounding each float32 output to bf16 dropped."""
+    b, sq, skv, h, kv, d, off = 2, 150, 214, 6, 2, 112, 64
+    q = _randn((b, sq, h, d), 55, cuda, dtype)
+    k = _randn((b, skv, kv, d), 56, cuda, dtype)
+    out, lse, out_lo = FA._attend(q, k, k, True, off, with_lse=True)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    assert (out_lo is None) == (dtype == torch.float32)
+    s = torch.einsum("bqhd,bshd->bhqs", q.float(),
+                     FA.repeat_kv(k, h).float()) * d ** -0.5
+    vis = (torch.arange(sq, device=cuda)[:, None] + off
+           >= torch.arange(skv, device=cuda)[None, :])
+    want = torch.where(vis, s, -torch.inf).logsumexp(-1)
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(out, FA.flash_attention(q, k, k, q_offset=off),
+                               atol=0, rtol=0)
+    if out_lo is not None:  # about half a bf16 spacing of each output
+        lo = out_lo.float().abs()
+        assert bool((lo <= out.float().abs() * 2.0 ** -7 + 1e-38).all())
+        assert (lo > 0).float().mean().item() > 0.5
+
+
+SSD_BWD_EDGES = [(200, 4, 64, 1, 64, True, True),
+                 (130, 6, 32, 2, 16, False, True),
+                 (64, 2, 128, 1, 128, True, False),
+                 (100, 4, 16, 2, 128, False, False),
+                 (300, 3, 64, 3, 32, True, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,h,p,g,n,init,with_dstate", SSD_BWD_EDGES)
+def test_ssd_bwd_kernel_matches_the_plain_backward(cuda, dtype, s, h, p, g,
+                                                   n, init, with_dstate):
+    """SsdScanFn's backward on the card is one ``ssd_scan_bwd`` count and
+    its seven gradients lie within the scan's tolerances (1e-4 x (1 +
+    |plain|) in float32, 5e-2 in bfloat16) of ``ssd_scan_grad``, with and
+    without an initial state and a final-state cotangent, at 1 to 3 B/C
+    groups and P, N from 16 to 128; two passes are bit-equal."""
+    b = 2
+    ins = _ssd_inputs(s + 7 * h, b, s, h, p, g, n, dtype, cuda, init=init)
+    dy = _randn((b, s, h, p), 57, cuda, dtype)
+    dstate = _randn((b, h, n, p), 58, cuda, torch.float32) if with_dstate \
+        else None
+
+    def grads():
+        leaves = [None if t is None else t.clone().requires_grad_(True)
+                  for t in ins]
+        y, st = SS.SsdScanFn.apply(*leaves, 16)
+        outs, cots = [y], [dy]
+        if dstate is not None:
+            outs.append(st)
+            cots.append(dstate)
+        want = [t for t in leaves if t is not None]
+        return torch.autograd.grad(outs, want, cots)
+
+    before = launch_counts()["ssd_scan_bwd"]
+    got = grads()
+    torch.cuda.synchronize()
+    assert launch_counts()["ssd_scan_bwd"] == before + 1
+    want = [w for w in SS.ssd_scan_grad(*ins, dy, dstate, 16) if w is not None]
+    assert len(got) == len(want) == (7 if init else 6)
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert bool(torch.isfinite(a).all())
+        _ssd_close(a, w, SSD_TOL[dtype])
+    again = grads()
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+def test_backward_kernels_raise_without_the_forwards_buffers(cuda):
+    """No fallback: the card's backwards refuse what they cannot run."""
+    q = _randn((1, 64, 2, 64), 59, cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="LSE"):
+        FA._attend_grad(q, q, q, q, q, None, q, True, 0)
+    with pytest.raises(ValueError, match="residual"):
+        FA._attend_grad(q, q, q, q, None, torch.zeros((1, 2, 64), device=cuda),
+                        q, True, 0)
+    ins = _ssd_inputs(60, 1, 64, 2, 16, 1, 16, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="chunk states"):
+        SS._scan_grad(*ins, None, ins[0], None, 16, (True,) * 7)
 
 
 @pytest.mark.parametrize("h,kv", [(40, 8), (96, 8), (48, 1)])

@@ -147,4 +147,6 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
              torch.ones(2))
     assert launch_counts() == {"sojourn_cells": 0, "coded_cells": 0,
                                "combine": 0, "flash_attention": 0,
-                               "decode_attention": 0, "ssd_scan": 0}
+                               "flash_attention_bwd": 0,
+                               "decode_attention": 0, "ssd_scan": 0,
+                               "ssd_scan_bwd": 0}

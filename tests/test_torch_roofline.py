@@ -147,7 +147,8 @@ def _hand_train_flops(cfg, b, s):
     mlp_w = 3 * d * cfg.d_ff
     causal_pairs = s * (s + 1) // 2
     attn_fwd = 4.0 * b * hq * hd * causal_pairs
-    attn_bwd = 10.0 * b * hq * hd * s * s
+    # the backward kernel's noted work: 10 hd a visible pair and head
+    attn_bwd = 10.0 * b * hq * hd * causal_pairs
     unembed = 2.0 * t * d * cfg.vocab_size
     fwd, extra = unembed, 0.0
     if cfg.family == "dense":
@@ -175,7 +176,12 @@ def _hand_train_flops(cfg, b, s):
         extra += n_seg * (attn_fwd + attn_bwd)
         scan = ssd_scan_work(b, s, nh, ssm.n_groups, ssm.head_dim,
                              ssm.state_dim, chunk=ssm.chunk)[0]
-        extra += cfg.n_layers * (scan + 3 * scan)
+        # the backward kernel's noted work at its chunk of 64: G, Q, W^T dy,
+        # M^T C, M B and four state products a (row, head, chunk)
+        n, p, cl = ssm.state_dim, ssm.head_dim, 64
+        scan_bwd = (2.0 * b * nh * -(-s // cl)
+                    * (cl * cl * (3 * n + 2 * p) + 4 * cl * n * p))
+        extra += cfg.n_layers * (scan + scan_bwd)
     return 3 * fwd + extra
 
 
