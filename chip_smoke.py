@@ -512,11 +512,12 @@ HCHECK_LAYERS, HCHECK_PROMPT = 7, 256
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # the bf16 scan's tensor-core kernel, as the profiler names it
 SSD_BF16_KERNEL = "ssd_mma_kernel"
-# the backward kernels as the profiler names them: flash attention's two
-# launches (flash_bwd_dq_bf16, flash_bwd_dkdv_bf16) and the scan's reverse
-# walk
+# the backward kernels as the profiler names them: flash attention's
+# launches (flash_bwd_dq_wgmma, flash_bwd_dkdv_wgmma and, where a group is
+# split, flash_bwd_dkdv_sum) and the scan's three passes
+# (ssd_bwd_carry_kernel, ssd_bwd_chunk_kernel, ssd_bwd_group_sum_kernel)
 FLASH_BWD_KERNEL = "flash_bwd_"
-SSD_BWD_KERNEL = "ssd_bwd_mma_kernel"
+SSD_BWD_KERNEL = "ssd_bwd_"
 # a training path's profile: the forward and backward kernels' device time
 TRAIN_SHARES = {"flash_attention": "flash_wgmma",
                 "flash_attention_bwd": FLASH_BWD_KERNEL}

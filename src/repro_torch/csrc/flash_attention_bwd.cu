@@ -16,462 +16,583 @@
 //   dS = P o (dP - Delta)     dQ = dS K scale      dK = dS^T q scale
 // with each KV head's dK and dV summed over its group of query heads.
 //
-// What bounds it on this card: operations.  10 d operations a visible
+// What bounds it on this card: operations (flash_attention_grad_work in
+// kernels/flash_attention/ops.py, unchanged).  10 d operations a visible
 // (query, key) pair and head (the minimal count: S, dV, dP, dQ and dK);
 // at train_whisper's encoder (b = 4, s = 1,500, H = 16, d = 64,
 // non-causal) 92.2 GFLOP against 20 MB: 0.093 ms on the bf16 tensor cores.
 // The design recomputes S and dP in both kernels (14 d a pair): the price
 // of writing dQ without atomics.
 //
-// Two launches, no atomics, so two backward passes are bit-equal:
-//  1. dq kernel, one block per (64-query tile, query head, batch row): its
-//     prologue forms Delta for its rows (float32, from dO and out) and
-//     writes it for launch 2; then it walks the key tiles its rows see
-//     (causal: up to its last row's frontier, honouring q_offset) and
-//     accumulates dQ = sum dS K in float32 registers.
-//  2. dkdv kernel, one block per (64-key tile, KV head, batch row): it
-//     walks every query head of its group and every query tile that sees
-//     its keys (causal: from the first tile whose last row reaches them)
-//     and accumulates dK and dV in float32 registers, in that fixed order.
-// bfloat16: four warps, warp w owning 16 rows of the block's tile; every
-// product on the tensor cores (mma.sync m16n8k16, bf16 operands, float32
-// accumulators) with operands by ldmatrix from tiles staged by cp.async in
-// a two-slot ring (the next (head, tile)'s Q and dO, or the next key
-// tile's K and V, in flight while this one is in the tensor cores).  Tiles
-// are bf16 rows of 64 or 128 columns (d = 112 padded to 128, the padding
-// zero-filled and never multiplied), 16-byte pieces XOR-swizzled by row.
-// S, dP and the accumulators stay in registers; the accumulator fragments
-// of P and dS, rounded to bf16 (the plain backward's p.to(dtype) and
-// ds.to(dtype)), are the A fragments of the next products, so neither goes
-// through shared memory.  Inner steps take 32 queries (keys in the dq
-// kernel) at a time, so dK, dV and two 16 x 32 tiles fit in registers at
-// d = 128.
-// float32: the same two kernels on the FMA units, 256 threads, tiles as
-// float32 rows in shared memory, 4 x 4 patches of S and dP a thread, P and
-// dS through shared memory.  Nothing on the serving path runs either.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// bfloat16: every product on wgmma.mma_async (float32 accumulators), every
+// tile by TMA (cp.async.bulk.tensor from 4-D tensor maps over (b, s, heads,
+// d), 128-byte swizzle, rows past the sequence zero-filled) into rings of
+// two stages completed on mbarriers, one thread issuing the copies; the
+// Hopper helpers are the forward's (hopper.cuh).  Two launches and no
+// atomics, so two backward passes are bit-equal:
+//  1. dq (flash_bwd_dq_wgmma): one block of two consumer warpgroups per
+//     (128-query tile, head, batch row), heaviest causal tiles first; each
+//     warpgroup owns 64 query rows and both share the K and V tiles of a
+//     three-stage ring.  While the Q and dO tiles land, two lanes a row
+//     form Delta (float32, from dO and out + out_lo, every 16-byte load
+//     issued before any is used) and write it, with the rows' LSE in the
+//     log2 domain, to a (2, b, H, sq rounded up to 64) float32 scratch for
+//     launch 2.  Per key tile: S = Q K^T and dP = dO V^T as wgmma ss
+//     m64n64k16 (A and B K-major in shared memory); P = exp(S scale - LSE),
+//     masked only on the tiles that cross skv or the causal frontier; dS =
+//     P (dP - Delta) rounded to bf16 pairs is already wgmma's A fragment,
+//     so dQ += dS K is a wgmma rs m64n{d}k16 reading the K tile MN-major
+//     through the transpose bit, as the forward reads V.  Past d = 64 the
+//     products overlap the softmax: S and dP are two commit groups and P is
+//     formed while dP is still in the tensor cores, and dQ is left in
+//     flight while the next tile's S and dP go out, the stage it read
+//     refilled once that S is done.  At d = 64 the registers are capped at
+//     128 for two blocks a SM, and every product is waited for before the
+//     softmax.
+//  2. dkdv (flash_bwd_dkdv_wgmma): one warpgroup per (64-key tile, KV head,
+//     split of the group, batch row); K and V by TMA once, then a ring of
+//     two (Q tile, dO tile, the tile's LSE and Delta by 1-D bulk copy),
+//     walked in a fixed order: the split's heads, then the query tiles that
+//     see the keys.  S^T = K Q^T and dP^T = V dO^T (ss), P^T from each
+//     column's LSE and dS^T from each column's Delta, then dV += P^T dO and
+//     dK += dS^T Q (rs, dO and Q read MN-major) in float32 registers
+//     (overlapping P^T with dP^T, or these products with the next
+//     sub-tile's S^T, measured no faster at internvl2's layer or whisper's
+//     encoder: three blocks a SM at d = 64, two past it, already overlap
+//     one another).  At d = 64 the S^T products take 64 queries
+//     (m64n64); at d 112 and 128 they take 32 (m64n32), so that dK and dV
+//     (up to 128 registers a thread) and the S^T / dP^T tiles fit without
+//     spilling (one warpgroup, no setmaxnreg).
+//  3. Filling the card: where b ceil(skv / 64) KV leaves the dkdv grid
+//     under one wave of 132 blocks (train, internvl2's layer: 128), the
+//     wrapper cuts each group into splits of whole heads (ops.py:
+//     dkdv_splits, about two blocks a SM); each split writes float32 dK
+//     and dV partials and flash_bwd_dkdv_sum adds them in split order,
+//     scales dK and rounds once.  Two launches without a split, three with.
+// d = 112: 224-byte rows are not whole 128-byte swizzle atoms, so a tile
+// is two 64-column sub-tiles and the tensor map's extent zero-fills
+// columns 112..127 (the forward's layout).
+// Shared memory a block (dq / dkdv): d 64 82,944 / 52,224 bytes; d 112
+// and 128 164,864 / 101,376.  Registers a thread (-Xptxas -v, dq / dkdv):
+// d 64 128 (capped; 196 bytes spilled) / 154, d 112 187 / 170, d 128
+// 198 / 186; the split sum 40.
+// Measured (bwd_ab.py on an NVIDIA H100 80GB HBM3, 700.00 W; the backward
+// alone, CUDA events, then device time under the profiler): train's shape
+// (q 8 x 512 x 14 x 64 over 2 KV heads, causal, 3 splits) 0.110 ms, device
+// 0.103 (dq 0.051, dkdv 0.049, sum 0.003); whisper's encoder (4 x 1,500 x
+// 16 x 64) 0.486, device 0.485 (dq 0.261, dkdv 0.224); internvl2's layer
+// (q 2 x 512 x 64 x 128 over 8, causal, 3 splits) 0.197, device 0.190;
+// whisper's cross attention (q 187, kv 1,500) 0.132, device 0.126.  The
+// design before (mma.sync, cp.async) took 0.273, 0.813, 0.427 and 0.149
+// in the same run; SDPA's backward (cuDNN) 0.083, 0.280, 0.149 and 0.063
+// of device time.
+// float32: the two kernels on the FMA units, 256 threads, tiles as float32
+// rows in shared memory, 4 x 4 patches of S and dP a thread, P and dS
+// through shared memory.  Nothing on the serving path runs either.
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
+
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int TILE_ROWS = 64;  // query or key rows of a block's tile
-constexpr int MW = 4;          // bf16 kernels: warps, 16 rows each
-constexpr int MT = 32 * MW;
-constexpr int SUB = 32;        // queries (dkdv) or keys (dq) an inner step
+constexpr int TILE_ROWS = 64;  // query or key rows of a tile
 
-__device__ inline uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 bytes global -> shared; valid == false writes zeros and reads nothing
-__device__ inline void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ inline void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ inline void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-__device__ inline void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ inline void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-// C (16 x 8, f32) += A (16 x 16, bf16, row) * B (16 x 8, bf16, col)
-__device__ inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ inline uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-// two adjacent n8 accumulator tiles (16 x 16) as an m16k16 A fragment
-__device__ inline void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma + TMA (sm_90a)
+// ---------------------------------------------------------------------------
 
-// bf16 tiles: rows of RB bytes cut in 16-byte pieces; piece c of row r
-// sits at piece c ^ (r % 8), so the 8 rows an ldmatrix reads fall in
-// distinct banks
-template <int RB>
-__device__ inline uint32_t swz_el(int r, int col) {  // bf16 element offset
-  return r * RB + ((((col >> 3) ^ (r & 7))) << 4) + ((col & 7) << 1);
-}
-
-// 64 rows of one head of a (b, s, heads, D) bf16 tensor into a swizzled
-// tile of DP columns: `base` is the tile's first row, `rows` of them real;
-// columns past D and rows past `rows` read as zeros
-template <int D, int DP>
-__device__ inline void stage_tile(uint32_t tile, const __nv_bfloat16* base,
-                                  long long row_stride, int rows,
-                                  const __nv_bfloat16* any) {
-  constexpr int PC = DP / 8, RB = 2 * DP, RSTEP = MT / PC;
-  const int c = threadIdx.x % PC, r0 = threadIdx.x / PC;
-#pragma unroll
-  for (int i = 0; i < TILE_ROWS / RSTEP; ++i) {
-    const int r = r0 + i * RSTEP;
-    const bool ok = c < D / 8 && r < rows;
-    cp_async16(tile + r * RB + ((c ^ (r & 7)) << 4),
-               ok ? base + r * row_stride + c * 8 : any, ok);
-  }
-}
+constexpr int DQ_GROUPS = 2;  // dq: consumer warpgroups a block, 64 rows each
+constexpr int DQ_THREADS = 128 * DQ_GROUPS;
+constexpr int DQ_ROWS = TILE_ROWS * DQ_GROUPS;
+constexpr int KV_THREADS = 128;  // dkdv: one warpgroup a block, 64 keys
+constexpr int DQ_STAGES = 3;  // dq's ring of (K, V) tiles
+constexpr int STAGES = 2;     // dkdv's ring of (Q, dO, LSE, Delta)
+constexpr int STAT_BYTES = 2 * TILE_ROWS * 4;  // a query tile's LSE and Delta
 
 template <int D>
 struct Bf16Tiles {
-  static constexpr int DP = D <= 64 ? 64 : 128;  // padded columns
-  static constexpr int RB = 2 * DP;
-  static constexpr int TILE = TILE_ROWS * RB;
-  static constexpr int KS = D / 16;  // k16 steps over d, n16 pairs over d
-  static constexpr int SMEM = 6 * TILE;  // two fixed tiles, a ring of two pairs
+  static constexpr int NSUB = (D + 63) / 64;  // 64-column sub-tiles
+  static constexpr int KSTEPS = D / 16;       // k16 steps over d
+  static constexpr int TILE = NSUB * TILE_ROWS * ROW_BYTES;  // 64 rows
+  // dkdv: the queries of one S^T / dP^T product (m64n{QS}); 32 past d 64,
+  // so dK, dV (D / 2 float32 registers each), S^T, dP^T and their bf16
+  // fragments stay in registers
+  static constexpr int QS = D == 64 ? 64 : 32;
+  // 1024 bytes of slack align every tile to the 1024-byte swizzle period
+  static constexpr int DQ_SMEM =
+      1024 + 2 * DQ_GROUPS * TILE + DQ_STAGES * 2 * TILE;
+  static constexpr int STAGE = 2 * TILE + 1024;  // Q, dO, LSE and Delta
+  static constexpr int DKDV_SMEM = 1024 + 2 * TILE + STAGES * STAGE;
 };
 
 // ---------------------------------------------------------------------------
 // bfloat16: dq kernel (and Delta)
 // ---------------------------------------------------------------------------
 
+__device__ inline float2 bf16x2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// d = 64 caps the registers at 128 a thread, so two blocks share a SM
+// (155 a thread left one, and whisper's encoder ran 1.5x slower)
 template <int D>
-__global__ void __launch_bounds__(MT)
-flash_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  const __nv_bfloat16* __restrict__ out,
-                  const __nv_bfloat16* __restrict__ out_lo,
-                  const __nv_bfloat16* __restrict__ dout,
-                  const float* __restrict__ lse, float* __restrict__ delta,
-                  __nv_bfloat16* __restrict__ dq, int sq, int skv, int H,
-                  int KV, int causal, int q_offset, float scale,
-                  int n_qtiles) {
+__global__ void __launch_bounds__(DQ_THREADS, D == 64 ? 2 : 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __nv_bfloat16* __restrict__ out,
+                   const __nv_bfloat16* __restrict__ out_lo,
+                   const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ lse, float* __restrict__ stats,
+                   __nv_bfloat16* __restrict__ dq, int sq, int skv, int H,
+                   int KV, int causal, int q_offset, int sqp,
+                   float scale_log2, float scale) {
   using T = Bf16Tiles<D>;
-  constexpr int RB = T::RB, TILE = T::TILE, KS = T::KS;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float delta_s[TILE_ROWS];
-  const uint32_t sb = smem_u32(smem);
-  const uint32_t Qs = sb, Ds = sb + TILE, KV0 = sb + 2 * TILE;
+  constexpr int BK = TILE_ROWS, NS = DQ_STAGES;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + NS];  // Q and dO, each stage
+  __shared__ float delta_s[DQ_GROUPS][TILE_ROWS];
 
-  const int q0 = (n_qtiles - 1 - blockIdx.x) * TILE_ROWS;  // heaviest first
-  const int h = blockIdx.y, bi = blockIdx.z;
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t skv_tiles = base + 2 * DQ_GROUPS * T::TILE;  // K, V a stage
+  const uint32_t bar_q = smem_u32(&bars[0]);
+
+  const int h = blockIdx.x, bi = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * DQ_ROWS;  // heaviest first
   const int kvh = h / (H / KV);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gr = lane / 4, qd = lane % 4, lr = lane % 8, lm = lane / 8;
-  const long long qstride = (long long)H * D, kstride = (long long)KV * D;
-  const __nv_bfloat16* qh = q + ((size_t)bi * sq + q0) * qstride + h * D;
-  const __nv_bfloat16* dh = dout + ((size_t)bi * sq + q0) * qstride + h * D;
-  const __nv_bfloat16* kh = k + (size_t)bi * skv * kstride + kvh * D;
-  const __nv_bfloat16* vh = v + (size_t)bi * skv * kstride + kvh * D;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int qw = q0 + wg * TILE_ROWS;  // this warpgroup's first row
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const uint32_t sQ = base + wg * T::TILE;
+  const uint32_t sDO = base + (DQ_GROUPS + wg) * T::TILE;
 
-  int kv_end = skv;
-  if (causal) kv_end = min(skv, min(q0 + TILE_ROWS, sq) + q_offset);
-  const int n_kt = (kv_end + TILE_ROWS - 1) / TILE_ROWS;
+  // the block loads key tiles [0, n_tiles), those some row of it reaches;
+  // this warpgroup computes tiles [0, my_tiles), of which [0, n_full) lie
+  // wholly inside skv and at or below its first row's causal frontier.
+  // The warpgroup holding the block's last row has my_tiles == n_tiles,
+  // so every stage's phases complete in order.
+  int kv_end = skv, my_end = skv, n_full = skv / BK;
+  if (causal) {
+    kv_end = min(skv, min(q0 + DQ_ROWS, sq) + q_offset);
+    my_end = min(skv, min(qw + TILE_ROWS, sq) + q_offset);
+    n_full = min(n_full, (qw + q_offset + 1) / BK);
+  }
+  const int n_tiles = (kv_end + BK - 1) / BK;
+  const int my_tiles = qw < sq ? (my_end + BK - 1) / BK : 0;
 
-  auto stage_kv = [&](int kt, int slot) {
-    const uint32_t dst = KV0 + slot * 2 * TILE;
-    const int rows = skv - kt * TILE_ROWS;
-    stage_tile<D, T::DP>(dst, kh + kt * TILE_ROWS * kstride, kstride, rows,
-                         k);
-    stage_tile<D, T::DP>(dst + TILE, vh + kt * TILE_ROWS * kstride, kstride,
-                         rows, v);
+  auto load_kv = [&](int tile) {
+    const int stage = tile % NS;
+    const uint32_t bar = smem_u32(&bars[1 + stage]);
+    const uint32_t dst = skv_tiles + stage * 2 * T::TILE;
+    mbar_expect_tx(bar, 2 * T::TILE);
+#pragma unroll
+    for (int s = 0; s < T::NSUB; ++s) {
+      tma_load_4d(dst + s * BK * ROW_BYTES, &tk, bar, s * 64, kvh, tile * BK,
+                  bi);
+      tma_load_4d(dst + T::TILE + s * BK * ROW_BYTES, &tv, bar, s * 64, kvh,
+                  tile * BK, bi);
+    }
   };
-  stage_tile<D, T::DP>(Qs, qh, qstride, sq - q0, q);
-  stage_tile<D, T::DP>(Ds, dh, qstride, sq - q0, dout);
-  if (n_kt > 0) stage_kv(0, 0);
-  cp_async_commit();
 
-  // Delta = rowsum(dO o out) in float32 for this warp's 16 rows, from the
-  // output's float32 value (out + out_lo): the rounded output alone moves
-  // Delta by a bf16 rounding of out, which dQ carries to every key
-  const size_t row_bh = ((size_t)bi * H + h) * sq;
-  for (int r = 0; r < 16; ++r) {
-    const int row = q0 + 16 * warp + r;
+  if (tid == 0) mbar_init_all(bars, 1 + NS);
+  __syncthreads();
+  if (tid == 0) {  // the one producer: Q and dO, then the first stages
+    mbar_expect_tx(bar_q, 2 * DQ_GROUPS * T::TILE);
+#pragma unroll
+    for (int g = 0; g < DQ_GROUPS; ++g)
+#pragma unroll
+      for (int s = 0; s < T::NSUB; ++s) {
+        const uint32_t off = g * T::TILE + s * TILE_ROWS * ROW_BYTES;
+        tma_load_4d(base + off, &tq, bar_q, s * 64, h, q0 + g * TILE_ROWS,
+                    bi);
+        tma_load_4d(base + DQ_GROUPS * T::TILE + off, &tdo, bar_q, s * 64, h,
+                    q0 + g * TILE_ROWS, bi);
+      }
+    for (int t = 0; t < NS && t < n_tiles; ++t) load_kv(t);
+  }
+
+  // while the tiles land: Delta = rowsum(dO o out) in float32, from the
+  // output's float32 value (out + out_lo; the rounded output alone moves
+  // Delta by a bf16 rounding of out, which dQ carries to every key), two
+  // lanes a row and every 16-byte load issued before any is used; with the
+  // rows' LSE in the log2 domain it goes out for the dkdv launch, zeros on
+  // the rows from sq up to sqp
+  const size_t row_bh = (size_t)bi * H + h;
+  const long long qstride = (long long)H * D;
+  {
+    constexpr int VPL = D / 16;  // 16-byte pieces of a row a lane
+    // pieces loaded before any is used: the whole row half past d = 64;
+    // at d = 64, half of it at a time (the registers are capped at 128)
+    constexpr int VB = D == 64 ? VPL / 2 : VPL;
+    const int row = qw + 16 * warp + lane / 2, half = lane % 2;
     float acc = 0.0f;
     if (row < sq) {
-      const size_t off = ((size_t)bi * sq + row) * qstride + h * D;
-      for (int c = 2 * lane; c < D; c += 64) {
-        float2 o2 = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(out + off + c));
-        if (out_lo != nullptr) {  // the output's float32 value, hi + lo
-          const float2 l2 = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(out_lo + off + c));
-          o2.x += l2.x;
-          o2.y += l2.y;
+      const size_t off =
+          ((size_t)bi * sq + row) * qstride + h * D + half * VPL * 8;
+#pragma unroll
+      for (int v0 = 0; v0 < VPL; v0 += VB) {
+        uint4 o[VB], lo[VB], dd[VB];
+#pragma unroll
+        for (int v = 0; v < VB; ++v) {
+          o[v] = *reinterpret_cast<const uint4*>(out + off + 8 * (v0 + v));
+          lo[v] = *reinterpret_cast<const uint4*>(out_lo + off + 8 * (v0 + v));
+          dd[v] = *reinterpret_cast<const uint4*>(dout + off + 8 * (v0 + v));
         }
-        const float2 d2 = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(dout + off + c));
-        acc = fmaf(o2.x, d2.x, fmaf(o2.y, d2.y, acc));
+#pragma unroll
+        for (int v = 0; v < VB; ++v) {
+          const uint32_t ow[4] = {o[v].x, o[v].y, o[v].z, o[v].w};
+          const uint32_t lw[4] = {lo[v].x, lo[v].y, lo[v].z, lo[v].w};
+          const uint32_t dw[4] = {dd[v].x, dd[v].y, dd[v].z, dd[v].w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 a = bf16x2(ow[j]), b = bf16x2(lw[j]);
+            const float2 c = bf16x2(dw[j]);
+            acc = fmaf(a.x + b.x, c.x, fmaf(a.y + b.y, c.y, acc));
+          }
+        }
       }
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0) {
-      delta_s[16 * warp + r] = acc;
-      if (row < sq) delta[row_bh + row] = acc;
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (half == 0) {
+      delta_s[wg][16 * warp + lane / 2] = acc;
+      if (row < sqp) {
+        stats[row_bh * sqp + row] =
+            row < sq ? lse[row_bh * sq + row] * LOG2E : 0.0f;
+        stats[(size_t)gridDim.y * H * sqp + row_bh * sqp + row] = acc;
+      }
     }
   }
   __syncwarp();
-  const int rA = 16 * warp + gr, rB = rA + 8;  // this thread's tile rows
-  const float dlA = delta_s[rA], dlB = delta_s[rB];
-  const float l2A = q0 + rA < sq ? lse[row_bh + q0 + rA] * LOG2E : 0.0f;
-  const float l2B = q0 + rB < sq ? lse[row_bh + q0 + rB] * LOG2E : 0.0f;
-  const float scale_log2 = scale * LOG2E;
 
-  float dqacc[D / 8][4];
+  // this thread's rows of the tile: r0 and r0 + 8; its columns in each
+  // 8-column group: c0 and c0 + 1 (wgmma's accumulator fragment)
+  const int r0 = warp * 16 + lane / 4, c0 = 2 * (lane % 4);
+  float l2r[2], dlr[2];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqacc[i][e] = 0.0f;
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int slot = kt & 1;
-    cp_async_wait_all();
-    __syncthreads();  // tile kt landed; every warp is done with kt - 1
-    if (kt + 1 < n_kt) stage_kv(kt + 1, slot ^ 1);
-    cp_async_commit();
-    const uint32_t Ks = KV0 + slot * 2 * TILE, Vs = Ks + TILE;
-    const int k0 = kt * TILE_ROWS;
-#pragma unroll
-    for (int sub = 0; sub < TILE_ROWS / SUB; ++sub) {
-      const int ks0 = sub * SUB;
-      // keys wholly past this warp's last row: nothing to add
-      if (k0 + ks0 >= skv ||
-          (causal && k0 + ks0 > q0 + 16 * warp + 15 + q_offset))
-        continue;
-      float s[SUB / 8][4], dp[SUB / 8][4];
-#pragma unroll
-      for (int i = 0; i < SUB / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t qa[4], da[4];
-        ldmatrix_x4(qa, Qs + swz_el<RB>(16 * warp + lr + (lm & 1) * 8,
-                                        16 * kk + (lm >> 1) * 8));
-        ldmatrix_x4(da, Ds + swz_el<RB>(16 * warp + lr + (lm & 1) * 8,
-                                        16 * kk + (lm >> 1) * 8));
-#pragma unroll
-        for (int nn = 0; nn < SUB / 16; ++nn) {
-          uint32_t bk[4], bv[4];
-          const int kr = ks0 + 16 * nn + lr + (lm >> 1) * 8;
-          ldmatrix_x4(bk, Ks + swz_el<RB>(kr, 16 * kk + (lm & 1) * 8));
-          ldmatrix_x4(bv, Vs + swz_el<RB>(kr, 16 * kk + (lm & 1) * 8));
-          mma_bf16(s[2 * nn], qa, bk[0], bk[1]);
-          mma_bf16(s[2 * nn + 1], qa, bk[2], bk[3]);
-          mma_bf16(dp[2 * nn], da, bv[0], bv[1]);
-          mma_bf16(dp[2 * nn + 1], da, bv[2], bv[3]);
-        }
-      }
-      // P = exp(S - LSE) where the key is visible, dS = P (dP - Delta)
-#pragma unroll
-      for (int nt = 0; nt < SUB / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kpos = k0 + ks0 + 8 * nt + 2 * qd + (e & 1);
-          const int row = q0 + (e < 2 ? rA : rB);
-          const bool ok = row < sq && kpos < skv &&
-                          !(causal && kpos > row + q_offset);
-          const float p =
-              ok ? exp2f(fmaf(s[nt][e], scale_log2, -(e < 2 ? l2A : l2B)))
-                 : 0.0f;
-          dp[nt][e] = p * (dp[nt][e] - (e < 2 ? dlA : dlB));
-        }
-      // dQ += dS K: dS (bf16) as the A fragment, K [key][d] by ldmatrix.trans
-#pragma unroll
-      for (int kk = 0; kk < SUB / 16; ++kk) {
-        uint32_t a[4];
-        acc_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-        for (int pp = 0; pp < KS; ++pp) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, Ks + swz_el<RB>(ks0 + 16 * kk + lr + (lm & 1) * 8,
-                                               16 * pp + (lm >> 1) * 8));
-          mma_bf16(dqacc[2 * pp], a, b[0], b[1]);
-          mma_bf16(dqacc[2 * pp + 1], a, b[2], b[3]);
-        }
-      }
-    }
+  for (int i = 0; i < 2; ++i) {
+    const int row = qw + r0 + 8 * i;
+    l2r[i] = row < sq ? lse[row_bh * sq + row] * LOG2E : 0.0f;
+    dlr[i] = delta_s[wg][r0 + 8 * i];
   }
+  float dqa[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.0f;
+
+  // Per tile t: S = Q K^T and dP = dO V^T go out as two groups behind
+  // tile t - 1's dQ product; once S (and with it that dQ) is done, the
+  // block frees tile t - 1's stage for tile t - 1 + NS and the warpgroup
+  // forms P while dP is still in the tensor cores; then dS and dQ += dS K,
+  // left in flight into tile t + 1 (past d = 64).
+  mbar_wait(bar_q, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t % NS;
+    const bool mine = t < my_tiles;  // tiles past the frontier: none
+    const uint32_t sk = skv_tiles + stage * 2 * T::TILE;
+    const uint32_t sv = sk + T::TILE;
+    float s[BK / 2], dp[BK / 2];
+    if (mine) {
+      mbar_wait(smem_u32(&bars[1 + stage]), (t / NS) & 1);
+      // k16 step kk reads 32 bytes of sub-tile kk / 4 of each operand,
+      // both K-major
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < T::KSTEPS; ++kk) {
+        const uint32_t off = (kk / 4) * TILE_ROWS * ROW_BYTES + (kk % 4) * 32;
+        wgmma_ss_n64(s, sw128_desc(sQ + off, 16, 1024),
+                     sw128_desc(sk + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < T::KSTEPS; ++kk) {
+        const uint32_t off = (kk / 4) * TILE_ROWS * ROW_BYTES + (kk % 4) * 32;
+        wgmma_ss_n64(dp, sw128_desc(sDO + off, 16, 1024),
+                     sw128_desc(sv + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      // S, and tile t - 1's dQ; at d = 64 dP too (see below)
+      if constexpr (D == 64) wgmma_wait_all();
+      else wgmma_wait<1>();
+      pin(s);
+      pin(dqa);
+    } else {
+      wgmma_wait_all();  // this warpgroup's last dQ
+      pin(dqa);
+    }
+    __syncthreads();  // every warpgroup is done with tile t - 1's stage
+    if (tid == 0 && t >= 1 && t - 1 + NS < n_tiles) load_kv(t - 1 + NS);
+    if (!mine) continue;
+
+    // P = exp(S - LSE) where the key is visible (masks only where the
+    // tile needs them), then dS = P (dP - Delta) as bf16 A fragments
+    const bool masked = t >= n_full;
+    const int k0 = t * BK;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = 4 * j + 2 * i + e;
+          const int kpos = k0 + 8 * j + c0 + e;
+          const int qpos = qw + r0 + 8 * i;
+          const bool ok = !masked || (kpos < skv && qpos < sq &&
+                                      !(causal && kpos > qpos + q_offset));
+          s[x] = ok ? exp2f(fmaf(s[x], scale_log2, -l2r[i])) : 0.0f;
+        }
+    wgmma_wait<0>();
+    pin(dp);
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int x = 4 * j + 2 * i;
+        da[j / 2][2 * (j % 2) + i] =
+            pack_bf16(s[x] * (dp[x] - dlr[i]), s[x + 1] * (dp[x + 1] - dlr[i]));
+      }
+
+    // dQ += dS K: B = the K tile [key][d], MN-major through the
+    // transpose bit (as the forward reads V); 16 keys are 16 rows of
+    // every sub-tile, the sub-tiles a tile's 64 rows apart
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_pv<D>(dqa, da[kk],
+                  sw128_desc(sk + kk * 16 * ROW_BYTES, TILE_ROWS * ROW_BYTES,
+                             1024));
+    wgmma_commit();
+    // at d = 64 every product is waited for at once: in flight across
+    // the softmax, their registers pushed the count past the 128 that two
+    // blocks a SM allow (ptxas spilled and serialised the wgmma)
+    if constexpr (D == 64) wgmma_wait_all();
+  }
+  wgmma_wait_all();
+  pin(dqa);
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + (r ? rB : rA);
+  for (int i = 0; i < 2; ++i) {
+    const int row = qw + r0 + 8 * i;
     if (row >= sq) continue;
-    __nv_bfloat16* o = dq + ((size_t)bi * sq + row) * qstride + h * D + 2 * qd;
+    __nv_bfloat16* o = dq + ((size_t)bi * sq + row) * qstride + h * D + c0;
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<uint32_t*>(o + 8 * nt) =
-          pack_bf16(dqacc[nt][2 * r] * scale, dqacc[nt][2 * r + 1] * scale);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(o + 8 * j) =
+          pack_bf16(dqa[4 * j + 2 * i] * scale, dqa[4 * j + 2 * i + 1] * scale);
   }
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: dkdv kernel
+// bfloat16: dkdv kernel, and the sum of a split group's partials
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(MT)
-flash_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dk,
-                    __nv_bfloat16* __restrict__ dv, int sq, int skv, int H,
-                    int KV, int causal, int q_offset, float scale) {
+__global__ void __launch_bounds__(KV_THREADS, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const float* __restrict__ stats,
+                     __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv,
+                     float* __restrict__ part, int sq, int skv, int H,
+                     int KV, int causal, int q_offset, int sqp, int splits,
+                     float scale_log2, float scale) {
   using T = Bf16Tiles<D>;
-  constexpr int RB = T::RB, TILE = T::TILE, KS = T::KS;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t sb = smem_u32(smem);
-  const uint32_t Ks = sb, Vs = sb + TILE, QD0 = sb + 2 * TILE;
+  constexpr int QS = T::QS;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + STAGES];  // K and V, each stage
 
-  const int k0 = blockIdx.x * TILE_ROWS, kvh = blockIdx.y, bi = blockIdx.z;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sK = base, sV = base + T::TILE, ring = base + 2 * T::TILE;
+
+  const int k0 = blockIdx.x * TILE_ROWS, bi = blockIdx.z;
+  const int kvh = blockIdx.y / splits, split = blockIdx.y % splits;
   const int group = H / KV;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gr = lane / 4, qd = lane % 4, lr = lane % 8, lm = lane / 8;
-  const long long qstride = (long long)H * D, kstride = (long long)KV * D;
-
-  // the query tiles that see this key tile, for each head of the group
+  // this block's query heads: its split of the group, whole heads
+  const int h0 = kvh * group + split * group / splits;
+  const int h1 = kvh * group + (split + 1) * group / splits;
+  // the query tiles that see this key tile (causal: from the first tile
+  // whose last row reaches it), for each head
   const int n_qt = (sq + TILE_ROWS - 1) / TILE_ROWS;
   const int qt0 = causal ? min(n_qt, max(0, k0 - q_offset) / TILE_ROWS) : 0;
   const int per_head = n_qt - qt0;
-  const int n_it = group * per_head;
+  const int n_it = (h1 - h0) * per_head;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const size_t plane = (size_t)gridDim.z * H * sqp;
 
-  const size_t kv_off = ((size_t)bi * skv + k0) * kstride + kvh * D;
-  stage_tile<D, T::DP>(Ks, k + kv_off, kstride, skv - k0, k);
-  stage_tile<D, T::DP>(Vs, v + kv_off, kstride, skv - k0, v);
-  auto stage_q = [&](int it, int slot) {
-    const int h = kvh * group + it / per_head;
+  // item `it`: head h0 + it / per_head, query tile qt0 + it % per_head:
+  // its Q and dO tiles by TMA, its LSE and Delta rows by bulk copy
+  auto load_item = [&](int it, int stage) {
+    const int h = h0 + it / per_head;
     const int qs = (qt0 + it % per_head) * TILE_ROWS;
-    const size_t off = ((size_t)bi * sq + qs) * qstride + h * D;
-    const uint32_t dst = QD0 + slot * 2 * TILE;
-    stage_tile<D, T::DP>(dst, q + off, qstride, sq - qs, q);
-    stage_tile<D, T::DP>(dst + TILE, dout + off, qstride, sq - qs, dout);
+    const uint32_t bar = smem_u32(&bars[1 + stage]);
+    const uint32_t dst = ring + stage * T::STAGE;
+    mbar_expect_tx(bar, 2 * T::TILE + STAT_BYTES);
+#pragma unroll
+    for (int s = 0; s < T::NSUB; ++s) {
+      tma_load_4d(dst + s * TILE_ROWS * ROW_BYTES, &tq, bar, s * 64, h, qs,
+                  bi);
+      tma_load_4d(dst + T::TILE + s * TILE_ROWS * ROW_BYTES, &tdo, bar,
+                  s * 64, h, qs, bi);
+    }
+    const float* st = stats + ((size_t)bi * H + h) * sqp + qs;
+    bulk_load(dst + 2 * T::TILE, st, TILE_ROWS * 4, bar);
+    bulk_load(dst + 2 * T::TILE + TILE_ROWS * 4, st + plane, TILE_ROWS * 4,
+              bar);
   };
-  if (n_it > 0) stage_q(0, 0);
-  cp_async_commit();
 
-  const int kA = k0 + 16 * warp + gr, kB = kA + 8;  // this thread's keys
-  float dkacc[D / 8][4], dvacc[D / 8][4];
+  if (tid == 0) mbar_init_all(bars, 1 + STAGES);
+  __syncthreads();
+  if (tid == 0) {  // the one producer: K and V, then the first stages
+    const uint32_t bar = smem_u32(&bars[0]);
+    mbar_expect_tx(bar, 2 * T::TILE);
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dkacc[i][e] = dvacc[i][e] = 0.0f;
-  const float scale_log2 = scale * LOG2E;
+    for (int s = 0; s < T::NSUB; ++s) {
+      tma_load_4d(sK + s * TILE_ROWS * ROW_BYTES, &tk, bar, s * 64, kvh, k0,
+                  bi);
+      tma_load_4d(sV + s * TILE_ROWS * ROW_BYTES, &tv, bar, s * 64, kvh, k0,
+                  bi);
+    }
+    for (int it = 0; it < STAGES && it < n_it; ++it) load_item(it, it);
+  }
 
+  // this thread's keys: k0 + r0 and k0 + r0 + 8; its queries in each
+  // 8-column group of S^T: c0 and c0 + 1
+  const int r0 = warp * 16 + lane / 4, c0 = 2 * (lane % 4);
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.0f;
+
+  mbar_wait(smem_u32(&bars[0]), 0);
   for (int it = 0; it < n_it; ++it) {
-    const int slot = it & 1;
-    cp_async_wait_all();
-    __syncthreads();  // pair `it` landed; every warp is done with it - 1
-    if (it + 1 < n_it) stage_q(it + 1, slot ^ 1);
-    cp_async_commit();
-    const int h = kvh * group + it / per_head;
+    const int stage = it % STAGES;
+    const uint32_t sQ = ring + stage * T::STAGE, sDO = sQ + T::TILE;
+    const float* lse2 =
+        reinterpret_cast<const float*>(smem_raw + (sDO + T::TILE - raw));
+    const float* dlt = lse2 + TILE_ROWS;
     const int q0 = (qt0 + it % per_head) * TILE_ROWS;
-    const uint32_t Qs = QD0 + slot * 2 * TILE, Ds = Qs + TILE;
-    const float* lse_h = lse + ((size_t)bi * H + h) * sq;
-    const float* dl_h = delta + ((size_t)bi * H + h) * sq;
+    mbar_wait(smem_u32(&bars[1 + stage]), (it / STAGES) & 1);
 #pragma unroll
-    for (int sub = 0; sub < TILE_ROWS / SUB; ++sub) {
-      const int qs0 = sub * SUB;
-      // queries past sq, or all before this warp's first key: nothing
-      if (q0 + qs0 >= sq ||
-          (causal && q0 + qs0 + SUB - 1 + q_offset < k0 + 16 * warp))
-        continue;
-      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x SUB queries
-      float s[SUB / 8][4], dp[SUB / 8][4];
+    for (int sub = 0; sub < TILE_ROWS / QS; ++sub) {
+      const int qa = q0 + sub * QS;
+      // queries past sq, or all before this tile's first key: nothing
+      if (qa >= sq || (causal && qa + QS - 1 + q_offset < k0)) continue;
+      const bool full = qa + QS <= sq && k0 + TILE_ROWS <= skv &&
+                        (!causal || k0 + TILE_ROWS - 1 <= qa + q_offset);
+      // S^T = K Q^T and dP^T = V dO^T for the 64 keys x QS queries
+      float st[QS / 2], dpt[QS / 2];
+      wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < SUB / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t ka[4], va[4];
-        ldmatrix_x4(ka, Ks + swz_el<RB>(16 * warp + lr + (lm & 1) * 8,
-                                        16 * kk + (lm >> 1) * 8));
-        ldmatrix_x4(va, Vs + swz_el<RB>(16 * warp + lr + (lm & 1) * 8,
-                                        16 * kk + (lm >> 1) * 8));
-#pragma unroll
-        for (int nn = 0; nn < SUB / 16; ++nn) {
-          uint32_t bq[4], bd[4];
-          const int qr = qs0 + 16 * nn + lr + (lm >> 1) * 8;
-          ldmatrix_x4(bq, Qs + swz_el<RB>(qr, 16 * kk + (lm & 1) * 8));
-          ldmatrix_x4(bd, Ds + swz_el<RB>(qr, 16 * kk + (lm & 1) * 8));
-          mma_bf16(s[2 * nn], ka, bq[0], bq[1]);
-          mma_bf16(s[2 * nn + 1], ka, bq[2], bq[3]);
-          mma_bf16(dp[2 * nn], va, bd[0], bd[1]);
-          mma_bf16(dp[2 * nn + 1], va, bd[2], bd[3]);
-        }
+      for (int kk = 0; kk < T::KSTEPS; ++kk) {
+        const uint32_t off = (kk / 4) * TILE_ROWS * ROW_BYTES + (kk % 4) * 32;
+        wgmma_ss<QS>(st, sw128_desc(sK + off, 16, 1024),
+                     sw128_desc(sQ + sub * QS * ROW_BYTES + off, 16, 1024),
+                     kk > 0);
       }
-      // P^T and dS^T = P^T (dP^T - Delta), masked where a key is hidden
 #pragma unroll
-      for (int nt = 0; nt < SUB / 8; ++nt)
+      for (int kk = 0; kk < T::KSTEPS; ++kk) {
+        const uint32_t off = (kk / 4) * TILE_ROWS * ROW_BYTES + (kk % 4) * 32;
+        wgmma_ss<QS>(dpt, sw128_desc(sV + off, 16, 1024),
+                     sw128_desc(sDO + sub * QS * ROW_BYTES + off, 16, 1024),
+                     kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(st);
+      pin(dpt);
+
+      // P^T from each column's LSE, dS^T = P^T (dP^T - Delta), masked
+      // where a key is hidden; both as bf16 A fragments
+      uint32_t pa[QS / 16][4], sa[QS / 16][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qpos = q0 + qs0 + 8 * nt + 2 * qd + (e & 1);
-          const int kpos = e < 2 ? kA : kB;
-          const bool ok = qpos < sq && kpos < skv &&
-                          !(causal && kpos > qpos + q_offset);
-          float p = 0.0f, dl = 0.0f;
-          if (ok) {
-            p = exp2f(fmaf(s[nt][e], scale_log2, -lse_h[qpos] * LOG2E));
-            dl = dl_h[qpos];
+      for (int j = 0; j < QS / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float p[2], ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * j + 2 * i + e;
+            const int col = sub * QS + 8 * j + c0 + e;
+            const int qpos = q0 + col, kpos = k0 + r0 + 8 * i;
+            const bool ok = full || (qpos < sq && kpos < skv &&
+                                     !(causal && kpos > qpos + q_offset));
+            p[e] = ok ? exp2f(fmaf(st[x], scale_log2, -lse2[col])) : 0.0f;
+            ds[e] = p[e] * (dpt[x] - dlt[col]);
           }
-          s[nt][e] = p;
-          dp[nt][e] = p * (dp[nt][e] - dl);
+          pa[j / 2][2 * (j % 2) + i] = pack_bf16(p[0], p[1]);
+          sa[j / 2][2 * (j % 2) + i] = pack_bf16(ds[0], ds[1]);
         }
-      // dV += P^T dO and dK += dS^T Q: P^T and dS^T (bf16) as A fragments,
-      // dO and Q [query][d] by ldmatrix.trans
+
+      // dV += P^T dO and dK += dS^T Q: B = the dO and Q rows [query][d],
+      // MN-major through the transpose bit
+      wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < SUB / 16; ++kk) {
-        uint32_t pa[4], sa[4];
-        acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-        acc_to_a(sa, dp[2 * kk], dp[2 * kk + 1]);
-        const int qr = qs0 + 16 * kk + lr + (lm & 1) * 8;
-#pragma unroll
-        for (int pp = 0; pp < KS; ++pp) {
-          uint32_t bo[4], bq[4];
-          ldmatrix_x4_trans(bo, Ds + swz_el<RB>(qr, 16 * pp + (lm >> 1) * 8));
-          ldmatrix_x4_trans(bq, Qs + swz_el<RB>(qr, 16 * pp + (lm >> 1) * 8));
-          mma_bf16(dvacc[2 * pp], pa, bo[0], bo[1]);
-          mma_bf16(dvacc[2 * pp + 1], pa, bo[2], bo[3]);
-          mma_bf16(dkacc[2 * pp], sa, bq[0], bq[1]);
-          mma_bf16(dkacc[2 * pp + 1], sa, bq[2], bq[3]);
-        }
+      for (int kk = 0; kk < QS / 16; ++kk) {
+        const uint32_t off = (sub * QS + kk * 16) * ROW_BYTES;
+        wgmma_pv<D>(dva, pa[kk],
+                    sw128_desc(sDO + off, TILE_ROWS * ROW_BYTES, 1024));
+        wgmma_pv<D>(dka, sa[kk],
+                    sw128_desc(sQ + off, TILE_ROWS * ROW_BYTES, 1024));
       }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(dva);
+      pin(dka);
     }
+
+    __syncthreads();  // every warp is done with this stage
+    if (tid == 0 && it + STAGES < n_it) load_item(it + STAGES, stage);
   }
 
+  // dK (times the scale) and dV in bf16, or this split's float32 partials
+  const size_t n_el = (size_t)gridDim.z * skv * KV * D;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = r ? kB : kA;
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + r0 + 8 * i;
     if (key >= skv) continue;
-    const size_t off = ((size_t)bi * skv + key) * kstride + kvh * D + 2 * qd;
+    const size_t off = (((size_t)bi * skv + key) * KV + kvh) * D + c0;
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      *reinterpret_cast<uint32_t*>(dk + off + 8 * nt) =
-          pack_bf16(dkacc[nt][2 * r] * scale, dkacc[nt][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + off + 8 * nt) =
-          pack_bf16(dvacc[nt][2 * r], dvacc[nt][2 * r + 1]);
+    for (int j = 0; j < D / 8; ++j) {
+      const float k0v = dka[4 * j + 2 * i], k1v = dka[4 * j + 2 * i + 1];
+      const float v0v = dva[4 * j + 2 * i], v1v = dva[4 * j + 2 * i + 1];
+      if (splits == 1) {
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * j) =
+            pack_bf16(k0v * scale, k1v * scale);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * j) = pack_bf16(v0v, v1v);
+      } else {
+        float* pk = part + split * n_el + off + 8 * j;
+        *reinterpret_cast<float2*>(pk) = make_float2(k0v, k1v);
+        *reinterpret_cast<float2*>(pk + splits * n_el) = make_float2(v0v, v1v);
+      }
     }
   }
+}
+
+// dK = scale * sum of the splits' partials, dV = their sum, each summed in
+// split order in float32 and rounded once: four elements a thread
+__global__ void __launch_bounds__(256)
+flash_bwd_dkdv_sum(const float* __restrict__ part,
+                   __nv_bfloat16* __restrict__ dk,
+                   __nv_bfloat16* __restrict__ dv, long long n, int splits,
+                   float scale) {
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= n) return;
+  float4 ks = *reinterpret_cast<const float4*>(part + i);
+  float4 vs = *reinterpret_cast<const float4*>(part + splits * n + i);
+  for (int s = 1; s < splits; ++s) {
+    const float4 a = *reinterpret_cast<const float4*>(part + s * n + i);
+    const float4 b = *reinterpret_cast<const float4*>(part + (splits + s) * n + i);
+    ks.x += a.x; ks.y += a.y; ks.z += a.z; ks.w += a.w;
+    vs.x += b.x; vs.y += b.y; vs.z += b.z; vs.w += b.w;
+  }
+  *reinterpret_cast<uint2*>(dk + i) =
+      make_uint2(pack_bf16(ks.x * scale, ks.y * scale),
+                 pack_bf16(ks.z * scale, ks.w * scale));
+  *reinterpret_cast<uint2*>(dv + i) =
+      make_uint2(pack_bf16(vs.x, vs.y), pack_bf16(vs.z, vs.w));
 }
 
 // ---------------------------------------------------------------------------
@@ -731,38 +852,51 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
 struct Args {
   const void *q, *k, *v, *out, *out_lo, *dout;
   const float* lse;
-  float* delta;
+  float *stats, *part;
   void *dq, *dk, *dv;
-  int b, sq, skv, H, KV, causal, q_offset;
+  int b, sq, skv, H, KV, causal, q_offset, splits;
 };
 
 template <int D>
 int launch_bf16(const Args& a, cudaStream_t s) {
   using bf = __nv_bfloat16;
-  constexpr int smem = Bf16Tiles<D>::SMEM;
+  using T = Bf16Tiles<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tensor_map(&tq, a.q, a.b, a.sq, a.H, D, TILE_ROWS) ||
+      !tensor_map(&tk, a.k, a.b, a.skv, a.KV, D, TILE_ROWS) ||
+      !tensor_map(&tv, a.v, a.b, a.skv, a.KV, D, TILE_ROWS) ||
+      !tensor_map(&tdo, a.dout, a.b, a.sq, a.H, D, TILE_ROWS))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::DQ_SMEM);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_dkdv_bf16<D>,
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+                               T::DKDV_SMEM);
   if (err != cudaSuccess) return (int)err;
-  const float scale = 1.0f / sqrtf((float)D);
-  const int n_qt = (a.sq + TILE_ROWS - 1) / TILE_ROWS;
-  flash_bwd_dq_bf16<D><<<dim3(n_qt, a.H, a.b), MT, smem, s>>>(
-      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
-      static_cast<const bf*>(a.v), static_cast<const bf*>(a.out),
+  const float scale = 1.0f / sqrtf((float)D), scale_log2 = scale * LOG2E;
+  const int sqp = (a.sq + TILE_ROWS - 1) / TILE_ROWS * TILE_ROWS;
+  flash_bwd_dq_wgmma<D><<<dim3(a.H, a.b, (a.sq + DQ_ROWS - 1) / DQ_ROWS),
+                          DQ_THREADS, T::DQ_SMEM, s>>>(
+      tq, tk, tv, tdo, static_cast<const bf*>(a.out),
       static_cast<const bf*>(a.out_lo), static_cast<const bf*>(a.dout), a.lse,
-      a.delta, static_cast<bf*>(a.dq),
-      a.sq, a.skv, a.H, a.KV, a.causal, a.q_offset, scale, n_qt);
+      a.stats, static_cast<bf*>(a.dq), a.sq, a.skv, a.H, a.KV, a.causal,
+      a.q_offset, sqp, scale_log2, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n_kt = (a.skv + TILE_ROWS - 1) / TILE_ROWS;
-  flash_bwd_dkdv_bf16<D><<<dim3(n_kt, a.KV, a.b), MT, smem, s>>>(
-      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
-      static_cast<const bf*>(a.v), static_cast<const bf*>(a.dout), a.lse,
-      a.delta, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv), a.sq, a.skv,
-      a.H, a.KV, a.causal, a.q_offset, scale);
+  flash_bwd_dkdv_wgmma<D><<<dim3(n_kt, a.KV * a.splits, a.b), KV_THREADS,
+                            T::DKDV_SMEM, s>>>(
+      tq, tk, tv, tdo, a.stats, static_cast<bf*>(a.dk),
+      static_cast<bf*>(a.dv), a.part, a.sq, a.skv, a.H, a.KV, a.causal,
+      a.q_offset, sqp, a.splits, scale_log2, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return (int)err;
+  const long long n = (long long)a.b * a.skv * a.KV * D;
+  flash_bwd_dkdv_sum<<<(unsigned)((n / 4 + 255) / 256), 256, 0, s>>>(
+      a.part, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv), n, a.splits,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -783,7 +917,7 @@ int launch_f32(const Args& a, cudaStream_t s) {
   flash_bwd_dq_f32<D><<<dim3(n_qt, a.H, a.b), FT, dq_smem, s>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.out),
-      static_cast<const float*>(a.dout), a.lse, a.delta,
+      static_cast<const float*>(a.dout), a.lse, a.stats,
       static_cast<float*>(a.dq), a.sq, a.skv, a.H, a.KV, a.causal, a.q_offset,
       scale, n_qt);
   err = cudaGetLastError();
@@ -792,7 +926,7 @@ int launch_f32(const Args& a, cudaStream_t s) {
   flash_bwd_dkdv_f32<D><<<dim3(n_kt, a.KV, a.b), FT, smem, s>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      a.lse, a.stats, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
       a.sq, a.skv, a.H, a.KV, a.causal, a.q_offset, scale);
   return (int)cudaGetLastError();
 }
@@ -805,24 +939,33 @@ const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype: 0 = float32 (FMA kernels), 1 = bfloat16 (mma.sync kernels); d in
+// dtype: 0 = float32 (FMA kernels), 1 = bfloat16 (wgmma kernels); d in
 // {64, 112, 128}.  q, out, dout, dq (b, sq, H, d); k, v, dk, dv
 // (b, skv, KV, d), all contiguous and 16-byte aligned; out_lo the
-// forward's bf16 output residual (bfloat16; may be null); lse the
-// forward's (b, H, sq) float32; delta a (b, H, sq) float32 scratch.  Two
+// forward's bf16 output residual (bfloat16 only, required there); lse the
+// forward's (b, H, sq) float32.  stats: a float32 scratch of 2 b H sqp
+// values (sqp = sq rounded up to 64): the bf16 dq launch writes each
+// row's LSE (log2 domain) and Delta there for the dkdv launch; the
+// float32 kernels use its first b H sq as Delta.  splits (bfloat16; 1 to
+// H / KV, kernels/flash_attention/ops.py: dkdv_splits): the dkdv blocks a
+// KV head's query group is cut into, whole heads each; above 1, `part`
+// (a float32 scratch of 2 splits b skv KV d) takes their dK and dV
+// partials and a third launch sums them in split order.  Two or three
 // launches on `stream`; nothing is allocated.  The wrapper checks shapes,
 // dtypes, layouts and alignment.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* out, const void* out_lo,
-                               const void* dout,
-                               const float* lse, float* delta, void* dq,
-                               void* dk, void* dv, int b, int sq, int skv,
-                               int H, int KV, int d, int causal, int q_offset,
-                               int dtype, void* stream) {
+                               const void* dout, const float* lse,
+                               float* stats, float* part, void* dq, void* dk,
+                               void* dv, int b, int sq, int skv, int H,
+                               int KV, int d, int causal, int q_offset,
+                               int splits, int dtype, void* stream) {
   if (b == 0 || sq == 0 || skv == 0) return 0;
-  if (KV < 1 || H % KV) return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, out, out_lo, dout, lse, delta, dq, dk, dv,
-               b, sq, skv, H, KV, causal, q_offset};
+  if (KV < 1 || H % KV || splits < 1 || splits > H / KV ||
+      (dtype == 1 && (out_lo == nullptr || (splits > 1 && part == nullptr))))
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, out, out_lo, dout, lse, stats, part, dq, dk, dv,
+               b, sq, skv, H, KV, causal, q_offset, splits};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && d == 64) return launch_bf16<64>(a, s);
   if (dtype == 1 && d == 112) return launch_bf16<112>(a, s);

@@ -1,6 +1,5 @@
-// ssd_scan_bwd: the backward of the Mamba-2 SSD chunked scan, a reverse
-// scan over the forward's 64-position chunks, one block per (head, batch
-// row).
+// ssd_scan_bwd: the backward of the Mamba-2 SSD chunked scan over the
+// forward's 64-position chunks, the chunks spread over the grid.
 //
 // Replaces no TPU kernel: the reference has no backward Pallas kernel (its
 // training differentiates the XLA twin repro.models.ssm.ssd_chunked).  It
@@ -21,39 +20,75 @@
 //            - u_t v_t  (+ exp(T) <S_k, dS'> + sum_s u_s v_s at t = 63)
 //   da_log += A sum_t dt_t sum_{t'>=t} dcum_t'     dd_skip += sum_t dy_t . x_t
 //   dS    = exp(T) dS' + (C o exp(cum))^T dy       (the previous chunk's dS')
-// walking the chunks from last to first; dS' starts at the final state's
-// cotangent (or 0) and ends as the initial state's gradient.  dB and dC
-// leave per head and the wrapper sums each group's heads in a fixed order
-// (as da_log and dd_skip over the batch rows), so no atomics: two backward
-// passes are bit-equal.  Positions past S read as zeros (x, dt, B, C, dy),
-// which keeps cum flat and adds nothing, as in the forward.
+// The chunks depend on each other only through dS': dS' of chunk k is
+// D_k = exp(T_{k+1}) D_{k+1} + local_{k+1}, local_k = (C o exp(cum))^T dy
+// over chunk k, from D_{nc-1} = the final state's cotangent (or 0) to
+// D_{-1}, the initial state's gradient.  dB and dC leave per head and the
+// wrapper sums each group's heads in a fixed order (as da_log and dd_skip
+// over the chunks and batch rows), so no atomics: two backward passes are
+// bit-equal.  Positions past S read as zeros (x, dt, B, C, dy), which
+// keeps cum flat and adds nothing, as in the forward.
 //
-// What bounds it on this card: bytes.  The minimal work a (batch row, head,
-// chunk) is 2 L^2 (3 N + 2 P) + 8 L N P operations (G, Q, W^T dy, M^T C and
-// M B; the four state products); at train_hybrid's shape (B = 3,
-// S = 512, H = 112, P = N = 64) 12.2 GFLOP, 0.012 ms on the bf16 tensor
-// cores, against about 121 MB (the inputs, dy, the saved chunk states and
-// the gradients): 0.036 ms at 3.35 TB/s.
+// What bounds it on this card: bytes (ssd_scan_grad_work in
+// kernels/ssm_scan/ops.py, unchanged).  The minimal work a (batch row,
+// head, chunk) is 2 L^2 (3 N + 2 P) + 8 L N P operations (G, Q, W^T dy,
+// M^T C and M B; the four state products); at train_hybrid's shape
+// (B = 3, S = 512, H = 112, P = N = 64) 12.2 GFLOP, 0.012 ms on the bf16
+// tensor cores, against about 112 MB (the inputs, dy, the saved chunk
+// states and the gradients): 0.0335 ms at 3.35 TB/s.
 //
-// bfloat16: ssd_bwd_mma_kernel, four warps; warp w owns chunk positions
-// 16 w .. 16 w + 15, as the s rows of W^T, M^T, dx and dB (the t blocks
-// j >= w) and as the t rows of dC (the s blocks j <= w).  Every product
-// runs on the tensor cores (mma.sync m16n8k16, bf16 operands, float32
-// accumulators); a float32 operand entering a bf16 product is split into
-// bf16 hi + lo, two products, as the forward splits its weights and its
-// state update (tests/test_torch_ssd_hopper.py: one bf16 rounding there
-// breaks the state's 1e-4): W^T and M^T from their accumulator fragments,
-// M^T also through shared memory for dC, the saved S_k, the carried dS'
-// (kept in shared memory as its hi + lo pair, read back and split again at
-// each update) and C o exp(cum).  x, dy, B and C come by cp.async into
-// tiles of bf16 rows XOR-swizzled by 16-byte piece, read by ldmatrix.
-// Warp 0 scans the chunk's dt and, after the products, reduces dcum into
-// ddt and the da_log sum.  At P = N = 64: 84 KB of shared memory.
+// bfloat16: three launches.
+//  1. ssd_bwd_carry_kernel, one block a (head, batch row): the reverse
+//     scan of dS' over the chunks in float32, from the last chunk to the
+//     first.  dS' is a chunk's local term, local_k = (C o exp(cum))^T dy
+//     (one 64 x N x P product, C o exp(cum) split into bf16 hi + lo), and
+//     exp(T_k) times the later chunks' carry, so the pass computes local_k
+//     on the way (the chunk-parallel local terms and the scan as one
+//     launch): each warp keeps its 16-row slabs of dS' in registers, writes
+//     D_k into slot k of a (B, H, nc, N, P) float32 scratch and carries
+//     D_{k-1} = exp(T_k) D_k + local_k; C and dy come by cp.async a chunk
+//     ahead.  The last carry is the initial state's gradient.  dS' never
+//     leaves float32 between chunks; it is split into bf16 hi + lo only
+//     where it enters a product.
+//  2. ssd_bwd_chunk_kernel, one block a (head, chunk, batch row), the
+//     chunks independent (2,688 blocks at train_hybrid, where one block a
+//     (head, row) walking its 8 chunks in turn gave 336, 1.27 waves): every
+//     gradient of the chunk from its D_k and the forward's S_k (both
+//     float32, read eight pairs a thread at a time and split into bf16
+//     hi + lo), four warps; warp w owns chunk positions 16 w .. 16 w + 15,
+//     as the s rows of W^T, M^T, dx and dB (the t blocks j >= w) and as
+//     the t rows of dC (the s blocks j <= w); warp 0 scans the chunk's dt
+//     and, after the products, reduces dcum into ddt and the chunk's parts
+//     of da_log and dd_skip.
+//  3. ssd_bwd_group_sum_kernel: the per-head float32 dB and dC summed over
+//     each group's heads in head order, rounded to bf16 once, and the
+//     chunks' parts of da_log and dd_skip summed (a row's chunks, then the
+//     rows).
+// The products stay on mma.sync m16n8k16 (bf16 operands, float32
+// accumulators), not wgmma: a chunk's products are 16-row triangular
+// blocks (t >= s) whose float32 operands (W^T and M^T from accumulator
+// fragments, S_k, D_k, C o exp(cum)) enter split into bf16 hi + lo, two
+// products each, as the forward splits its weights and its state update
+// (tests/test_torch_ssd_hopper.py: one bf16 rounding there breaks the
+// state's 1e-4); wgmma's 64-row tiles would multiply the masked half of
+// the triangle too.  x, dy, B and C come by cp.async into tiles of bf16
+// rows XOR-swizzled by 16-byte piece, read by ldmatrix.  Shared memory a
+// block at P = N = 64: pass 2 about 84 KB (two blocks a SM), pass 1 about
+// 33 KB.  Registers a thread (-Xptxas -v) at P = N = 64: pass 1 140, pass
+// 2 236, pass 3 32 (at P = N = 128 pass 2 spills 124 bytes).
+// Measured (bwd_ab.py on an NVIDIA H100 80GB HBM3, 700.00 W) at
+// train_hybrid's shape, x 3 x 512 x 112 x 64, B and C 3 x 512 x 1 x 64 as
+// views of one activation: 0.237 ms, device 0.231 (pass 1 0.034, pass 2
+// 0.157, pass 3 0.040), against 0.330 (device 0.318: the single walk
+// 0.268, the group sums in torch 0.047) for the design before, in the same
+// run.  Pass 2 moves about 210 MB (0.063 ms at 3.35 TB/s) and runs two
+// blocks of four warps a SM (registers and shared memory both allow no
+// more): the products' dependent chains, not bytes, set its time.
 //
-// float32: ssd_bwd_kernel, 256 threads on the FMA units, the same steps
-// with float32 tiles in shared memory and dS' carried in the output buffer
-// of the initial state's gradient (in device memory, cached), nothing
-// rounded.
+// float32: ssd_bwd_kernel, one block a (head, batch row), 256 threads on
+// the FMA units walking the chunks from last to first with dS' carried in
+// the output buffer of the initial state's gradient (in device memory,
+// cached), nothing rounded.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -139,13 +174,14 @@ constexpr int AX_ROWDC = AX_DDTX + L;
 constexpr int AX_COL = AX_ROWDC + L;
 
 // ---------------------------------------------------------------------------
-// bfloat16: ssd_bwd_mma_kernel
+// bfloat16: three passes, the chunks spread over the grid
 // ---------------------------------------------------------------------------
 
 constexpr int MW = 4;
 constexpr int MT = 32 * MW;
 constexpr int AX_LPART = AX_COL + MW * L;
-constexpr int AUX_MMA = AX_LPART + 2 * MW;
+constexpr int AX_RED = AX_LPART + 2 * MW;  // the warps' dd_skip parts
+constexpr int AUX_MMA = AX_RED + MW;
 
 __device__ inline uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -255,392 +291,115 @@ struct BwdSmem {
 };
 
 template <int PP, int NP>
-__global__ void __launch_bounds__(MT, (PP == 64 && NP == 64) ? 2 : 1)
-ssd_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                   const float* __restrict__ dt,
-                   const float* __restrict__ a_log,
-                   const __nv_bfloat16* __restrict__ bm,
-                   const __nv_bfloat16* __restrict__ cm,
-                   const float* __restrict__ d_skip,
-                   const float* __restrict__ chunk_states,
-                   const __nv_bfloat16* __restrict__ dy,
-                   const float* __restrict__ dstate,
-                   __nv_bfloat16* __restrict__ dx, float* __restrict__ ddt,
-                   float* __restrict__ dbh, float* __restrict__ dch,
-                   float* __restrict__ da_part, float* __restrict__ dd_part,
-                   float* __restrict__ ds_out, int S, int H, int G, int P,
-                   int N, long long xbs, long long xts, long long bbs,
-                   long long bts) {
-  using SM = BwdSmem<PP, NP>;
+struct CarrySmem {
+  static constexpr int XB = 2 * PP, BB = 2 * NP;
+  static constexpr int TILES = L * BB + L * XB;  // one chunk's C, then dy
+  static constexpr int ECUM = 2 * TILES;         // each warp's L + 4 floats
+  static constexpr int TOTAL = ECUM + MW * (L + 4) * 4;
+};
+
+// one warp's scan of a chunk's dt (zero past S), the arithmetic of
+// chunk_scan: e[t] = exp(cum_t) and e[L] = exp(T)
+__device__ inline void chunk_decay(float d0, float d1, float A, float* e) {
+  const int lane = threadIdx.x % 32;
+  float v0 = d0 * A, v1 = d1 * A;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o0 = __shfl_up_sync(0xffffffffu, v0, off);
+    const float o1 = __shfl_up_sync(0xffffffffu, v1, off);
+    if (lane >= off) {
+      v0 += o0;
+      v1 += o1;
+    }
+  }
+  v1 += __shfl_sync(0xffffffffu, v0, 31);
+  const float total = __shfl_sync(0xffffffffu, v1, 31);
+  e[lane] = expf(v0);
+  e[lane + 32] = expf(v1);
+  if (lane == 0) e[L] = expf(total);
+}
+
+// pass 1, one block per (head, batch row): the reverse scan over the
+// chunks, from the last to the first.  Warp w keeps rows 16 (w + 4 i) of
+// dS' in float32 registers (mma.sync accumulator fragments).
+// At chunk k it writes D_k (dS' after the chunk) into slot k of `carry`,
+// forms the chunk's own term local_k = (C o exp(cum))^T dy (C o exp(cum)
+// split into bf16 hi + lo) and carries D_{k-1} = exp(T_k) D_k + local_k;
+// the last carry is the initial state's gradient.  C and dy tiles come by
+// cp.async one chunk ahead; each warp scans the chunk's dt itself
+template <int PP, int NP>
+__global__ void __launch_bounds__(MT)
+ssd_bwd_carry_kernel(const float* __restrict__ dt,
+                     const float* __restrict__ a_log,
+                     const __nv_bfloat16* __restrict__ cm,
+                     const __nv_bfloat16* __restrict__ dy,
+                     const float* __restrict__ dstate,
+                     float* __restrict__ carry, float* __restrict__ ds_out,
+                     int S, int H, int G, int P, int N, long long bbs,
+                     long long bts) {
+  using SM = CarrySmem<PP, NP>;
   constexpr int XB = SM::XB, BB = SM::BB;
-  constexpr int PK = PP / 16, NK = NP / 16;  // k16 steps / n16 pairs
-  constexpr int NSW = NK / MW;  // dS' row slabs a warp updates: 16 (w + 4 i)
+  constexpr int PK = PP / 16;
+  constexpr int NSW = NP / 16 / MW;  // row slabs a warp: 16 (w + 4 i)
   extern __shared__ __align__(128) unsigned char sm[];
   const uint32_t sb = smem_u32(sm);
-  float* aux = reinterpret_cast<float*>(sm + SM::A0);
-  const float* cum = aux;
-  const float* dts = aux + L;
-  const float* ecum = aux + 2 * L;
-  const float* el = aux + 3 * L;
-  const float* u = aux + 4 * L;
-
   const int h = blockIdx.x, bi = blockIdx.y;
-  const int grp = h / (H / G);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gr = lane / 4, qd = lane % 4, lr = lane % 8, lm = lane / 8;
   const float A = -expf(a_log[h]);
-  const float D = d_skip[h];
-  const int n_chunks = (S + L - 1) / L;
-  const size_t st_off = ((size_t)bi * H + h) * N * P;
-  const __nv_bfloat16* xh = x + bi * xbs + (long long)h * P;
-  const __nv_bfloat16* bh = bm + bi * bbs + (long long)grp * N;
-  const __nv_bfloat16* chh = cm + bi * bbs + (long long)grp * N;
-  const long long dys = (long long)H * P;  // dy's token stride
+  const int nc = (S + L - 1) / L;
+  float* ecum = reinterpret_cast<float*>(sm + SM::ECUM) + warp * (L + 4);
+  const __nv_bfloat16* ch = cm + bi * bbs + (long long)(h / (H / G)) * N;
+  const long long dys = (long long)H * P;
   const __nv_bfloat16* dyh = dy + (size_t)bi * S * dys + (long long)h * P;
   const float* dth = dt + (size_t)bi * S * H + h;
-  auto bf_at = [&](int off) {  // one bf16 of a tile, as float32
-    return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(sm + off));
-  };
+  const size_t st_off = ((size_t)bi * H + h) * N * P;
+  const size_t slot_floats = (size_t)N * P;
+  float* slots = carry + ((size_t)bi * H + h) * nc * slot_floats;
 
-  // dS' <- the final state's cotangent (or 0), as hi + lo
-  for (int e = threadIdx.x; e < NP * (PP / 2); e += MT) {
-    const int n = e / (PP / 2), p = 2 * (e % (PP / 2));
-    float2 v = make_float2(0.0f, 0.0f);
-    if (dstate != nullptr && n < N && p < P)
-      v = *reinterpret_cast<const float2*>(dstate + st_off + (size_t)n * P + p);
-    uint32_t hi, lo;
-    split_pair(v.x, v.y, hi, lo);
-    *reinterpret_cast<uint32_t*>(sm + SM::DH0 + swz_el<XB>(n, p)) = hi;
-    *reinterpret_cast<uint32_t*>(sm + SM::DL0 + swz_el<XB>(n, p)) = lo;
-  }
-
-  const int rA = 16 * warp + gr, rB = rA + 8;  // this thread's chunk rows
-  float da = 0.0f, dsk = 0.0f;
-  for (int ck = n_chunks - 1; ck >= 0; --ck) {
-    const int t0 = ck * L;
-    __syncthreads();  // the previous (later) chunk is done with every buffer
-    stage_rows<XB>(sb + SM::X0, xh, xts, P / 8, t0, S);
-    stage_rows<XB>(sb + SM::DY0, dyh, dys, P / 8, t0, S);
-    stage_rows<BB>(sb + SM::B0, bh, bts, N / 8, t0, S);
-    stage_rows<BB>(sb + SM::C0, chh, bts, N / 8, t0, S);
+  auto stage = [&](int ck) {
+    const uint32_t base = sb + (ck & 1) * SM::TILES;
+    stage_rows<BB>(base, ch, bts, N / 8, ck * L, S);
+    stage_rows<XB>(base + L * BB, dyh, dys, P / 8, ck * L, S);
     cp_async_commit();
-    if (warp == 0) chunk_scan(dth, H, t0, S, A, aux);
-    for (int i = lane; i < L; i += 32) aux[AX_COL + warp * L + i] = 0.0f;
-    // S_k (float32) -> hi + lo; <S_k, dS'> on the way
-    {
-      const float* sk =
-          chunk_states + (((size_t)bi * H + h) * n_chunks + ck) * N * P;
-      float sdot = 0.0f;
-      for (int e = threadIdx.x; e < NP * (PP / 2); e += MT) {
-        const int n = e / (PP / 2), p = 2 * (e % (PP / 2));
-        float2 v = make_float2(0.0f, 0.0f);
-        if (n < N && p < P)
-          v = *reinterpret_cast<const float2*>(sk + (size_t)n * P + p);
-        const uint32_t off = swz_el<XB>(n, p);
-        uint32_t hi, lo;
-        split_pair(v.x, v.y, hi, lo);
-        *reinterpret_cast<uint32_t*>(sm + SM::SH0 + off) = hi;
-        *reinterpret_cast<uint32_t*>(sm + SM::SL0 + off) = lo;
-        const float2 dh = unpack_bf16(
-            *reinterpret_cast<const uint32_t*>(sm + SM::DH0 + off));
-        const float2 dl = unpack_bf16(
-            *reinterpret_cast<const uint32_t*>(sm + SM::DL0 + off));
-        sdot = fmaf(v.x, dh.x + dl.x, fmaf(v.y, dh.y + dl.y, sdot));
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sdot += __shfl_xor_sync(0xffffffffu, sdot, o);
-      if (lane == 0) aux[AX_LPART + MW + warp] = sdot;
-    }
-    cp_async_wait_all();
-    __syncthreads();
+  };
+  auto dt_at = [&](int t) { return t < S ? dth[(long long)t * H] : 0.0f; };
 
-    const uint32_t Xs = sb + SM::X0, DYs = sb + SM::DY0;
-    const uint32_t Bs = sb + SM::B0, Cs = sb + SM::C0;
-
-    // ---- the s rows: W^T, M^T, R^T, Z^T over t blocks j >= w ----
-    float dxacc[PP / 8][4], dbacc[NP / 8][4];
+  // dS' <- the final state's cotangent (or 0), this thread's elements
+  float d[NSW][PK][2][4];
 #pragma unroll
-    for (int i = 0; i < PP / 8; ++i)
+  for (int i = 0; i < NSW; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dxacc[i][e] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < NP / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dbacc[i][e] = 0.0f;
-    float rr[2] = {0.0f, 0.0f}, rz[2] = {0.0f, 0.0f};
-    const float cumA = cum[rA], cumB = cum[rB];
-    const float dtA = dts[rA], dtB = dts[rB];
-    for (int j = 0; j < MW; ++j) {
-      if (j < warp) {  // t < s: M^T is zero there
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int off =
-              swz_el<128>(r & 1 ? rB : rA, 16 * j + 2 * qd + (r >> 1) * 8);
-          *reinterpret_cast<uint32_t*>(sm + SM::MH0 + off) = 0u;
-          *reinterpret_cast<uint32_t*>(sm + SM::ML0 + off) = 0u;
-        }
-        continue;
-      }
-      float gT[2][4], qT[2][4];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) gT[hh][e] = qT[hh][e] = 0.0f;
-#pragma unroll
-      for (int ks = 0; ks < NK; ++ks) {  // G^T = B C^T
-        uint32_t a[4], b[4];
-        ldmatrix_x4(a, Bs + swz_el<BB>(16 * warp + lr + (lm & 1) * 8,
-                                       16 * ks + (lm >> 1) * 8));
-        ldmatrix_x4(b, Cs + swz_el<BB>(16 * j + lr + (lm >> 1) * 8,
-                                       16 * ks + (lm & 1) * 8));
-        mma_bf16(gT[0], a, b[0], b[1]);
-        mma_bf16(gT[1], a, b[2], b[3]);
-      }
-#pragma unroll
-      for (int ks = 0; ks < PK; ++ks) {  // Q^T = x dy^T
-        uint32_t a[4], b[4];
-        ldmatrix_x4(a, Xs + swz_el<XB>(16 * warp + lr + (lm & 1) * 8,
-                                       16 * ks + (lm >> 1) * 8));
-        ldmatrix_x4(b, DYs + swz_el<XB>(16 * j + lr + (lm >> 1) * 8,
-                                        16 * ks + (lm & 1) * 8));
-        mma_bf16(qT[0], a, b[0], b[1]);
-        mma_bf16(qT[1], a, b[2], b[3]);
-      }
-      float cz[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int t = 16 * j + 8 * hh + 2 * qd + (e & 1);
-          const int s = e < 2 ? rA : rB;
-          // masked BEFORE the exp: t < s would be cum_t - cum_s > 0
-          const float lam =
-              t >= s ? expf(cum[t] - (e < 2 ? cumA : cumB)) : 0.0f;
-          const float dts_ = e < 2 ? dtA : dtB;
-          const float g = gT[hh][e], qq = qT[hh][e];
-          const float rv = g * lam * qq;
-          rr[e >> 1] += rv;
-          rz[e >> 1] += rv * dts_;
-          cz[hh][e & 1] += rv * dts_;
-          gT[hh][e] = g * lam * dts_;   // W^T
-          qT[hh][e] = qq * lam * dts_;  // M^T
-        }
-      // Z^T's column sums over this warp's 16 rows
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          float v = cz[hh][c];
-          v += __shfl_xor_sync(0xffffffffu, v, 4);
-          v += __shfl_xor_sync(0xffffffffu, v, 8);
-          v += __shfl_xor_sync(0xffffffffu, v, 16);
-          if (gr == 0)
-            aux[AX_COL + warp * L + 16 * j + 8 * hh + 2 * qd + c] = v;
-        }
-      uint32_t whi[4], wlo[4], mhi[4], mlo[4];
-      acc_split(whi, wlo, gT[0], gT[1]);
-      acc_split(mhi, mlo, qT[0], qT[1]);
-#pragma unroll
-      for (int pp = 0; pp < PK; ++pp) {  // dx += W^T dy
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, DYs + swz_el<XB>(16 * j + lr + (lm & 1) * 8,
-                                              16 * pp + (lm >> 1) * 8));
-        mma_split(dxacc[2 * pp], whi, wlo, b[0], b[1]);
-        mma_split(dxacc[2 * pp + 1], whi, wlo, b[2], b[3]);
-      }
-#pragma unroll
-      for (int np = 0; np < NK; ++np) {  // dB += M^T C
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, Cs + swz_el<BB>(16 * j + lr + (lm & 1) * 8,
-                                             16 * np + (lm >> 1) * 8));
-        mma_split(dbacc[2 * np], mhi, mlo, b[0], b[1]);
-        mma_split(dbacc[2 * np + 1], mhi, mlo, b[2], b[3]);
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {  // M^T [s][t] for the t rows' dC
-        const int off =
-            swz_el<128>(r & 1 ? rB : rA, 16 * j + 2 * qd + (r >> 1) * 8);
-        *reinterpret_cast<uint32_t*>(sm + SM::MH0 + off) = mhi[r];
-        *reinterpret_cast<uint32_t*>(sm + SM::ML0 + off) = mlo[r];
-      }
-    }
-
-    // ---- the s rows' state terms: x dS'^T (dB, v), B dS' (dx) ----
-    const float uA = u[rA], uB = u[rB];
-    const uint32_t DH = sb + SM::DH0, DL = sb + SM::DL0;
-    float v[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int np = 0; np < NK; ++np) {
-      float xs[2][4];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) xs[hh][e] = 0.0f;
-#pragma unroll
-      for (int ks = 0; ks < PK; ++ks) {
-        uint32_t a[4], bhi[4], blo[4];
-        ldmatrix_x4(a, Xs + swz_el<XB>(16 * warp + lr + (lm & 1) * 8,
-                                       16 * ks + (lm >> 1) * 8));
-        const int br = 16 * np + lr + (lm >> 1) * 8;
-        ldmatrix_x4(bhi, DH + swz_el<XB>(br, 16 * ks + (lm & 1) * 8));
-        ldmatrix_x4(blo, DL + swz_el<XB>(br, 16 * ks + (lm & 1) * 8));
-        mma_bf16(xs[0], a, bhi[0], bhi[1]);
-        mma_bf16(xs[0], a, blo[0], blo[1]);
-        mma_bf16(xs[1], a, bhi[2], bhi[3]);
-        mma_bf16(xs[1], a, blo[2], blo[3]);
-      }
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int n = 16 * np + 8 * hh + 2 * qd + (e & 1);
-          const int s = e < 2 ? rA : rB;
-          v[e >> 1] = fmaf(bf_at(SM::B0 + swz_el<BB>(s, n)), xs[hh][e],
-                           v[e >> 1]);
-          dbacc[2 * np + hh][e] =
-              fmaf(e < 2 ? uA : uB, xs[hh][e], dbacc[2 * np + hh][e]);
-        }
-    }
-#pragma unroll
-    for (int pp = 0; pp < PK; ++pp) {
-      float bs[2][4];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) bs[hh][e] = 0.0f;
-#pragma unroll
-      for (int ks = 0; ks < NK; ++ks) {
-        uint32_t a[4], bhi[4], blo[4];
-        ldmatrix_x4(a, Bs + swz_el<BB>(16 * warp + lr + (lm & 1) * 8,
-                                       16 * ks + (lm >> 1) * 8));
-        const int br = 16 * ks + lr + (lm & 1) * 8;
-        ldmatrix_x4_trans(bhi, DH + swz_el<XB>(br, 16 * pp + (lm >> 1) * 8));
-        ldmatrix_x4_trans(blo, DL + swz_el<XB>(br, 16 * pp + (lm >> 1) * 8));
-        mma_bf16(bs[0], a, bhi[0], bhi[1]);
-        mma_bf16(bs[0], a, blo[0], blo[1]);
-        mma_bf16(bs[1], a, bhi[2], bhi[3]);
-        mma_bf16(bs[1], a, blo[2], blo[3]);
-      }
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dxacc[2 * pp + hh][e] =
-              fmaf(e < 2 ? uA : uB, bs[hh][e], dxacc[2 * pp + hh][e]);
-    }
-    // skip: dx += D dy, dd_skip += x . dy; then dx and dB out
-#pragma unroll
-    for (int pt = 0; pt < PP / 8; ++pt)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int s = r ? rB : rA, p = 8 * pt + 2 * qd;
-        const float2 xv = unpack_bf16(*reinterpret_cast<const uint32_t*>(
-            sm + SM::X0 + swz_el<XB>(s, p)));
-        const float2 dv = unpack_bf16(*reinterpret_cast<const uint32_t*>(
-            sm + SM::DY0 + swz_el<XB>(s, p)));
-        dxacc[pt][2 * r] = fmaf(D, dv.x, dxacc[pt][2 * r]);
-        dxacc[pt][2 * r + 1] = fmaf(D, dv.y, dxacc[pt][2 * r + 1]);
-        dsk = fmaf(xv.x, dv.x, fmaf(xv.y, dv.y, dsk));
-        if (t0 + s < S && p < P)
-          *reinterpret_cast<uint32_t*>(
-              dx + (((size_t)bi * S + t0 + s) * H + h) * P + p) =
-              pack_bf16(dxacc[pt][2 * r], dxacc[pt][2 * r + 1]);
-      }
-#pragma unroll
-    for (int nt = 0; nt < NP / 8; ++nt)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int s = r ? rB : rA, n = 8 * nt + 2 * qd;
-        if (t0 + s < S && n < N)
-          *reinterpret_cast<float2*>(
-              dbh + (((size_t)bi * S + t0 + s) * H + h) * N + n) =
-              make_float2(dbacc[nt][2 * r], dbacc[nt][2 * r + 1]);
-      }
-    // the s rows' scalars: v_s, sum_t R^T, sum_t Z^T over the quad
-    float luv = 0.0f;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-#pragma unroll
-      for (int o = 1; o <= 2; o <<= 1) {
-        v[r] += __shfl_xor_sync(0xffffffffu, v[r], o);
-        rr[r] += __shfl_xor_sync(0xffffffffu, rr[r], o);
-        rz[r] += __shfl_xor_sync(0xffffffffu, rz[r], o);
-      }
-      const int s = r ? rB : rA;
-      const float us = r ? uB : uA;
-      if (qd == 0) {
-        aux[AX_DDTX + s] = fmaf(el[s], v[r], rr[r]);
-        aux[AX_ROWDC + s] = -rz[r] - us * v[r];
-        luv = fmaf(us, v[r], luv);
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      luv += __shfl_xor_sync(0xffffffffu, luv, o);
-    if (lane == 0) aux[AX_LPART + warp] = luv;
-    __syncthreads();  // M^T whole; every read of dS' done
-
-    // ---- the t rows: dC = M B + exp(cum_t) S_k dy_t ----
-    const float ecA = ecum[rA], ecB = ecum[rB];
-    const uint32_t MH = sb + SM::MH0, ML = sb + SM::ML0;
-    const uint32_t SHs = sb + SM::SH0, SLs = sb + SM::SL0;
-    float inter[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int np = 0; np < NK; ++np) {
-      float mc[2][4], ic[2][4];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) mc[hh][e] = ic[hh][e] = 0.0f;
-      for (int j = 0; j <= warp; ++j) {
-        uint32_t ahi[4], alo[4], b[4];
-        const int ar = 16 * j + lr + (lm >> 1) * 8;
-        ldmatrix_x4_trans(ahi, MH + swz_el<128>(ar, 16 * warp + (lm & 1) * 8));
-        ldmatrix_x4_trans(alo, ML + swz_el<128>(ar, 16 * warp + (lm & 1) * 8));
-        ldmatrix_x4_trans(b, Bs + swz_el<BB>(16 * j + lr + (lm & 1) * 8,
-                                             16 * np + (lm >> 1) * 8));
-        mma_split(mc[0], ahi, alo, b[0], b[1]);
-        mma_split(mc[1], ahi, alo, b[2], b[3]);
-      }
-#pragma unroll
-      for (int ks = 0; ks < PK; ++ks) {
-        uint32_t a[4], bhi[4], blo[4];
-        ldmatrix_x4(a, DYs + swz_el<XB>(16 * warp + lr + (lm & 1) * 8,
-                                        16 * ks + (lm >> 1) * 8));
-        const int br = 16 * np + lr + (lm >> 1) * 8;
-        ldmatrix_x4(bhi, SHs + swz_el<XB>(br, 16 * ks + (lm & 1) * 8));
-        ldmatrix_x4(blo, SLs + swz_el<XB>(br, 16 * ks + (lm & 1) * 8));
-        mma_bf16(ic[0], a, bhi[0], bhi[1]);
-        mma_bf16(ic[0], a, blo[0], blo[1]);
-        mma_bf16(ic[1], a, bhi[2], bhi[3]);
-        mma_bf16(ic[1], a, blo[2], blo[3]);
-      }
+    for (int pp = 0; pp < PK; ++pp)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          const int t = r ? rB : rA, n = 16 * np + 8 * hh + 2 * qd;
-          const float ec = r ? ecB : ecA;
-          const float i0 = ec * ic[hh][2 * r], i1 = ec * ic[hh][2 * r + 1];
-          inter[r] = fmaf(bf_at(SM::C0 + swz_el<BB>(t, n)), i0,
-                          fmaf(bf_at(SM::C0 + swz_el<BB>(t, n + 1)), i1,
-                               inter[r]));
-          if (t0 + t < S && n < N)
-            *reinterpret_cast<float2*>(
-                dch + (((size_t)bi * S + t0 + t) * H + h) * N + n) =
-                make_float2(mc[hh][2 * r] + i0, mc[hh][2 * r + 1] + i1);
+          const int n = 16 * (warp + MW * i) + gr + 8 * r;
+          const int p = 16 * pp + 8 * hh + 2 * qd;
+          float2 v = make_float2(0.0f, 0.0f);
+          if (dstate != nullptr && n < N && p < P)
+            v = *reinterpret_cast<const float2*>(dstate + st_off +
+                                                 (size_t)n * P + p);
+          d[i][pp][hh][2 * r] = v.x;
+          d[i][pp][hh][2 * r + 1] = v.y;
         }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      inter[r] += __shfl_xor_sync(0xffffffffu, inter[r], 1);
-      inter[r] += __shfl_xor_sync(0xffffffffu, inter[r], 2);
-      if (qd == 0) aux[AX_ROWDC + (r ? rB : rA)] += inter[r];
-    }
 
-    // ---- dS' <- exp(T) dS' + (C o exp(cum))^T dy, slab rows 16 (w + 4 i)
-    const float eT = aux[5 * L];
+  stage(nc - 1);
+  float dt0 = dt_at((nc - 1) * L + lane), dt1 = dt_at((nc - 1) * L + lane + 32);
+  for (int ck = nc - 1; ck >= 0; --ck) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk ck landed; every warp is done with ck + 1
+    if (ck > 0) stage(ck - 1);
+    chunk_decay(dt0, dt1, A, ecum);
+    if (ck > 0) {  // the next chunk's dt, in flight during this one
+      dt0 = dt_at((ck - 1) * L + lane);
+      dt1 = dt_at((ck - 1) * L + lane + 32);
+    }
+    __syncwarp();
+    const float eT = ecum[L];
+    const uint32_t Cs = sb + (ck & 1) * SM::TILES, DYs = Cs + L * BB;
+    float* slot = slots + ck * slot_floats;
 #pragma unroll
     for (int i = 0; i < NSW; ++i) {
       const int m = warp + MW * i;
@@ -666,59 +425,517 @@ ssd_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
           mma_split(acc[0], hi, lo, b[0], b[1]);
           mma_split(acc[1], hi, lo, b[2], b[3]);
         }
+        // D_k out, then D_{k-1} = exp(T_k) D_k + local_k
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             const int n = 16 * m + gr + 8 * r, p = 16 * pp + 8 * hh + 2 * qd;
-            const uint32_t off = swz_el<XB>(n, p);
-            uint32_t* ph = reinterpret_cast<uint32_t*>(sm + SM::DH0 + off);
-            uint32_t* pl = reinterpret_cast<uint32_t*>(sm + SM::DL0 + off);
-            const float2 oh = unpack_bf16(*ph), ol = unpack_bf16(*pl);
-            split_pair(fmaf(eT, oh.x + ol.x, acc[hh][2 * r]),
-                       fmaf(eT, oh.y + ol.y, acc[hh][2 * r + 1]), *ph, *pl);
+            float* dv = &d[i][pp][hh][2 * r];
+            if (n < N && p < P)
+              *reinterpret_cast<float2*>(slot + (size_t)n * P + p) =
+                  make_float2(dv[0], dv[1]);
+            dv[0] = fmaf(eT, dv[0], acc[hh][2 * r]);
+            dv[1] = fmaf(eT, dv[1], acc[hh][2 * r + 1]);
           }
       }
     }
-    __syncthreads();  // the scalars' parts written
+  }
+#pragma unroll
+  for (int i = 0; i < NSW; ++i)
+#pragma unroll
+    for (int pp = 0; pp < PK; ++pp)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int n = 16 * (warp + MW * i) + gr + 8 * r;
+          const int p = 16 * pp + 8 * hh + 2 * qd;
+          if (n < N && p < P)
+            *reinterpret_cast<float2*>(ds_out + st_off + (size_t)n * P + p) =
+                make_float2(d[i][pp][hh][2 * r], d[i][pp][hh][2 * r + 1]);
+        }
+}
 
-    if (warp == 0) {
-      float dT = 0.0f, sd = 0.0f;
-      for (int w = 0; w < MW; ++w) {
-        dT += aux[AX_LPART + w];
-        sd += aux[AX_LPART + MW + w];
+// pass 2, one block per (head, chunk, batch row), the chunks independent:
+// every gradient of the chunk from D_k (slot k of `carry`, float32, split
+// into bf16 hi + lo) and the forward's saved S_k
+template <int PP, int NP>
+__global__ void __launch_bounds__(MT, (PP == 64 && NP == 64) ? 2 : 1)
+ssd_bwd_chunk_kernel(const __nv_bfloat16* __restrict__ x,
+                     const float* __restrict__ dt,
+                     const float* __restrict__ a_log,
+                     const __nv_bfloat16* __restrict__ bm,
+                     const __nv_bfloat16* __restrict__ cm,
+                     const float* __restrict__ d_skip,
+                     const float* __restrict__ chunk_states,
+                     const float* __restrict__ carry,
+                     const __nv_bfloat16* __restrict__ dy,
+                     __nv_bfloat16* __restrict__ dx, float* __restrict__ ddt,
+                     float* __restrict__ dbh, float* __restrict__ dch,
+                     float* __restrict__ da_part, float* __restrict__ dd_part,
+                     int S, int H, int G, int P, int N, long long xbs,
+                     long long xts, long long bbs, long long bts) {
+  using SM = BwdSmem<PP, NP>;
+  constexpr int XB = SM::XB, BB = SM::BB;
+  constexpr int PK = PP / 16, NK = NP / 16;  // k16 steps / n16 pairs
+  extern __shared__ __align__(128) unsigned char sm[];
+  const uint32_t sb = smem_u32(sm);
+  float* aux = reinterpret_cast<float*>(sm + SM::A0);
+  const float* cum = aux;
+  const float* dts = aux + L;
+  const float* ecum = aux + 2 * L;
+  const float* el = aux + 3 * L;
+  const float* u = aux + 4 * L;
+
+  const int h = blockIdx.x, ck = blockIdx.y, bi = blockIdx.z;
+  const int nc = gridDim.y, t0 = ck * L;
+  const int grp = h / (H / G);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane / 4, qd = lane % 4, lr = lane % 8, lm = lane / 8;
+  const float A = -expf(a_log[h]);
+  const float D = d_skip[h];
+  const size_t chunk_off = (((size_t)bi * H + h) * nc + ck) * N * P;
+  const long long dys = (long long)H * P;  // dy's token stride
+  auto bf_at = [&](int off) {  // one bf16 of a tile, as float32
+    return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(sm + off));
+  };
+
+  stage_rows<XB>(sb + SM::X0, x + bi * xbs + (long long)h * P, xts, P / 8,
+                 t0, S);
+  stage_rows<XB>(sb + SM::DY0, dy + (size_t)bi * S * dys + (long long)h * P,
+                 dys, P / 8, t0, S);
+  stage_rows<BB>(sb + SM::B0, bm + bi * bbs + (long long)grp * N, bts, N / 8,
+                 t0, S);
+  stage_rows<BB>(sb + SM::C0, cm + bi * bbs + (long long)grp * N, bts, N / 8,
+                 t0, S);
+  cp_async_commit();
+  if (warp == 0) chunk_scan(dt + (size_t)bi * S * H + h, H, t0, S, A, aux);
+  for (int i = lane; i < L; i += 32) aux[AX_COL + warp * L + i] = 0.0f;
+  // S_k and D_k (float32) -> hi + lo; <S_k, D_k> on the way.  The loads
+  // go out eight pairs at a time before any is used, so a block waits out
+  // a device-memory round trip every eight pairs, not every pair
+  {
+    constexpr int PER = NP * (PP / 2) / MT;  // float2 pairs a thread
+    constexpr int BATCH = PER < 8 ? PER : 8;
+    const float* sk = chunk_states + chunk_off;
+    const float* dk = carry + chunk_off;
+    float sdot = 0.0f;
+#pragma unroll
+    for (int i0 = 0; i0 < PER; i0 += BATCH) {
+      float2 v[BATCH], w[BATCH];
+#pragma unroll
+      for (int i = 0; i < BATCH; ++i) {
+        const int e = threadIdx.x + (i0 + i) * MT;
+        const int n = e / (PP / 2), p = 2 * (e % (PP / 2));
+        v[i] = w[i] = make_float2(0.0f, 0.0f);
+        if (n < N && p < P) {
+          v[i] = *reinterpret_cast<const float2*>(sk + (size_t)n * P + p);
+          w[i] = *reinterpret_cast<const float2*>(dk + (size_t)n * P + p);
+        }
       }
-      chunk_scalars(dts, aux + AX_DDTX, aux + AX_ROWDC, aux + AX_COL, MW,
-                    fmaf(eT, sd, dT), A,
-                    ddt + ((size_t)bi * S + t0) * H + h, H, S - t0, da);
+#pragma unroll
+      for (int i = 0; i < BATCH; ++i) {
+        const int e = threadIdx.x + (i0 + i) * MT;
+        const int n = e / (PP / 2), p = 2 * (e % (PP / 2));
+        const uint32_t off = swz_el<XB>(n, p);
+        uint32_t hi, lo;
+        split_pair(v[i].x, v[i].y, hi, lo);
+        *reinterpret_cast<uint32_t*>(sm + SM::SH0 + off) = hi;
+        *reinterpret_cast<uint32_t*>(sm + SM::SL0 + off) = lo;
+        split_pair(w[i].x, w[i].y, hi, lo);
+        *reinterpret_cast<uint32_t*>(sm + SM::DH0 + off) = hi;
+        *reinterpret_cast<uint32_t*>(sm + SM::DL0 + off) = lo;
+        sdot = fmaf(v[i].x, w[i].x, fmaf(v[i].y, w[i].y, sdot));
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      sdot += __shfl_xor_sync(0xffffffffu, sdot, o);
+    if (lane == 0) aux[AX_LPART + MW + warp] = sdot;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int rA = 16 * warp + gr, rB = rA + 8;  // this thread's chunk rows
+  float da = 0.0f, dsk = 0.0f;
+  const uint32_t Xs = sb + SM::X0, DYs = sb + SM::DY0;
+  const uint32_t Bs = sb + SM::B0, Cs = sb + SM::C0;
+
+  // ---- the s rows: W^T, M^T, R^T, Z^T over t blocks j >= w ----
+  float dxacc[PP / 8][4], dbacc[NP / 8][4];
+#pragma unroll
+  for (int i = 0; i < PP / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dxacc[i][e] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NP / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dbacc[i][e] = 0.0f;
+  float rr[2] = {0.0f, 0.0f}, rz[2] = {0.0f, 0.0f};
+  const float cumA = cum[rA], cumB = cum[rB];
+  const float dtA = dts[rA], dtB = dts[rB];
+  for (int j = 0; j < MW; ++j) {
+    if (j < warp) {  // t < s: M^T is zero there
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int off =
+            swz_el<128>(r & 1 ? rB : rA, 16 * j + 2 * qd + (r >> 1) * 8);
+        *reinterpret_cast<uint32_t*>(sm + SM::MH0 + off) = 0u;
+        *reinterpret_cast<uint32_t*>(sm + SM::ML0 + off) = 0u;
+      }
+      continue;
+    }
+    float gT[2][4], qT[2][4];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gT[hh][e] = qT[hh][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < NK; ++ks) {  // G^T = B C^T
+      uint32_t a[4], b[4];
+      ldmatrix_x4(a, Bs + swz_el<BB>(16 * warp + lr + (lm & 1) * 8,
+                                     16 * ks + (lm >> 1) * 8));
+      ldmatrix_x4(b, Cs + swz_el<BB>(16 * j + lr + (lm >> 1) * 8,
+                                     16 * ks + (lm & 1) * 8));
+      mma_bf16(gT[0], a, b[0], b[1]);
+      mma_bf16(gT[1], a, b[2], b[3]);
+    }
+#pragma unroll
+    for (int ks = 0; ks < PK; ++ks) {  // Q^T = x dy^T
+      uint32_t a[4], b[4];
+      ldmatrix_x4(a, Xs + swz_el<XB>(16 * warp + lr + (lm & 1) * 8,
+                                     16 * ks + (lm >> 1) * 8));
+      ldmatrix_x4(b, DYs + swz_el<XB>(16 * j + lr + (lm >> 1) * 8,
+                                      16 * ks + (lm & 1) * 8));
+      mma_bf16(qT[0], a, b[0], b[1]);
+      mma_bf16(qT[1], a, b[2], b[3]);
+    }
+    float cz[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = 16 * j + 8 * hh + 2 * qd + (e & 1);
+        const int s = e < 2 ? rA : rB;
+        // masked BEFORE the exp: t < s would be cum_t - cum_s > 0
+        const float lam =
+            t >= s ? expf(cum[t] - (e < 2 ? cumA : cumB)) : 0.0f;
+        const float dts_ = e < 2 ? dtA : dtB;
+        const float g = gT[hh][e], qq = qT[hh][e];
+        const float rv = g * lam * qq;
+        rr[e >> 1] += rv;
+        rz[e >> 1] += rv * dts_;
+        cz[hh][e & 1] += rv * dts_;
+        gT[hh][e] = g * lam * dts_;   // W^T
+        qT[hh][e] = qq * lam * dts_;  // M^T
+      }
+    // Z^T's column sums over this warp's 16 rows
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float v = cz[hh][c];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (gr == 0)
+          aux[AX_COL + warp * L + 16 * j + 8 * hh + 2 * qd + c] = v;
+      }
+    uint32_t whi[4], wlo[4], mhi[4], mlo[4];
+    acc_split(whi, wlo, gT[0], gT[1]);
+    acc_split(mhi, mlo, qT[0], qT[1]);
+#pragma unroll
+    for (int pp = 0; pp < PK; ++pp) {  // dx += W^T dy
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, DYs + swz_el<XB>(16 * j + lr + (lm & 1) * 8,
+                                            16 * pp + (lm >> 1) * 8));
+      mma_split(dxacc[2 * pp], whi, wlo, b[0], b[1]);
+      mma_split(dxacc[2 * pp + 1], whi, wlo, b[2], b[3]);
+    }
+#pragma unroll
+    for (int np = 0; np < NK; ++np) {  // dB += M^T C
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, Cs + swz_el<BB>(16 * j + lr + (lm & 1) * 8,
+                                           16 * np + (lm >> 1) * 8));
+      mma_split(dbacc[2 * np], mhi, mlo, b[0], b[1]);
+      mma_split(dbacc[2 * np + 1], mhi, mlo, b[2], b[3]);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {  // M^T [s][t] for the t rows' dC
+      const int off =
+          swz_el<128>(r & 1 ? rB : rA, 16 * j + 2 * qd + (r >> 1) * 8);
+      *reinterpret_cast<uint32_t*>(sm + SM::MH0 + off) = mhi[r];
+      *reinterpret_cast<uint32_t*>(sm + SM::ML0 + off) = mlo[r];
     }
   }
 
-  __syncthreads();
-  for (int e = threadIdx.x; e < N * (P / 2); e += MT) {
-    const int n = e / (P / 2), p = 2 * (e % (P / 2));
-    const uint32_t off = swz_el<XB>(n, p);
-    const float2 hi = unpack_bf16(
-        *reinterpret_cast<const uint32_t*>(sm + SM::DH0 + off));
-    const float2 lo = unpack_bf16(
-        *reinterpret_cast<const uint32_t*>(sm + SM::DL0 + off));
-    *reinterpret_cast<float2*>(ds_out + st_off + (size_t)n * P + p) =
-        make_float2(hi.x + lo.x, hi.y + lo.y);
+  // ---- the s rows' state terms: x dS'^T (dB, v), B dS' (dx) ----
+  const float uA = u[rA], uB = u[rB];
+  const uint32_t DH = sb + SM::DH0, DL = sb + SM::DL0;
+  float v[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int np = 0; np < NK; ++np) {
+    float xs[2][4];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xs[hh][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < PK; ++ks) {
+      uint32_t a[4], bhi[4], blo[4];
+      ldmatrix_x4(a, Xs + swz_el<XB>(16 * warp + lr + (lm & 1) * 8,
+                                     16 * ks + (lm >> 1) * 8));
+      const int br = 16 * np + lr + (lm >> 1) * 8;
+      ldmatrix_x4(bhi, DH + swz_el<XB>(br, 16 * ks + (lm & 1) * 8));
+      ldmatrix_x4(blo, DL + swz_el<XB>(br, 16 * ks + (lm & 1) * 8));
+      mma_bf16(xs[0], a, bhi[0], bhi[1]);
+      mma_bf16(xs[0], a, blo[0], blo[1]);
+      mma_bf16(xs[1], a, bhi[2], bhi[3]);
+      mma_bf16(xs[1], a, blo[2], blo[3]);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = 16 * np + 8 * hh + 2 * qd + (e & 1);
+        const int s = e < 2 ? rA : rB;
+        v[e >> 1] = fmaf(bf_at(SM::B0 + swz_el<BB>(s, n)), xs[hh][e],
+                         v[e >> 1]);
+        dbacc[2 * np + hh][e] =
+            fmaf(e < 2 ? uA : uB, xs[hh][e], dbacc[2 * np + hh][e]);
+      }
+  }
+#pragma unroll
+  for (int pp = 0; pp < PK; ++pp) {
+    float bs[2][4];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) bs[hh][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < NK; ++ks) {
+      uint32_t a[4], bhi[4], blo[4];
+      ldmatrix_x4(a, Bs + swz_el<BB>(16 * warp + lr + (lm & 1) * 8,
+                                     16 * ks + (lm >> 1) * 8));
+      const int br = 16 * ks + lr + (lm & 1) * 8;
+      ldmatrix_x4_trans(bhi, DH + swz_el<XB>(br, 16 * pp + (lm >> 1) * 8));
+      ldmatrix_x4_trans(blo, DL + swz_el<XB>(br, 16 * pp + (lm >> 1) * 8));
+      mma_bf16(bs[0], a, bhi[0], bhi[1]);
+      mma_bf16(bs[0], a, blo[0], blo[1]);
+      mma_bf16(bs[1], a, bhi[2], bhi[3]);
+      mma_bf16(bs[1], a, blo[2], blo[3]);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dxacc[2 * pp + hh][e] =
+            fmaf(e < 2 ? uA : uB, bs[hh][e], dxacc[2 * pp + hh][e]);
+  }
+  // skip: dx += D dy, dd_skip += x . dy; then dx and dB out
+#pragma unroll
+  for (int pt = 0; pt < PP / 8; ++pt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int s = r ? rB : rA, p = 8 * pt + 2 * qd;
+      const float2 xv = unpack_bf16(*reinterpret_cast<const uint32_t*>(
+          sm + SM::X0 + swz_el<XB>(s, p)));
+      const float2 dv = unpack_bf16(*reinterpret_cast<const uint32_t*>(
+          sm + SM::DY0 + swz_el<XB>(s, p)));
+      dxacc[pt][2 * r] = fmaf(D, dv.x, dxacc[pt][2 * r]);
+      dxacc[pt][2 * r + 1] = fmaf(D, dv.y, dxacc[pt][2 * r + 1]);
+      dsk = fmaf(xv.x, dv.x, fmaf(xv.y, dv.y, dsk));
+      if (t0 + s < S && p < P)
+        *reinterpret_cast<uint32_t*>(
+            dx + (((size_t)bi * S + t0 + s) * H + h) * P + p) =
+            pack_bf16(dxacc[pt][2 * r], dxacc[pt][2 * r + 1]);
+    }
+#pragma unroll
+  for (int nt = 0; nt < NP / 8; ++nt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int s = r ? rB : rA, n = 8 * nt + 2 * qd;
+      if (t0 + s < S && n < N)
+        *reinterpret_cast<float2*>(
+            dbh + (((size_t)bi * S + t0 + s) * H + h) * N + n) =
+            make_float2(dbacc[nt][2 * r], dbacc[nt][2 * r + 1]);
+    }
+  // the s rows' scalars: v_s, sum_t R^T, sum_t Z^T over the quad
+  float luv = 0.0f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      v[r] += __shfl_xor_sync(0xffffffffu, v[r], o);
+      rr[r] += __shfl_xor_sync(0xffffffffu, rr[r], o);
+      rz[r] += __shfl_xor_sync(0xffffffffu, rz[r], o);
+    }
+    const int s = r ? rB : rA;
+    const float us = r ? uB : uA;
+    if (qd == 0) {
+      aux[AX_DDTX + s] = fmaf(el[s], v[r], rr[r]);
+      aux[AX_ROWDC + s] = -rz[r] - us * v[r];
+      luv = fmaf(us, v[r], luv);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    luv += __shfl_xor_sync(0xffffffffu, luv, o);
+  if (lane == 0) aux[AX_LPART + warp] = luv;
+  __syncthreads();  // M^T whole; every read of dS' done
+
+  // ---- the t rows: dC = M B + exp(cum_t) S_k dy_t ----
+  const float ecA = ecum[rA], ecB = ecum[rB];
+  const uint32_t MH = sb + SM::MH0, ML = sb + SM::ML0;
+  const uint32_t SHs = sb + SM::SH0, SLs = sb + SM::SL0;
+  float inter[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int np = 0; np < NK; ++np) {
+    float mc[2][4], ic[2][4];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mc[hh][e] = ic[hh][e] = 0.0f;
+    for (int j = 0; j <= warp; ++j) {
+      uint32_t ahi[4], alo[4], b[4];
+      const int ar = 16 * j + lr + (lm >> 1) * 8;
+      ldmatrix_x4_trans(ahi, MH + swz_el<128>(ar, 16 * warp + (lm & 1) * 8));
+      ldmatrix_x4_trans(alo, ML + swz_el<128>(ar, 16 * warp + (lm & 1) * 8));
+      ldmatrix_x4_trans(b, Bs + swz_el<BB>(16 * j + lr + (lm & 1) * 8,
+                                           16 * np + (lm >> 1) * 8));
+      mma_split(mc[0], ahi, alo, b[0], b[1]);
+      mma_split(mc[1], ahi, alo, b[2], b[3]);
+    }
+#pragma unroll
+    for (int ks = 0; ks < PK; ++ks) {
+      uint32_t a[4], bhi[4], blo[4];
+      ldmatrix_x4(a, DYs + swz_el<XB>(16 * warp + lr + (lm & 1) * 8,
+                                      16 * ks + (lm >> 1) * 8));
+      const int br = 16 * np + lr + (lm >> 1) * 8;
+      ldmatrix_x4(bhi, SHs + swz_el<XB>(br, 16 * ks + (lm & 1) * 8));
+      ldmatrix_x4(blo, SLs + swz_el<XB>(br, 16 * ks + (lm & 1) * 8));
+      mma_bf16(ic[0], a, bhi[0], bhi[1]);
+      mma_bf16(ic[0], a, blo[0], blo[1]);
+      mma_bf16(ic[1], a, bhi[2], bhi[3]);
+      mma_bf16(ic[1], a, blo[2], blo[3]);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int t = r ? rB : rA, n = 16 * np + 8 * hh + 2 * qd;
+        const float ec = r ? ecB : ecA;
+        const float i0 = ec * ic[hh][2 * r], i1 = ec * ic[hh][2 * r + 1];
+        inter[r] = fmaf(bf_at(SM::C0 + swz_el<BB>(t, n)), i0,
+                        fmaf(bf_at(SM::C0 + swz_el<BB>(t, n + 1)), i1,
+                             inter[r]));
+        if (t0 + t < S && n < N)
+          *reinterpret_cast<float2*>(
+              dch + (((size_t)bi * S + t0 + t) * H + h) * N + n) =
+              make_float2(mc[hh][2 * r] + i0, mc[hh][2 * r + 1] + i1);
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    inter[r] += __shfl_xor_sync(0xffffffffu, inter[r], 1);
+    inter[r] += __shfl_xor_sync(0xffffffffu, inter[r], 2);
+    if (qd == 0) aux[AX_ROWDC + (r ? rB : rA)] += inter[r];
+  }
+
+  __syncthreads();  // the scalars' parts written
+  if (warp == 0) {
+    float dT = 0.0f, sd = 0.0f;
+    for (int w = 0; w < MW; ++w) {
+      dT += aux[AX_LPART + w];
+      sd += aux[AX_LPART + MW + w];
+    }
+    chunk_scalars(dts, aux + AX_DDTX, aux + AX_ROWDC, aux + AX_COL, MW,
+                  fmaf(aux[5 * L], sd, dT), A,
+                  ddt + ((size_t)bi * S + t0) * H + h, H, S - t0, da);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) da += __shfl_xor_sync(0xffffffffu, da, o);
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) dsk += __shfl_xor_sync(0xffffffffu, dsk, o);
-  float* red = aux;  // the scalars are done with
-  if (lane == 0) red[warp] = dsk;
-  if (warp == 0)
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) da += __shfl_xor_sync(0xffffffffu, da, o);
+  if (lane == 0) aux[AX_RED + warp] = dsk;
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0) {  // the chunk's parts of da_log and dd_skip
     float t = 0.0f;
-    for (int w = 0; w < MW; ++w) t += red[w];
-    dd_part[(size_t)bi * H + h] = t;
-    da_part[(size_t)bi * H + h] = A * da;
+    for (int w = 0; w < MW; ++w) t += aux[AX_RED + w];
+    const size_t o = ((size_t)bi * H + h) * nc + ck;
+    dd_part[o] = t;
+    da_part[o] = A * da;
   }
+}
+
+// pass 3: dB and dC summed over each group's heads in head order and
+// rounded to bf16, two values of a (token, group) row a thread, eight
+// heads' loads in flight before any is added; the last block also sums
+// da_log's and dd_skip's parts, over each row's chunks and then the rows
+constexpr int GS_THREADS = 128;
+__global__ void __launch_bounds__(GS_THREADS)
+ssd_bwd_group_sum_kernel(const float* __restrict__ dbh,
+                         const float* __restrict__ dch,
+                         const float* __restrict__ da_part,
+                         const float* __restrict__ dd_part,
+                         __nv_bfloat16* __restrict__ db,
+                         __nv_bfloat16* __restrict__ dc,
+                         float* __restrict__ da_log, float* __restrict__ dd,
+                         long long rows, int B, int H, int G, int N, int nc) {
+  if (blockIdx.x == gridDim.x - 1) {
+    for (int h = threadIdx.x; h < H; h += blockDim.x) {
+      float sa = 0.0f, sd = 0.0f;
+      for (int bi = 0; bi < B; ++bi) {
+        const size_t o = ((size_t)bi * H + h) * nc;
+        float ta = 0.0f, td = 0.0f;
+        for (int k = 0; k < nc; ++k) {
+          ta += da_part[o + k];
+          td += dd_part[o + k];
+        }
+        sa += ta;
+        sd += td;
+      }
+      da_log[h] = sa;
+      dd[h] = sd;
+    }
+    return;
+  }
+  const int n2 = N / 2, hg = H / G;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows * G * n2) return;
+  const long long row = i / (G * n2);
+  const int g = (int)(i % (G * n2)) / n2, c = (int)(i % n2);
+  const size_t in = ((size_t)row * H + (size_t)g * hg) * N + 2 * c;
+  float2 sb = *reinterpret_cast<const float2*>(dbh + in);
+  float2 sc = *reinterpret_cast<const float2*>(dch + in);
+  int j = 1;
+  for (; j + 8 <= hg; j += 8) {
+    float2 a[8], b[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      a[u] = *reinterpret_cast<const float2*>(dbh + in + (size_t)(j + u) * N);
+      b[u] = *reinterpret_cast<const float2*>(dch + in + (size_t)(j + u) * N);
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      sb.x += a[u].x;
+      sb.y += a[u].y;
+      sc.x += b[u].x;
+      sc.y += b[u].y;
+    }
+  }
+  for (; j < hg; ++j) {
+    const float2 a = *reinterpret_cast<const float2*>(dbh + in + (size_t)j * N);
+    const float2 b = *reinterpret_cast<const float2*>(dch + in + (size_t)j * N);
+    sb.x += a.x;
+    sb.y += a.y;
+    sc.x += b.x;
+    sc.y += b.y;
+  }
+  const size_t out = ((size_t)row * G + g) * N + 2 * c;
+  *reinterpret_cast<uint32_t*>(db + out) = pack_bf16(sb.x, sb.y);
+  *reinterpret_cast<uint32_t*>(dc + out) = pack_bf16(sc.x, sc.y);
 }
 
 // ---------------------------------------------------------------------------
@@ -984,26 +1201,45 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 struct Args {
   const void *x, *b, *c, *dy;
   const float *dt, *a_log, *d_skip, *chunk_states, *dstate;
-  void* dx;
-  float *ddt, *dbh, *dch, *da_part, *dd_part, *ds;
+  void *dx, *db, *dc;
+  float *ddt, *dbh, *dch, *da_part, *dd_part, *ds, *carry, *da_log, *dd;
   int B, S, H, G, P, N;
   long long xbs, xts, bbs, bts;
 };
 
 template <int PP, int NP>
 int launch_mma(const Args& r, cudaStream_t s) {
-  constexpr int smem = BwdSmem<PP, NP>::TOTAL;
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_bwd_mma_kernel<PP, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
   using bf = __nv_bfloat16;
-  ssd_bwd_mma_kernel<PP, NP><<<dim3(r.H, r.B), MT, smem, s>>>(
+  constexpr int smem = BwdSmem<PP, NP>::TOTAL;
+  constexpr int csmem = CarrySmem<PP, NP>::TOTAL;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_bwd_chunk_kernel<PP, NP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_carry_kernel<PP, NP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               csmem);
+  if (err != cudaSuccess) return (int)err;
+  ssd_bwd_carry_kernel<PP, NP><<<dim3(r.H, r.B), MT, csmem, s>>>(
+      r.dt, r.a_log, static_cast<const bf*>(r.c), static_cast<const bf*>(r.dy),
+      r.dstate, r.carry, r.ds, r.S, r.H, r.G, r.P, r.N, r.bbs, r.bts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int nc = (r.S + L - 1) / L;
+  ssd_bwd_chunk_kernel<PP, NP><<<dim3(r.H, nc, r.B), MT, smem, s>>>(
       static_cast<const bf*>(r.x), r.dt, r.a_log, static_cast<const bf*>(r.b),
-      static_cast<const bf*>(r.c), r.d_skip, r.chunk_states,
-      static_cast<const bf*>(r.dy), r.dstate, static_cast<bf*>(r.dx), r.ddt,
-      r.dbh, r.dch, r.da_part, r.dd_part, r.ds, r.S, r.H, r.G, r.P, r.N,
-      r.xbs, r.xts, r.bbs, r.bts);
+      static_cast<const bf*>(r.c), r.d_skip, r.chunk_states, r.carry,
+      static_cast<const bf*>(r.dy), static_cast<bf*>(r.dx), r.ddt, r.dbh,
+      r.dch, r.da_part, r.dd_part, r.S, r.H, r.G, r.P, r.N, r.xbs, r.xts,
+      r.bbs, r.bts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long rows = (long long)r.B * r.S;
+  const long long n = rows * r.G * (r.N / 2);
+  ssd_bwd_group_sum_kernel<<<(unsigned)((n + GS_THREADS - 1) / GS_THREADS) + 1,
+                             GS_THREADS, 0, s>>>(
+      r.dbh, r.dch, r.da_part, r.dd_part, static_cast<bf*>(r.db),
+      static_cast<bf*>(r.dc), r.da_log, r.dd, rows, r.B, r.H, r.G, r.N, nc);
   return (int)cudaGetLastError();
 }
 
@@ -1030,27 +1266,38 @@ const char* repro_error_string(int code) {
 }
 
 // dtype (of x, b, c, dy and dx): 0 = float32 (ssd_bwd_kernel), 1 = bfloat16
-// (ssd_bwd_mma_kernel).  x, b, c read through (batch, token) strides as in
-// ssd_scan_launch; dt (B, S, H), chunk_states (B, H, ceil(S / 64), N, P)
-// (the forward's) and dstate (B, H, N, P, may be null) float32 and
-// contiguous; dy and dx (B, S, H, P) contiguous.  Out: ddt (B, S, H), the
-// per-head dB and dC (B, S, H, N), da_log's and dd_skip's per-row parts
-// (B, H), and ds (B, H, N, P) the initial state's gradient, all float32.
+// (the three passes).  x, b, c read through (batch, token) strides as in
+// ssd_scan_launch; dt (B, S, H), chunk_states (B, H, nc, N, P) (the
+// forward's; nc = ceil(S / 64)) and dstate (B, H, N, P, may be null)
+// float32 and contiguous; dy and dx (B, S, H, P) contiguous.  Out: ddt
+// (B, S, H), the per-head dB and dC (B, S, H, N), da_log's and dd_skip's
+// parts (float32: (B, H) one a batch row; bfloat16: (B, H, nc) one a
+// chunk) and ds (B, H, N, P) the initial state's gradient, all float32.
+// bfloat16 also takes the float32 scratch `carry` (B, H, nc, N, P), each
+// chunk's dS', and writes db and dc (B, S, G, N, bf16), the per-head dB
+// and dC summed over each group's heads in head order, and da_log and dd
+// (H, float32), the parts summed over each row's chunks, then the rows;
+// float32 reads and writes none of these (may be null) and leaves those
+// sums to the caller.  Nothing is allocated; one launch in float32,
+// three in bfloat16.
 int ssd_scan_bwd_launch(const void* x, const float* dt, const float* a_log,
                         const void* b, const void* c, const float* d_skip,
                         const float* chunk_states, const void* dy,
                         const float* dstate, void* dx, float* ddt, float* dbh,
                         float* dch, float* da_part, float* dd_part, float* ds,
-                        int B, int S, int H, int G, int P, int N, int dtype,
-                        long long xbs, long long xts, long long bbs,
-                        long long bts, void* stream) {
+                        float* carry, void* db, void* dc, float* da_log,
+                        float* dd, int B, int S, int H, int G, int P, int N,
+                        int dtype, long long xbs, long long xts,
+                        long long bbs, long long bts, void* stream) {
   if (B == 0 || S == 0) return 0;
   if (P % 16 || N % 16 || P < 16 || N < 16 || P > 128 || N > 128 || G < 1 ||
-      H % G)
+      H % G ||
+      (dtype == 1 && (carry == nullptr || db == nullptr || dc == nullptr ||
+                      da_log == nullptr || dd == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const Args r{x, b, c, dy, dt, a_log, d_skip, chunk_states, dstate, dx, ddt,
-               dbh, dch, da_part, dd_part, ds, B, S, H, G, P, N,
-               xbs, xts, bbs, bts};
+  const Args r{x, b, c, dy, dt, a_log, d_skip, chunk_states, dstate, dx, db,
+               dc, ddt, dbh, dch, da_part, dd_part, ds, carry, da_log, dd,
+               B, S, H, G, P, N, xbs, xts, bbs, bts};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_fma(r, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;

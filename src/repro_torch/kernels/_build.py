@@ -3,9 +3,10 @@
 Each ``csrc/*.cu`` file has a plain C interface and is compiled on its own
 by ``nvcc`` into a shared library under ``build/repro_torch_kernels/`` at
 the root of the checkout (listed in ``.gitignore``).  The library name
-carries a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one is reused.  All sources are compiled at once, one
-``nvcc`` process each, the first time any kernel is needed.
+carries a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused.  All sources are compiled at once, one ``nvcc`` process each, the
+first time any kernel is needed.
 
 Nothing here runs at import time: the CPU tests import every module, and
 this host may have no ``nvcc``.  The launch counters live here too: each
@@ -103,7 +104,7 @@ SIGNATURES = {
         "flash_attention_launch": ([_PTR] * 6 + [_INT] * 9 + [_PTR], _INT),
     },
     "flash_attention_bwd": {
-        "flash_attention_bwd_launch": ([_PTR] * 11 + [_INT] * 9 + [_PTR],
+        "flash_attention_bwd_launch": ([_PTR] * 12 + [_INT] * 10 + [_PTR],
                                        _INT),
     },
     "decode_attention": {
@@ -114,7 +115,7 @@ SIGNATURES = {
                             _INT),
     },
     "ssd_scan_bwd": {
-        "ssd_scan_bwd_launch": ([_PTR] * 16 + [_INT] * 7 + [_I64] * 4
+        "ssd_scan_bwd_launch": ([_PTR] * 21 + [_INT] * 7 + [_I64] * 4
                                 + [_PTR], _INT),
     },
 }
@@ -197,8 +198,13 @@ def _flags(name: str) -> list[str]:
 
 
 def _lib_path(name: str) -> Path:
+    """The library's path: its name and a hash of its source, every header
+    of ``csrc/`` (``hopper.cuh``, which the flash attention sources
+    include) and its flags."""
     src = CSRC / SOURCES[name][0]
     digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 

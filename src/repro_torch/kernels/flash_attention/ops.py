@@ -28,7 +28,11 @@ launches ``csrc/flash_attention_bwd.cu`` (or raises): an FA2-style
 backward that rebuilds P = exp(S - LSE), forms Delta = rowsum(dO o out)
 from the float32 output (the bf16 output plus its residual) and writes
 dQ from one kernel and the group-summed dK and dV from another, in
-float32 registers with no atomics, so two passes are bit-equal.  On a CPU tensor the backward is :func:`flash_attention_grad`,
+float32 registers with no atomics, so two passes are bit-equal; in
+bfloat16 both on ``wgmma`` with TMA-fed tiles, and where the dkdv grid is
+under a wave of the card (:func:`dkdv_splits`) each KV head's group is
+split over several blocks whose float32 partials a third launch sums in
+split order.  On a CPU tensor the backward is :func:`flash_attention_grad`,
 the plain backward (the gradient of the reference's numerics as tensor
 ops), which is also the card's oracle in ``chip_smoke.py``.  The
 reference has no backward kernel: its training differentiates an XLA
@@ -43,13 +47,29 @@ import torch
 
 from .. import _build
 
-__all__ = ["FlashAttentionFn", "flash_attention", "flash_attention_grad",
+__all__ = ["FlashAttentionFn", "dkdv_splits", "flash_attention",
+           "flash_attention_grad",
            "flash_attention_grad_work", "flash_attention_plain",
            "flash_attention_work", "repeat_kv"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 112, 128)
 NEG_INF = -1e30
+SMS = 132  # the H100's streaming multiprocessors: one wave of blocks
+TILE = 64  # the backward kernel's query and key tiles
+
+
+def dkdv_splits(b: int, skv: int, kv: int, group: int) -> int:
+    """How many blocks the bf16 backward's dkdv launch cuts each KV head's
+    group of ``group`` query heads into: 1 where its grid of one block a
+    (64-key tile, KV head, batch row) fills a wave of the card, else
+    enough splits for about two blocks a SM (one block's softmax math
+    beside another's tensor-core products), at most one a head.  Split i
+    takes the group's heads [i group // splits, (i + 1) group // splits)."""
+    blocks = b * -(-skv // TILE) * kv
+    if blocks >= SMS:
+        return 1
+    return max(1, min(group, -(-2 * SMS // blocks)))
 
 
 def repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -244,12 +264,18 @@ def _attend_grad(q, k, v, out, out_lo, lse, dout, causal: bool,
             raise ValueError(f"{name} must be 16-byte aligned")
     lib = _build.load("flash_attention_bwd")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    sqp = -(-sq // TILE) * TILE
+    stats = torch.empty((2, b, h, sqp), **f32)  # LSE (log2) and Delta
+    splits = (dkdv_splits(b, skv, kv, h // kv) if q.dtype == torch.bfloat16
+              else 1)
+    part = (torch.empty((2, splits, b, skv, kv, d), **f32) if splits > 1
+            else None)
     ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
     code = lib.flash_attention_bwd_launch(
         ptr(q), ptr(k), ptr(v), ptr(out), ptr(out_lo), ptr(dout), ptr(lse),
-        ptr(delta), ptr(dq), ptr(dk), ptr(dv), b, sq, skv, h, kv, d,
-        int(bool(causal)), q_offset, DTYPES[q.dtype],
+        ptr(stats), ptr(part), ptr(dq), ptr(dk), ptr(dv), b, sq, skv, h, kv,
+        d, int(bool(causal)), q_offset, splits, DTYPES[q.dtype],
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(lib, code, "flash_attention_bwd launch")
     _build.count_launch("flash_attention_bwd")

@@ -30,10 +30,15 @@ trainable form.  Its forward is the same launch, which on a CUDA tensor
 also writes the float32 state before each 64-position chunk (B, H, nc,
 N, P); inference passes no such buffer and runs nothing more.  Its
 backward, on a CUDA tensor, launches ``csrc/ssd_scan_bwd.cu`` (or
-raises): a reverse scan over the forward's chunks from those saved
-states, which writes dx, ddt, the per-head dB and dC and the per-row
-parts of da_log and dd_skip, summed here over each group's heads and the
-batch rows in a fixed order (no atomics: two passes are bit-equal).  On a
+raises): from those saved states, in bfloat16 three launches (a float32
+reverse scan of the state cotangent over the chunks, one block a (head,
+row), which leaves each chunk its dS'; then every chunk's gradients on
+their own, one block a (head, chunk, row); then the group sums of dB and
+dC in head order), in float32 one reverse walk a (head, row); dx, ddt,
+dB and dC (per head in float32, summed over each group's heads here) and
+the parts of da_log and dd_skip (a chunk's in bfloat16, a row's in
+float32), summed here over the chunks and the batch rows in a fixed
+order (no atomics: two passes are bit-equal).  On a
 CPU tensor the backward is :func:`ssd_scan_grad`, the plain backward
 (autograd through a recompute of :func:`ssd_scan_plain`), which is also
 the card's oracle in ``chip_smoke.py``.  The reference has no backward
@@ -332,20 +337,37 @@ def _scan_grad(x, dt, a_log, b, c, d_skip, initial_state, states, dy,
           else dy.to(x.dtype).contiguous())
     if dstate is not None:
         dstate = dstate.float().contiguous()
+        if dstate.data_ptr() % 16:  # the kernel reads it by 16 bytes
+            dstate = dstate.clone()
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty(x.shape, dtype=x.dtype, device=dev)
     ddt = torch.empty((bs, s, h), **f32)
     dbh = torch.empty((bs, s, h, n), **f32)
     dch = torch.empty((bs, s, h, n), **f32)
-    da_part = torch.empty((bs, h), **f32)
-    dd_part = torch.empty((bs, h), **f32)
+    # da_log's and dd_skip's parts: one a chunk in bfloat16, one a batch
+    # row in float32; bfloat16 also takes the reverse scan's float32 carry
+    # (each chunk's dS') and returns dB and dC summed over each group's
+    # heads in head order and da_log's and dd_skip's sums (float32 leaves
+    # those sums to this function)
+    bf16 = x.dtype == torch.bfloat16
+    parts = nc if bf16 else 1
+    da_part = torch.empty((bs, h, parts), **f32)
+    dd_part = torch.empty((bs, h, parts), **f32)
     dinit = torch.empty((bs, h, n, p), **f32)
+    carry = db = dc = da = dd = None
+    if bf16:
+        carry = torch.empty((bs, h, nc, n, p), **f32)
+        db = torch.empty((bs, s, g, n), dtype=b.dtype, device=dev)
+        dc = torch.empty((bs, s, g, n), dtype=b.dtype, device=dev)
+        da = torch.empty((h,), **f32)
+        dd = torch.empty((h,), **f32)
     lib = _build.load("ssd_scan_bwd")
     ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
     code = lib.ssd_scan_bwd_launch(
         ptr(x), ptr(dt), ptr(a_log), ptr(b), ptr(c), ptr(d_skip),
         ptr(states), ptr(dy), ptr(dstate), ptr(dx), ptr(ddt), ptr(dbh),
-        ptr(dch), ptr(da_part), ptr(dd_part), ptr(dinit), bs, s, h, g, p, n,
+        ptr(dch), ptr(da_part), ptr(dd_part), ptr(dinit), ptr(carry),
+        ptr(db), ptr(dc), ptr(da), ptr(dd), bs, s, h, g, p, n,
         DTYPES[x.dtype], x.stride(0), x.stride(1), b.stride(0), b.stride(1),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(lib, code, "ssd_scan_bwd launch")
@@ -354,8 +376,10 @@ def _scan_grad(x, dt, a_log, b, c, d_skip, initial_state, states, dy,
     def group_sum(t):  # per-head (B, S, H, N) -> (B, S, G, N), fixed order
         return t.view(bs, s, g, h // g, n).sum(dim=3).to(b.dtype)
 
-    grads = (dx, ddt, da_part.sum(dim=0), group_sum(dbh), group_sum(dch),
-             dd_part.sum(dim=0), dinit)
+    if not bf16:
+        db, dc = group_sum(dbh), group_sum(dch)
+        da, dd = da_part.sum(dim=2).sum(dim=0), dd_part.sum(dim=2).sum(dim=0)
+    grads = (dx, ddt, da, db, dc, dd, dinit)
     return tuple(None if t is None or not nd else gr
                  for t, nd, gr in zip(inputs, needs, grads))
 

@@ -1311,12 +1311,15 @@ def test_ssd_fn_gradients_match_plain_autograd(cuda, dtype, s, h, p, g, n):
 
 # the backward kernels' edge shapes: whisper's cross attention (sq !=
 # skv, both ragged), groups 7, 8 and 48, causal with a q_offset (queries
-# behind a cached prefix), every head dim
+# behind a cached prefix), every head dim; train's shape at batch 2, whose
+# dkdv grid (32 blocks) takes the split path (dkdv_splits: 7, one head
+# each, summed by the third launch), as most of the small shapes here do
 FLASH_BWD_EDGES = [(2, 187, 1500, 8, 8, 64, False, 0),
                    (1, 130, 130, 7, 1, 112, True, 0),
                    (2, 100, 164, 16, 2, 128, True, 64),
                    (1, 70, 70, 48, 1, 128, True, 0),
-                   (2, 64, 64, 4, 4, 64, True, 0)]
+                   (2, 64, 64, 4, 4, 64, True, 0),
+                   (2, 512, 512, 14, 2, 64, True, 0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1374,11 +1377,15 @@ def test_flash_forward_lse_is_the_rows_logsumexp(cuda, dtype):
         assert (lo > 0).float().mean().item() > 0.5
 
 
+# (S, H, P, G, N, initial state, final-state cotangent); the last: S not
+# a multiple of 64 over 8 chunks, with an initial state, so the reverse
+# scan carries dS' across every chunk's block
 SSD_BWD_EDGES = [(200, 4, 64, 1, 64, True, True),
                  (130, 6, 32, 2, 16, False, True),
                  (64, 2, 128, 1, 128, True, False),
                  (100, 4, 16, 2, 128, False, False),
-                 (300, 3, 64, 3, 32, True, True)]
+                 (300, 3, 64, 3, 32, True, True),
+                 (450, 8, 64, 2, 64, True, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -15,7 +15,14 @@ backward:
   their products; dQ summed over
   the 64-key tiles its rows see, dK and dV over each KV head's group of
   query heads and the query tiles in the kernel's fixed order, all in
-  float32, the scale applied to the float32 sums of dQ and dK.
+  float32, the scale applied to the float32 sums of dQ and dK.  In
+  bfloat16 the group is cut as the dkdv launch cuts it
+  (``dkdv_splits``, :func:`split_heads`): each split's float32 partial
+  over its own heads, then the partials summed in split order.
+* The split plan at the five training shapes of the path: the dkdv grid
+  reaches a wave of the card or needs no split, each split whole heads.
+* ``flash_attention_grad_work``, the kernel table's bound, pinned at those
+  shapes to the values it has had since the backward kernel came in.
 * It is held to ``jax.vjp`` of the reference's ``gqa_attend`` (causal,
   with and without ``q_offset``, and not) and ``chunked_gqa_attend``
   (non-causal, sq != skv, several query chunks), and to the port's
@@ -55,6 +62,14 @@ def _visible(sq, skv, causal, q_offset):
         return torch.ones((sq, skv), dtype=torch.bool)
     return (torch.arange(sq)[:, None] + q_offset
             >= torch.arange(skv)[None, :])
+
+
+def split_heads(group, splits):
+    """The query heads of a KV head's group each split of the dkdv launch
+    takes, [lo, hi) in the group: whole heads, cut as
+    ``csrc/flash_attention_bwd.cu`` cuts them."""
+    return [(i * group // splits, (i + 1) * group // splits)
+            for i in range(splits)]
 
 
 def forward_numerics(q, k, v, *, causal, q_offset):
@@ -117,21 +132,29 @@ def fa2_numerics(q, k, v, do, *, causal, q_offset, residual=True):
             _, ds = p_ds(q0, k0)
             dq[:, :, q0:q0 + TILE] += torch.einsum(
                 "bhqs,bhsd->bhqd", ds, kf[:, :, k0:k0 + TILE])
-    # dkdv kernel: each 64-key tile walks its group's heads, then the query
-    # tiles, in that order, into one float32 sum a KV head
+    # dkdv kernel: each 64-key tile walks its split's heads, then the query
+    # tiles, in that order, into one float32 sum a split; the splits'
+    # partials are then summed in split order (one split in float32)
+    splits = (FA.dkdv_splits(b, skv, kvh, group) if dtype == torch.bfloat16
+              else 1)
     dk = torch.zeros((b, kvh, skv, d))
     dv = torch.zeros((b, kvh, skv, d))
     for k0 in range(0, skv, TILE):
         ks = slice(k0, k0 + TILE)
-        for j in range(group):
-            heads = torch.arange(kvh) * group + j
-            for q0 in range(0, sq, TILE):
-                p, ds = p_ds(q0, k0)
-                qs = slice(q0, q0 + TILE)
-                dv[:, :, ks] += torch.einsum(
-                    "bhqs,bhqd->bhsd", p[:, heads], dof[:, heads, qs])
-                dk[:, :, ks] += torch.einsum(
-                    "bhqs,bhqd->bhsd", ds[:, heads], qf[:, heads, qs])
+        for lo, hi in split_heads(group, splits):
+            pk = torch.zeros((b, kvh, dk[:, :, ks].shape[2], d))
+            pv = torch.zeros_like(pk)
+            for j in range(lo, hi):
+                heads = torch.arange(kvh) * group + j
+                for q0 in range(0, sq, TILE):
+                    p, ds = p_ds(q0, k0)
+                    qs = slice(q0, q0 + TILE)
+                    pv += torch.einsum(
+                        "bhqs,bhqd->bhsd", p[:, heads], dof[:, heads, qs])
+                    pk += torch.einsum(
+                        "bhqs,bhqd->bhsd", ds[:, heads], qf[:, heads, qs])
+            dk[:, :, ks] += pk
+            dv[:, :, ks] += pv
     return ((dq * scale).transpose(1, 2).to(dtype),
             (dk * scale).transpose(1, 2).to(dtype),
             dv.transpose(1, 2).to(dtype))
@@ -278,6 +301,62 @@ def test_meta_backward_notes_the_kernels_work(causal):
     with _build.plain_on_meta(), _build.record_meta_work() as plain:
         _fn_grads(q, k, k, torch.empty_like(q), causal)
     assert plain == []
+
+
+# (b, skv, KV, group) of the dkdv launch at the path's training shapes:
+# train (q 8 x 512 x 14 x 64 over 2 KV heads), internvl2's layer (2 x 512,
+# 64 over 8, d 128), whisper's encoder and cross attention (16 heads over
+# 16, 1,500 keys), train_hybrid's shared attention (3 x 512, 32 over 32)
+SPLIT_SHAPES = {"train": (8, 512, 2, 7), "internvl2": (2, 512, 8, 8),
+                "whisper_encoder": (4, 1500, 16, 1),
+                "whisper_cross": (4, 1500, 16, 1),
+                "train_hybrid": (3, 512, 32, 1)}
+SPLITS = {"train": 3, "internvl2": 3, "whisper_encoder": 1,
+          "whisper_cross": 1, "train_hybrid": 1}
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_SHAPES))
+def test_dkdv_split_plan_fills_a_wave_with_whole_heads(name):
+    """Under one wave of blocks (a (64-key tile, KV head, row) each) the
+    group is split until the grid reaches one, at most one split a head;
+    at or above it there is no split.  The splits cover the group in
+    order, each a whole number of query heads (at least one)."""
+    b, skv, kv, group = SPLIT_SHAPES[name]
+    blocks = b * -(-skv // TILE) * kv
+    splits = FA.dkdv_splits(b, skv, kv, group)
+    assert splits == SPLITS[name]
+    assert 1 <= splits <= group
+    if blocks >= FA.SMS:
+        assert splits == 1
+    else:
+        assert blocks * splits >= FA.SMS
+    heads = split_heads(group, splits)
+    assert len(heads) == splits and heads[0][0] == 0
+    assert heads[-1][1] == group
+    assert all(lo < hi for lo, hi in heads)
+    assert all(a[1] == b_[0] for a, b_ in zip(heads, heads[1:]))
+
+
+# flash_attention_grad_work at the kernel table's row 4 shapes (train,
+# whisper's encoder and cross attention, internvl2's layer) and
+# train_hybrid's shared attention: (operations, bytes), the values the
+# bound has had since the backward kernel came in
+GRAD_WORK = [((8, 512, 512, 14, 2, 64, True, 0, 2),
+              (9413591040.0, 33783808.0)),
+             ((4, 1500, 1500, 16, 16, 64, False, 0, 2),
+              (92160000000.0, 98688000.0)),
+             ((4, 187, 1500, 16, 16, 64, False, 0, 2),
+              (11489280000.0, 55327488.0)),
+             ((2, 512, 512, 64, 8, 128, True, 0, 2),
+              (21516779520.0, 75759616.0)),
+             ((3, 512, 512, 32, 32, 112, True, 0, 2),
+              (14120386560.0, 88276992.0))]
+
+
+@pytest.mark.parametrize("args,want", GRAD_WORK)
+def test_grad_work_is_pinned_at_the_path_shapes(args, want):
+    """The bound does not move with the kernel's design."""
+    assert FA.flash_attention_grad_work(*args) == want
 
 
 def test_grad_work_counts_the_minimal_backward():

@@ -7,16 +7,22 @@ reference's autodiff and the port's plain backward:
 * :func:`reverse_scan_numerics` repeats the kernel's algorithm in plain
   PyTorch: the forward's float32 state before each 64-position chunk (its
   state update's operand B u split into bf16 hi + lo, as
-  ``ssd_mma_kernel`` does), then the walk from the last chunk to the
-  first, carrying dS' (as bf16 hi + lo between chunks in bfloat16): per
-  chunk W^T, M^T, R^T and Z^T from G^T = B C^T and Q^T = x dy^T masked
-  before the exp, dx, the per-head dB and dC, the row and column sums of
-  Z^T, v_s = B_s . (dS' x_s), dcum reduced into ddt and da_log, and the
-  update dS' <- exp(T) dS' + (C o exp(cum))^T dy.  In bfloat16 every
-  float32 operand of a product (W^T, M^T, S_k, dS', C o exp(cum)) enters
-  as its bf16 hi + lo parts; in float32 (the FMA kernel) nothing is
-  rounded.  dB and dC are summed over each group's heads, da_log and
-  dd_skip over the batch rows.
+  ``ssd_mma_kernel`` does); each chunk's local term (C o exp(cum))^T dy
+  and exp(T), then the float32 reverse scan over the chunks, D_{k-1} =
+  exp(T_k) D_k + local_k from the final state's cotangent, which gives
+  every chunk its dS' = D_k and the initial state's gradient; then every
+  chunk on its own: W^T, M^T, R^T and Z^T from G^T = B C^T and Q^T =
+  x dy^T masked before the exp, dx, the per-head dB and dC, the row and
+  column sums of Z^T, v_s = B_s . (dS' x_s), dcum reduced into ddt and
+  the chunk's parts of da_log and dd_skip.  In bfloat16 every float32
+  operand of a product (W^T, M^T, S_k, dS', C o exp(cum)) enters as its
+  bf16 hi + lo parts and the carry between chunks stays float32; in
+  float32 (the FMA kernel) nothing is rounded.  dB and dC are summed over
+  each group's heads, da_log and dd_skip over the chunks and batch rows.
+* The float32 reverse scan equals the sequential carry of a single walk
+  over the chunks (taken in float64) within 1e-6 * (1 + |ref|).
+* ``ssd_scan_grad_work``, the kernel table's bound, pinned at
+  ``train_hybrid``'s shape.
 * It is held to ``jax.vjp`` of the reference's ``ssd_chunked`` and to the
   port's ``ssd_scan_grad`` within 1e-5 * (1 + |ref|) in float32 and
   5e-2 * (1 + |ref|) in bfloat16 (``tests/test_torch_ssd_grad.py``'s
@@ -58,6 +64,29 @@ def _split(t, on):
     return hi + _bf16(t - hi)
 
 
+def chunk_locals(cf, dyf, cum, split):
+    """Pass 1: each chunk's own part of the state cotangent, (C o
+    exp(cum))^T dy over the chunk (C o exp(cum) as bf16 hi + lo in
+    bfloat16), float32 (B, H, N, P) a chunk."""
+    return [torch.einsum("bthn,bthp->bhnp",
+                         _split(cf[:, k] * torch.exp(cum[:, k])[..., None],
+                                split), dyf[:, k])
+            for k in range(cf.shape[1])]
+
+
+def reverse_carry(local, total, dstate):
+    """Pass 2, the reverse scan in float32: D_{nc-1} = dstate (or 0) and
+    D_{k-1} = exp(T_k) D_k + local_k.  Returns ([D_k], D_{-1}): each
+    chunk's dS' and the initial state's gradient."""
+    d = (torch.zeros_like(local[0]) if dstate is None
+         else dstate.float().clone())
+    carry = [None] * len(local)
+    for k in reversed(range(len(local))):
+        carry[k] = d
+        d = torch.exp(total[:, k])[..., None, None] * d + local[k]
+    return carry, d
+
+
 def reverse_scan_numerics(x, dt, a_log, b, c, d_skip, init, dy, dstate):
     """The backward kernels' arithmetic (the mma kernel's splits in
     bfloat16, none in float32): (dx, ddt, da_log, db, dc, dd_skip,
@@ -94,11 +123,10 @@ def reverse_scan_numerics(x, dt, a_log, b, c, d_skip, init, dy, dstate):
                  + torch.einsum("bshn,bshp->bhnp", ub, xf[:, k]))
 
     upper = torch.ones((L, L), dtype=torch.bool).triu()  # (s, t): t >= s
-    ds_c = (torch.zeros((bs, h, n, p)) if dstate is None
-            else _split(dstate.float(), split))
-    dx, db, dc, ddt = [], [], [], []
-    da = torch.zeros((bs, h))
-    dd = torch.zeros((bs, h))
+    # passes 1 and 2: each chunk's local term, then the float32 reverse scan
+    carry, dinit = reverse_carry(chunk_locals(cf, dyf, cum, split), total,
+                                 dstate)
+    dx, db, dc, ddt, da, dd = [], [], [], [], [], []
     for k in reversed(range(nc)):
         xk, dyk, bk, ck = xf[:, k], dyf[:, k], bf[:, k], cf[:, k]
         cumk = cum[:, k].permute(0, 2, 1)  # (B, H, L)
@@ -106,6 +134,7 @@ def reverse_scan_numerics(x, dt, a_log, b, c, d_skip, init, dy, dstate):
         uk, elk = u[:, k].permute(0, 2, 1), el[:, k].permute(0, 2, 1)
         eT = torch.exp(total[:, k])[..., None]
         sk = _split(saved[k], split)
+        ds_c = _split(carry[k], split)  # the chunk's dS' as its operands
         # the s rows: W^T, M^T, R^T and Z^T over t >= s
         gT = torch.einsum("bshn,bthn->bhst", bk, ck)
         qT = torch.einsum("bshp,bthp->bhst", xk, dyk)
@@ -130,18 +159,15 @@ def reverse_scan_numerics(x, dt, a_log, b, c, d_skip, init, dy, dstate):
                + (eck[..., None] * ic).permute(0, 2, 1, 3))
         inter = eck * torch.einsum("bthn,bhtn->bht", ck, ic)
         dcum = -zT.sum(-1) - uk * v + zT.sum(-2) + inter
-        dcum[..., -1] += (eT[..., 0] * (saved[k] * ds_c).sum((-1, -2))
+        dcum[..., -1] += (eT[..., 0] * (saved[k] * carry[k]).sum((-1, -2))
                           + (uk * v).sum(-1))
         rc = dcum.flip(-1).cumsum(-1).flip(-1)
         ddt.append(rT.sum(-1) + elk * v + a[:, None] * rc)
-        da += (dtk * rc).sum(-1)
-        dd += (xk * dyk).sum((1, 3))
+        da.append(a * (dtk * rc).sum(-1))  # the chunk's parts
+        dd.append((xk * dyk).sum((1, 3)))
         dx.append(dxk)
         db.append(dbk)
         dc.append(dck)
-        ce = _split(ck * eck.permute(0, 2, 1)[..., None], split)
-        ds_c = _split(eT[..., None] * ds_c
-                      + torch.einsum("bthn,bthp->bhnp", ce, dyk), split)
 
     def whole(parts):  # chunks (last first) -> (B, S, H, w)
         return torch.cat(parts[::-1], dim=1)[:, :s]
@@ -150,9 +176,11 @@ def reverse_scan_numerics(x, dt, a_log, b, c, d_skip, init, dy, dstate):
         return t.reshape(bs, s, g, h // g, n).sum(3).to(b.dtype)
 
     ddt_all = torch.cat(ddt[::-1], dim=-1)[..., :s].permute(0, 2, 1)
-    return (whole(dx).to(x.dtype), ddt_all, (a * da).sum(0),
-            group_sum(whole(db)), group_sum(whole(dc)), dd.sum(0),
-            None if init is None else ds_c)
+    # the chunks' parts (B, H, nc), summed over the chunks, then the rows
+    da = torch.stack(da[::-1], dim=-1).sum(2).sum(0)
+    dd = torch.stack(dd[::-1], dim=-1).sum(2).sum(0)
+    return (whole(dx).to(x.dtype), ddt_all, da, group_sum(whole(db)),
+            group_sum(whole(dc)), dd, None if init is None else dinit)
 
 
 def _arrays(seed, b, s, h, p, g, n, init):
@@ -240,18 +268,44 @@ def test_reverse_scan_numerics_match_the_plain_backward(dtype, case):
                                                             TOL[dtype]))
 
 
-def test_carrying_ds_as_hi_lo_tracks_float32():
-    """The bf16 kernel keeps dS' between chunks as bf16 hi + lo: over 8
-    chunks its initial-state gradient stays within 1e-4 * (1 + |ref|) of
-    the float32 walk on the same bf16 inputs."""
+def test_float32_reverse_scan_equals_the_sequential_carry():
+    """Each chunk's dS' from the chunk-parallel passes (the local terms,
+    then the float32 reverse scan) and the initial state's gradient lie
+    within 1e-6 * (1 + |ref|) of the sequential carry of a single walk
+    from the last chunk to the first (dS' <- exp(T) dS' + (C o
+    exp(cum))^T dy after each chunk), taken in float64 on the same bf16
+    operands, over 8 chunks."""
     a = _arrays(5, 1, 512, 2, 32, 1, 32, True)
-    ins = _torch(a, torch.bfloat16)
-    dy = torch.from_numpy(a["dy"]).to(torch.bfloat16)
+    bs, s, h, n = 1, 512, 2, 32
+    nc = s // L
+    cf = SS.expand_groups(torch.from_numpy(a["c"]).to(torch.bfloat16), h,
+                          2).float().reshape(bs, nc, L, h, n)
+    dyf = torch.from_numpy(a["dy"]).to(torch.bfloat16).float().reshape(
+        bs, nc, L, h, -1)
+    dtf = torch.from_numpy(a["dt"]).reshape(bs, nc, L, h)
+    cum = torch.cumsum(dtf * -torch.exp(torch.from_numpy(a["a_log"])), 2)
     dstate = torch.from_numpy(a["dstate"])
-    got = reverse_scan_numerics(*ins, dy, dstate)[-1]
-    f32 = [None if t is None else t.float() for t in ins]
-    want = reverse_scan_numerics(*f32, dy.float(), dstate)[-1]
-    assert _excess(got, want, 1e-4) <= 1, _excess(got, want, 1e-4)
+    carry, dinit = reverse_carry(chunk_locals(cf, dyf, cum, True),
+                                 cum[:, :, -1], dstate)
+    d = dstate.double()
+    for k in reversed(range(nc)):
+        assert _excess(carry[k], d, 1e-6) <= 1, (k, _excess(carry[k], d,
+                                                            1e-6))
+        ce = _split(cf[:, k] * torch.exp(cum[:, k])[..., None], True)
+        d = (torch.exp(cum[:, k, -1]).double()[..., None, None] * d
+             + torch.einsum("bthn,bthp->bhnp", ce.double(),
+                            dyf[:, k].double()))
+    assert _excess(dinit, d, 1e-6) <= 1, _excess(dinit, d, 1e-6)
+
+
+def test_grad_work_is_pinned_at_train_hybrids_shape():
+    """The bound does not move with the kernel's design: (operations,
+    bytes) at B 3, S 512, H 112, one group, P = N = 64, without and with
+    an initial state and a final-state cotangent."""
+    assert SS.ssd_scan_grad_work(3, 512, 112, 1, 64, 64, 2) == (
+        12683575296.0, 112264960.0)
+    assert SS.ssd_scan_grad_work(3, 512, 112, 1, 64, 64, 2, True, True) == (
+        12683575296.0, 123275008.0)
 
 
 # -- the device rule --------------------------------------------------------
