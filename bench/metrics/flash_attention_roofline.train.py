@@ -1,0 +1,8 @@
+"""Kernels: the flash attention forward and backward launches' roofline
+bound over their device time, in % (``kernels/flash_attention.json``)."""
+
+import harness
+
+
+def read(r):
+    return harness.roofline_share(r, "flash_attention")
